@@ -7,14 +7,15 @@ compute capability >= 9.0::
     python3 chip_smoke.py
 
 It builds the port's hand-written kernels from the checkout's sources
-and drives the port's serving path at the full width of the flagship
-dense Llama, in phases; any failed phase exits non-zero before the
-result line.
+and drives the port's serving and training paths at the full width of
+the flagship dense Llama, in phases; any failed phase exits non-zero
+before the result line.
 
 1. Card, power limit, torch/CUDA versions; kernel build time.
-2. Each kernel against its plain PyTorch version at the main path's
-   shapes (and a long prompt / long cache): max abs error, kernel,
-   plain and library times, and the card's bound for the same work.
+2. Each kernel against its plain PyTorch version at the main paths'
+   shapes (and a long prompt / long cache / ragged T): max error,
+   kernel, plain and library times, and the card's bound for the same
+   work. K1 forward, K2/K3 backward (dq, dk, dv), K4 decode.
 3. ``llama_generate``: greedy, batch 16, prompt 128, 64 new tokens;
    K1 must launch once per layer, K4 once per layer per decode step.
 4. ``DecodeEngine``: 16 requests of 17-128 prompt tokens, 32 new
@@ -22,7 +23,16 @@ result line.
 5. Parity: at flagship widths in f32 (2 layers), the engine's tokens
    equal ``llama_generate``'s for every request, with requests admitted
    mid-flight.
-6. A ``kernels`` JSON line, the card line, and the result line
+6. Training: ``make_split_train_step(llama_loss, fused_adam(3e-4))`` at
+   batch 4 x 2048 tokens, ``remat="attn+gate"``, bf16 params: one
+   warm-up step, 5 timed steps on one fixed batch; K1, K2 and K3 must
+   each launch 14 times per grad call and the loss must fall. Also the
+   lm_head's f32-output product (which path this torch takes, its cost).
+7. Training parity: at flagship widths in f32 (2 layers, batch 2 x
+   256), loss and gradients on the card match the plain CPU path, and
+   the remat modes none/full/attn/attn+gate agree with K1 launching
+   2/4/2/2 times per grad call.
+8. A ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}``.
 
 Weights are random (``torch.Generator`` seed 0); nothing is downloaded.
@@ -30,6 +40,7 @@ Weights are random (``torch.Generator`` seed 0); nothing is downloaded.
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +85,43 @@ def bound(bytes_moved, flops, dtype_name):
     t_ops = flops / PEAK_FLOPS[dtype_name]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def _kernel_name(mangled):
+    """``name<dtype, D>`` of a mangled kernel ``_ZN<len><id>...``: the
+    nested identifier ending in ``_kernel``, then its template
+    arguments."""
+    i = 3
+    while m := re.match(r"\d+", mangled[i:]):
+        start = i + m.end()
+        i = start + int(m.group())
+        name = mangled[start:i]
+        if name.endswith("_kernel"):
+            args = re.match(r"I(13__nv_bfloat16|f)(?:Li(\d+)E)?",
+                            mangled[i:])
+            if not args:
+                return name
+            dt = "bf16" if args.group(1) != "f" else "f32"
+            return f"{name}<{dt}" + (f", D{args.group(2)}>"
+                                     if args.group(2) else ">")
+    return "?"
+
+
+def ptxas_summary(text):
+    """One line per compiled kernel from nvcc's -Xptxas=-v output: its
+    name with dtype and head dim, registers and spills."""
+    out, name, spill = [], "?", ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            used = line.split(":", 1)[-1].strip()
+            out.append(f"{name}: {used}; {spill}")
+            name, spill = "?", ""
+    return out
 
 
 def nbytes(*tensors):
@@ -153,6 +201,67 @@ def flash_case(torch, fa, b, t, dtype, iters, h=16, hkv=4, d=128):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def bwd_case(torch, fa, b, t, dtype, iters, h=16, hkv=4, d=128):
+    """K2 and K3 against the plain backward on the same q, k, v, do and
+    K1's o and lse (causal)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(b * 1000 + t + 7)
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                   for shape in ((b, h, t, d), (b, hkv, t, d),
+                                 (b, hkv, t, d), (b, h, t, d)))
+    o, lse = fa._flash_fwd_cuda(q, k, v, True)
+    got = fa._flash_bwd_cuda(q, k, v, o, lse, do, True)
+    want = fa._flash_bwd_reference(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    abs_err, rel_err = {}, {}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        abs_err[name] = float((a.float() - w.float()).abs().max())
+        rel_err[name] = abs_err[name] / max(float(w.float().abs().max()),
+                                            1e-30)
+    delta = fa._delta(o, do)
+    k2_ms = cuda_ms(torch, lambda: fa._flash_bwd_dkv_cuda(
+        q, k, v, do, lse, delta, True), iters)
+    k3_ms = cuda_ms(torch, lambda: fa._flash_bwd_dq_cuda(
+        q, k, v, do, lse, delta, True), iters)
+    pair_ms = cuda_ms(torch, lambda: fa._flash_bwd_cuda(
+        q, k, v, o, lse, do, True), iters)
+    plain_ms = cuda_ms(torch, lambda: fa._flash_bwd_reference(
+        q, k, v, o, lse, do, True), max(1, iters // 4), warmup=1)
+    # Library: SDPA's backward alone, on a saved SDPA forward (the port
+    # never calls it).
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                         enable_gqa=True)
+    library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), iters)
+    pairs = b * h * t * (t + 1) // 2
+    dname = str(dtype).replace("torch.", "")
+    reads = nbytes(q, k, v, do, lse, delta)
+    # K2 writes dk/dv per query head (got[1], got[2]), K3 writes dq.
+    k2_bound, k2_by = bound(reads + nbytes(got[1], got[2]), 8 * d * pairs,
+                            dname)
+    k3_bound, k3_by = bound(reads + nbytes(got[0]), 6 * d * pairs, dname)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    name = f"B{b} H{h} Hkv{hkv} T{t} D{d} {dname} causal"
+    log(f"  K2/K3 {name}: rel err dq {rel_err['dq']:.3e} dk "
+        f"{rel_err['dk']:.3e} dv {rel_err['dv']:.3e} (tol {tol:g}, of "
+        f"the reference's max abs); K2 {k2_ms:.4f} ms (bound {k2_bound:.4f}"
+        f" {k2_by}), K3 {k3_ms:.4f} ms (bound {k3_bound:.4f} {k3_by}), "
+        f"pair {pair_ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA "
+        f"backward) {library_ms:.4f} ms")
+    for grad, err in rel_err.items():
+        check(err <= tol, f"K2/K3 {name}: {grad} error {err} above {tol}")
+    common = dict(plain_ms=plain_ms, library_ms=library_ms, pair_ms=pair_ms)
+    return (dict(case=f"K2 {name}", max_abs_err=max(abs_err["dk"],
+                                                    abs_err["dv"]),
+                 rel_err={k: rel_err[k] for k in ("dk", "dv")}, ms=k2_ms,
+                 bound_ms=k2_bound, bound_by=k2_by, **common),
+            dict(case=f"K3 {name}", max_abs_err=abs_err["dq"],
+                 rel_err={"dq": rel_err["dq"]}, ms=k3_ms,
+                 bound_ms=k3_bound, bound_by=k3_by, **common))
+
+
 def decode_case(torch, da, b, hkv, n_rep, s, pos, dtype, iters, d=128):
     import torch.nn.functional as F
 
@@ -202,14 +311,18 @@ def flagship_config(LlamaConfig):
                        param_dtype="bfloat16")
 
 
+def _counters(fa, da):
+    return {"K1": fa._flash_fwd_cuda, "K2": fa._flash_bwd_dkv_cuda,
+            "K3": fa._flash_bwd_dq_cuda, "K4": da._decode_attention_cuda}
+
+
 def reset_counts(fa, da):
-    fa._flash_fwd_cuda.launches = 0
-    da._decode_attention_cuda.launches = 0
+    for fn in _counters(fa, da).values():
+        fn.launches = 0
 
 
 def counts(fa, da):
-    return {"K1": fa._flash_fwd_cuda.launches,
-            "K4": da._decode_attention_cuda.launches}
+    return {k: fn.launches for k, fn in _counters(fa, da).items()}
 
 
 def run_generate(torch, fa, da, gen, params, cfg, batch, prompt_len,
@@ -328,6 +441,156 @@ def run_parity(gen, DecodeEngine, poisson_trace, llama_init, torch, cfg):
         f"llama_generate tokens")
 
 
+# ---- phases 6-7: the training path -------------------------------------
+
+
+def logits_case(torch, llama, cfg, tokens):
+    """The lm_head product at the train step's shape: the path this
+    torch takes (mm with out_dtype=float32, or the f32 upcast), its
+    agreement with the f32 product of the upcast operands, and the
+    forward and backward times of both."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    h = torch.randn((tokens, cfg.d_model), generator=g,
+                    device="cuda").bfloat16().requires_grad_(True)
+    w = (torch.randn((cfg.d_model, cfg.vocab_size), generator=g,
+                     device="cuda") * cfg.d_model ** -0.5).bfloat16()
+    out = llama._F32Logits.apply(h, w)
+    ref = torch.mm(h.detach().float(), w.float())
+    gout = torch.randn_like(out)
+    torch.cuda.synchronize()
+    err = float((out.detach() - ref).abs().max() / ref.abs().max())
+    fwd_ms = cuda_ms(torch, lambda: llama._F32Logits.apply(h.detach(), w),
+                     5)
+    upcast_ms = cuda_ms(torch, lambda: torch.mm(h.detach().float(),
+                                                w.float()), 5)
+    bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, h, gout, retain_graph=True), 5)
+    path = "mm(out_dtype=float32)" if llama._MM_OUT_DTYPE else \
+        "f32 upcast"
+    log(f"  lm_head logits [{tokens}, {cfg.d_model}] x [{cfg.d_model}, "
+        f"{cfg.vocab_size}]: path {path}, rel err vs f32 upcast {err:.3e} "
+        f"(tol 1e-4), forward {fwd_ms:.3f} ms (f32 upcast {upcast_ms:.3f} "
+        f"ms), backward (f32 products) {bwd_ms:.3f} ms")
+    check(err <= 1e-4, f"lm_head logits error {err} above 1e-4")
+    return dict(path=path, rel_err=err, fwd_ms=fwd_ms,
+                upcast_fwd_ms=upcast_ms, bwd_ms=bwd_ms)
+
+
+def run_train(torch, fa, da, llama, precision, train_step, cfg, batch,
+              seq, steps, card):
+    params = llama.llama_init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    n_params = sum(w.numel() for w in params["layers"].values()) + sum(
+        params[k].numel() for k in ("embed", "final_norm", "lm_head"))
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        batch, seq)).astype(np.int32)).cuda()
+    data = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+    ts = train_step.make_split_train_step(
+        lambda p, d: llama.llama_loss(p, d, cfg), precision.fused_adam(3e-4))
+    carry = ts.init(params)
+    del params
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, carry = ts.step(carry, data)                      # warm-up
+    losses = [loss]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    reset_counts(fa, da)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss, carry = ts.step(carry, data)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    launched = counts(fa, da)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    L = cfg.n_layers
+    for k in ("K1", "K2", "K3"):
+        check(launched[k] == L * steps,
+              f"{k} launched {launched[k]} times in {steps} steps, "
+              f"expected {L} per grad call")
+    check(launched["K4"] == 0, "the train step launched K4")
+    check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    tok = batch * seq
+    flops_per_token = 6 * n_params + 12 * L * seq * cfg.d_model
+    mfu = flops_per_token * tok / dt / PEAK_FLOPS["bfloat16"]
+    log(f"  train step B{batch} T{seq} remat={cfg.remat} bf16 fused_adam: "
+        f"{dt * 1e3:.1f} ms/step, {tok / dt:.0f} tok/s, MFU {mfu:.4f} "
+        f"((6N + 12 L T d) per token at 989 TFLOP/s), peak memory "
+        f"{peak / 2**30:.2f} GiB, first step {first_s:.2f} s; losses "
+        f"{[round(x, 4) for x in losses]}; launches {launched} (per grad "
+        f"call: {L} each); card {card}")
+    logits = logits_case(torch, llama, cfg, tok)
+    prof = device_profile(torch, f"train step B{batch} T{seq}",
+                          lambda: ts.step(carry, data), top=10)
+    return launched, dict(ms_per_step=dt * 1e3, tok_s=tok / dt, mfu=mfu,
+                          peak_mem_gib=peak / 2**30, first_step_s=first_s,
+                          losses=losses, n_params=n_params, logits=logits,
+                          profile=prof)
+
+
+def run_train_parity(torch, fa, da, llama, train_step, cfg):
+    """f32, 2 layers, B2 T256: the card's loss and gradients against the
+    plain CPU path; the remat modes against each other on the card."""
+    from horovod_tpu_torch.parallel._tree import tree_leaves, tree_map
+
+    c32 = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                              param_dtype="float32", remat="none")
+    cpu_params = llama.llama_init(c32, torch.Generator().manual_seed(3),
+                                  device="cpu")
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, c32.vocab_size, (2, 256)).astype(np.int32)
+    batch = {"tokens": tokens, "targets": np.roll(tokens, -1, 1)}
+
+    def value_and_grad(params, c, device):
+        loss, grads = train_step._value_and_grad(
+            lambda p, d: llama.llama_loss(p, d, c, device=device), params,
+            batch, 1)
+        return float(loss), [g.float().cpu() for g in tree_leaves(grads)]
+
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = value_and_grad(cpu_params, c32, "cpu")
+    cpu_s = time.perf_counter() - t0
+    card_params = tree_map(lambda w: w.cuda(), cpu_params)
+    del cpu_params
+    results, k1 = {}, {}
+    for mode in ("none", "full", "attn", "attn+gate"):
+        reset_counts(fa, da)
+        results[mode] = value_and_grad(card_params, dataclasses.replace(
+            c32, remat=mode), "cuda")
+        n = counts(fa, da)
+        k1[mode] = n["K1"]
+        check(n["K2"] == 2 and n["K3"] == 2,
+              f"remat={mode}: K2/K3 launched {n['K2']}/{n['K3']}, "
+              f"expected 2/2")
+
+    def rel(got, want):
+        return max(float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                     1e-30)
+                   for g, w in zip(got, want))
+
+    loss_err = abs(results["none"][0] - cpu_loss) / abs(cpu_loss)
+    grad_err = rel(results["none"][1], cpu_grads)
+    mode_err = {m: rel(results[m][1], results["none"][1])
+                for m in ("full", "attn", "attn+gate")}
+    log(f"  f32 train parity (2 layers, B2 T256): card vs CPU loss rel err "
+        f"{loss_err:.3e} (tol 1e-5), grads {grad_err:.3e} (tol 2e-4 of "
+        f"each leaf's max abs); remat vs none {mode_err} (tol 1e-5); K1 "
+        f"launches per grad call {k1} (expected 2/4/2/2); CPU grad call "
+        f"{cpu_s:.1f} s")
+    check(loss_err <= 1e-5, f"card loss differs from CPU by {loss_err}")
+    check(grad_err <= 2e-4, f"card grads differ from CPU by {grad_err}")
+    for m, e in mode_err.items():
+        check(e <= 1e-5, f"remat={m} grads differ from none by {e}")
+    check(k1 == {"none": 2, "full": 4, "attn": 2, "attn+gate": 2},
+          f"K1 launches per remat mode {k1}")
+    return dict(loss_rel_err=loss_err, grad_rel_err=grad_err,
+                remat_rel_err=mode_err, k1_launches=k1)
+
+
 def main():
     import torch
 
@@ -336,10 +599,12 @@ def main():
                            "needs an NVIDIA card")
     try:
         from horovod_tpu_torch.models import generate as gen
+        from horovod_tpu_torch.models import llama
         from horovod_tpu_torch.models.llama import LlamaConfig, llama_init
         from horovod_tpu_torch.ops import _build
         from horovod_tpu_torch.ops import decode_attention as da
         from horovod_tpu_torch.ops import flash_attention as fa
+        from horovod_tpu_torch.parallel import precision, train_step
         from horovod_tpu_torch.serving.engine import DecodeEngine
         from horovod_tpu_torch.serving.scheduler import (
             Request,
@@ -348,8 +613,8 @@ def main():
     except ImportError as e:
         raise SmokeFailure(f"horovod_tpu_torch not importable ({e}): run "
                            "from the root of a repo checkout") from e
-    # Full-f32 products everywhere: the parity phase compares two f32
-    # paths token for token.
+    # Full-f32 products everywhere: the parity phases compare f32 paths
+    # token for token and gradient for gradient.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -368,16 +633,20 @@ def main():
     log(f"  kernels built in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(build_logs) or 'all cached'})")
     for name, text in build_logs.items():
-        for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"    {name}: {line.strip()}")
+        for line in ptxas_summary(text):
+            log(f"    {name}: {line}")
 
     log("phase 2: kernels against their plain versions")
     bf16, f32 = torch.bfloat16, torch.float32
     k1 = [flash_case(torch, fa, 16, 128, bf16, 50),
           flash_case(torch, fa, 1, 77, bf16, 50),
           flash_case(torch, fa, 1, 4096, bf16, 5),
+          flash_case(torch, fa, 4, 2048, bf16, 5),
           flash_case(torch, fa, 4, 128, f32, 20)]
+    bwd = [bwd_case(torch, fa, 4, 2048, bf16, 5),
+           bwd_case(torch, fa, 1, 77, bf16, 20),
+           bwd_case(torch, fa, 2, 256, f32, 10)]
+    k2, k3 = [c[0] for c in bwd], [c[1] for c in bwd]
     k4 = [decode_case(torch, da, 16, 4, 4, 192, 150, bf16, 100),
           decode_case(torch, da, 1, 4, 4, 32768, 32767, bf16, 50),
           decode_case(torch, da, 16, 4, 4, 192, 150, f32, 50)]
@@ -402,30 +671,41 @@ def main():
     log("phase 5: engine/generate token parity (f32, 2 layers)")
     run_parity(gen, DecodeEngine, poisson_trace, llama_init, torch, cfg)
 
-    log("phase 6: results")
+    log("phase 6: training at flagship width")
+    train_launch, train_stats = run_train(
+        torch, fa, da, llama, precision, train_step, cfg, 4, 2048, 5, card)
+    torch.cuda.empty_cache()
+
+    log("phase 7: training parity (f32, 2 layers) and remat modes")
+    parity = run_train_parity(torch, fa, da, llama, train_step, cfg)
+
+    log("phase 8: results")
     log(json.dumps({"generate": gen_stats, "engine": eng_stats,
+                    "train": train_stats, "train_parity": parity,
                     "card": card}))
-    by_path = {k: {"llama_generate": gen_launch[k],
-                   "DecodeEngine": eng_launch[k]} for k in ("K1", "K4")}
+    paths = {"llama_generate": gen_launch, "DecodeEngine": eng_launch,
+             "train_step": train_launch}
+
+    def row(name, source, replaces, key, cases):
+        by_path = {p: n[key] for p, n in paths.items()}
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=sum(by_path.values()),
+                    launches_by_path=by_path,
+                    **{k: cases[0][k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")},
+                    cases=cases)
+
     kernels = [
-        dict(name="K1 flash_fwd", route="cuda",
-             source="horovod_tpu_torch/csrc/flash_fwd.cu",
-             replaces="horovod_tpu/ops/flash_attention.py:50",
-             launches=gen_launch["K1"] + eng_launch["K1"],
-             launches_by_path=by_path["K1"],
-             **{k: k1[0][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by",
-                                      "library_ms")},
-             cases=k1),
-        dict(name="K4 decode_attention", route="cuda",
-             source="horovod_tpu_torch/csrc/decode_attention.cu",
-             replaces="horovod_tpu/ops/decode_attention.py:36",
-             launches=gen_launch["K4"] + eng_launch["K4"],
-             launches_by_path=by_path["K4"],
-             **{k: k4[0][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by",
-                                      "library_ms")},
-             cases=k4),
+        row("K1 flash_fwd", "horovod_tpu_torch/csrc/flash_fwd.cu",
+            "horovod_tpu/ops/flash_attention.py:50", "K1", k1),
+        row("K2 flash_bwd_dkv", "horovod_tpu_torch/csrc/flash_bwd.cu",
+            "horovod_tpu/ops/flash_attention.py:134", "K2", k2),
+        row("K3 flash_bwd_dq", "horovod_tpu_torch/csrc/flash_bwd.cu",
+            "horovod_tpu/ops/flash_attention.py:208", "K3", k3),
+        row("K4 decode_attention",
+            "horovod_tpu_torch/csrc/decode_attention.cu",
+            "horovod_tpu/ops/decode_attention.py:36", "K4", k4),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -26,3 +26,13 @@ def check_on(device, **tensors):
                 device.index is not None and t.device != device):
             raise ValueError(f"{name} lies on {t.device}, expected "
                              f"{device}")
+
+
+def on_device(params, device, **tensors):
+    """An entry point's device rule: resolve ``device``, check the
+    params lie there and move the other inputs to it (None stays None).
+    Returns (device, {name: tensor})."""
+    dev = resolve_device(device)
+    check_on(dev, embed=params["embed"])
+    return dev, {k: None if t is None else torch.as_tensor(t, device=dev)
+                 for k, t in tensors.items()}

@@ -1,4 +1,4 @@
-"""JAX parameter trees -> the port's parameter dict.
+"""JAX parameter trees and fused-optimizer states -> the port's.
 
 The tree arrives as numpy arrays (``np.asarray`` of each JAX leaf) or
 anything ``np.asarray`` takes; this module imports neither jax nor
@@ -12,6 +12,10 @@ import numpy as np
 import torch
 
 from horovod_tpu_torch._device import resolve_device
+from horovod_tpu_torch.parallel.precision import (
+    FusedAdamState,
+    FusedMasterState,
+)
 
 
 def _leaf_to_torch(a, device):
@@ -26,11 +30,26 @@ def _leaf_to_torch(a, device):
 def from_jax_params(tree, device=None):
     """Convert a (nested dict) JAX parameter tree leaf for leaf, keeping
     keys, shapes and dtypes; leaves land on ``device`` (default cuda)."""
+    return _tree_to_torch(tree, resolve_device(device))
+
+
+def _tree_to_torch(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to_torch(v, dev) for k, v in tree.items()}
+    return _leaf_to_torch(tree, dev)
+
+
+def from_jax_opt_state(state, device=None):
+    """Convert a JAX ``FusedAdamState`` (count, mu, nu) or
+    ``FusedMasterState`` (master, count, mu, nu) — the namedtuple with
+    numpy leaves, e.g. ``jax.tree.map(np.asarray, state)`` — into the
+    port's state of the same name, leaf for leaf and bf16 bit for bit,
+    so a run started in JAX continues in the port."""
     dev = resolve_device(device)
-
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        return _leaf_to_torch(node, dev)
-
-    return walk(tree)
+    fields = {k: _tree_to_torch(v, dev)
+              for k, v in zip(state._fields, state)}
+    if set(fields) == set(FusedMasterState._fields):
+        return FusedMasterState(**fields)
+    if set(fields) == set(FusedAdamState._fields):
+        return FusedAdamState(**fields)
+    raise ValueError(f"not a fused Adam state: fields {state._fields}")

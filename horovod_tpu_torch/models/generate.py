@@ -15,7 +15,7 @@ here, and PyTorch runs them eagerly. Mixture-of-experts configs raise
 
 import torch
 
-from horovod_tpu_torch._device import check_on, resolve_device
+from horovod_tpu_torch._device import on_device as _on_device
 from horovod_tpu_torch.models.llama import _ffn as _llama_ffn
 from horovod_tpu_torch.models.llama import _require_dense, _rmsnorm, _rope
 from horovod_tpu_torch.ops.decode_attention import (
@@ -104,15 +104,6 @@ def _lm_logits(params, x_last, c):
     dt = c.compute_dtype
     h = _rmsnorm(x_last, params["final_norm"].to(dt), c.norm_eps)
     return (h @ params["lm_head"].to(dt)).float()
-
-
-def _on_device(params, device, **tensors):
-    """Resolve the entry point's device, check the params lie there and
-    move the inputs to it."""
-    dev = resolve_device(device)
-    check_on(dev, embed=params["embed"])
-    return dev, {k: None if t is None else torch.as_tensor(t, device=dev)
-                 for k, t in tensors.items()}
 
 
 @torch.no_grad()

@@ -1,22 +1,40 @@
-"""Llama-family decoder-only transformer, the port's dense forward parts.
+"""Llama-family decoder-only transformer: the port's dense model.
 
 Counterpart of horovod_tpu/models/llama.py. Parameters are a plain dict
 with the JAX package's keys and stacked [L, ...] shapes (so a JAX tree
 converts leaf for leaf, see ``convert.py``); the helpers are plain
 functions on tensors, with the same numeric recipe as the JAX ones.
 
-Ported here: ``LlamaConfig``, ``llama_init``, ``_rmsnorm``, ``_rope``
-and the dense branch of ``_ffn`` — what the serving path needs. The
-training forward/loss, remat modes and mixture-of-experts FFNs are not
-ported yet (ROADMAP.md, queue A); MoE configs raise.
+Ported here: ``LlamaConfig``, ``llama_init``, ``_rmsnorm``, ``_rope``,
+the dense branch of ``_ffn``, and the training forward: ``llama_forward``
+and ``llama_loss`` (single device; the JAX ``lax.scan`` over layers is a
+Python loop over the unbound layer slices) with the remat modes
+``none``, ``full``, ``attn`` and ``attn+gate``. Mesh, pipeline and
+sequence parallelism (A8, A10), the other remat modes (A1) and
+mixture-of-experts FFNs (A7) are not ported yet and raise.
+
+Remat is PyTorch's selective activation checkpointing, which decides per
+dispatcher op. The JAX save-names map onto ops: ``flash_o``/``flash_lse``
+are the outputs of the flash op ``hvd_torch::flash_fwd`` (K1), and
+``ffn_gate`` is the pre-silu gate, produced by the named matmul op
+``hvd_torch::named_matmul``. JAX's ``attn_out`` names the attention
+output only on its non-Pallas fallback; here attention always goes
+through the flash op, whose saved ``o`` is that output.
 """
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from horovod_tpu_torch._device import resolve_device
+from horovod_tpu_torch._device import on_device, resolve_device
+from horovod_tpu_torch.ops.flash_attention import flash_attention
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -151,12 +169,204 @@ def _rope(x, positions, theta):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
 
 
+@torch.library.custom_op("hvd_torch::named_matmul", mutates_args=())
+def named_matmul(x: torch.Tensor, w: torch.Tensor,
+                 name: str) -> torch.Tensor:
+    """x @ w as one dispatcher op carrying a save-name, so a remat
+    policy can keep its output (JAX's ``checkpoint_name``)."""
+    return torch.matmul(x, w)
+
+
+def _named_matmul_setup(ctx, inputs, output):
+    x, w, _ = inputs
+    ctx.save_for_backward(x, w)
+
+
+def _named_matmul_backward(ctx, g):
+    x, w = ctx.saved_tensors
+    dx = torch.matmul(g, w.transpose(-1, -2))
+    dw = torch.matmul(x.reshape(-1, x.shape[-1]).transpose(0, 1),
+                      g.reshape(-1, g.shape[-1]))
+    return dx, dw, None
+
+
+torch.library.register_autograd("hvd_torch::named_matmul",
+                                _named_matmul_backward,
+                                setup_context=_named_matmul_setup)
+
+
 def _ffn(h, lp, c):
     """One layer's dense SwiGLU FFN on normalised activations.
-    Returns (y, aux_loss) like the JAX ``_ffn`` (aux is 0 when dense)."""
+    Returns (y, aux_loss) like the JAX ``_ffn`` (aux is 0 when dense).
+    The pre-silu gate is named ``ffn_gate`` for remat="attn+gate"."""
     _require_dense(c)
     dt = c.compute_dtype
-    gate = h @ lp["w_gate"].to(dt)
+    gate = named_matmul(h, lp["w_gate"].to(dt), "ffn_gate")
     up = h @ lp["w_up"].to(dt)
     y = (F.silu(gate) * up) @ lp["w_down"].to(dt)
     return y, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def _attention(q, k, v):
+    """Single-device causal attention on the flash op (K1 forward,
+    K2/K3 backward). q [B, T, H, D], k/v [B, T, Hkv, D]."""
+    return flash_attention(q, k, v, causal=True)
+
+
+_FLASH_OP = torch.ops.hvd_torch.flash_fwd.default
+_NAMED_OP = torch.ops.hvd_torch.named_matmul.default
+
+# The JAX save-sets of the ported modes (horovod_tpu/models/llama.py
+# _build_layer_body), by name.
+_REMAT_SAVES = {
+    "attn": ("flash_o", "flash_lse"),
+    "attn+gate": ("flash_o", "flash_lse", "ffn_gate"),
+}
+_REMAT_QUEUED = {"dots": "A1", "attn+ffn": "A1", "attn+gate+qkv": "A1",
+                 "attn+moe": "A7", "moe": "A7"}
+
+
+def _save_only_these_names(names):
+    """A selective-checkpoint policy saving the ops that produce
+    ``names`` and recomputing everything else in the backward."""
+    def policy(ctx, op, *args, **kwargs):
+        if op is _FLASH_OP and "flash_o" in names:
+            return CheckpointPolicy.MUST_SAVE
+        if op is _NAMED_OP and args[2] in names:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def _build_layer_body(c):
+    """One decoder layer ``(x, lp) -> (x, aux)``, wrapped in the
+    configured remat mode. Under ``full`` the backward re-runs the whole
+    layer, K1 included; under ``attn`` and ``attn+gate`` it re-runs all
+    but the saved ops, so K1 runs once per layer per grad call."""
+    dt = c.compute_dtype
+
+    def layer(x, lp):
+        bb, tt = x.shape[0], x.shape[1]
+        positions = torch.arange(tt, device=x.device).expand(bb, tt)
+        h = _rmsnorm(x, lp["attn_norm"].to(dt), c.norm_eps)
+        q = (h @ lp["wq"].to(dt)).reshape(bb, tt, c.n_heads, c.head_dim)
+        kk = (h @ lp["wk"].to(dt)).reshape(bb, tt, c.n_kv_heads,
+                                           c.head_dim)
+        vv = (h @ lp["wv"].to(dt)).reshape(bb, tt, c.n_kv_heads,
+                                           c.head_dim)
+        q = _rope(q, positions, c.rope_theta)
+        kk = _rope(kk, positions, c.rope_theta)
+        attn = _attention(q, kk, vv)
+        x = x + attn.reshape(bb, tt, -1) @ lp["wo"].to(dt)
+        h = _rmsnorm(x, lp["mlp_norm"].to(dt), c.norm_eps)
+        ff, aux = _ffn(h, lp, c)
+        return x + ff, aux
+
+    mode = c.remat
+    if mode in _REMAT_QUEUED:
+        raise NotImplementedError(
+            f"remat={mode!r} is not ported yet (ROADMAP.md "
+            f"{_REMAT_QUEUED[mode]}); use 'none', 'full', 'attn' or "
+            "'attn+gate'")
+    if mode is False or mode == "none":
+        return layer
+    if mode is True or mode == "full":
+        return functools.partial(checkpoint, layer, use_reentrant=False)
+    if mode in _REMAT_SAVES:
+        return functools.partial(
+            checkpoint, layer, use_reentrant=False,
+            context_fn=_save_only_these_names(_REMAT_SAVES[mode]))
+    raise ValueError(f"unknown remat mode {mode!r}: expected True/'full', "
+                     "'dots', 'attn', 'attn+gate', 'attn+gate+qkv', "
+                     "'attn+ffn', 'attn+moe', 'moe', or False/'none'")
+
+
+def _unbind_layers(layers):
+    """Stacked [L, ...] layer params -> one dict of views per layer.
+    ``unbind`` gives each stacked leaf ONE backward node that stacks the
+    per-layer gradients once (indexing would add a full-size gradient
+    per layer)."""
+    keys = list(layers)
+    return [dict(zip(keys, ws))
+            for ws in zip(*(layers[k].unbind(0) for k in keys))]
+
+
+_MM_OUT_DTYPE = hasattr(torch.ops.aten.mm, "dtype")
+
+
+class _F32Logits(torch.autograd.Function):
+    """h @ w with an f32 result and no bf16 rounding of the logits (the
+    JAX ``preferred_element_type=float32``). On CUDA with bf16 operands
+    the forward is ``torch.mm(..., out_dtype=float32)`` where this torch
+    has it (bf16 tensor-core products, f32 accumulation and output);
+    otherwise, and on the CPU, both operands are upcast to f32 — the
+    same arithmetic, since bf16 products are exact in f32. The backward
+    takes the f32 cotangent as JAX's transpose does: both products in
+    f32, each gradient cast to its operand's dtype. f32 products follow
+    ``torch.backends.cuda.matmul.allow_tf32`` (off by default)."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        h2 = h.reshape(-1, h.shape[-1])
+        if h.is_cuda and h.dtype != torch.float32 and _MM_OUT_DTYPE:
+            out = torch.mm(h2, w, out_dtype=torch.float32)
+        else:
+            out = torch.mm(h2.float(), w.float())
+        return out.reshape(*h.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).float()
+        dh = torch.mm(g2, w.float().t()).to(h.dtype).reshape(h.shape)
+        dw = torch.mm(h.reshape(-1, h.shape[-1]).float().t(), g2)
+        return dh, dw.to(w.dtype)
+
+
+def llama_forward(params, tokens, config, return_aux=False, device=None):
+    """tokens [B, T] int -> logits [B, T, vocab] (float32).
+
+    With ``return_aux`` the MoE load-balancing loss (0 for the dense
+    configs ported here) is returned alongside the logits. ``device``
+    follows the entry-point rule (``None`` means cuda); the params must
+    lie there."""
+    c = config
+    _require_dense(c)
+    _, a = on_device(params, device, tokens=tokens)
+    dt = c.compute_dtype
+    x = params["embed"].to(dt)[a["tokens"].long()]
+    body = _build_layer_body(c)
+    aux = []
+    for lp in _unbind_layers(params["layers"]):
+        x, aux_layer = body(x, lp)
+        aux.append(aux_layer)
+    x = _rmsnorm(x, params["final_norm"].to(dt), c.norm_eps)
+    logits = _F32Logits.apply(x, params["lm_head"].to(dt))
+    if return_aux:
+        return logits, torch.stack(aux).mean()
+    return logits
+
+
+def _token_nll(logits, targets):
+    """Per-token negative log-likelihood in logsumexp form (no second
+    [B, T, vocab] array for log_softmax)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return lse - picked
+
+
+def llama_loss(params, batch, config, device=None):
+    """Causal LM loss. batch = {"tokens": [B, T], "targets": [B, T],
+    "mask": [B, T] or absent}: the mean token NLL, or the masked mean
+    sum(nll * mask) / max(sum(mask), 1). MoE configs raise (A7)."""
+    _require_dense(config)
+    logits = llama_forward(params, batch["tokens"], config, device=device)
+    nll = _token_nll(logits, torch.as_tensor(batch["targets"],
+                                             device=logits.device))
+    mask = batch.get("mask")
+    if mask is None:
+        return nll.mean()
+    mask = torch.as_tensor(mask, device=logits.device).float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,12 +1,21 @@
-"""Flash attention, forward only, on the hand-written K1 kernel.
+"""Flash attention on hand-written kernels: K1 forward, K2/K3 backward.
 
 Counterpart of horovod_tpu/ops/flash_attention.py. The TPU module's
-Pallas ``_fwd_kernel`` becomes ``csrc/flash_fwd.cu`` (launched by
-:func:`_flash_fwd_cuda`); :func:`_flash_fwd_reference` is its plain
-PyTorch version, used for tensors on the CPU and as the kernel's
-yardstick on the card. The backward kernels (K2/K3), the per-key bias
-and the ring-step offsets are not ported yet (ROADMAP.md, queue B):
-the backward raises instead of returning a wrong gradient.
+Pallas ``_fwd_kernel`` becomes ``csrc/flash_fwd.cu`` (K1, launched by
+:func:`_flash_fwd_cuda`); ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``
+become ``csrc/flash_bwd.cu`` (K2 and K3, launched by
+:func:`_flash_bwd_cuda`). :func:`_flash_fwd_reference` and
+:func:`_flash_bwd_reference` are their plain PyTorch versions, used for
+tensors on the CPU and as the kernels' yardstick on the card. The
+per-key bias and the ring-step offsets (with their lse cotangent) are
+not ported yet (ROADMAP.md, queue B, K1b).
+
+The forward is the custom op ``hvd_torch::flash_fwd`` returning
+``(o, lse)``, its backward registered with it. Being one dispatcher op,
+a selective-checkpoint policy can save its outputs by op (the TPU
+module's ``flash_o``/``flash_lse`` names): a ctypes launch inside an
+``autograd.Function`` would be invisible to the policy, and remat would
+quietly re-run K1 in the backward (models/llama.py).
 
 Layouts follow the JAX package: the public :func:`flash_attention`
 takes the framework layout [B, T, H, D]; the kernel layout is
@@ -36,10 +45,7 @@ def _flash_fwd_reference(q, k, v, causal=True):
     kf = k.repeat_interleave(n_rep, dim=1).float()
     vr = v.repeat_interleave(n_rep, dim=1)
     s = torch.matmul(q.float(), kf.transpose(-1, -2)) * (d ** -0.5)
-    if causal:
-        tq, tk = s.shape[-2], s.shape[-1]
-        mask = torch.ones(tq, tk, dtype=torch.bool, device=q.device).tril()
-        s = torch.where(mask, s, torch.full_like(s, _NEG))
+    s = _causal_mask(s, causal)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
@@ -48,50 +54,117 @@ def _flash_fwd_reference(q, k, v, causal=True):
     return o.to(q.dtype), m + torch.log(l)
 
 
-def _check_kernel_inputs(q, k, v):
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("K1 needs q, k, v on one CUDA device")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"K1 takes float32 or bfloat16 q/k/v of one "
-                         f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+def _causal_mask(s, causal):
+    """s [.., Tq, Tk] with the keys after each query row set to -1e30."""
+    if not causal:
+        return s
+    tq, tk = s.shape[-2], s.shape[-1]
+    mask = torch.ones(tq, tk, dtype=torch.bool, device=s.device).tril()
+    return torch.where(mask, s, torch.full_like(s, _NEG))
+
+
+def _delta(o, do):
+    """rowsum(do * o) in f32 [B, H, T, 1]: the backward's softmax term,
+    plain PyTorch on every device (the TPU module computes it outside
+    Pallas too)."""
+    return (do.float() * o.float()).sum(-1, keepdim=True)
+
+
+def _flash_bwd_reference(q, k, v, o, lse, do, causal=True):
+    """Plain version of K2 and K3 together, with the TPU kernels'
+    recipe: p = where(s > -1e30/2, exp(s - lse), 0); dv = p^T do with p
+    cast to do's dtype; dp = do v^T; ds = p (dp - delta) scale;
+    dk = ds^T q and dq = ds k with ds cast to q's / k's dtype; f32
+    accumulation throughout. Returns (dq [B, H, T, D] in q's dtype,
+    dk, dv [B, H, Tk, D] PER QUERY HEAD in k's / v's dtype) — the
+    kernels' outputs, before :func:`_sum_kv_heads`."""
+    h, d = q.shape[1], q.shape[3]
+    n_rep = h // k.shape[1]
+    scale = d ** -0.5
+    kr = k.repeat_interleave(n_rep, dim=1)
+    vr = v.repeat_interleave(n_rep, dim=1)
+    s = _causal_mask(torch.matmul(q.float(), kr.float().transpose(-1, -2))
+                     * scale, causal)
+    p = torch.where(s > _NEG / 2, torch.exp(s - lse), torch.zeros_like(s))
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    dp = torch.matmul(do.float(), vr.float().transpose(-1, -2))
+    ds = p * (dp - _delta(o, do)) * scale
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
+    dq = torch.matmul(ds.to(k.dtype).float(), kr.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _sum_kv_heads(dk, dv, hkv):
+    """Per-query-head dk/dv [B, H, Tk, D] -> [B, Hkv, Tk, D]: each kv
+    head's n_rep query heads summed in f32 and cast back (the TPU
+    module's order, :452-456)."""
+    b, h, tk, d = dk.shape
+    if h == hkv:
+        return dk, dv
+    n_rep = h // hkv
+
+    def fold(x):
+        return x.float().reshape(b, hkv, n_rep, tk, d).sum(2).to(x.dtype)
+
+    return fold(dk), fold(dv)
+
+
+def _check_kernel_inputs(name, q, k, v, *more):
+    tensors = (q, k, v) + more
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError(f"{name} needs its inputs on one CUDA device")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
+        raise ValueError(f"{name} takes float32 or bfloat16 tensors of one "
+                         f"dtype, got {[t.dtype for t in tensors]}")
     if q.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
-            or k.shape[3] != q.shape[3]:
+            or k.shape[3] != q.shape[3] \
+            or any(t.shape != q.shape for t in more):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
     if q.shape[1] % k.shape[1]:
         raise ValueError("query heads must be a multiple of kv heads")
     if q.shape[3] not in _HEAD_DIMS:
-        raise ValueError(f"K1 takes head_dim in {_HEAD_DIMS}, got "
+        raise ValueError(f"{name} takes head_dim in {_HEAD_DIMS}, got "
                          f"{q.shape[3]}")
     if k.shape[2] < 1:
-        raise ValueError("K1 needs at least one key")
-    if not (q.is_contiguous() and k.is_contiguous()
-            and v.is_contiguous()):
-        raise ValueError("K1 takes contiguous q, k, v")
+        raise ValueError(f"{name} needs at least one key")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
+def _bind(source, name, n_ptrs):
+    """The ctypes entry ``name`` of csrc/<source>.cu: ``n_ptrs``
+    pointers, then B, H, Hkv, Tq, Tk, D, causal, is_bf16, the scale and
+    the stream."""
+    fn = getattr(_build.load(source), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(label, fn, tensors, q, k, causal):
+    b, h, t, d = q.shape
+    with torch.cuda.device(q.device):
+        err = fn(*(x.data_ptr() for x in tensors), b, h, k.shape[1], t,
+                 k.shape[2], d, int(bool(causal)),
+                 int(q.dtype == torch.bfloat16), d ** -0.5,
+                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{label} launch failed: CUDA error {err}")
 
 
 def _flash_fwd_cuda(q, k, v, causal=True):
     """Launch K1 (csrc/flash_fwd.cu) on the current stream. Same
     contract as :func:`_flash_fwd_reference`."""
-    _check_kernel_inputs(q, k, v)
-    b, h, t, d = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
+    _check_kernel_inputs("K1", q, k, v)
+    b, h, t, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t, 1), dtype=torch.float32, device=q.device)
     if t == 0:
         return o, lse
-    lib = _build.load("flash_fwd")
-    fn = lib.flash_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), b, h, hkv, t, tk, d, int(bool(causal)),
-                 int(q.dtype == torch.bfloat16), d ** -0.5,
-                 torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"K1 flash_fwd launch failed: CUDA error {err}")
+    _launch("K1 flash_fwd", _bind("flash_fwd", "flash_fwd", 5),
+            (q, k, v, o, lse), q, k, causal)
     _flash_fwd_cuda.launches += 1
     return o, lse
 
@@ -99,36 +172,115 @@ def _flash_fwd_cuda(q, k, v, causal=True):
 _flash_fwd_cuda.launches = 0
 
 
-def _flash_fwd_impl(q, k, v, causal=True):
-    """(o, lse) in the kernel layout: K1 for CUDA tensors, the plain
-    version for CPU tensors, an error for anything else."""
+def _check_residuals(q, lse, delta):
+    want = (q.shape[0], q.shape[1], q.shape[2], 1)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != want \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be contiguous f32 {want} on "
+                             f"{q.device}")
+
+
+def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True):
+    """Launch K2 (csrc/flash_bwd.cu flash_bwd_dkv): per-query-head
+    (dk, dv) [B, H, Tk, D] in k's dtype."""
+    _check_kernel_inputs("K2", q, k, v, do)
+    _check_residuals(q, lse, delta)
+    b, h, _, d = q.shape
+    dk = torch.empty((b, h, k.shape[2], d), dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    _launch("K2 flash_bwd_dkv", _bind("flash_bwd", "flash_bwd_dkv", 8),
+            (q, k, v, do, lse, delta, dk, dv), q, k, causal)
+    _flash_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+_flash_bwd_dkv_cuda.launches = 0
+
+
+def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=True):
+    """Launch K3 (csrc/flash_bwd.cu flash_bwd_dq): dq [B, H, T, D] in
+    q's dtype."""
+    _check_kernel_inputs("K3", q, k, v, do)
+    _check_residuals(q, lse, delta)
+    dq = torch.empty_like(q)
+    _launch("K3 flash_bwd_dq", _bind("flash_bwd", "flash_bwd_dq", 7),
+            (q, k, v, do, lse, delta, dq), q, k, causal)
+    _flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+_flash_bwd_dq_cuda.launches = 0
+
+
+def _flash_bwd_cuda(q, k, v, o, lse, do, causal=True):
+    """K2 then K3 on the current stream. Same contract as
+    :func:`_flash_bwd_reference`."""
+    delta = _delta(o, do)
+    dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal)
+    dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
+
+
+def _on_path(q, cuda_fn, cpu_fn, *args):
+    """The kernel for CUDA tensors, the plain version for CPU tensors,
+    an error for anything else: never a fallback from one to the
+    other."""
     if q.is_cuda:
-        return _flash_fwd_cuda(q, k, v, causal)
+        return cuda_fn(q, *args)
     if q.device.type == "cpu":
-        return _flash_fwd_reference(q, k, v, causal)
+        return cpu_fn(q, *args)
     raise ValueError(f"flash attention has no path for {q.device}")
 
 
-class _Flash(torch.autograd.Function):
-    """Forward through :func:`_flash_fwd_impl`. The backward is the
-    K2/K3 kernel pair, not ported yet."""
+def _flash_fwd_impl(q, k, v, causal=True):
+    """(o, lse) in the kernel layout: K1 for CUDA tensors, the plain
+    version for CPU tensors."""
+    return _on_path(q, _flash_fwd_cuda, _flash_fwd_reference, k, v, causal)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal):
-        o, _ = _flash_fwd_impl(q, k, v, causal)
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        raise NotImplementedError(
-            "flash attention backward (kernels K2/K3) is not ported yet; "
-            "see ROADMAP.md queue B")
+def _flash_bwd_impl(q, k, v, o, lse, do, causal=True):
+    """(dq, dk, dv) with dk/dv at k's Hkv heads: K2 + K3 for CUDA
+    tensors, the plain version for CPU tensors, then the n_rep sum."""
+    dq, dk, dv = _on_path(q, _flash_bwd_cuda, _flash_bwd_reference, k, v,
+                          o, lse, do, causal)
+    return (dq,) + _sum_kv_heads(dk, dv, k.shape[1])
+
+
+@torch.library.custom_op("hvd_torch::flash_fwd", mutates_args=())
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) = flash attention in the kernel layout, through
+    :func:`_flash_fwd_impl`. lse is a residual, not differentiable."""
+    return _flash_fwd_impl(q, k, v, causal)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, causal = inputs
+    o, lse = output
+    ctx.mark_non_differentiable(lse)
+    ctx.causal = causal
+    # Residuals (q, k, v, o, lse), k/v unrepeated (the TPU _flash_fwd).
+    ctx.save_for_backward(q, k, v, o, lse)
+
+
+def _flash_backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = _flash_bwd_impl(q, k, v, o, lse, do.contiguous(),
+                                 ctx.causal)
+    return dq, dk, dv, None
+
+
+torch.library.register_autograd("hvd_torch::flash_fwd", _flash_backward,
+                                setup_context=_flash_setup)
 
 
 def flash_attention(q, k, v, causal=True):
     """Flash attention in the framework layout: q [B, T, H, D], k/v
-    [B, T, Hkv, D] (GQA-native). Returns [B, T, H, D] in q's dtype."""
+    [B, T, Hkv, D] (GQA-native). Returns [B, T, H, D] in q's dtype;
+    differentiable through K2/K3."""
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).contiguous()
     vt = v.transpose(1, 2).contiguous()
-    return _Flash.apply(qt, kt, vt, causal).transpose(1, 2)
+    o, _lse = flash_fwd(qt, kt, vt, causal)
+    return o.transpose(1, 2)

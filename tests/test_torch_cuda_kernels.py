@@ -4,7 +4,10 @@ Runs only on a card of compute capability >= 9.0 (the kernels are
 built for sm_90a); elsewhere every test skips. ``python3
 chip_smoke.py`` is the on-card check at the main path's shapes; this
 file adds edge shapes. Tolerances: f32 1e-4; bf16 output 2e-2 (one bf16
-ulp of p may differ across summation orders); lse 1e-3.
+ulp of p may differ across summation orders); lse 1e-3. K2/K3 gradients
+relative to each gradient's largest entry: f32 1e-4, bf16 2e-2 (the
+same f32 products summed in another order, then one bf16 rounding of p
+or ds may land differently).
 """
 
 import pytest
@@ -61,6 +64,29 @@ def test_decode_attention_matches_plain(b, hkv, n_rep, s, d, pos, dtype,
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,hkv,n_rep,t,d,causal", [
+    (2, 2, 1, 37, 16, True), (1, 2, 4, 77, 64, True),
+    (2, 1, 8, 130, 128, True), (1, 4, 4, 100, 128, False),
+    (3, 2, 4, 64, 32, False)])
+def test_flash_bwd_matches_plain(b, hkv, n_rep, t, d, causal, dtype, tol):
+    h = hkv * n_rep
+    q = _rand((b, h, t, d), dtype, 8)
+    k = _rand((b, hkv, t, d), dtype, 9)
+    v = _rand((b, hkv, t, d), dtype, 10)
+    do = _rand((b, h, t, d), dtype, 11)
+    o, lse = fa._flash_fwd_cuda(q, k, v, causal)
+    got = fa._flash_bwd_cuda(q, k, v, o, lse, do, causal)
+    want = fa._flash_bwd_reference(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        err = float((g.float() - w.float()).abs().max()
+                    / w.float().abs().max())
+        assert err <= tol, f"{name}: relative error {err}"
+
+
 def test_wrappers_count_launches():
     q = _rand((1, 2, 8, 16), torch.float32, 6)
     kv = _rand((1, 1, 8, 16), torch.float32, 7)
@@ -70,3 +96,16 @@ def test_wrappers_count_launches():
     before = da._decode_attention_cuda.launches
     da.decode_attention(q[:, :, :1].transpose(1, 2).contiguous(), kv, kv, 3)
     assert da._decode_attention_cuda.launches == before + 1
+
+
+def test_backward_launches_k2_and_k3_once_each():
+    q = _rand((1, 8, 2, 16), torch.float32, 12).requires_grad_(True)
+    kv = _rand((1, 8, 1, 16), torch.float32, 13).requires_grad_(True)
+    out = fa.flash_attention(q, kv, kv, causal=True)
+    before = (fa._flash_fwd_cuda.launches, fa._flash_bwd_dkv_cuda.launches,
+              fa._flash_bwd_dq_cuda.launches)
+    out.sum().backward()
+    assert (fa._flash_fwd_cuda.launches, fa._flash_bwd_dkv_cuda.launches,
+            fa._flash_bwd_dq_cuda.launches) == (before[0], before[1] + 1,
+                                                before[2] + 1)
+    assert q.grad.shape == q.shape and kv.grad.shape == kv.shape

@@ -37,6 +37,8 @@ def test_import_loads_no_jax_triton_or_reference_package():
         "import horovod_tpu_torch.models.generate\n"
         "import horovod_tpu_torch.models.convert\n"
         "import horovod_tpu_torch.serving.engine\n"
+        "import horovod_tpu_torch.parallel.train_step\n"
+        "import horovod_tpu_torch.parallel.precision\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'triton', 'ml_dtypes', 'horovod_tpu'))\n"
@@ -63,13 +65,22 @@ def test_no_forbidden_import(path):
 
 
 def _entry_points():
-    from horovod_tpu_torch.models.convert import from_jax_params
+    from horovod_tpu_torch.models.convert import (
+        from_jax_opt_state,
+        from_jax_params,
+    )
     from horovod_tpu_torch.models.generate import (
         llama_decode_step,
         llama_generate,
         llama_prefill,
     )
-    from horovod_tpu_torch.models.llama import LlamaConfig, llama_init
+    from horovod_tpu_torch.models.llama import (
+        LlamaConfig,
+        llama_forward,
+        llama_init,
+        llama_loss,
+    )
+    from horovod_tpu_torch.parallel.precision import FusedAdamState
     from horovod_tpu_torch.serving.engine import DecodeEngine
 
     cfg = LlamaConfig.tiny(dtype="float32")
@@ -88,12 +99,19 @@ def _entry_points():
             params, np.zeros(1, np.int32), cache, cache,
             np.zeros(1, np.int32), cfg),
         "DecodeEngine": lambda: DecodeEngine(params, cfg),
+        "llama_forward": lambda: llama_forward(params, prompt, cfg),
+        "llama_loss": lambda: llama_loss(
+            params, {"tokens": prompt, "targets": prompt}, cfg),
+        "from_jax_opt_state": lambda: from_jax_opt_state(FusedAdamState(
+            count=np.zeros((), np.int32), mu={}, nu={})),
     }
 
 
 @pytest.mark.parametrize("name", ["llama_init", "from_jax_params",
                                   "llama_generate", "llama_prefill",
-                                  "llama_decode_step", "DecodeEngine"])
+                                  "llama_decode_step", "DecodeEngine",
+                                  "llama_forward", "llama_loss",
+                                  "from_jax_opt_state"])
 def test_entry_point_without_device_raises_without_cuda(name,
                                                         monkeypatch):
     calls = _entry_points()

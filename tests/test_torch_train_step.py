@@ -1,0 +1,220 @@
+"""The port's split train step and optimizer-state carry-over against
+the JAX package.
+
+``make_split_train_step(llama_loss, fused_adam)`` against JAX's after 3
+steps from one JAX-initialised tree (JAX flash kernels in Pallas
+interpret mode); microbatch accumulation; the master variant's bf16
+carry; the arguments the port does not take; and
+``from_jax_opt_state``, including a run started in JAX and continued in
+the port. Tolerances: losses 1e-5 relative; params after Adam steps
+1e-4 absolute at learning rate 1e-3 (Adam moves each entry by about
+lr * sign(g) per step, so an f32 summation-order difference in a
+gradient entry near zero can move that entry by up to lr; 1e-4 is well
+under one such step and far over the f32 noise of every other entry).
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from horovod_tpu.models import llama as jl
+from horovod_tpu.parallel import fused_adam as j_fused_adam
+from horovod_tpu.parallel import fused_master_adam as j_fused_master_adam
+from horovod_tpu.parallel import make_split_train_step as j_make_step
+from horovod_tpu_torch.models import llama as tl
+from horovod_tpu_torch.models.convert import (
+    from_jax_opt_state,
+    from_jax_params,
+)
+from horovod_tpu_torch.parallel import precision
+from horovod_tpu_torch.parallel.train_step import (
+    _split_microbatches,
+    make_split_train_step,
+)
+
+fa_mod = importlib.import_module("horovod_tpu.ops.flash_attention")
+LR = 1e-3
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode():
+    fa_mod._INTERPRET = True
+    yield
+    fa_mod._INTERPRET = False
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def _np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) else \
+        np.asarray(t, np.float32)
+
+
+def _setup(param_dtype="float32", b=4, t=16):
+    jc = jl.LlamaConfig.tiny(dtype=param_dtype, param_dtype=param_dtype,
+                             remat=False)
+    tc = tl.LlamaConfig.tiny(dtype=param_dtype, param_dtype=param_dtype,
+                             remat="attn+gate")
+    jparams = jl.llama_init(jc, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, jc.vocab_size, (b, t)).astype(np.int32)
+    batch = {"tokens": tokens, "targets": np.roll(tokens, -1, 1)}
+    return jc, tc, jparams, batch
+
+
+def _port(jtree):
+    return from_jax_params(jax.tree.map(np.asarray, jtree), device="cpu")
+
+
+def _port_batch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _port_step(tc, opt, microbatches=1):
+    return make_split_train_step(
+        lambda p, d: tl.llama_loss(p, d, tc, device="cpu"), opt,
+        microbatches=microbatches)
+
+
+def _assert_params_close(got, want, atol):
+    for g, w in zip(_leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=0, atol=atol)
+
+
+def test_split_step_fused_adam_matches_jax():
+    jc, tc, jparams, batch = _setup()
+    jts = j_make_step(lambda p, d: jl.llama_loss(p, d, jc),
+                      j_fused_adam(LR))
+    jcarry = jts.init(jparams)
+    ts = _port_step(tc, precision.fused_adam(LR))
+    carry = ts.init(_port(jparams))
+    jb, tb = {k: jnp.asarray(v) for k, v in batch.items()}, \
+        _port_batch(batch)
+    for _ in range(3):
+        jloss, jcarry = jts.step(jcarry, jb)
+        loss, carry = ts.step(carry, tb)
+        assert float(loss) == pytest.approx(float(jloss), rel=1e-5)
+    assert int(carry[1].count) == 3
+    _assert_params_close(carry[0], jcarry[0], 1e-4)
+
+
+def test_two_microbatches_match_one():
+    _, tc, jparams, batch = _setup()
+    tb = _port_batch(batch)
+    one = _port_step(tc, precision.fused_adam(LR))
+    two = _port_step(tc, precision.fused_adam(LR), microbatches=2)
+    l1, c1 = one.step(one.init(_port(jparams)), tb)
+    l2, c2 = two.step(two.init(_port(jparams)), tb)
+    assert float(l2) == pytest.approx(float(l1), rel=1e-5)
+    for a, b in zip(_leaves(c2[0]), _leaves(c1[0])):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=0, atol=1e-4)
+
+
+def test_indivisible_microbatches_raise():
+    _, tc, jparams, batch = _setup()
+    ts = _port_step(tc, precision.fused_adam(LR), microbatches=3)
+    with pytest.raises(ValueError, match="microbatches"):
+        ts.step(ts.init(_port(jparams)), _port_batch(batch))
+
+
+def test_split_microbatches_views():
+    x = torch.arange(12).reshape(6, 2)
+    mbs = _split_microbatches({"tokens": x, "targets": x + 1}, 3)
+    assert len(mbs) == 3 and mbs[1]["tokens"].tolist() == [[4, 5], [6, 7]]
+    assert mbs[1]["targets"].tolist() == [[5, 6], [7, 8]]
+    assert mbs[2]["tokens"].data_ptr() == x[4:].data_ptr()
+
+
+def test_master_carry_is_bf16_and_loss_falls():
+    _, tc, jparams, batch = _setup()
+    tc = tl.LlamaConfig.tiny(dtype="bfloat16", remat="attn+gate")
+    ts = _port_step(tc, precision.fused_master_adam(1e-2), microbatches=2)
+    carry = ts.init(_port(jparams))
+    assert all(p.dtype == torch.bfloat16 for p in _leaves(carry[0]))
+    losses = []
+    for _ in range(6):
+        loss, carry = ts.step(carry, _port_batch(batch))
+        losses.append(float(loss))
+    assert all(p.dtype == torch.bfloat16 for p in _leaves(carry[0]))
+    assert losses[-1] < losses[0], losses
+
+
+@pytest.mark.parametrize("kw,item", [({"zero": object()}, "A9"),
+                                     ({"telemetry": object()}, "A12")])
+def test_unported_arguments_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        make_split_train_step(lambda p, d: 0.0,
+                              precision.fused_adam(LR), **kw)
+
+
+def test_optimizer_without_apply_raises():
+    class OptaxLike:
+        def init(self, params):
+            return ()
+
+        def update(self, grads, state, params):
+            return grads, state
+
+    with pytest.raises(TypeError, match="apply"):
+        make_split_train_step(lambda p, d: 0.0, OptaxLike())
+
+
+@pytest.mark.parametrize("kind", ["adam-f32", "adam-bf16", "master"])
+def test_from_jax_opt_state_round_trips(kind):
+    dtype = "bfloat16" if kind == "adam-bf16" else "float32"
+    jc = jl.LlamaConfig.tiny(param_dtype=dtype)
+    jparams = jl.llama_init(jc, jax.random.PRNGKey(1))
+    jopt = j_fused_master_adam(1e-2) if kind == "master" else \
+        j_fused_adam(1e-2)
+    jst = jopt.init(jparams)
+    grads = jax.tree.map(lambda p: jnp.full_like(p, 0.01), jparams)
+    params = jopt.compute_params(jst) if kind == "master" else jparams
+    _, jst = jopt.apply(params, grads, jst)
+    st = from_jax_opt_state(jax.tree.map(np.asarray, jst), device="cpu")
+    want = precision.FusedMasterState if kind == "master" else \
+        precision.FusedAdamState
+    assert type(st) is want and int(st.count) == 1
+    assert st.count.dtype == torch.int32
+    for field in want._fields:
+        if field == "count":
+            continue
+        for t, a in zip(_leaves(getattr(st, field)),
+                        jax.tree.leaves(getattr(jst, field))):
+            a = np.asarray(a)
+            if a.dtype.name == "bfloat16":
+                assert t.dtype == torch.bfloat16
+                np.testing.assert_array_equal(
+                    t.view(torch.int16).numpy().view(np.uint16),
+                    a.view(np.uint16))
+            else:
+                np.testing.assert_array_equal(t.numpy(), a)
+
+
+def test_port_continues_a_jax_started_run():
+    """Two steps in JAX, then the params and optimizer state move to the
+    port and both take the third step: the port's third loss and params
+    match JAX's."""
+    jc, tc, jparams, batch = _setup()
+    jts = j_make_step(lambda p, d: jl.llama_loss(p, d, jc),
+                      j_fused_adam(LR))
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jcarry = jts.init(jparams)
+    for _ in range(2):
+        _, jcarry = jts.step(jcarry, jb)
+    params = _port(jcarry[0])
+    opt = from_jax_opt_state(jax.tree.map(np.asarray, jcarry[1]),
+                             device="cpu")
+    jloss, jcarry = jts.step(jcarry, jb)
+    ts = _port_step(tc, precision.fused_adam(LR))
+    loss, carry = ts.step((params, opt), _port_batch(batch))
+    assert int(carry[1].count) == 3
+    assert float(loss) == pytest.approx(float(jloss), rel=1e-5)
+    _assert_params_close(carry[0], jcarry[0], 1e-4)
