@@ -8,14 +8,17 @@ compute capability >= 9.0::
 
 It builds the port's hand-written kernels from the checkout's sources
 and drives the port's serving and training paths at the full width of
-the flagship dense Llama, in phases; any failed phase exits non-zero
-before the result line.
+the flagship dense Llama and of the repo's sparse-MoE Llama, in phases;
+any failed phase exits non-zero before the result line.
 
 1. Card, power limit, torch/CUDA versions; kernel build time.
 2. Each kernel against its plain PyTorch version at the main paths'
    shapes (and a long prompt / long cache / ragged T): max error,
    kernel, plain and library times, and the card's bound for the same
-   work. K1 forward, K2/K3 backward (dq, dk, dv), K4 decode.
+   work. K1 forward, K2/K3 backward (dq, dk, dv) at the dense (Hkv4)
+   and MoE (Hkv8) train shapes, K4 decode, K5 grouped matmul and K6
+   (its dlhs and tgmm) at the MoE train, prefill and decode shapes, at
+   f32 and on a skewed routing with an empty group.
 3. ``llama_generate``: greedy, batch 16, prompt 128, 64 new tokens;
    K1 must launch once per layer, K4 once per layer per decode step.
 4. ``DecodeEngine``: 16 requests of 17-128 prompt tokens, 32 new
@@ -32,10 +35,24 @@ before the result line.
    256), loss and gradients on the card match the plain CPU path, and
    the remat modes none/full/attn/attn+gate agree with K1 launching
    2/4/2/2 times per grad call.
-8. A ``kernels`` JSON line, the card line, and the result line
+8. MoE training: ``benchmarks/moe_bench.py``'s config and step (split
+   step, ``fused_adam(3e-4)``, 2 microbatches, ``remat="moe"``) at
+   batch 4 x 2048: one warm-up and 4 timed steps; per grad call K5 and
+   K6's two halves launch 36 times each and K1-K3 12 times each; the
+   loss must fall. Active-parameter MFU, peak memory, a profile. First,
+   one layer's grouped FFN runs forward and backward with no host sync.
+9. MoE serving: ``llama_generate`` b16 (K5 3 per layer in prefill and
+   in each decode step) and b1 (decode by the top-K gather: no K5);
+   ``DecodeEngine`` with 8 requests at once (max_batch 8: K5) and 2 at
+   max_batch 1 (the top-K gather).
+10. MoE parity at f32 (2 layers): loss and gradients on the card
+   against the CPU; the six remat modes agree, with K5 launching
+   6/12/12/12/10/6 times per grad call (none/full/attn/attn+gate/
+   attn+moe/moe); engine tokens equal ``llama_generate``'s.
+11. A ``kernels`` JSON line (K1-K6), the card line, and the result line
    ``{"ok": true, "device": {...}}``.
 
-Weights are random (``torch.Generator`` seed 0); nothing is downloaded.
+Weights are random (``torch.Generator`` seeds); nothing is downloaded.
 """
 
 import dataclasses
@@ -88,22 +105,25 @@ def bound(bytes_moved, flops, dtype_name):
 
 
 def _kernel_name(mangled):
-    """``name<dtype, D>`` of a mangled kernel ``_ZN<len><id>...``: the
-    nested identifier ending in ``_kernel``, then its template
-    arguments."""
+    """``name<dtype, D>`` (or ``name<dtype, transposed flag>``) of a
+    mangled kernel ``_ZN<len><id>...``: the nested identifier ending in
+    ``_kernel``, then its template arguments."""
     i = 3
     while m := re.match(r"\d+", mangled[i:]):
         start = i + m.end()
         i = start + int(m.group())
         name = mangled[start:i]
         if name.endswith("_kernel"):
-            args = re.match(r"I(13__nv_bfloat16|f)(?:Li(\d+)E)?",
+            args = re.match(r"I(13__nv_bfloat16|f)(?:L([ib])(\d+)E)?",
                             mangled[i:])
             if not args:
                 return name
             dt = "bf16" if args.group(1) != "f" else "f32"
-            return f"{name}<{dt}" + (f", D{args.group(2)}>"
-                                     if args.group(2) else ">")
+            if not args.group(2):
+                return f"{name}<{dt}>"
+            arg = f"D{args.group(3)}" if args.group(2) == "i" else \
+                f"transpose_rhs={args.group(3)}"
+            return f"{name}<{dt}, {arg}>"
     return "?"
 
 
@@ -311,33 +331,36 @@ def flagship_config(LlamaConfig):
                        param_dtype="bfloat16")
 
 
-def _counters(fa, da):
+def launch_counters(fa, da, gm):
+    """Every kernel wrapper of the port, by the name the counts use."""
     return {"K1": fa._flash_fwd_cuda, "K2": fa._flash_bwd_dkv_cuda,
-            "K3": fa._flash_bwd_dq_cuda, "K4": da._decode_attention_cuda}
+            "K3": fa._flash_bwd_dq_cuda, "K4": da._decode_attention_cuda,
+            "K5": gm._gmm_cuda, "K6 dlhs": gm._gmm_dlhs_cuda,
+            "K6 tgmm": gm._tgmm_cuda}
 
 
-def reset_counts(fa, da):
-    for fn in _counters(fa, da).values():
+def reset_counts(ctr):
+    for fn in ctr.values():
         fn.launches = 0
 
 
-def counts(fa, da):
-    return {k: fn.launches for k, fn in _counters(fa, da).items()}
+def counts(ctr):
+    return {k: fn.launches for k, fn in ctr.items()}
 
 
-def run_generate(torch, fa, da, gen, params, cfg, batch, prompt_len,
+def run_generate(torch, ctr, gen, params, cfg, batch, prompt_len,
                  new):
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(
         np.int32)
     gen.llama_generate(params, prompt[:, :8], cfg, 2)     # warm-up
     torch.cuda.synchronize()
-    reset_counts(fa, da)
+    reset_counts(ctr)
     t0 = time.perf_counter()
     out = gen.llama_generate(params, prompt, cfg, new)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launched = counts(fa, da)
+    launched = counts(ctr)
     t0 = time.perf_counter()
     first, _, _ = gen.llama_prefill(params, prompt, cfg)
     torch.cuda.synchronize()
@@ -369,7 +392,7 @@ def run_generate(torch, fa, da, gen, params, cfg, batch, prompt_len,
                           tok_s=batch * new / total_s, profile=prof)
 
 
-def run_engine(torch, fa, da, DecodeEngine, Request, params, cfg):
+def run_engine(torch, ctr, DecodeEngine, Request, params, cfg):
     rng = np.random.default_rng(1)
     n_req, new = 16, 32
     lens = rng.integers(17, 129, n_req)
@@ -378,14 +401,14 @@ def run_engine(torch, fa, da, DecodeEngine, Request, params, cfg):
             for i, n in enumerate(lens)]
     eng = DecodeEngine(params, cfg, block_size=32, n_blocks=128,
                        max_batch=16, max_context=128 + new, device="cuda")
-    reset_counts(fa, da)
+    reset_counts(ctr)
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
     done = eng.run_until_idle()
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launched = counts(fa, da)
+    launched = counts(ctr)
     check(eng.scheduler.evictions == 0, "engine evicted under no pressure")
     check(sorted(done) == list(range(n_req)), "not every request completed")
     for r in reqs:
@@ -476,7 +499,7 @@ def logits_case(torch, llama, cfg, tokens):
                 upcast_fwd_ms=upcast_ms, bwd_ms=bwd_ms)
 
 
-def run_train(torch, fa, da, llama, precision, train_step, cfg, batch,
+def run_train(torch, ctr, llama, precision, train_step, cfg, batch,
               seq, steps, card):
     params = llama.llama_init(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
@@ -496,14 +519,14 @@ def run_train(torch, fa, da, llama, precision, train_step, cfg, batch,
     losses = [loss]
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    reset_counts(fa, da)
+    reset_counts(ctr)
     t0 = time.perf_counter()
     for _ in range(steps):
         loss, carry = ts.step(carry, data)
         losses.append(loss)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / steps
-    launched = counts(fa, da)
+    launched = counts(ctr)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
     L = cfg.n_layers
@@ -511,7 +534,8 @@ def run_train(torch, fa, da, llama, precision, train_step, cfg, batch,
         check(launched[k] == L * steps,
               f"{k} launched {launched[k]} times in {steps} steps, "
               f"expected {L} per grad call")
-    check(launched["K4"] == 0, "the train step launched K4")
+    check(launched["K4"] == launched["K5"] == 0,
+          "the dense train step launched K4 or K5")
     check(all(np.isfinite(losses)), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     tok = batch * seq
@@ -532,9 +556,11 @@ def run_train(torch, fa, da, llama, precision, train_step, cfg, batch,
                           profile=prof)
 
 
-def run_train_parity(torch, fa, da, llama, train_step, cfg):
+def run_train_parity(torch, ctr, llama, train_step, cfg, expected):
     """f32, 2 layers, B2 T256: the card's loss and gradients against the
-    plain CPU path; the remat modes against each other on the card."""
+    plain CPU path; the remat modes of ``expected`` ({mode: {kernel:
+    launches per grad call}}, ``none`` first) against each other on the
+    card, each with the launches that show what its backward re-ran."""
     from horovod_tpu_torch.parallel._tree import tree_leaves, tree_map
 
     c32 = dataclasses.replace(cfg, n_layers=2, dtype="float32",
@@ -556,16 +582,13 @@ def run_train_parity(torch, fa, da, llama, train_step, cfg):
     cpu_s = time.perf_counter() - t0
     card_params = tree_map(lambda w: w.cuda(), cpu_params)
     del cpu_params
-    results, k1 = {}, {}
-    for mode in ("none", "full", "attn", "attn+gate"):
-        reset_counts(fa, da)
+    results, launched = {}, {}
+    for mode, want in expected.items():
+        reset_counts(ctr)
         results[mode] = value_and_grad(card_params, dataclasses.replace(
             c32, remat=mode), "cuda")
-        n = counts(fa, da)
-        k1[mode] = n["K1"]
-        check(n["K2"] == 2 and n["K3"] == 2,
-              f"remat={mode}: K2/K3 launched {n['K2']}/{n['K3']}, "
-              f"expected 2/2")
+        n = counts(ctr)
+        launched[mode] = {k: n[k] for k in want}
 
     def rel(got, want):
         return max(float((g - w).abs().max()) / max(float(w.abs().max()),
@@ -575,20 +598,330 @@ def run_train_parity(torch, fa, da, llama, train_step, cfg):
     loss_err = abs(results["none"][0] - cpu_loss) / abs(cpu_loss)
     grad_err = rel(results["none"][1], cpu_grads)
     mode_err = {m: rel(results[m][1], results["none"][1])
-                for m in ("full", "attn", "attn+gate")}
+                for m in expected if m != "none"}
     log(f"  f32 train parity (2 layers, B2 T256): card vs CPU loss rel err "
         f"{loss_err:.3e} (tol 1e-5), grads {grad_err:.3e} (tol 2e-4 of "
-        f"each leaf's max abs); remat vs none {mode_err} (tol 1e-5); K1 "
-        f"launches per grad call {k1} (expected 2/4/2/2); CPU grad call "
-        f"{cpu_s:.1f} s")
+        f"each leaf's max abs); remat vs none {mode_err} (tol 1e-5); "
+        f"launches per grad call {launched}; CPU grad call {cpu_s:.1f} s")
     check(loss_err <= 1e-5, f"card loss differs from CPU by {loss_err}")
     check(grad_err <= 2e-4, f"card grads differ from CPU by {grad_err}")
     for m, e in mode_err.items():
         check(e <= 1e-5, f"remat={m} grads differ from none by {e}")
-    check(k1 == {"none": 2, "full": 4, "attn": 2, "attn+gate": 2},
-          f"K1 launches per remat mode {k1}")
+    check(launched == expected,
+          f"launches per remat mode {launched}, expected {expected}")
     return dict(loss_rel_err=loss_err, grad_rel_err=grad_err,
-                remat_rel_err=mode_err, k1_launches=k1)
+                remat_rel_err=mode_err, launches_per_grad_call=launched,
+                cpu_grad_call_s=cpu_s)
+
+
+# ---- phase 2 (MoE): the grouped matmuls against their plain versions ----
+
+
+def library_grouped_ms(torch, label, fn, iters):
+    """Time one ``torch._grouped_mm`` call (the yardstick: the port never
+    calls it), or None where this torch lacks it or refuses the form."""
+    if not hasattr(torch, "_grouped_mm"):
+        log(f"    library {label}: none (this torch has no _grouped_mm)")
+        return None
+    try:
+        fn()
+    except RuntimeError as e:
+        log(f"    library {label}: none ({str(e).splitlines()[0][:120]})")
+        return None
+    return cuda_ms(torch, fn, iters)
+
+
+def gmm_case(torch, gm, label, sizes, k, n, dtype, iters, backward=True):
+    """K5, and with ``backward`` both halves of K6, against the plain
+    versions on one routing: ``sizes[e]`` rows of lhs [M, K] for expert e,
+    in order. Returns {"K5": case, "K6 dlhs": case, "K6 tgmm": case}."""
+    m, e = sum(sizes), len(sizes)
+    g = torch.Generator(device="cuda").manual_seed(m + k + n)
+    lhs = torch.randn((m, k), generator=g, device="cuda").to(dtype)
+    rhs = (torch.randn((e, k, n), generator=g, device="cuda")
+           * k ** -0.5).to(dtype)
+    grad = torch.randn((m, n), generator=g, device="cuda").to(dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    dname = str(dtype).replace("torch.", "")
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    # The experts this routing reads, and the products its rows need.
+    rhs_bytes = nbytes(rhs) * sum(1 for x in sizes if x) // e
+    flops = 2 * m * k * n
+    bf16 = dtype == torch.bfloat16
+
+    def one(kname, kernel, plain, library, in_bytes):
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        abs_err = float((got.float() - want.float()).abs().max())
+        err = abs_err / max(float(want.float().abs().max()), 1e-30)
+        ms = cuda_ms(torch, kernel, iters)
+        plain_ms = cuda_ms(torch, plain, max(1, iters // 4), warmup=1)
+        lib_ms = library_grouped_ms(torch, f"{kname} {label}", library,
+                                    iters) if bf16 else None
+        moved = in_bytes + nbytes(got)
+        bound_ms, bound_by = bound(moved, flops, dname)
+        name = f"{kname} {label} M{m} K{k} N{n} E{e} {dname}"
+        lib = f"{lib_ms:.4f} ms" if lib_ms is not None else \
+            "none (torch._grouped_mm takes bf16 only)" if not bf16 else "none"
+        log(f"  {name} groups {sizes}: rel err {err:.3e} (tol {tol:g}, of "
+            f"the plain version's max abs), kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library {lib}, bound {bound_ms:.4f} ms "
+            f"({bound_by}; bytes {moved / HBM_BYTES_PER_S * 1e3:.4f} ms, "
+            f"operations {flops / PEAK_FLOPS[dname] * 1e3:.4f} ms at "
+            f"{PEAK_FLOPS[dname] / 1e12:.0f} TFLOP/s), "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+        check(err <= tol, f"{name}: error {err} above {tol}")
+        return dict(case=name, max_abs_err=abs_err, rel_err=err, ms=ms,
+                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                    bound_by=bound_by)
+
+    out = {"K5": one(
+        "K5 gmm", lambda: gm._gmm_cuda(lhs, rhs, gs),
+        lambda: gm._gmm_reference(lhs, rhs, gs),
+        lambda: torch._grouped_mm(lhs, rhs, offs=offs),
+        nbytes(lhs) + rhs_bytes)}
+    if backward:
+        out["K6 dlhs"] = one(
+            "K6 dlhs", lambda: gm._gmm_dlhs_cuda(grad, rhs, gs),
+            lambda: gm._gmm_dlhs_reference(grad, rhs, gs),
+            lambda: torch._grouped_mm(grad, rhs.transpose(-2, -1),
+                                      offs=offs),
+            nbytes(grad) + rhs_bytes)
+        out["K6 tgmm"] = one(
+            "K6 tgmm", lambda: gm._tgmm_cuda(lhs, grad, gs),
+            lambda: gm._tgmm_reference(lhs, grad, gs),
+            lambda: torch._grouped_mm(lhs.t(), grad, offs=offs),
+            nbytes(lhs, grad))
+    return out
+
+
+# ---- phases 8-10: the sparse-MoE model ---------------------------------
+
+
+def moe_config(LlamaConfig):
+    """The repo's sparse-MoE bench config (benchmarks/moe_bench.py:47
+    _moe_cfg): vocab 32768, d2048, L12, H16/Hkv8, d_ff 4096, 4 experts
+    top-2, bf16 compute and storage, remat="moe"; 1.494 B parameters,
+    0.889 B active."""
+    return LlamaConfig(vocab_size=32768, d_model=2048, n_layers=12,
+                       n_heads=16, n_kv_heads=8, d_ff=4096, n_experts=4,
+                       n_experts_per_token=2, dtype="bfloat16", remat="moe",
+                       param_dtype="bfloat16", scan_unroll=12)
+
+
+def param_counts(params, cfg):
+    """(total, active): the total minus the (E-K)/E share of expert
+    weights a token never touches (moe_bench.py:67 _active_params)."""
+    leaves = list(params["layers"].values()) + [
+        params[k] for k in ("embed", "final_norm", "lm_head")]
+    total = sum(w.numel() for w in leaves)
+    expert = sum(w.numel() for name, w in params["layers"].items()
+                 if name.startswith("moe_"))
+    inactive = expert * (cfg.n_experts - cfg.n_experts_per_token) \
+        // cfg.n_experts
+    return total, total - inactive
+
+
+def moe_ffn_without_host_sync(torch, gm, cfg, tokens):
+    """One MoE layer's grouped FFN, forward and backward, at the model's
+    width under torch's sync debug mode "error": any wait on the host
+    (a read of group_sizes, bincount, one_hot) raises and fails the
+    smoke. The mode is a prototype that may miss some syncs."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+
+    def w(shape, fan_in):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * fan_in ** -0.5).to(cfg.compute_dtype).requires_grad_(True)
+
+    lp = {"router": w((d, e), d), "moe_gate": w((e, d, f), d),
+          "moe_up": w((e, d, f), d), "moe_down": w((e, f, d), f)}
+    h = torch.randn((1, tokens, d), generator=g, device="cuda").to(
+        cfg.compute_dtype).requires_grad_(True)
+
+    def run():
+        y, aux = gm.grouped_moe_ffn(h, lp, cfg)
+        return torch.autograd.grad(y.float().sum() + aux, [h, *lp.values()])
+
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"  grouped_moe_ffn forward + backward, {tokens} tokens at d{d} "
+        f"E{e}: no host sync (torch sync debug mode 'error')")
+
+
+def run_moe_train(torch, ctr, llama, precision, train_step, cfg, batch, seq,
+                  steps, card):
+    """moe_bench.py's step: split step, fused Adam, 2 microbatches."""
+    params = llama.llama_init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    total, active = param_counts(params, cfg)
+    log(f"  MoE: {total / 1e9:.3f} B params, {active / 1e9:.3f} B active, "
+        f"{total * 2 / 1e9:.2f} GB bf16")
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        batch, seq)).astype(np.int32)).cuda()
+    data = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+    micro = 2
+    ts = train_step.make_split_train_step(
+        lambda p, d: llama.llama_loss(p, d, cfg), precision.fused_adam(3e-4),
+        microbatches=micro)
+    carry = ts.init(params)
+    del params
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, carry = ts.step(carry, data)                      # warm-up
+    losses = [loss]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    reset_counts(ctr)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss, carry = ts.step(carry, data)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    launched = counts(ctr)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    L = cfg.n_layers
+    per_call = {"K1": L, "K2": L, "K3": L, "K4": 0, "K5": 3 * L,
+                "K6 dlhs": 3 * L, "K6 tgmm": 3 * L}
+    grad_calls = steps * micro
+    for k, n in per_call.items():
+        check(launched[k] == n * grad_calls,
+              f"{k} launched {launched[k]} times in {grad_calls} grad "
+              f"calls, expected {n} per grad call")
+    check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    tok = batch * seq
+    flops_per_token = 6 * active + 12 * L * seq * cfg.d_model
+    mfu = flops_per_token * tok / dt / PEAK_FLOPS["bfloat16"]
+    log(f"  MoE train step B{batch} T{seq} remat={cfg.remat} {micro} "
+        f"microbatches bf16 fused_adam: {dt * 1e3:.1f} ms/step, "
+        f"{tok / dt:.0f} tok/s, active-parameter MFU {mfu:.4f} ((6 N_active "
+        f"+ 12 L T d) per token at 989 TFLOP/s), peak memory "
+        f"{peak / 2**30:.2f} GiB, first step {first_s:.2f} s; losses "
+        f"{[round(x, 4) for x in losses]}; launches {launched} (per grad "
+        f"call: {per_call}); card {card}")
+    prof = device_profile(torch, f"MoE train step B{batch} T{seq}",
+                          lambda: ts.step(carry, data), top=10)
+    return launched, dict(ms_per_step=dt * 1e3, tok_s=tok / dt, mfu=mfu,
+                          peak_mem_gib=peak / 2**30, first_step_s=first_s,
+                          losses=losses, n_params=total,
+                          n_active_params=active, profile=prof)
+
+
+def run_moe_generate(torch, ctr, gen, params, cfg):
+    """llama_generate b16 (grouped decode FFN, K5) and b1 (the top-K
+    gather, no K5 after prefill)."""
+    L, new = cfg.n_layers, 16
+    rng = np.random.default_rng(6)
+    prompt = rng.integers(0, cfg.vocab_size, (16, 128)).astype(np.int32)
+    gen.llama_generate(params, prompt[:, :8], cfg, 2)     # warm-up
+    torch.cuda.synchronize()
+    reset_counts(ctr)
+    t0 = time.perf_counter()
+    out = gen.llama_generate(params, prompt, cfg, new)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launched = counts(ctr)
+    t0 = time.perf_counter()
+    first, _, _ = gen.llama_prefill(params, prompt, cfg)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out = out.cpu().numpy()
+    check(out.shape == (16, 128 + new), f"shape {out.shape}")
+    check((out[:, :128] == prompt).all(), "prompt not preserved")
+    check(((out >= 0) & (out < cfg.vocab_size)).all(), "token off vocab")
+    check((out[:, 128] == first.cpu().numpy()).all(),
+          "first token differs from llama_prefill's")
+    want = {"K1": L, "K4": L * (new - 1), "K5": 3 * L * new, "K6 dlhs": 0,
+            "K6 tgmm": 0}
+    for k, n in want.items():
+        check(launched[k] == n, f"MoE llama_generate b16: {k} launched "
+              f"{launched[k]} times, expected {n} (K5 3 per layer in "
+              f"prefill and in each decode step)")
+    step_ms = (total_s - prefill_s) / (new - 1) * 1e3
+    log(f"  MoE llama_generate b16 prompt 128 new {new}: {total_s:.3f} s "
+        f"total, prefill {prefill_s * 1e3:.2f} ms, decode {step_ms:.3f} "
+        f"ms/step, {16 * new / total_s:.1f} tok/s; launches {launched}")
+    reset_counts(ctr)
+    one = gen.llama_generate(params, prompt[:1, :32], cfg, 8)
+    torch.cuda.synchronize()
+    n1 = counts(ctr)
+    check(one.shape == (1, 40), f"b1 shape {tuple(one.shape)}")
+    check(n1["K5"] == 3 * L and n1["K4"] == 7 * L,
+          f"MoE llama_generate b1: K5 {n1['K5']} (expected {3 * L}, prefill "
+          f"only: B*K < E decodes by the top-K gather), K4 {n1['K4']}")
+    log(f"  MoE llama_generate b1 prompt 32 new 8: launches {n1} (decode by "
+        f"the top-K weight gather, no K5)")
+    prof = device_profile(torch, "MoE llama_generate b16 prompt 128 new 9",
+                          lambda: gen.llama_generate(params, prompt, cfg, 9))
+    return launched, dict(total_s=total_s, prefill_ms=prefill_s * 1e3,
+                          decode_ms_per_step=step_ms,
+                          tok_s=16 * new / total_s, b1_launches=n1,
+                          profile=prof)
+
+
+def run_moe_engine(torch, ctr, DecodeEngine, Request, params, cfg):
+    """8 requests arriving at once in an engine of max_batch 8 (its
+    decode batch is padded to 8 rows: the grouped FFN, K5), then 2 in an
+    engine of max_batch 1 (the top-K gather)."""
+    L, n_req, new = cfg.n_layers, 8, 16
+    rng = np.random.default_rng(7)
+    lens = rng.integers(17, 129, n_req)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, int(n))
+                    .astype(np.int32), max_new_tokens=new)
+            for i, n in enumerate(lens)]
+    eng = DecodeEngine(params, cfg, block_size=32, n_blocks=64, max_batch=8,
+                       max_context=128 + new, device="cuda")
+    reset_counts(ctr)
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run_until_idle()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launched = counts(ctr)
+    check(sorted(done) == list(range(n_req)), "not every request completed")
+    for r in reqs:
+        toks = done[r.rid]
+        check(len(toks) == len(r.prompt) + new, f"request {r.rid} length")
+        check(((toks >= 0) & (toks < cfg.vocab_size)).all(),
+              f"request {r.rid}: token off vocab")
+    check(launched["K1"] == L * n_req,
+          f"K1 launched {launched['K1']} times, expected {L * n_req}")
+    check(launched["K5"] == 3 * L * (n_req + eng.steps),
+          f"K5 launched {launched['K5']} times, expected 3 per layer per "
+          f"prefill and per decode step ({3 * L * (n_req + eng.steps)})")
+    log(f"  MoE DecodeEngine {n_req} requests (prompts {int(lens.min())}-"
+        f"{int(lens.max())}, {new} new each), max_batch 8: {total_s:.3f} s, "
+        f"{eng.steps} steps, {n_req * new / total_s:.1f} tok/s; launches "
+        f"{launched}")
+    small = DecodeEngine(params, cfg, block_size=32, n_blocks=16,
+                         max_batch=1, max_context=128 + new, device="cuda")
+    reset_counts(ctr)
+    for r in reqs[:2]:
+        small.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=8))
+    done_small = small.run_until_idle()
+    torch.cuda.synchronize()
+    n1 = counts(ctr)
+    check(sorted(done_small) == [0, 1], "max_batch 1: not every request "
+          "completed")
+    check(n1["K5"] == 3 * L * 2, f"max_batch 1: K5 launched {n1['K5']} "
+          f"times, expected {3 * L * 2} (prefills only)")
+    log(f"  MoE DecodeEngine 2 requests x 8 new, max_batch 1: {small.steps} "
+        f"steps; launches {n1} (decode by the top-K gather)")
+    return launched, dict(total_s=total_s, steps=eng.steps,
+                          tok_s=n_req * new / total_s,
+                          max_batch_1_launches=n1)
 
 
 def main():
@@ -604,6 +937,7 @@ def main():
         from horovod_tpu_torch.ops import _build
         from horovod_tpu_torch.ops import decode_attention as da
         from horovod_tpu_torch.ops import flash_attention as fa
+        from horovod_tpu_torch.ops import grouped_moe as gm
         from horovod_tpu_torch.parallel import precision, train_step
         from horovod_tpu_torch.serving.engine import DecodeEngine
         from horovod_tpu_torch.serving.scheduler import (
@@ -617,6 +951,7 @@ def main():
     # token for token and gradient for gradient.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    ctr = launch_counters(fa, da, gm)
 
     log("phase 1: card and build")
     card = subprocess.run(
@@ -642,14 +977,36 @@ def main():
           flash_case(torch, fa, 1, 77, bf16, 50),
           flash_case(torch, fa, 1, 4096, bf16, 5),
           flash_case(torch, fa, 4, 2048, bf16, 5),
+          flash_case(torch, fa, 2, 2048, bf16, 5, hkv=8),
           flash_case(torch, fa, 4, 128, f32, 20)]
     bwd = [bwd_case(torch, fa, 4, 2048, bf16, 5),
+           bwd_case(torch, fa, 2, 2048, bf16, 5, hkv=8),
            bwd_case(torch, fa, 1, 77, bf16, 20),
            bwd_case(torch, fa, 2, 256, f32, 10)]
     k2, k3 = [c[0] for c in bwd], [c[1] for c in bwd]
     k4 = [decode_case(torch, da, 16, 4, 4, 192, 150, bf16, 100),
           decode_case(torch, da, 1, 4, 4, 32768, 32767, bf16, 50),
           decode_case(torch, da, 16, 4, 4, 192, 150, f32, 50)]
+    # K5/K6 at the MoE paths' shapes: one train microbatch routes 8192
+    # rows (B2 T2048, top-2), a b16 x 128 prefill 4096, a b16 decode step
+    # 32; then f32 (the parity phase's B2 T256) and a skewed routing with
+    # an empty group and boundaries off the 128-row tile.
+    train_sizes = [2100, 1900, 2300, 1892]
+    gmm_cases = [
+        gmm_case(torch, gm, "train gate/up", train_sizes, 2048, 4096, bf16,
+                 5),
+        gmm_case(torch, gm, "train down", train_sizes, 4096, 2048, bf16, 5),
+        gmm_case(torch, gm, "prefill gate/up", [1000, 1100, 980, 1016],
+                 2048, 4096, bf16, 5, backward=False),
+        gmm_case(torch, gm, "decode gate/up", [9, 7, 10, 6], 2048, 4096,
+                 bf16, 20, backward=False),
+        gmm_case(torch, gm, "f32 gate/up", [300, 250, 222, 252], 2048, 4096,
+                 f32, 3),
+        gmm_case(torch, gm, "skewed gate/up", [0, 5000, 3001, 191], 2048,
+                 4096, bf16, 5),
+    ]
+    k5 = [c["K5"] for c in gmm_cases]
+    k6 = [c[h] for c in gmm_cases for h in ("K6 dlhs", "K6 tgmm") if h in c]
 
     log("phase 3: llama_generate at flagship width")
     cfg = flagship_config(LlamaConfig)
@@ -659,12 +1016,12 @@ def main():
         params[k].numel() for k in ("embed", "final_norm", "lm_head"))
     log(f"  flagship: {n_params / 1e9:.3f} B params, "
         f"{n_params * 2 / 1e9:.2f} GB bf16")
-    gen_launch, gen_stats = run_generate(torch, fa, da, gen, params, cfg,
+    gen_launch, gen_stats = run_generate(torch, ctr, gen, params, cfg,
                                          16, 128, 64)
 
     log("phase 4: DecodeEngine at flagship width")
-    eng_launch, eng_stats = run_engine(torch, fa, da, DecodeEngine,
-                                       Request, params, cfg)
+    eng_launch, eng_stats = run_engine(torch, ctr, DecodeEngine, Request,
+                                       params, cfg)
     del params
     torch.cuda.empty_cache()
 
@@ -673,39 +1030,93 @@ def main():
 
     log("phase 6: training at flagship width")
     train_launch, train_stats = run_train(
-        torch, fa, da, llama, precision, train_step, cfg, 4, 2048, 5, card)
+        torch, ctr, llama, precision, train_step, cfg, 4, 2048, 5, card)
     torch.cuda.empty_cache()
 
     log("phase 7: training parity (f32, 2 layers) and remat modes")
-    parity = run_train_parity(torch, fa, da, llama, train_step, cfg)
+    flash_counts = {"K1": 2, "K2": 2, "K3": 2}
+    parity = run_train_parity(torch, ctr, llama, train_step, cfg, {
+        "none": flash_counts, "full": dict(flash_counts, K1=4),
+        "attn": flash_counts, "attn+gate": flash_counts})
+    torch.cuda.empty_cache()
 
-    log("phase 8: results")
+    log("phase 8: MoE training at full width (benchmarks/moe_bench.py)")
+    mcfg = moe_config(LlamaConfig)
+    moe_ffn_without_host_sync(torch, gm, mcfg, 4096)
+    moe_train_launch, moe_train_stats = run_moe_train(
+        torch, ctr, llama, precision, train_step, mcfg, 4, 2048, 4, card)
+    torch.cuda.empty_cache()
+
+    log("phase 9: MoE serving at full width")
+    params = llama_init(mcfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    moe_gen_launch, moe_gen_stats = run_moe_generate(torch, ctr, gen,
+                                                     params, mcfg)
+    moe_eng_launch, moe_eng_stats = run_moe_engine(
+        torch, ctr, DecodeEngine, Request, params, mcfg)
+    del params
+    torch.cuda.empty_cache()
+
+    log("phase 10: MoE parity (f32, 2 layers): training, remat modes, "
+        "engine/generate tokens")
+    # Per grad call at 2 layers: K5 3 per layer in the forward, plus what
+    # each backward re-runs (3 under full/attn/attn+gate, 2 under
+    # attn+moe, none under moe); K6's halves 3 per layer in every mode.
+    moe_counts = {"K1": 2, "K2": 2, "K3": 2, "K5": 6, "K6 dlhs": 6,
+                  "K6 tgmm": 6}
+    moe_parity = run_train_parity(torch, ctr, llama, train_step, mcfg, {
+        "none": moe_counts, "full": dict(moe_counts, K1=4, K5=12),
+        "attn": dict(moe_counts, K5=12), "attn+gate": dict(moe_counts, K5=12),
+        "attn+moe": dict(moe_counts, K5=10), "moe": moe_counts})
+    run_parity(gen, DecodeEngine, poisson_trace, llama_init, torch, mcfg)
+
+    log("phase 11: results")
     log(json.dumps({"generate": gen_stats, "engine": eng_stats,
                     "train": train_stats, "train_parity": parity,
-                    "card": card}))
+                    "moe_train": moe_train_stats,
+                    "moe_generate": moe_gen_stats,
+                    "moe_engine": moe_eng_stats,
+                    "moe_train_parity": moe_parity, "card": card}))
     paths = {"llama_generate": gen_launch, "DecodeEngine": eng_launch,
-             "train_step": train_launch}
+             "train_step": train_launch, "moe_train_step": moe_train_launch,
+             "moe_llama_generate": moe_gen_launch,
+             "moe_DecodeEngine": moe_eng_launch}
 
-    def row(name, source, replaces, key, cases):
-        by_path = {p: n[key] for p, n in paths.items()}
+    def row(name, source, replaces, keys, cases, head=None):
+        by_path = {p: sum(n[k] for k in keys) for p, n in paths.items()}
+        head = head or cases[0]
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=sum(by_path.values()),
                     launches_by_path=by_path,
-                    **{k: cases[0][k] for k in (
+                    **{k: head[k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")},
                     cases=cases)
 
+    # K6's headline: one backward at the train gate/up shape, both halves.
+    dlhs, tgmm = gmm_cases[0]["K6 dlhs"], gmm_cases[0]["K6 tgmm"]
+    k6_head = dict(
+        max_abs_err=max(dlhs["max_abs_err"], tgmm["max_abs_err"]),
+        ms=dlhs["ms"] + tgmm["ms"], plain_ms=dlhs["plain_ms"]
+        + tgmm["plain_ms"], bound_ms=dlhs["bound_ms"] + tgmm["bound_ms"],
+        bound_by=dlhs["bound_by"],
+        library_ms=None if None in (dlhs["library_ms"], tgmm["library_ms"])
+        else dlhs["library_ms"] + tgmm["library_ms"])
     kernels = [
         row("K1 flash_fwd", "horovod_tpu_torch/csrc/flash_fwd.cu",
-            "horovod_tpu/ops/flash_attention.py:50", "K1", k1),
+            "horovod_tpu/ops/flash_attention.py:50", ["K1"], k1),
         row("K2 flash_bwd_dkv", "horovod_tpu_torch/csrc/flash_bwd.cu",
-            "horovod_tpu/ops/flash_attention.py:134", "K2", k2),
+            "horovod_tpu/ops/flash_attention.py:134", ["K2"], k2),
         row("K3 flash_bwd_dq", "horovod_tpu_torch/csrc/flash_bwd.cu",
-            "horovod_tpu/ops/flash_attention.py:208", "K3", k3),
+            "horovod_tpu/ops/flash_attention.py:208", ["K3"], k3),
         row("K4 decode_attention",
             "horovod_tpu_torch/csrc/decode_attention.cu",
-            "horovod_tpu/ops/decode_attention.py:36", "K4", k4),
+            "horovod_tpu/ops/decode_attention.py:36", ["K4"], k4),
+        row("K5 gmm", "horovod_tpu_torch/csrc/grouped_mm.cu",
+            "horovod_tpu/ops/grouped_moe.py:137", ["K5"], k5),
+        row("K6 gmm_dlhs + tgmm", "horovod_tpu_torch/csrc/grouped_mm.cu",
+            "horovod_tpu/ops/grouped_moe.py:151", ["K6 dlhs", "K6 tgmm"],
+            k6, head=k6_head),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

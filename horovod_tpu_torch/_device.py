@@ -1,8 +1,10 @@
-"""The port's default-device rule.
+"""The port's device rules.
 
 Entry points run on the card unless the caller asks for the CPU. With
 no device given and no CUDA they raise: a run that silently fell back
-to the CPU would report CPU numbers under a GPU's name.
+to the CPU would report CPU numbers under a GPU's name. Below them, an
+op runs its kernel for CUDA tensors and its plain PyTorch version only
+for CPU tensors (:func:`kernel_or_plain`).
 """
 
 import torch
@@ -36,3 +38,14 @@ def on_device(params, device, **tensors):
     check_on(dev, embed=params["embed"])
     return dev, {k: None if t is None else torch.as_tensor(t, device=dev)
                  for k, t in tensors.items()}
+
+
+def kernel_or_plain(label, x, kernel, plain, *args):
+    """``kernel(x, *args)`` for a CUDA tensor ``x``, ``plain(x, *args)``
+    for a CPU tensor, an error for anything else: never a fallback from
+    one to the other. ``label`` names the op in the error."""
+    if x.is_cuda:
+        return kernel(x, *args)
+    if x.device.type == "cpu":
+        return plain(x, *args)
+    raise ValueError(f"{label} has no path for {x.device}")

@@ -1,4 +1,4 @@
-"""KV-cached autoregressive decoding for the dense Llama family.
+"""KV-cached autoregressive decoding for the Llama family, dense and MoE.
 
 Counterpart of horovod_tpu/models/generate.py. Prefill runs every layer
 over the whole prompt with attention on the K1 kernel
@@ -9,15 +9,18 @@ runs one token at a time with attention on the K4 kernel
 ``decode_attention_ragged``, as the JAX package does on every platform.
 
 The JAX module's ``lax.scan``s over layers and tokens are Python loops
-here, and PyTorch runs them eagerly. Mixture-of-experts configs raise
-(ROADMAP.md A7).
+here, and PyTorch runs them eagerly. An MoE layer's FFN takes the
+grouped dispatch (``ops/grouped_moe.py``, K5) at prefill; a decode step
+takes the top-K weight gather (:func:`_moe_ffn_topk`, plain einsums)
+while B*T*K < E, and the grouped dispatch beyond (:func:`_decode_ffn`).
 """
 
 import torch
+import torch.nn.functional as F
 
 from horovod_tpu_torch._device import on_device as _on_device
 from horovod_tpu_torch.models.llama import _ffn as _llama_ffn
-from horovod_tpu_torch.models.llama import _require_dense, _rmsnorm, _rope
+from horovod_tpu_torch.models.llama import _rmsnorm, _rope, moe_route
 from horovod_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_ragged,
@@ -26,9 +29,43 @@ from horovod_tpu_torch.ops.flash_attention import flash_attention
 
 
 def _ffn(h, lp, c):
-    """llama.py's FFN with the aux loss dropped (decode does not train)."""
+    """llama.py's FFN with the aux loss dropped (decode does not train).
+    Serves prefill, dense decode, and MoE decode at larger batch."""
     y, _aux = _llama_ffn(h, lp, c)
     return y
+
+
+def _moe_ffn_topk(h, lp, c):
+    """Decode-step MoE FFN: gather only the K routed experts' weights
+    per token and contract with them, so FLOPs and weight reads scale
+    with K, not E (the same router and gate normalisation as the
+    grouped dispatch). Each token holds its own [K, D, F] weight copy,
+    so this path only wins while B*T*K < E (:func:`_decode_ffn`). The
+    weights are gathered, then cast: the same values as JAX's
+    cast-then-gather."""
+    dt = c.compute_dtype
+    gate_vals, gate_idx, _aux = moe_route(h, lp["router"],
+                                          c.n_experts_per_token)
+    idx = gate_idx.long()                                    # [B, T, K]
+    wg = lp["moe_gate"][idx].to(dt)                          # [B,T,K,D,F]
+    wu = lp["moe_up"][idx].to(dt)
+    wd = lp["moe_down"][idx].to(dt)                          # [B,T,K,F,D]
+    hk = h.to(dt)
+    gate = F.silu(torch.einsum("btd,btkdf->btkf", hk, wg))
+    up = torch.einsum("btd,btkdf->btkf", hk, wu)
+    y = torch.einsum("btkf,btkfd->btkd", gate * up, wd)
+    return torch.einsum("btk,btkd->btd", gate_vals.to(dt), y)
+
+
+def _decode_ffn(h, lp, c):
+    """FFN of a decode step: dense as is; MoE by the top-K gather while
+    it touches fewer weights than the grouped dispatch over all E
+    experts (B*T*K < E), else the grouped dispatch (K5)."""
+    if c.n_experts > 0:
+        b, t, _ = h.shape
+        if b * t * c.n_experts_per_token < c.n_experts:
+            return _moe_ffn_topk(h, lp, c)
+    return _ffn(h, lp, c)
 
 
 def _layer(params, li):
@@ -67,7 +104,7 @@ def _attend_step(x, lp, c, cache_k, cache_v, li, pos):
     attn = decode_attention(q, cache_k[li], cache_v[li], pos)
     x = x + attn.reshape(b, -1) @ lp["wo"].to(dt)
     h = _rmsnorm(x, lp["mlp_norm"].to(dt), c.norm_eps)
-    x = x + _ffn(h[:, None, :], lp, c)[:, 0, :]
+    x = x + _decode_ffn(h[:, None, :], lp, c)[:, 0, :]
     return x, cache_k, cache_v
 
 
@@ -76,7 +113,6 @@ def _prefill(params, prompt, c, pad_to):
 
     Returns (x [B, T, D] final hidden states, cache_k, cache_v
     [L, B, Hkv, T + pad_to, hd] heads-major, zero past T)."""
-    _require_dense(c)
     dt = c.compute_dtype
     b, t0 = prompt.shape
     x = params["embed"].to(dt)[prompt.long()]
@@ -140,7 +176,6 @@ def llama_decode_step(params, tokens, cache_k, cache_v, lengths, config,
                       cache_v=cache_v, lengths=lengths, k_scale=k_scale,
                       v_scale=v_scale)
     c = config
-    _require_dense(c)
     dt = c.compute_dtype
     tokens, lengths = a["tokens"], a["lengths"]
     b = tokens.shape[0]
@@ -160,7 +195,7 @@ def llama_decode_step(params, tokens, cache_k, cache_v, lengths, config,
             v_scale=None if a["v_scale"] is None else a["v_scale"][li])
         x = x + attn.reshape(b, -1) @ lp["wo"].to(dt)
         h = _rmsnorm(x, lp["mlp_norm"].to(dt), c.norm_eps)
-        x = x + _ffn(h[:, None, :], lp, c)[:, 0, :]
+        x = x + _decode_ffn(h[:, None, :], lp, c)[:, 0, :]
         k_out.append(k_new[:, 0])
         v_out.append(v_new[:, 0])
     nxt = _lm_logits(params, x, c).argmax(-1).to(tokens.dtype)

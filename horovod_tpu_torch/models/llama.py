@@ -1,25 +1,29 @@
-"""Llama-family decoder-only transformer: the port's dense model.
+"""Llama-family decoder-only transformer: the port's dense and sparse
+mixture-of-experts model.
 
 Counterpart of horovod_tpu/models/llama.py. Parameters are a plain dict
 with the JAX package's keys and stacked [L, ...] shapes (so a JAX tree
 converts leaf for leaf, see ``convert.py``); the helpers are plain
 functions on tensors, with the same numeric recipe as the JAX ones.
 
-Ported here: ``LlamaConfig``, ``llama_init``, ``_rmsnorm``, ``_rope``,
-the dense branch of ``_ffn``, and the training forward: ``llama_forward``
-and ``llama_loss`` (single device; the JAX ``lax.scan`` over layers is a
-Python loop over the unbound layer slices) with the remat modes
-``none``, ``full``, ``attn`` and ``attn+gate``. Mesh, pipeline and
-sequence parallelism (A8, A10), the other remat modes (A1) and
-mixture-of-experts FFNs (A7) are not ported yet and raise.
+Ported here: ``LlamaConfig``, ``llama_init`` (dense and MoE trees),
+``_rmsnorm``, ``_rope``, ``moe_route``, ``_ffn`` (dense SwiGLU, or the
+dropless grouped MoE dispatch of ``ops/grouped_moe.py``), and the
+training forward: ``llama_forward`` and ``llama_loss`` (single device;
+the JAX ``lax.scan`` over layers is a Python loop over the unbound
+layer slices) with the remat modes ``none``, ``full``, ``attn``,
+``attn+gate``, ``attn+moe`` and ``moe``. Mesh, pipeline and sequence
+parallelism and the GShard MoE dispatch (A8, A10), and the other remat
+modes (A1) are not ported yet and raise.
 
 Remat is PyTorch's selective activation checkpointing, which decides per
 dispatcher op. The JAX save-names map onto ops: ``flash_o``/``flash_lse``
 are the outputs of the flash op ``hvd_torch::flash_fwd`` (K1), and
 ``ffn_gate`` is the pre-silu gate, produced by the named matmul op
-``hvd_torch::named_matmul``. JAX's ``attn_out`` names the attention
-output only on its non-Pallas fallback; here attention always goes
-through the flash op, whose saved ``o`` is that output.
+``hvd_torch::named_matmul``; the MoE names are the outputs of the
+grouped-MoE ops (``ops/grouped_moe.py``). JAX's ``attn_out`` names the
+attention output only on its non-Pallas fallback; here attention always
+goes through the flash op, whose saved ``o`` is that output.
 """
 
 import dataclasses
@@ -34,6 +38,7 @@ from torch.utils.checkpoint import (
 )
 
 from horovod_tpu_torch._device import on_device, resolve_device
+from horovod_tpu_torch.ops import grouped_moe
 from horovod_tpu_torch.ops.flash_attention import flash_attention
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -52,9 +57,10 @@ def torch_dtype(name):
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
     """Field-for-field mirror of the JAX ``LlamaConfig`` (see its
-    comments for each field). Fields the port does not use yet (remat,
-    MoE, pipeline and sequence parallelism, scan and flash tuning) are
-    kept so that one config describes one model in both packages."""
+    comments for each field). Fields the port does not use yet
+    (capacity factor, pipeline and sequence parallelism, scan and flash
+    tuning) are kept so that one config describes one model in both
+    packages."""
 
     vocab_size: int = 32000
     d_model: int = 4096
@@ -93,6 +99,12 @@ class LlamaConfig:
                            n_heads=32, n_kv_heads=8, d_ff=14336)
 
     @staticmethod
+    def mixtral_8x7b():
+        return LlamaConfig(vocab_size=32000, d_model=4096, n_layers=32,
+                           n_heads=32, n_kv_heads=8, d_ff=14336,
+                           n_experts=8, n_experts_per_token=2)
+
+    @staticmethod
     def tiny(**kw):
         """Test config: full architecture, toy sizes."""
         defaults = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
@@ -100,12 +112,11 @@ class LlamaConfig:
         defaults.update(kw)
         return LlamaConfig(**defaults)
 
-
-def _require_dense(c):
-    if c.n_experts > 0:
-        raise NotImplementedError(
-            "mixture-of-experts configs are not ported yet (ROADMAP.md "
-            "A7: MoE, kernels K5/K6)")
+    @staticmethod
+    def tiny_moe(**kw):
+        """Tiny sparse-MoE variant of :meth:`tiny`."""
+        kw.setdefault("n_experts", 4)
+        return LlamaConfig.tiny(**kw)
 
 
 def llama_init(config, generator, device=None):
@@ -113,9 +124,10 @@ def llama_init(config, generator, device=None):
     ``param_dtype`` (the values differ: torch and JAX draw different
     streams from one seed). Normals are drawn on ``generator``'s device
     in f32, scaled by fan_in^-1/2 and cast per leaf, so no whole-tree
-    f32 copy is ever held."""
+    f32 copy is ever held. MoE configs get ``router`` [L, D, E] and
+    ``moe_gate``/``moe_up`` [L, E, D, F], ``moe_down`` [L, E, F, D] in
+    place of the dense FFN weights."""
     c = config
-    _require_dense(c)
     dev = resolve_device(device)
     pd = torch_dtype(c.param_dtype)
     hd = c.head_dim
@@ -136,10 +148,21 @@ def llama_init(config, generator, device=None):
         "wv": dense((L, c.d_model, c.n_kv_heads * hd), c.d_model),
         "wo": dense((L, c.n_heads * hd, c.d_model), c.n_heads * hd),
         "mlp_norm": torch.ones((L, c.d_model), dtype=pd, device=dev),
-        "w_gate": dense((L, c.d_model, c.d_ff), c.d_model),
-        "w_up": dense((L, c.d_model, c.d_ff), c.d_model),
-        "w_down": dense((L, c.d_ff, c.d_model), c.d_ff),
     }
+    if c.n_experts > 0:
+        E = c.n_experts
+        layers.update({
+            "router": dense((L, c.d_model, E), c.d_model),
+            "moe_gate": dense((L, E, c.d_model, c.d_ff), c.d_model),
+            "moe_up": dense((L, E, c.d_model, c.d_ff), c.d_model),
+            "moe_down": dense((L, E, c.d_ff, c.d_model), c.d_ff),
+        })
+    else:
+        layers.update({
+            "w_gate": dense((L, c.d_model, c.d_ff), c.d_model),
+            "w_up": dense((L, c.d_model, c.d_ff), c.d_model),
+            "w_down": dense((L, c.d_ff, c.d_model), c.d_ff),
+        })
     return {
         "embed": normal((c.vocab_size, c.d_model), 0.02),
         "layers": layers,
@@ -195,11 +218,46 @@ torch.library.register_autograd("hvd_torch::named_matmul",
                                 setup_context=_named_matmul_setup)
 
 
+def moe_route(h, router_w, n_experts_per_token):
+    """The one router, shared by the grouped dispatch and cached decode:
+    f32 logits product, softmax, top-K (descending, as ``lax.top_k``),
+    the epsilon-guarded gate normalisation and the Switch
+    load-balancing aux loss E * <fraction routed top-1 to e> . <mean
+    prob of e>, with means over all leading axes.
+
+    ``h`` is [..., D]; returns (gate_vals [..., K] f32, gate_idx
+    [..., K] int32, aux). The one-hot is a compare with the expert ids:
+    ``F.one_hot`` on CUDA reads the indices' range on the host."""
+    E = router_w.shape[-1]
+    logits = h.float() @ router_w.float()
+    probs = torch.softmax(logits, dim=-1)                    # [..., E]
+    gate_vals, gate_idx = torch.topk(probs, n_experts_per_token, dim=-1)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    lead = tuple(range(probs.dim() - 1))
+    experts = torch.arange(E, device=h.device)
+    top1 = (gate_idx[..., :1] == experts).float()
+    aux = E * torch.sum(top1.mean(lead) * probs.mean(lead))
+    return gate_vals, gate_idx.int(), aux
+
+
 def _ffn(h, lp, c):
-    """One layer's dense SwiGLU FFN on normalised activations.
-    Returns (y, aux_loss) like the JAX ``_ffn`` (aux is 0 when dense).
-    The pre-silu gate is named ``ffn_gate`` for remat="attn+gate"."""
-    _require_dense(c)
+    """One layer's FFN on normalised activations: the dense SwiGLU, or
+    top-K expert routing for MoE configs, dispatched as the JAX ``_ffn``
+    with no mesh: ``moe_impl`` "auto" or "grouped" takes the dropless
+    grouped path (K5/K6). Returns (y, aux_loss) (aux is 0 when dense).
+    The dense pre-silu gate is named ``ffn_gate`` for
+    remat="attn+gate"."""
+    if c.n_experts > 0:
+        if c.moe_impl in ("auto", "grouped"):
+            return grouped_moe.grouped_moe_ffn(h, lp, c)
+        if c.moe_impl == "gshard":
+            raise NotImplementedError(
+                "moe_impl='gshard' (the GShard dispatch of the "
+                "expert-parallel mesh path) is not ported yet (ROADMAP.md "
+                "A8); use 'auto' or 'grouped'")
+        raise ValueError(f"unknown moe_impl {c.moe_impl!r}: expected "
+                         "'auto', 'grouped', or 'gshard'")
     dt = c.compute_dtype
     gate = named_matmul(h, lp["w_gate"].to(dt), "ffn_gate")
     up = h @ lp["w_up"].to(dt)
@@ -215,26 +273,40 @@ def _attention(q, k, v):
 
 _FLASH_OP = torch.ops.hvd_torch.flash_fwd.default
 _NAMED_OP = torch.ops.hvd_torch.named_matmul.default
+_GMM_OP = torch.ops.hvd_torch.gmm.default
+_Y_SLOTS_OP = torch.ops.hvd_torch.gmm_unpermute.default
+_X_SORTED_OP = torch.ops.hvd_torch.dispatch_gather.default
 
 # The JAX save-sets of the ported modes (horovod_tpu/models/llama.py
 # _build_layer_body), by name.
+_MOE_EXTRA_SAVE = ("moe_x_sorted", "moe_gate_act", "moe_up_act")
 _REMAT_SAVES = {
     "attn": ("flash_o", "flash_lse"),
     "attn+gate": ("flash_o", "flash_lse", "ffn_gate"),
+    "attn+moe": ("flash_o", "flash_lse", "moe_y_slots"),
+    "moe": ("flash_o", "flash_lse", "moe_y_slots", *_MOE_EXTRA_SAVE),
 }
-_REMAT_QUEUED = {"dots": "A1", "attn+ffn": "A1", "attn+gate+qkv": "A1",
-                 "attn+moe": "A7", "moe": "A7"}
+_REMAT_QUEUED = {"dots": "A1", "attn+ffn": "A1", "attn+gate+qkv": "A1"}
 
 
 def _save_only_these_names(names):
     """A selective-checkpoint policy saving the ops that produce
     ``names`` and recomputing everything else in the backward."""
     def policy(ctx, op, *args, **kwargs):
-        if op is _FLASH_OP and "flash_o" in names:
-            return CheckpointPolicy.MUST_SAVE
-        if op is _NAMED_OP and args[2] in names:
-            return CheckpointPolicy.MUST_SAVE
-        return CheckpointPolicy.PREFER_RECOMPUTE
+        if op is _FLASH_OP:
+            saved = "flash_o" in names
+        elif op is _NAMED_OP:
+            saved = args[2] in names
+        elif op is _GMM_OP:
+            saved = args[3] in names
+        elif op is _Y_SLOTS_OP:
+            saved = "moe_y_slots" in names
+        elif op is _X_SORTED_OP:
+            saved = "moe_x_sorted" in names
+        else:
+            saved = False
+        return (CheckpointPolicy.MUST_SAVE if saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
 
     return functools.partial(create_selective_checkpoint_contexts, policy)
 
@@ -242,8 +314,11 @@ def _save_only_these_names(names):
 def _build_layer_body(c):
     """One decoder layer ``(x, lp) -> (x, aux)``, wrapped in the
     configured remat mode. Under ``full`` the backward re-runs the whole
-    layer, K1 included; under ``attn`` and ``attn+gate`` it re-runs all
-    but the saved ops, so K1 runs once per layer per grad call."""
+    layer, K1 included; under the save-set modes it re-runs all but the
+    saved ops, so K1 runs once per layer per grad call. On an MoE layer
+    the backward needs ``y_slots`` (the router's combine gradient), so
+    ``full``, ``attn`` and ``attn+gate`` re-run all three grouped
+    products (K5), ``attn+moe`` the gate and up products, ``moe`` none."""
     dt = c.compute_dtype
 
     def layer(x, lp):
@@ -267,8 +342,16 @@ def _build_layer_body(c):
     if mode in _REMAT_QUEUED:
         raise NotImplementedError(
             f"remat={mode!r} is not ported yet (ROADMAP.md "
-            f"{_REMAT_QUEUED[mode]}); use 'none', 'full', 'attn' or "
-            "'attn+gate'")
+            f"{_REMAT_QUEUED[mode]}); use 'none', 'full', 'attn', "
+            "'attn+gate', 'attn+moe' or 'moe'")
+    if mode in ("attn+moe", "moe") and not (
+            c.n_experts > 0 and c.moe_impl in ("auto", "grouped")):
+        # These modes save residuals only the grouped dispatch emits; on
+        # a dense config they would silently degrade to plain "attn".
+        raise ValueError(
+            f"remat={mode!r} requires the grouped MoE dispatch "
+            "(n_experts > 0 and moe_impl 'auto' or 'grouped'); use "
+            "remat='attn' or 'attn+gate' here")
     if mode is False or mode == "none":
         return layer
     if mode is True or mode == "full":
@@ -328,12 +411,11 @@ class _F32Logits(torch.autograd.Function):
 def llama_forward(params, tokens, config, return_aux=False, device=None):
     """tokens [B, T] int -> logits [B, T, vocab] (float32).
 
-    With ``return_aux`` the MoE load-balancing loss (0 for the dense
-    configs ported here) is returned alongside the logits. ``device``
+    With ``return_aux`` the MoE load-balancing loss (the mean over
+    layers; 0 for dense configs) is returned alongside the logits. ``device``
     follows the entry-point rule (``None`` means cuda); the params must
     lie there."""
     c = config
-    _require_dense(c)
     _, a = on_device(params, device, tokens=tokens)
     dt = c.compute_dtype
     x = params["embed"].to(dt)[a["tokens"].long()]
@@ -358,15 +440,20 @@ def _token_nll(logits, targets):
 
 
 def llama_loss(params, batch, config, device=None):
-    """Causal LM loss. batch = {"tokens": [B, T], "targets": [B, T],
-    "mask": [B, T] or absent}: the mean token NLL, or the masked mean
-    sum(nll * mask) / max(sum(mask), 1). MoE configs raise (A7)."""
-    _require_dense(config)
-    logits = llama_forward(params, batch["tokens"], config, device=device)
+    """Causal LM loss (+ the weighted MoE aux loss for expert configs).
+    batch = {"tokens": [B, T], "targets": [B, T], "mask": [B, T] or
+    absent}: the mean token NLL, or the masked mean
+    sum(nll * mask) / max(sum(mask), 1)."""
+    logits, aux = llama_forward(params, batch["tokens"], config,
+                                return_aux=True, device=device)
     nll = _token_nll(logits, torch.as_tensor(batch["targets"],
                                              device=logits.device))
     mask = batch.get("mask")
     if mask is None:
-        return nll.mean()
-    mask = torch.as_tensor(mask, device=logits.device).float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        loss = nll.mean()
+    else:
+        mask = torch.as_tensor(mask, device=logits.device).float()
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if config.n_experts > 0:
+        loss = loss + config.moe_aux_weight * aux
+    return loss

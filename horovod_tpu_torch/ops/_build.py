@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("flash_fwd", "flash_bwd", "decode_attention")
+SOURCES = ("flash_fwd", "flash_bwd", "decode_attention", "grouped_mm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -87,6 +87,8 @@ def build_all():
 
 def load(name):
     """The ctypes library of kernel source ``name``, built if needed."""
+    if name not in SOURCES:
+        raise ValueError(f"{name!r} is not a kernel source: {SOURCES}")
     lib = _libs.get(name)
     if lib is None:
         build_all()

@@ -21,6 +21,7 @@ import ctypes
 
 import torch
 
+from horovod_tpu_torch._device import kernel_or_plain
 from horovod_tpu_torch.ops import _build
 
 _NEG = -1e30
@@ -124,11 +125,9 @@ def decode_attention(q, cache_k, cache_v, pos):
     exclusive ``lengths``). Returns [B, 1, H, D] in q's dtype. K4 for
     CUDA tensors, the plain version for CPU tensors.
     """
-    if q.is_cuda:
-        return _decode_attention_cuda(q, cache_k, cache_v, pos)
-    if q.device.type == "cpu":
-        return _decode_attention_reference(q, cache_k, cache_v, pos)
-    raise ValueError(f"decode attention has no path for {q.device}")
+    return kernel_or_plain("decode attention", q, _decode_attention_cuda,
+                           _decode_attention_reference, cache_k, cache_v,
+                           pos)
 
 
 def decode_attention_ragged(q, cache_k, cache_v, lengths, k_new, v_new,

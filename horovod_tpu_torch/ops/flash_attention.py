@@ -27,6 +27,7 @@ import ctypes
 
 import torch
 
+from horovod_tpu_torch._device import kernel_or_plain
 from horovod_tpu_torch.ops import _build
 
 _NEG = -1e30
@@ -222,28 +223,19 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal=True):
     return dq, dk, dv
 
 
-def _on_path(q, cuda_fn, cpu_fn, *args):
-    """The kernel for CUDA tensors, the plain version for CPU tensors,
-    an error for anything else: never a fallback from one to the
-    other."""
-    if q.is_cuda:
-        return cuda_fn(q, *args)
-    if q.device.type == "cpu":
-        return cpu_fn(q, *args)
-    raise ValueError(f"flash attention has no path for {q.device}")
-
-
 def _flash_fwd_impl(q, k, v, causal=True):
     """(o, lse) in the kernel layout: K1 for CUDA tensors, the plain
     version for CPU tensors."""
-    return _on_path(q, _flash_fwd_cuda, _flash_fwd_reference, k, v, causal)
+    return kernel_or_plain("flash attention", q, _flash_fwd_cuda,
+                           _flash_fwd_reference, k, v, causal)
 
 
 def _flash_bwd_impl(q, k, v, o, lse, do, causal=True):
     """(dq, dk, dv) with dk/dv at k's Hkv heads: K2 + K3 for CUDA
     tensors, the plain version for CPU tensors, then the n_rep sum."""
-    dq, dk, dv = _on_path(q, _flash_bwd_cuda, _flash_bwd_reference, k, v,
-                          o, lse, do, causal)
+    dq, dk, dv = kernel_or_plain("flash attention", q, _flash_bwd_cuda,
+                                 _flash_bwd_reference, k, v, o, lse, do,
+                                 causal)
     return (dq,) + _sum_kv_heads(dk, dv, k.shape[1])
 
 

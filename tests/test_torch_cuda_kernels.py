@@ -7,7 +7,10 @@ file adds edge shapes. Tolerances: f32 1e-4; bf16 output 2e-2 (one bf16
 ulp of p may differ across summation orders); lse 1e-3. K2/K3 gradients
 relative to each gradient's largest entry: f32 1e-4, bf16 2e-2 (the
 same f32 products summed in another order, then one bf16 rounding of p
-or ds may land differently).
+or ds may land differently). K5/K6 relative to the plain version's
+largest entry: f32 1e-5, bf16 1e-2 (both sum in f32 and round once, so
+an element may differ by one bf16 ulp); an empty group's tgmm slice is
+exactly 0.
 """
 
 import pytest
@@ -15,6 +18,7 @@ import torch
 
 from horovod_tpu_torch.ops import decode_attention as da
 from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.ops import grouped_moe as gm
 
 pytestmark = pytest.mark.cuda_sm90
 
@@ -109,3 +113,90 @@ def test_backward_launches_k2_and_k3_once_each():
             fa._flash_bwd_dq_cuda.launches) == (before[0], before[1] + 1,
                                                 before[2] + 1)
     assert q.grad.shape == q.shape and kv.grad.shape == kv.shape
+
+
+# (M, K, N, group sizes): M, K and N off the 128-wide tile, empty first,
+# middle and last groups, every row in one group, boundaries straddling
+# a row tile.
+GMM_LAYOUTS = {
+    "E1": (37, 48, 40, [37]),
+    "E4-empty-first": (37, 48, 40, [0, 12, 15, 10]),
+    "E4-empty-middle": (37, 48, 40, [12, 0, 15, 10]),
+    "E4-empty-last": (37, 48, 40, [12, 15, 10, 0]),
+    "E8-one-group": (37, 48, 40, [0, 0, 0, 37, 0, 0, 0, 0]),
+    "E8-ragged": (37, 48, 40, [5, 3, 0, 9, 4, 0, 10, 6]),
+    "E4-straddle": (300, 130, 70, [129, 1, 0, 170]),
+}
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("layout", sorted(GMM_LAYOUTS))
+def test_grouped_mm_kernels_match_plain(layout, dtype, tol):
+    m, k, n, sizes = GMM_LAYOUTS[layout]
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    lhs = _rand((m, k), dtype, 14)
+    rhs = _rand((len(sizes), k, n), dtype, 15)
+    grad = _rand((m, n), dtype, 16)
+    cases = (
+        ("gmm", gm._gmm_cuda(lhs, rhs, gs), gm._gmm_reference(lhs, rhs, gs)),
+        ("dlhs", gm._gmm_dlhs_cuda(grad, rhs, gs),
+         gm._gmm_dlhs_reference(grad, rhs, gs)),
+        ("tgmm", gm._tgmm_cuda(lhs, grad, gs),
+         gm._tgmm_reference(lhs, grad, gs)))
+    torch.cuda.synchronize()
+    for name, got, want in cases:
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        assert _rel(got, want) <= tol, f"{name}: relative error"
+    for e, size in enumerate(sizes):
+        if size == 0:
+            assert not cases[2][1][e].any()
+
+
+def test_grouped_mm_backward_launches_one_dlhs_and_one_tgmm():
+    gs = torch.tensor([3, 0, 5], dtype=torch.int32, device="cuda")
+    lhs = _rand((8, 16), torch.float32, 17).requires_grad_(True)
+    rhs = _rand((3, 16, 24), torch.float32, 18).requires_grad_(True)
+    out = gm._grouped_mm(lhs, rhs, gs, "moe_gate_act")
+    before = (gm._gmm_cuda.launches, gm._gmm_dlhs_cuda.launches,
+              gm._tgmm_cuda.launches)
+    out.sum().backward()
+    assert (gm._gmm_cuda.launches, gm._gmm_dlhs_cuda.launches,
+            gm._tgmm_cuda.launches) == (before[0], before[1] + 1,
+                                        before[2] + 1)
+    assert lhs.grad.shape == lhs.shape and rhs.grad.shape == rhs.shape
+
+
+def test_grouped_moe_ffn_runs_without_host_sync():
+    """The MoE FFN, forward and backward, never waits on the host: no
+    wrapper reads group_sizes, and the routing avoids bincount/one_hot
+    (both read their input's range on the host on CUDA)."""
+    from horovod_tpu_torch.models.llama import LlamaConfig
+
+    c = LlamaConfig.tiny_moe(dtype="bfloat16", d_model=128, d_ff=256)
+    e, d, f = c.n_experts, c.d_model, c.d_ff
+    lp = {"router": _rand((d, e), torch.float32, 19),
+          "moe_gate": _rand((e, d, f), torch.bfloat16, 20),
+          "moe_up": _rand((e, d, f), torch.bfloat16, 21),
+          "moe_down": _rand((e, f, d), torch.bfloat16, 22)}
+    for w in lp.values():
+        w.requires_grad_(True)
+    h = _rand((2, 40, d), torch.bfloat16, 23).requires_grad_(True)
+
+    def run():
+        y, aux = gm.grouped_moe_ffn(h, lp, c)
+        return torch.autograd.grad(y.float().sum() + aux, [h, *lp.values()])
+
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

@@ -4,7 +4,8 @@
 neither jax, triton nor the JAX package, no module of it (nor
 chip_smoke.py) names jax, ml_dtypes or horovod_tpu in an import, and
 its entry points raise — never fall back to the CPU — when no device
-is given and there is no CUDA.
+is given and there is no CUDA. Every kernel source is listed in
+``ops/_build.py``, and importing the port builds nothing.
 """
 
 import ast
@@ -35,6 +36,7 @@ def test_import_loads_no_jax_triton_or_reference_package():
         "before = set(sys.modules)\n"
         "import horovod_tpu_torch\n"
         "import horovod_tpu_torch.models.generate\n"
+        "import horovod_tpu_torch.ops.grouped_moe\n"
         "import horovod_tpu_torch.models.convert\n"
         "import horovod_tpu_torch.serving.engine\n"
         "import horovod_tpu_torch.parallel.train_step\n"
@@ -62,6 +64,35 @@ def test_no_forbidden_import(path):
             if _forbidden(node.module or ""):
                 found.append(node.module)
     assert not found, f"{path.name} imports {found}"
+
+
+def test_build_lists_every_kernel_source():
+    from horovod_tpu_torch.ops import _build
+
+    sources = sorted(p.stem for p in (REPO / "horovod_tpu_torch" / "csrc")
+                     .glob("*.cu"))
+    assert sorted(_build.SOURCES) == sources
+    assert "grouped_mm" in _build.SOURCES
+
+
+def test_import_builds_nothing():
+    """Importing every module starts no compiler and loads no library:
+    kernels build at their first launch, on the card."""
+    code = (
+        "import subprocess, sys\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('a build started at import')\n"
+        "subprocess.Popen = refuse\n"
+        "import horovod_tpu_torch.models.generate\n"
+        "import horovod_tpu_torch.ops.grouped_moe\n"
+        "import horovod_tpu_torch.serving.engine\n"
+        "import horovod_tpu_torch.parallel.train_step\n"
+        "from horovod_tpu_torch.ops import _build\n"
+        "assert _build._libs == {}, _build._libs\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 def _entry_points():

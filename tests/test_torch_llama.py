@@ -1,5 +1,6 @@
-"""The port's Llama pieces against the JAX package: the config mirror,
-``llama_init``'s tree, ``_rmsnorm``/``_rope``/``_ffn`` at f32 and bf16,
+"""The port's Llama pieces against the JAX package: the config mirror
+(dense and MoE presets), ``llama_init``'s dense tree (the MoE tree:
+test_torch_moe_llama.py), ``_rmsnorm``/``_rope``/``_ffn`` at f32 and bf16,
 and the bit-exact JAX -> torch parameter conversion.
 
 Inputs are made with numpy and handed to both. Tolerances: f32 at 1e-5
@@ -48,7 +49,8 @@ def test_config_fields_mirror_jax():
     assert jf == tf
 
 
-@pytest.mark.parametrize("preset", ["tiny", "llama3_8b"])
+@pytest.mark.parametrize("preset", ["tiny", "llama3_8b", "tiny_moe",
+                                    "mixtral_8x7b"])
 def test_presets_mirror_jax(preset):
     j = getattr(jl.LlamaConfig, preset)()
     t = getattr(tl.LlamaConfig, preset)()
@@ -72,12 +74,6 @@ def test_llama_init_tree_matches_jax(param_dtype):
     for k in ("layers/wq", "layers/w_down", "lm_head", "embed"):
         assert np.std(_np(tp[k])) == pytest.approx(
             np.std(_np(jp[k])), rel=0.1), k
-
-
-def test_moe_config_raises():
-    with pytest.raises(NotImplementedError, match="A7"):
-        tl.llama_init(tl.LlamaConfig.tiny(n_experts=4),
-                      torch.Generator(), device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -5,7 +5,8 @@
 bit for bit by ``from_jax_params``) and numpy-made batches, with the
 JAX flash kernels in Pallas interpret mode; the four ported remat modes
 against each other, with the flash-forward count that shows what the
-backward recomputed; and the modes and configs that must raise.
+backward recomputed; and the modes that must raise. The MoE model's
+training: test_torch_moe_llama.py.
 
 Tolerances: f32 loss 1e-6 relative, f32 gradients 2e-5 relative to
 each leaf's largest entry (the same f32 arithmetic summed in another
@@ -174,16 +175,8 @@ def test_lm_head_logits_keep_f32_products():
     assert (out - (h @ w).float()).abs().max() > 0
 
 
-def test_moe_config_raises_in_loss():
-    _, tc, jparams = _setup()
-    moe = tl.LlamaConfig.tiny(n_experts=4)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tl.llama_loss(_params(jparams), _batch(0, 256), moe, device="cpu")
-
-
 @pytest.mark.parametrize("mode,item", [
-    ("dots", "A1"), ("attn+ffn", "A1"), ("attn+gate+qkv", "A1"),
-    ("attn+moe", "A7"), ("moe", "A7")])
+    ("dots", "A1"), ("attn+ffn", "A1"), ("attn+gate+qkv", "A1")])
 def test_unported_remat_modes_raise(mode, item):
     with pytest.raises(NotImplementedError, match=item):
         tl._build_layer_body(tl.LlamaConfig.tiny(remat=mode))
