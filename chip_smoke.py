@@ -18,7 +18,12 @@ any failed phase exits non-zero before the result line.
    work. K1 forward, K2/K3 backward (dq, dk, dv) at the dense (Hkv4)
    and MoE (Hkv8) train shapes, K4 decode, K5 grouped matmul and K6
    (its dlhs and tgmm) at the MoE train, prefill and decode shapes, at
-   f32 and on a skewed routing with an empty group.
+   f32 and on a skewed routing with an empty group. K1 and K6 take two
+   routes, chosen by dtype: bf16 on the wgmma kernels, f32 on the FMA
+   kernels; each bf16 case reports its route, TFLOP/s, the compiled
+   kernel's registers, spills and shared memory, and the FMA kernel's
+   time on the same inputs (``earlier_ms``). Every bf16 launch of K1 and
+   K6 on the main paths below must take the wgmma route.
 3. ``llama_generate``: greedy, batch 16, prompt 128, 64 new tokens;
    K1 must launch once per layer, K4 once per layer per decode step.
 4. ``DecodeEngine``: 16 requests of 17-128 prompt tokens, 32 new
@@ -48,7 +53,9 @@ any failed phase exits non-zero before the result line.
 10. MoE parity at f32 (2 layers): loss and gradients on the card
    against the CPU; the six remat modes agree, with K5 launching
    6/12/12/12/10/6 times per grad call (none/full/attn/attn+gate/
-   attn+moe/moe); engine tokens equal ``llama_generate``'s.
+   attn+moe/moe); engine tokens equal ``llama_generate``'s. Then the
+   same 2-layer grad call at bf16 on the card (K1 and K6 on wgmma)
+   against bf16 on the CPU (the plain versions).
 11. A ``kernels`` JSON line (K1-K6), the card line, and the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -114,16 +121,15 @@ def _kernel_name(mangled):
         i = start + int(m.group())
         name = mangled[start:i]
         if name.endswith("_kernel"):
-            args = re.match(r"I(13__nv_bfloat16|f)(?:L([ib])(\d+)E)?",
+            args = re.match(r"I(13__nv_bfloat16|f)?(?:L([ib])(\d+)E)?",
                             mangled[i:])
-            if not args:
-                return name
-            dt = "bf16" if args.group(1) != "f" else "f32"
-            if not args.group(2):
-                return f"{name}<{dt}>"
-            arg = f"D{args.group(3)}" if args.group(2) == "i" else \
-                f"transpose_rhs={args.group(3)}"
-            return f"{name}<{dt}, {arg}>"
+            parts = []
+            if args and args.group(1):
+                parts.append("bf16" if args.group(1) != "f" else "f32")
+            if args and args.group(2):
+                parts.append(f"D{args.group(3)}" if args.group(2) == "i"
+                             else f"transpose_rhs={args.group(3)}")
+            return f"{name}<{', '.join(parts)}>" if parts else name
     return "?"
 
 
@@ -135,6 +141,8 @@ def ptxas_summary(text):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = _kernel_name(m.group(1))
+        elif "Performance Loss" in line:
+            out.append(line.split(":", 1)[-1].strip())
         elif "spill stores" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line:
@@ -185,7 +193,32 @@ def device_profile(torch, label, fn, top=6):
 # ---- phase 2: kernels against their plain versions ---------------------
 
 
-def flash_case(torch, fa, b, t, dtype, iters, h=16, hkv=4, d=128):
+def wgmma_attrs(_build):
+    """The wgmma kernels as the driver loaded them, by the key the cases
+    use: registers a thread (ptxas's count at entry; the consumer
+    warpgroups raise theirs with setmaxnreg), spilled (local) bytes a
+    thread, and shared memory a block (static + dynamic)."""
+    import ctypes
+
+    out, buf = {}, (ctypes.c_int * 4)()
+    for key, source, entry, arg in (
+            ("K1 D128", "flash_fwd_wgmma", "flash_fwd_wgmma_attrs", 128),
+            ("K1 D64", "flash_fwd_wgmma", "flash_fwd_wgmma_attrs", 64),
+            ("K6 dlhs", "grouped_mm_wgmma", "grouped_wgmma_attrs", 0),
+            ("K6 tgmm", "grouped_mm_wgmma", "grouped_wgmma_attrs", 1)):
+        fn = getattr(_build.load(source), entry)
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        err = fn(arg, buf)
+        check(err == 0, f"{entry}({arg}): CUDA error {err}")
+        out[key] = dict(registers=buf[0], spill_bytes=buf[1],
+                        smem_bytes=buf[2] + buf[3])
+        log(f"  {key} wgmma kernel: {buf[0]} registers at entry, "
+            f"{buf[1]} spill bytes, {buf[2] + buf[3]} bytes shared memory")
+    return out
+
+
+def flash_case(torch, fa, b, t, dtype, iters, attrs, h=16, hkv=4, d=128):
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(b * 1000 + t)
@@ -196,8 +229,14 @@ def flash_case(torch, fa, b, t, dtype, iters, h=16, hkv=4, d=128):
     torch.cuda.synchronize()
     err = float((o.float() - o_ref.float()).abs().max())
     lse_err = float((lse - lse_ref).abs().max())
+    route = fa.flash_fwd_route(dtype, d)
     kernel_ms = cuda_ms(torch, lambda: fa._flash_fwd_cuda(q, k, v, True),
                         iters)
+    # The FMA kernel on the same bf16 inputs: the wgmma kernel's
+    # predecessor (PR 3's route), timed beside it.
+    earlier_ms = cuda_ms(torch, lambda: fa._flash_fwd_cuda(
+        q, k, v, True, route="fma"), max(1, iters // 2)) \
+        if route == "wgmma" else None
     plain_ms = cuda_ms(torch,
                        lambda: fa._flash_fwd_reference(q, k, v, True),
                        max(1, iters // 4), warmup=1)
@@ -210,15 +249,21 @@ def flash_case(torch, fa, b, t, dtype, iters, h=16, hkv=4, d=128):
                                dname)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     name = f"K1 B{b} H{h} Hkv{hkv} T{t} D{d} {dname}"
-    log(f"  {name}: max_abs_err {err:.3e} (tol {tol:g}), lse_err "
-        f"{lse_err:.3e} (tol 1e-3), kernel {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by})")
+    tflops = 4 * pairs * d / kernel_ms / 1e9
+    kattrs = attrs[f"K1 D{128 if d == 128 else 64}"] \
+        if route == "wgmma" else None
+    earlier = f", earlier (fma) {earlier_ms:.4f} ms" if earlier_ms else ""
+    log(f"  {name}: route {route}, max_abs_err {err:.3e} (tol {tol:g}), "
+        f"lse_err {lse_err:.3e} (tol 1e-3), kernel {kernel_ms:.4f} ms "
+        f"({tflops:.1f} TFLOP/s){earlier}, plain {plain_ms:.4f} ms, library "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     check(err <= tol, f"{name}: output error {err} above {tol}")
     check(lse_err <= 1e-3, f"{name}: lse error {lse_err} above 1e-3")
-    return dict(case=name, max_abs_err=err, lse_max_abs_err=lse_err,
-                ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    return dict(case=name, kernel_route=route, max_abs_err=err,
+                lse_max_abs_err=lse_err, ms=kernel_ms, tflops=tflops,
+                earlier_ms=earlier_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                kernel_attrs=kattrs)
 
 
 def bwd_case(torch, fa, b, t, dtype, iters, h=16, hkv=4, d=128):
@@ -339,13 +384,30 @@ def launch_counters(fa, da, gm):
             "K6 tgmm": gm._tgmm_cuda}
 
 
+# The kernels with a wgmma route for bf16 (and an FMA route for f32).
+ROUTED = ("K1", "K6 dlhs", "K6 tgmm")
+
+
 def reset_counts(ctr):
     for fn in ctr.values():
         fn.launches = 0
+        for route in getattr(fn, "launches_by_route", ()):
+            fn.launches_by_route[route] = 0
 
 
 def counts(ctr):
     return {k: fn.launches for k, fn in ctr.items()}
+
+
+def check_wgmma_routes(ctr, path):
+    """Every launch of K1 and K6 since the counts were reset took the
+    wgmma route (the main paths run bf16). Returns the counts by route."""
+    by_route = {k: dict(ctr[k].launches_by_route) for k in ROUTED}
+    for k, by in by_route.items():
+        check(by["fma"] == 0 and by["wgmma"] == ctr[k].launches,
+              f"{path}: {k} launches by route {by}, expected all "
+              f"{ctr[k].launches} on wgmma")
+    return by_route
 
 
 def run_generate(torch, ctr, gen, params, cfg, batch, prompt_len,
@@ -361,6 +423,7 @@ def run_generate(torch, ctr, gen, params, cfg, batch, prompt_len,
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launched = counts(ctr)
+    check_wgmma_routes(ctr, "llama_generate")
     t0 = time.perf_counter()
     first, _, _ = gen.llama_prefill(params, prompt, cfg)
     torch.cuda.synchronize()
@@ -409,6 +472,7 @@ def run_engine(torch, ctr, DecodeEngine, Request, params, cfg):
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launched = counts(ctr)
+    check_wgmma_routes(ctr, "DecodeEngine")
     check(eng.scheduler.evictions == 0, "engine evicted under no pressure")
     check(sorted(done) == list(range(n_req)), "not every request completed")
     for r in reqs:
@@ -527,6 +591,7 @@ def run_train(torch, ctr, llama, precision, train_step, cfg, batch,
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / steps
     launched = counts(ctr)
+    check_wgmma_routes(ctr, "train step")
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
     L = cfg.n_layers
@@ -631,7 +696,8 @@ def library_grouped_ms(torch, label, fn, iters):
     return cuda_ms(torch, fn, iters)
 
 
-def gmm_case(torch, gm, label, sizes, k, n, dtype, iters, backward=True):
+def gmm_case(torch, gm, label, sizes, k, n, dtype, iters, attrs,
+             backward=True):
     """K5, and with ``backward`` both halves of K6, against the plain
     versions on one routing: ``sizes[e]`` rows of lhs [M, K] for expert e,
     in order. Returns {"K5": case, "K6 dlhs": case, "K6 tgmm": case}."""
@@ -650,12 +716,15 @@ def gmm_case(torch, gm, label, sizes, k, n, dtype, iters, backward=True):
     flops = 2 * m * k * n
     bf16 = dtype == torch.bfloat16
 
-    def one(kname, kernel, plain, library, in_bytes):
+    def one(kname, kernel, plain, library, in_bytes, route="fma",
+            earlier=None):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         abs_err = float((got.float() - want.float()).abs().max())
         err = abs_err / max(float(want.float().abs().max()), 1e-30)
         ms = cuda_ms(torch, kernel, iters)
+        earlier_ms = cuda_ms(torch, earlier, max(1, iters // 2)) \
+            if earlier and route == "wgmma" else None
         plain_ms = cuda_ms(torch, plain, max(1, iters // 4), warmup=1)
         lib_ms = library_grouped_ms(torch, f"{kname} {label}", library,
                                     iters) if bf16 else None
@@ -664,17 +733,23 @@ def gmm_case(torch, gm, label, sizes, k, n, dtype, iters, backward=True):
         name = f"{kname} {label} M{m} K{k} N{n} E{e} {dname}"
         lib = f"{lib_ms:.4f} ms" if lib_ms is not None else \
             "none (torch._grouped_mm takes bf16 only)" if not bf16 else "none"
-        log(f"  {name} groups {sizes}: rel err {err:.3e} (tol {tol:g}, of "
-            f"the plain version's max abs), kernel {ms:.4f} ms, plain "
+        earlier_s = f", earlier (fma) {earlier_ms:.4f} ms" \
+            if earlier_ms else ""
+        log(f"  {name} groups {sizes}: route {route}, rel err {err:.3e} (tol "
+            f"{tol:g}, of the plain version's max abs), kernel {ms:.4f} ms"
+            f"{earlier_s}, plain "
             f"{plain_ms:.4f} ms, library {lib}, bound {bound_ms:.4f} ms "
             f"({bound_by}; bytes {moved / HBM_BYTES_PER_S * 1e3:.4f} ms, "
             f"operations {flops / PEAK_FLOPS[dname] * 1e3:.4f} ms at "
             f"{PEAK_FLOPS[dname] / 1e12:.0f} TFLOP/s), "
             f"{flops / ms / 1e9:.1f} TFLOP/s")
         check(err <= tol, f"{name}: error {err} above {tol}")
-        return dict(case=name, max_abs_err=abs_err, rel_err=err, ms=ms,
-                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                    bound_by=bound_by)
+        return dict(case=name, kernel_route=route, max_abs_err=abs_err,
+                    rel_err=err, ms=ms, tflops=flops / ms / 1e9,
+                    earlier_ms=earlier_ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    kernel_attrs=attrs.get(kname) if route == "wgmma"
+                    else None)
 
     out = {"K5": one(
         "K5 gmm", lambda: gm._gmm_cuda(lhs, rhs, gs),
@@ -682,17 +757,25 @@ def gmm_case(torch, gm, label, sizes, k, n, dtype, iters, backward=True):
         lambda: torch._grouped_mm(lhs, rhs, offs=offs),
         nbytes(lhs) + rhs_bytes)}
     if backward:
+        route = gm.grouped_bwd_route(dtype)
         out["K6 dlhs"] = one(
             "K6 dlhs", lambda: gm._gmm_dlhs_cuda(grad, rhs, gs),
             lambda: gm._gmm_dlhs_reference(grad, rhs, gs),
             lambda: torch._grouped_mm(grad, rhs.transpose(-2, -1),
                                       offs=offs),
-            nbytes(grad) + rhs_bytes)
+            nbytes(grad) + rhs_bytes, route,
+            lambda: gm._gmm_dlhs_cuda(grad, rhs, gs, route="fma"))
         out["K6 tgmm"] = one(
             "K6 tgmm", lambda: gm._tgmm_cuda(lhs, grad, gs),
             lambda: gm._tgmm_reference(lhs, grad, gs),
             lambda: torch._grouped_mm(lhs.t(), grad, offs=offs),
-            nbytes(lhs, grad))
+            nbytes(lhs, grad), route,
+            lambda: gm._tgmm_cuda(lhs, grad, gs, route="fma"))
+        if 0 in sizes:
+            empty = gm._tgmm_cuda(lhs, grad, gs)[
+                torch.tensor(sizes, device="cuda") == 0]
+            check(not bool(empty.any()), f"K6 tgmm {label}: an empty "
+                  f"group's slice is not exactly 0")
     return out
 
 
@@ -788,6 +871,7 @@ def run_moe_train(torch, ctr, llama, precision, train_step, cfg, batch, seq,
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / steps
     launched = counts(ctr)
+    check_wgmma_routes(ctr, "MoE train step")
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
     L = cfg.n_layers
@@ -832,6 +916,7 @@ def run_moe_generate(torch, ctr, gen, params, cfg):
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launched = counts(ctr)
+    check_wgmma_routes(ctr, "MoE llama_generate")
     t0 = time.perf_counter()
     first, _, _ = gen.llama_prefill(params, prompt, cfg)
     torch.cuda.synchronize()
@@ -890,6 +975,7 @@ def run_moe_engine(torch, ctr, DecodeEngine, Request, params, cfg):
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launched = counts(ctr)
+    check_wgmma_routes(ctr, "MoE DecodeEngine")
     check(sorted(done) == list(range(n_req)), "not every request completed")
     for r in reqs:
         toks = done[r.rid]
@@ -922,6 +1008,85 @@ def run_moe_engine(torch, ctr, DecodeEngine, Request, params, cfg):
     return launched, dict(total_s=total_s, steps=eng.steps,
                           tok_s=n_req * new / total_s,
                           max_batch_1_launches=n1)
+
+
+def run_bf16_grad_check(torch, ctr, fa, llama, train_step, cfg):
+    """The MoE model at 2 layers and bf16 (B2 T256, remat "none"): one
+    grad call on the card, where K1 and K6 take the wgmma route, against
+    the same call in bf16 on the CPU, where every op takes its plain
+    version.
+
+    bf16 gradients of this model are chaotic at the last bit: changing
+    only how K1's output rounds (its plain version fed f64 inputs, which
+    skips the bf16 rounding of p and so moves o by about one bf16 ulp,
+    as a correct kernel summing in another order may) moves each leaf by
+    several percent in norm, and the card changes the rounding of every
+    op (cuBLAS products, norms, K1, K5, K6). So each leaf is held, in
+    norm, to 2x its own floor (that K1-rounding change, measured here on
+    the CPU) plus 1e-2; the loss to 2e-3 relative. A wrong kernel (a
+    mask, a group boundary, a transposed tile) moves the gradients by a
+    large fraction of their norm."""
+    from horovod_tpu_torch.parallel._tree import tree_leaves, tree_map
+
+    c16 = dataclasses.replace(cfg, n_layers=2, remat="none")
+    cpu_params = llama.llama_init(c16, torch.Generator().manual_seed(8),
+                                  device="cpu")
+    rng = np.random.default_rng(9)
+    tokens = rng.integers(0, c16.vocab_size, (2, 256)).astype(np.int32)
+    batch = {"tokens": tokens, "targets": np.roll(tokens, -1, 1)}
+
+    def value_and_grad(params, device):
+        loss, grads = train_step._value_and_grad(
+            lambda p, d: llama.llama_loss(p, d, c16, device=device), params,
+            batch, 1)
+        return float(loss), [g.float().cpu() for g in tree_leaves(grads)]
+
+    def norm_rel(got, want):
+        return [float((g - w).norm()) / max(float(w.norm()), 1e-30)
+                for g, w in zip(got, want)]
+
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = value_and_grad(cpu_params, "cpu")
+    cpu_s = time.perf_counter() - t0
+    plain_k1 = fa._flash_fwd_reference
+
+    def k1_unrounded_p(q, k, v, causal=True):
+        o, lse = plain_k1(q.double(), k.double(), v.double(), causal)
+        return o.to(q.dtype), lse.float()
+
+    fa._flash_fwd_reference = k1_unrounded_p
+    try:
+        _, f64_grads = value_and_grad(cpu_params, "cpu")
+    finally:
+        fa._flash_fwd_reference = plain_k1
+    floor = norm_rel(f64_grads, cpu_grads)
+    card_params = tree_map(lambda w: w.cuda(), cpu_params)
+    reset_counts(ctr)
+    loss, grads = value_and_grad(card_params, "cuda")
+    by_route = check_wgmma_routes(ctr, "bf16 MoE grad call")
+    launched = counts(ctr)
+    want = {"K1": 2, "K6 dlhs": 6, "K6 tgmm": 6}
+    loss_err = abs(loss - cpu_loss) / abs(cpu_loss)
+    err = norm_rel(grads, cpu_grads)
+    ratio = max(e / (2 * f + 1e-2) for e, f in zip(err, floor))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    log(f"  bf16 MoE grad call (2 layers, B2 T256): card (wgmma) vs CPU "
+        f"(plain) loss {loss:.5f} vs {cpu_loss:.5f}, rel err {loss_err:.3e} "
+        f"(tol 2e-3); grads, norm-relative per leaf: card "
+        f"{[round(e, 4) for e in err]}, CPU floor (K1 without p's bf16 "
+        f"rounding) "
+        f"{[round(f, 4) for f in floor]}, worst leaf at {ratio:.3f} of its "
+        f"tolerance (2 x floor + 1e-2); launches {launched}, by route "
+        f"{by_route}; CPU grad call {cpu_s:.1f} s")
+    check(finite, "non-finite bf16 gradient on the card")
+    check({k: launched[k] for k in want} == want,
+          f"bf16 grad call launches {launched}, expected {want}")
+    check(loss_err <= 2e-3, f"bf16 card loss differs from CPU by {loss_err}")
+    check(ratio <= 1.0, f"bf16 card grads differ from CPU beyond 2 x the "
+          f"rounding floor + 1e-2: {err} vs floor {floor}")
+    return dict(loss_rel_err=loss_err, grad_norm_rel_err=err,
+                grad_floor=floor, worst_ratio=ratio, launches=launched,
+                launches_by_route=by_route, cpu_grad_call_s=cpu_s)
 
 
 def main():
@@ -970,15 +1135,16 @@ def main():
     for name, text in build_logs.items():
         for line in ptxas_summary(text):
             log(f"    {name}: {line}")
+    attrs = wgmma_attrs(_build)
 
     log("phase 2: kernels against their plain versions")
     bf16, f32 = torch.bfloat16, torch.float32
-    k1 = [flash_case(torch, fa, 16, 128, bf16, 50),
-          flash_case(torch, fa, 1, 77, bf16, 50),
-          flash_case(torch, fa, 1, 4096, bf16, 5),
-          flash_case(torch, fa, 4, 2048, bf16, 5),
-          flash_case(torch, fa, 2, 2048, bf16, 5, hkv=8),
-          flash_case(torch, fa, 4, 128, f32, 20)]
+    k1 = [flash_case(torch, fa, 16, 128, bf16, 50, attrs),
+          flash_case(torch, fa, 1, 77, bf16, 50, attrs),
+          flash_case(torch, fa, 1, 4096, bf16, 20, attrs),
+          flash_case(torch, fa, 4, 2048, bf16, 20, attrs),
+          flash_case(torch, fa, 2, 2048, bf16, 20, attrs, hkv=8),
+          flash_case(torch, fa, 4, 128, f32, 20, attrs)]
     bwd = [bwd_case(torch, fa, 4, 2048, bf16, 5),
            bwd_case(torch, fa, 2, 2048, bf16, 5, hkv=8),
            bwd_case(torch, fa, 1, 77, bf16, 20),
@@ -994,16 +1160,17 @@ def main():
     train_sizes = [2100, 1900, 2300, 1892]
     gmm_cases = [
         gmm_case(torch, gm, "train gate/up", train_sizes, 2048, 4096, bf16,
-                 5),
-        gmm_case(torch, gm, "train down", train_sizes, 4096, 2048, bf16, 5),
+                 20, attrs),
+        gmm_case(torch, gm, "train down", train_sizes, 4096, 2048, bf16, 20,
+                 attrs),
         gmm_case(torch, gm, "prefill gate/up", [1000, 1100, 980, 1016],
-                 2048, 4096, bf16, 5, backward=False),
+                 2048, 4096, bf16, 5, attrs, backward=False),
         gmm_case(torch, gm, "decode gate/up", [9, 7, 10, 6], 2048, 4096,
-                 bf16, 20, backward=False),
+                 bf16, 20, attrs, backward=False),
         gmm_case(torch, gm, "f32 gate/up", [300, 250, 222, 252], 2048, 4096,
-                 f32, 3),
+                 f32, 3, attrs),
         gmm_case(torch, gm, "skewed gate/up", [0, 5000, 3001, 191], 2048,
-                 4096, bf16, 5),
+                 4096, bf16, 20, attrs),
     ]
     k5 = [c["K5"] for c in gmm_cases]
     k6 = [c[h] for c in gmm_cases for h in ("K6 dlhs", "K6 tgmm") if h in c]
@@ -1069,6 +1236,8 @@ def main():
         "attn": dict(moe_counts, K5=12), "attn+gate": dict(moe_counts, K5=12),
         "attn+moe": dict(moe_counts, K5=10), "moe": moe_counts})
     run_parity(gen, DecodeEngine, poisson_trace, llama_init, torch, mcfg)
+    bf16_check = run_bf16_grad_check(torch, ctr, fa, llama, train_step,
+                                     mcfg)
 
     log("phase 11: results")
     log(json.dumps({"generate": gen_stats, "engine": eng_stats,
@@ -1076,7 +1245,8 @@ def main():
                     "moe_train": moe_train_stats,
                     "moe_generate": moe_gen_stats,
                     "moe_engine": moe_eng_stats,
-                    "moe_train_parity": moe_parity, "card": card}))
+                    "moe_train_parity": moe_parity,
+                    "moe_bf16_grad_check": bf16_check, "card": card}))
     paths = {"llama_generate": gen_launch, "DecodeEngine": eng_launch,
              "train_step": train_launch, "moe_train_step": moe_train_launch,
              "moe_llama_generate": moe_gen_launch,
@@ -1085,17 +1255,23 @@ def main():
     def row(name, source, replaces, keys, cases, head=None):
         by_path = {p: sum(n[k] for k in keys) for p, n in paths.items()}
         head = head or cases[0]
+        # kernel_route: the bf16 main path's kernel (K1 and K6: wgmma,
+        # with earlier_ms the FMA kernel's time on the same inputs).
+        extra = {k: head[k] for k in ("kernel_route", "earlier_ms")
+                 if k in head}
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=sum(by_path.values()),
                     launches_by_path=by_path,
                     **{k: head[k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms")},
+                        "bound_by", "library_ms")}, **extra,
                     cases=cases)
 
     # K6's headline: one backward at the train gate/up shape, both halves.
     dlhs, tgmm = gmm_cases[0]["K6 dlhs"], gmm_cases[0]["K6 tgmm"]
     k6_head = dict(
+        kernel_route=dlhs["kernel_route"],
+        earlier_ms=dlhs["earlier_ms"] + tgmm["earlier_ms"],
         max_abs_err=max(dlhs["max_abs_err"], tgmm["max_abs_err"]),
         ms=dlhs["ms"] + tgmm["ms"], plain_ms=dlhs["plain_ms"]
         + tgmm["plain_ms"], bound_ms=dlhs["bound_ms"] + tgmm["bound_ms"],
@@ -1103,8 +1279,9 @@ def main():
         library_ms=None if None in (dlhs["library_ms"], tgmm["library_ms"])
         else dlhs["library_ms"] + tgmm["library_ms"])
     kernels = [
-        row("K1 flash_fwd", "horovod_tpu_torch/csrc/flash_fwd.cu",
-            "horovod_tpu/ops/flash_attention.py:50", ["K1"], k1),
+        row("K1 flash_fwd", "horovod_tpu_torch/csrc/flash_fwd_wgmma.cu",
+            "horovod_tpu/ops/flash_attention.py:50", ["K1"], k1,
+            head=k1[3]),
         row("K2 flash_bwd_dkv", "horovod_tpu_torch/csrc/flash_bwd.cu",
             "horovod_tpu/ops/flash_attention.py:134", ["K2"], k2),
         row("K3 flash_bwd_dq", "horovod_tpu_torch/csrc/flash_bwd.cu",
@@ -1114,7 +1291,8 @@ def main():
             "horovod_tpu/ops/decode_attention.py:36", ["K4"], k4),
         row("K5 gmm", "horovod_tpu_torch/csrc/grouped_mm.cu",
             "horovod_tpu/ops/grouped_moe.py:137", ["K5"], k5),
-        row("K6 gmm_dlhs + tgmm", "horovod_tpu_torch/csrc/grouped_mm.cu",
+        row("K6 gmm_dlhs + tgmm",
+            "horovod_tpu_torch/csrc/grouped_mm_wgmma.cu",
             "horovod_tpu/ops/grouped_moe.py:151", ["K6 dlhs", "K6 tgmm"],
             k6, head=k6_head),
     ]

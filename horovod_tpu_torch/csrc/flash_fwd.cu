@@ -24,8 +24,10 @@
 // the TPU kernel's whole-block skip. Any T is taken: the ragged last
 // q and kv tiles are masked in the kernel (the TPU code instead picked
 // a block size dividing T). The products run on plain FMA in f32 from
-// shared memory; a wgmma/TMA pipeline that reaches the tensor cores is
-// later work, and until then long prompts run far below their bound.
+// shared memory. This is K1's f32 route; bf16 runs on the tensor cores
+// in csrc/flash_fwd_wgmma.cu (ops/flash_attention.py flash_fwd_route),
+// and this kernel's bf16 instantiation is kept as that kernel's
+// yardstick (taken only when asked for by name).
 //
 // Layout: q/o [B, H, T, D], k/v [B, Hkv, Tk, D], lse [B, H, T] f32, all
 // contiguous. One block of 256 threads per (64-row q tile, head, batch).

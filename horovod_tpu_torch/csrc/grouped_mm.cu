@@ -34,9 +34,12 @@
 // 256 threads each holding an 8 x 8 block of f32 accumulators, operands
 // staged through shared memory in 16-deep slabs converted to f32, so every
 // shared-memory load feeds 16 FMAs. It runs on plain FMA at the f32 rate
-// (67 TFLOP/s peak), far below the tensor-core bound: a first kernel that
-// is right on every ragged layout; the wgmma + TMA version with a
-// persistent schedule is later work.
+// (67 TFLOP/s peak), far below the tensor-core bound, but is right on
+// every ragged layout and width. K5 runs here for both dtypes; K6 runs
+// here for f32 only: its bf16 route is csrc/grouped_mm_wgmma.cu
+// (ops/grouped_moe.py grouped_bwd_route), and the bf16 instantiations of
+// dlhs and tgmm are kept as that kernel's yardstick (taken only when
+// asked for by name).
 //
 // Layout: lhs [M, K], grad [M, N], rhs [E, K, N], out [M, N] (gmm) or
 // [M, K] (dlhs) or [E, K, N] (tgmm), offsets [E + 1] int32; all contiguous.

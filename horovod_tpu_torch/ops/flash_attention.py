@@ -1,8 +1,10 @@
 """Flash attention on hand-written kernels: K1 forward, K2/K3 backward.
 
 Counterpart of horovod_tpu/ops/flash_attention.py. The TPU module's
-Pallas ``_fwd_kernel`` becomes ``csrc/flash_fwd.cu`` (K1, launched by
-:func:`_flash_fwd_cuda`); ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``
+Pallas ``_fwd_kernel`` becomes K1, launched by :func:`_flash_fwd_cuda`
+along the route :func:`flash_fwd_route` picks from the dtype: bf16 on
+the tensor cores (``csrc/flash_fwd_wgmma.cu``), f32 on FMA
+(``csrc/flash_fwd.cu``); ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``
 become ``csrc/flash_bwd.cu`` (K2 and K3, launched by
 :func:`_flash_bwd_cuda`). :func:`_flash_fwd_reference` and
 :func:`_flash_bwd_reference` are their plain PyTorch versions, used for
@@ -155,22 +157,49 @@ def _launch(label, fn, tensors, q, k, causal):
         raise RuntimeError(f"{label} launch failed: CUDA error {err}")
 
 
-def _flash_fwd_cuda(q, k, v, causal=True):
-    """Launch K1 (csrc/flash_fwd.cu) on the current stream. Same
-    contract as :func:`_flash_fwd_reference`."""
+def flash_fwd_route(dtype, head_dim):
+    """The K1 kernel that takes (dtype, head_dim): ``"wgmma"``
+    (csrc/flash_fwd_wgmma.cu, tensor cores) for bfloat16, ``"fma"``
+    (csrc/flash_fwd.cu) for float32; a ValueError for anything else."""
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"K1 takes head_dim in {_HEAD_DIMS}, got {head_dim}")
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "fma"
+    raise ValueError(f"K1 has no kernel for {dtype}: it takes float32 "
+                     f"(fma) or bfloat16 (wgmma)")
+
+
+# The ctypes entry of each K1 route: (source, function).
+_FWD_ENTRY = {"wgmma": ("flash_fwd_wgmma", "flash_fwd_wgmma"),
+              "fma": ("flash_fwd", "flash_fwd")}
+
+
+def _flash_fwd_cuda(q, k, v, causal=True, route=None):
+    """Launch K1 on the current stream, by :func:`flash_fwd_route` unless
+    ``route`` names one ("fma" also takes bfloat16: the earlier kernel,
+    kept as the wgmma kernel's yardstick). Same contract as
+    :func:`_flash_fwd_reference`."""
     _check_kernel_inputs("K1", q, k, v)
+    want = flash_fwd_route(q.dtype, q.shape[3])
+    route = route or want
+    if route not in _FWD_ENTRY or (route == "wgmma" and want != "wgmma"):
+        raise ValueError(f"K1 route {route!r} does not take {q.dtype}")
     b, h, t, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t, 1), dtype=torch.float32, device=q.device)
     if t == 0:
         return o, lse
-    _launch("K1 flash_fwd", _bind("flash_fwd", "flash_fwd", 5),
+    _launch(f"K1 flash_fwd ({route})", _bind(*_FWD_ENTRY[route], 5),
             (q, k, v, o, lse), q, k, causal)
     _flash_fwd_cuda.launches += 1
+    _flash_fwd_cuda.launches_by_route[route] += 1
     return o, lse
 
 
 _flash_fwd_cuda.launches = 0
+_flash_fwd_cuda.launches_by_route = {"wgmma": 0, "fma": 0}
 
 
 def _check_residuals(q, lse, delta):

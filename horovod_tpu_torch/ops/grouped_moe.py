@@ -13,9 +13,11 @@ on the path.
 
 The TPU module's megablox ``gmm`` (``_gmm_tpu``, :137) becomes
 ``csrc/grouped_mm.cu`` ``grouped_mm`` (K5, :func:`_gmm_cuda`); its
-backward ``_gmm_tpu_bwd`` (:151) becomes the same kernel reading rhs
-transposed (K6 dlhs, :func:`_gmm_dlhs_cuda`) and ``grouped_tgmm`` (K6
-tgmm, :func:`_tgmm_cuda`). :func:`_gmm_reference` and
+backward ``_gmm_tpu_bwd`` (:151) becomes K6, dlhs
+(:func:`_gmm_dlhs_cuda`) and tgmm (:func:`_tgmm_cuda`), along the route
+:func:`grouped_bwd_route` picks from the dtype: bf16 on the tensor cores
+(``csrc/grouped_mm_wgmma.cu``), f32 on FMA (the K5 kernel reading rhs
+transposed, and ``grouped_tgmm``). :func:`_gmm_reference` and
 :func:`_tgmm_reference` are their plain versions, used for tensors on
 the CPU and as the kernels' yardstick on the card. Group boundaries stay
 on the device: no wrapper reads ``group_sizes`` on the host.
@@ -108,10 +110,10 @@ def _offsets(group_sizes):
     return F.pad(torch.cumsum(group_sizes, 0, dtype=torch.int32), (1, 0))
 
 
-def _bind(name, n_ints):
-    """The ctypes entry ``name`` of csrc/grouped_mm.cu: four pointers,
+def _bind(name, n_ints, source="grouped_mm"):
+    """The ctypes entry ``name`` of csrc/<source>.cu: four pointers,
     ``n_ints`` ints, then the stream."""
-    fn = getattr(_build.load("grouped_mm"), name)
+    fn = getattr(_build.load(source), name)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -160,37 +162,108 @@ def _gmm_cuda(lhs, rhs, group_sizes):
 _gmm_cuda.launches = 0
 
 
-def _gmm_dlhs_cuda(grad, rhs, group_sizes):
-    """Launch K6's first half, the K5 kernel reading rhs transposed:
-    dlhs [M, K] = per group grad @ rhs[e]^T, in grad's dtype."""
-    out, launched = _grouped_mm_cuda("K6 dlhs", grad, rhs, group_sizes, True)
-    _gmm_dlhs_cuda.launches += int(launched)
+def grouped_bwd_route(dtype):
+    """The K6 kernels (dlhs and tgmm) that take ``dtype``: ``"wgmma"``
+    (csrc/grouped_mm_wgmma.cu, tensor cores) for bfloat16, ``"fma"``
+    (csrc/grouped_mm.cu) for float32; a ValueError for anything else."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "fma"
+    raise ValueError(f"K6 has no kernel for {dtype}: it takes float32 "
+                     f"(fma) or bfloat16 (wgmma)")
+
+
+def _pick_route(label, dtype, route):
+    """``route`` if given ("fma" also takes bfloat16: the earlier kernel,
+    kept as the wgmma kernel's yardstick), else the dtype's route."""
+    want = grouped_bwd_route(dtype)
+    route = route or want
+    if route not in ("wgmma", "fma") or (route == "wgmma" and
+                                         want != "wgmma"):
+        raise ValueError(f"{label} route {route!r} does not take {dtype}")
+    return route
+
+
+def _check_wgmma_widths(label, **widths):
+    """The wgmma kernels read rows by TMA, whose row pitch must be a
+    multiple of 16 bytes: every width a multiple of 8 bf16 values."""
+    bad = {k: v for k, v in widths.items() if v % 8}
+    if bad:
+        raise ValueError(f"{label} (wgmma route) needs {' and '.join(widths)} "
+                         f"to be multiples of 8 (TMA's 16-byte rows), got "
+                         f"{bad}")
+
+
+def _count(fn, route, launched):
+    fn.launches += int(launched)
+    fn.launches_by_route[route] += int(launched)
+
+
+def _gmm_dlhs_cuda(grad, rhs, group_sizes, route=None):
+    """Launch K6's first half on the current stream: dlhs [M, K] = per
+    group grad [M, N] @ rhs[e]^T (rhs [E, K, N]), in grad's dtype. The
+    fma route is the K5 kernel reading rhs transposed."""
+    route = _pick_route("K6 dlhs", grad.dtype, route)
+    if route == "fma":
+        out, launched = _grouped_mm_cuda("K6 dlhs", grad, rhs, group_sizes,
+                                         True)
+        _count(_gmm_dlhs_cuda, route, launched)
+        return out
+    if grad.dim() != 2 or rhs.dim() != 3 or rhs.shape[2] != grad.shape[1]:
+        raise ValueError(f"K6 dlhs takes grad [M, N] and rhs [E, K, N], got "
+                         f"{tuple(grad.shape)} and {tuple(rhs.shape)}")
+    _check_kernel_inputs("K6 dlhs", grad, rhs, group_sizes, rhs.shape[0])
+    (m, n), (n_groups, k) = grad.shape, rhs.shape[:2]
+    _check_wgmma_widths("K6 dlhs", K=k, N=n)
+    # Zeros: rows that no group covers stay 0, as in the plain version.
+    out = torch.zeros((m, k), dtype=grad.dtype, device=grad.device)
+    launched = m > 0 and k > 0 and n > 0
+    if launched:
+        _launch("K6 dlhs (wgmma)",
+                _bind("grouped_dlhs_wgmma", 4, "grouped_mm_wgmma"), grad,
+                rhs, _offsets(group_sizes), out, m, n, k, n_groups)
+    _count(_gmm_dlhs_cuda, route, launched)
     return out
 
 
 _gmm_dlhs_cuda.launches = 0
+_gmm_dlhs_cuda.launches_by_route = {"wgmma": 0, "fma": 0}
 
 
-def _tgmm_cuda(lhs, grad, group_sizes):
-    """Launch K6's tgmm (csrc/grouped_mm.cu grouped_tgmm) on the current
-    stream. Same contract as :func:`_tgmm_reference`."""
+def _tgmm_cuda(lhs, grad, group_sizes, route=None):
+    """Launch K6's tgmm on the current stream (csrc/grouped_mm_wgmma.cu
+    for bf16, csrc/grouped_mm.cu grouped_tgmm for f32). Same contract as
+    :func:`_tgmm_reference`."""
+    route = _pick_route("K6 tgmm", lhs.dtype, route)
     if lhs.dim() != 2 or grad.dim() != 2 or lhs.shape[0] != grad.shape[0]:
         raise ValueError(f"K6 tgmm takes lhs [M, K] and grad [M, N], got "
                          f"{tuple(lhs.shape)} and {tuple(grad.shape)}")
     n_groups = group_sizes.numel()
     _check_kernel_inputs("K6 tgmm", lhs, grad, group_sizes, n_groups)
     (m, kd), nd = lhs.shape, grad.shape[1]
+    if route == "wgmma":
+        _check_wgmma_widths("K6 tgmm", K=kd, N=nd)
     out = torch.empty((n_groups, kd, nd), dtype=lhs.dtype, device=lhs.device)
     if out.numel() == 0:
         return out
-    _launch("K6 tgmm", _bind("grouped_tgmm", 5), lhs, grad,
-            _offsets(group_sizes), out, m, kd, nd, n_groups,
-            int(lhs.dtype == torch.bfloat16))
-    _tgmm_cuda.launches += 1
+    if route == "fma":
+        _launch("K6 tgmm (fma)", _bind("grouped_tgmm", 5), lhs, grad,
+                _offsets(group_sizes), out, m, kd, nd, n_groups,
+                int(lhs.dtype == torch.bfloat16))
+    elif m == 0:  # every group empty: no rows to map
+        out.zero_()
+        return out
+    else:
+        _launch("K6 tgmm (wgmma)",
+                _bind("grouped_tgmm_wgmma", 4, "grouped_mm_wgmma"), lhs,
+                grad, _offsets(group_sizes), out, m, kd, nd, n_groups)
+    _count(_tgmm_cuda, route, True)
     return out
 
 
 _tgmm_cuda.launches = 0
+_tgmm_cuda.launches_by_route = {"wgmma": 0, "fma": 0}
 
 
 def _gmm_impl(lhs, rhs, group_sizes):

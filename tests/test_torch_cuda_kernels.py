@@ -10,7 +10,9 @@ same f32 products summed in another order, then one bf16 rounding of p
 or ds may land differently). K5/K6 relative to the plain version's
 largest entry: f32 1e-5, bf16 1e-2 (both sum in f32 and round once, so
 an element may differ by one bf16 ulp); an empty group's tgmm slice is
-exactly 0.
+exactly 0. bf16 K1 and K6 run on the wgmma kernels (the route their
+wrappers pick from the dtype), f32 on the FMA kernels: each route is
+held to the same tolerance.
 """
 
 import pytest
@@ -91,6 +93,46 @@ def test_flash_bwd_matches_plain(b, hkv, n_rep, t, d, causal, dtype, tol):
         assert err <= tol, f"{name}: relative error {err}"
 
 
+# K1 at the model's head dim on the wgmma route: ragged T around the
+# 64-row wgmma and 128-row block and kv tiles, one row, a train length;
+# n_rep 4 and 2.
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hkv", [4, 8])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 129, 200, 2048])
+def test_flash_fwd_wgmma_matches_plain(t, hkv, causal):
+    b = 2 if t < 2048 else 1
+    q = _rand((b, 16, t, 128), torch.bfloat16, 30)
+    k = _rand((b, hkv, t, 128), torch.bfloat16, 31)
+    v = _rand((b, hkv, t, 128), torch.bfloat16, 32)
+    before = dict(fa._flash_fwd_cuda.launches_by_route)
+    o, lse = fa._flash_fwd_cuda(q, k, v, causal)
+    o_ref, lse_ref = fa._flash_fwd_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa._flash_fwd_cuda.launches_by_route == dict(
+        before, wgmma=before["wgmma"] + 1)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=0, atol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-3)
+
+
+def test_flash_fwd_routes_by_dtype():
+    """bf16 goes to the wgmma kernel, f32 to the FMA kernel; the FMA
+    kernel still takes bf16 when asked by name, and agrees."""
+    q = _rand((1, 4, 70, 64), torch.bfloat16, 33)
+    kv = _rand((1, 2, 70, 64), torch.bfloat16, 34)
+    before = dict(fa._flash_fwd_cuda.launches_by_route)
+    o_w, lse_w = fa._flash_fwd_cuda(q, kv, kv, True)
+    o_f, lse_f = fa._flash_fwd_cuda(q, kv, kv, True, route="fma")
+    fa._flash_fwd_cuda(q.float(), kv.float(), kv.float(), True)
+    torch.cuda.synchronize()
+    assert fa._flash_fwd_cuda.launches_by_route == {
+        "wgmma": before["wgmma"] + 1, "fma": before["fma"] + 2}
+    torch.testing.assert_close(o_w.float(), o_f.float(), rtol=0, atol=2e-2)
+    torch.testing.assert_close(lse_w, lse_f, rtol=0, atol=1e-3)
+    with pytest.raises(ValueError, match="route 'wgmma'"):
+        fa._flash_fwd_cuda(q.float(), kv.float(), kv.float(), True,
+                           route="wgmma")
+
+
 def test_wrappers_count_launches():
     q = _rand((1, 2, 8, 16), torch.float32, 6)
     kv = _rand((1, 1, 8, 16), torch.float32, 7)
@@ -125,7 +167,22 @@ GMM_LAYOUTS = {
     "E4-empty-last": (37, 48, 40, [12, 15, 10, 0]),
     "E8-one-group": (37, 48, 40, [0, 0, 0, 37, 0, 0, 0, 0]),
     "E8-ragged": (37, 48, 40, [5, 3, 0, 9, 4, 0, 10, 6]),
-    "E4-straddle": (300, 130, 70, [129, 1, 0, 170]),
+    "E4-straddle": (300, 136, 72, [129, 1, 0, 170]),
+}
+
+# (M, K, N, group sizes) for the wgmma route's edges: boundaries off the
+# 64-row stage and the 128-row tile, empty first/middle/last groups, a
+# one-row group, M below one stage, and the smoke's skewed routing at
+# narrower widths. K and N are multiples of 8 (TMA's 16-byte rows).
+WGMMA_LAYOUTS = {
+    "off-64": (300, 192, 136, [70, 130, 100]),
+    "off-128": (520, 256, 264, [129, 255, 136]),
+    "empty-first": (200, 128, 128, [0, 77, 123]),
+    "empty-middle": (200, 128, 128, [77, 0, 123]),
+    "empty-last": (200, 128, 128, [77, 123, 0]),
+    "one-row": (130, 64, 200, [1, 128, 1]),
+    "m-below-64": (40, 72, 56, [10, 30]),
+    "skewed": (8192, 256, 512, [0, 5000, 3001, 191]),
 }
 
 
@@ -156,6 +213,45 @@ def test_grouped_mm_kernels_match_plain(layout, dtype, tol):
     for e, size in enumerate(sizes):
         if size == 0:
             assert not cases[2][1][e].any()
+
+
+@pytest.mark.parametrize("layout", sorted(WGMMA_LAYOUTS))
+def test_grouped_bwd_wgmma_matches_plain(layout):
+    m, k, n, sizes = WGMMA_LAYOUTS[layout]
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    lhs = _rand((m, k), torch.bfloat16, 35)
+    rhs = _rand((len(sizes), k, n), torch.bfloat16, 36)
+    grad = _rand((m, n), torch.bfloat16, 37)
+    before = (dict(gm._gmm_dlhs_cuda.launches_by_route),
+              dict(gm._tgmm_cuda.launches_by_route))
+    dlhs = gm._gmm_dlhs_cuda(grad, rhs, gs)
+    drhs = gm._tgmm_cuda(lhs, grad, gs)
+    torch.cuda.synchronize()
+    for fn, was in zip((gm._gmm_dlhs_cuda, gm._tgmm_cuda), before):
+        assert fn.launches_by_route == dict(was, wgmma=was["wgmma"] + 1)
+    assert _rel(dlhs, gm._gmm_dlhs_reference(grad, rhs, gs)) <= 1e-2
+    assert _rel(drhs, gm._tgmm_reference(lhs, grad, gs)) <= 1e-2
+    for e, size in enumerate(sizes):
+        if size == 0:
+            assert not drhs[e].any()
+
+
+@pytest.mark.parametrize("half", ["dlhs", "tgmm"])
+def test_grouped_bwd_wgmma_raises_on_widths_off_8(half):
+    gs = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
+    lhs = _rand((8, 130), torch.bfloat16, 38)
+    rhs = _rand((2, 130, 64), torch.bfloat16, 39)
+    grad = _rand((8, 64), torch.bfloat16, 40)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        if half == "dlhs":
+            gm._gmm_dlhs_cuda(grad, rhs, gs)
+        else:
+            gm._tgmm_cuda(lhs, grad, gs)
+    # The FMA kernels, asked by name, take any width.
+    assert _rel(gm._gmm_dlhs_cuda(grad, rhs, gs, route="fma"),
+                gm._gmm_dlhs_reference(grad, rhs, gs)) <= 1e-2
+    assert _rel(gm._tgmm_cuda(lhs, grad, gs, route="fma"),
+                gm._tgmm_reference(lhs, grad, gs)) <= 1e-2
 
 
 def test_grouped_mm_backward_launches_one_dlhs_and_one_tgmm():

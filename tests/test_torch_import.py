@@ -72,7 +72,8 @@ def test_build_lists_every_kernel_source():
     sources = sorted(p.stem for p in (REPO / "horovod_tpu_torch" / "csrc")
                      .glob("*.cu"))
     assert sorted(_build.SOURCES) == sources
-    assert "grouped_mm" in _build.SOURCES
+    assert {"grouped_mm", "flash_fwd_wgmma", "grouped_mm_wgmma"} <= set(
+        _build.SOURCES)
 
 
 def test_import_builds_nothing():
