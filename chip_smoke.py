@@ -17,13 +17,14 @@ any failed phase exits non-zero before the result line.
    kernel, plain and library times, and the card's bound for the same
    work. K1 forward, K2/K3 backward (dq, dk, dv) at the dense (Hkv4)
    and MoE (Hkv8) train shapes, K4 decode, K5 grouped matmul and K6
-   (its dlhs and tgmm) at the MoE train, prefill and decode shapes, at
-   f32 and on a skewed routing with an empty group. K1 and K6 take two
-   routes, chosen by dtype: bf16 on the wgmma kernels, f32 on the FMA
-   kernels; each bf16 case reports its route, TFLOP/s, the compiled
-   kernel's registers, spills and shared memory, and the FMA kernel's
-   time on the same inputs (``earlier_ms``). Every bf16 launch of K1 and
-   K6 on the main paths below must take the wgmma route.
+   (its dlhs and tgmm) at the MoE train, prefill and decode shapes (gate/
+   up and down; K5 splits the contraction at decode), at f32 and on a
+   skewed routing with an empty group. K1, K2, K5 and K6 take two routes,
+   chosen by dtype: bf16 on the wgmma kernels, f32 on the FMA kernels;
+   each bf16 case reports its route, TFLOP/s, the compiled kernel's
+   registers, spills and shared memory, and the FMA kernel's time on the
+   same inputs (``earlier_ms``). Every bf16 launch of K1, K2, K5 and K6
+   on the main paths below must take the wgmma route.
 3. ``llama_generate``: greedy, batch 16, prompt 128, 64 new tokens;
    K1 must launch once per layer, K4 once per layer per decode step.
 4. ``DecodeEngine``: 16 requests of 17-128 prompt tokens, 32 new
@@ -54,7 +55,7 @@ any failed phase exits non-zero before the result line.
    against the CPU; the six remat modes agree, with K5 launching
    6/12/12/12/10/6 times per grad call (none/full/attn/attn+gate/
    attn+moe/moe); engine tokens equal ``llama_generate``'s. Then the
-   same 2-layer grad call at bf16 on the card (K1 and K6 on wgmma)
+   same 2-layer grad call at bf16 on the card (K1, K2, K5, K6 on wgmma)
    against bf16 on the CPU (the plain versions).
 11. A ``kernels`` JSON line (K1-K6), the card line, and the result line
    ``{"ok": true, "device": {...}}``.
@@ -204,6 +205,9 @@ def wgmma_attrs(_build):
     for key, source, entry, arg in (
             ("K1 D128", "flash_fwd_wgmma", "flash_fwd_wgmma_attrs", 128),
             ("K1 D64", "flash_fwd_wgmma", "flash_fwd_wgmma_attrs", 64),
+            ("K2 D128", "flash_bwd_wgmma", "flash_bwd_wgmma_attrs", 128),
+            ("K2 D64", "flash_bwd_wgmma", "flash_bwd_wgmma_attrs", 64),
+            ("K5 gmm", "grouped_mm_wgmma", "grouped_wgmma_attrs", 2),
             ("K6 dlhs", "grouped_mm_wgmma", "grouped_wgmma_attrs", 0),
             ("K6 tgmm", "grouped_mm_wgmma", "grouped_wgmma_attrs", 1)):
         fn = getattr(_build.load(source), entry)
@@ -266,9 +270,10 @@ def flash_case(torch, fa, b, t, dtype, iters, attrs, h=16, hkv=4, d=128):
                 kernel_attrs=kattrs)
 
 
-def bwd_case(torch, fa, b, t, dtype, iters, h=16, hkv=4, d=128):
+def bwd_case(torch, fa, b, t, dtype, iters, attrs, h=16, hkv=4, d=128):
     """K2 and K3 against the plain backward on the same q, k, v, do and
-    K1's o and lse (causal)."""
+    K1's o and lse (causal). K2 takes its dtype's route (bf16: wgmma) and
+    is timed on the FMA route too (``earlier_ms``); K3 runs on FMA."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(b * 1000 + t + 7)
@@ -285,8 +290,12 @@ def bwd_case(torch, fa, b, t, dtype, iters, h=16, hkv=4, d=128):
         rel_err[name] = abs_err[name] / max(float(w.float().abs().max()),
                                             1e-30)
     delta = fa._delta(o, do)
+    route = fa.flash_bwd_route(dtype, d)
     k2_ms = cuda_ms(torch, lambda: fa._flash_bwd_dkv_cuda(
         q, k, v, do, lse, delta, True), iters)
+    earlier_ms = cuda_ms(torch, lambda: fa._flash_bwd_dkv_cuda(
+        q, k, v, do, lse, delta, True, route="fma"), max(1, iters // 2)) \
+        if route == "wgmma" else None
     k3_ms = cuda_ms(torch, lambda: fa._flash_bwd_dq_cuda(
         q, k, v, do, lse, delta, True), iters)
     pair_ms = cuda_ms(torch, lambda: fa._flash_bwd_cuda(
@@ -309,20 +318,27 @@ def bwd_case(torch, fa, b, t, dtype, iters, h=16, hkv=4, d=128):
     k3_bound, k3_by = bound(reads + nbytes(got[0]), 6 * d * pairs, dname)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     name = f"B{b} H{h} Hkv{hkv} T{t} D{d} {dname} causal"
+    k2_tflops = 8 * d * pairs / k2_ms / 1e9
+    earlier = f", earlier (fma) {earlier_ms:.4f} ms" if earlier_ms else ""
     log(f"  K2/K3 {name}: rel err dq {rel_err['dq']:.3e} dk "
         f"{rel_err['dk']:.3e} dv {rel_err['dv']:.3e} (tol {tol:g}, of "
-        f"the reference's max abs); K2 {k2_ms:.4f} ms (bound {k2_bound:.4f}"
+        f"the reference's max abs); K2 route {route} {k2_ms:.4f} ms "
+        f"({k2_tflops:.1f} TFLOP/s{earlier}; bound {k2_bound:.4f}"
         f" {k2_by}), K3 {k3_ms:.4f} ms (bound {k3_bound:.4f} {k3_by}), "
         f"pair {pair_ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA "
         f"backward) {library_ms:.4f} ms")
     for grad, err in rel_err.items():
         check(err <= tol, f"K2/K3 {name}: {grad} error {err} above {tol}")
     common = dict(plain_ms=plain_ms, library_ms=library_ms, pair_ms=pair_ms)
-    return (dict(case=f"K2 {name}", max_abs_err=max(abs_err["dk"],
-                                                    abs_err["dv"]),
+    return (dict(case=f"K2 {name}", kernel_route=route,
+                 max_abs_err=max(abs_err["dk"], abs_err["dv"]),
                  rel_err={k: rel_err[k] for k in ("dk", "dv")}, ms=k2_ms,
-                 bound_ms=k2_bound, bound_by=k2_by, **common),
-            dict(case=f"K3 {name}", max_abs_err=abs_err["dq"],
+                 tflops=k2_tflops, earlier_ms=earlier_ms,
+                 bound_ms=k2_bound, bound_by=k2_by,
+                 kernel_attrs=attrs[f"K2 D{128 if d == 128 else 64}"]
+                 if route == "wgmma" else None, **common),
+            dict(case=f"K3 {name}", kernel_route="fma",
+                 max_abs_err=abs_err["dq"],
                  rel_err={"dq": rel_err["dq"]}, ms=k3_ms,
                  bound_ms=k3_bound, bound_by=k3_by, **common))
 
@@ -359,8 +375,8 @@ def decode_case(torch, da, b, hkv, n_rep, s, pos, dtype, iters, d=128):
         f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     check(err <= tol, f"{name}: error {err} above {tol}")
-    return dict(case=name, max_abs_err=err, ms=kernel_ms,
-                plain_ms=plain_ms, library_ms=library_ms,
+    return dict(case=name, kernel_route="fma", max_abs_err=err,
+                ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -385,7 +401,7 @@ def launch_counters(fa, da, gm):
 
 
 # The kernels with a wgmma route for bf16 (and an FMA route for f32).
-ROUTED = ("K1", "K6 dlhs", "K6 tgmm")
+ROUTED = ("K1", "K2", "K5", "K6 dlhs", "K6 tgmm")
 
 
 def reset_counts(ctr):
@@ -400,8 +416,9 @@ def counts(ctr):
 
 
 def check_wgmma_routes(ctr, path):
-    """Every launch of K1 and K6 since the counts were reset took the
-    wgmma route (the main paths run bf16). Returns the counts by route."""
+    """Every launch of the ROUTED kernels since the counts were reset took
+    the wgmma route (the main paths run bf16). Returns the counts by
+    route."""
     by_route = {k: dict(ctr[k].launches_by_route) for k in ROUTED}
     for k, by in by_route.items():
         check(by["fma"] == 0 and by["wgmma"] == ctr[k].launches,
@@ -717,7 +734,7 @@ def gmm_case(torch, gm, label, sizes, k, n, dtype, iters, attrs,
     bf16 = dtype == torch.bfloat16
 
     def one(kname, kernel, plain, library, in_bytes, route="fma",
-            earlier=None):
+            earlier=None, on_device=False):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         abs_err = float((got.float() - want.float()).abs().max())
@@ -728,6 +745,17 @@ def gmm_case(torch, gm, label, sizes, k, n, dtype, iters, attrs,
         plain_ms = cuda_ms(torch, plain, max(1, iters // 4), warmup=1)
         lib_ms = library_grouped_ms(torch, f"{kname} {label}", library,
                                     iters) if bf16 else None
+        # Small M: the call's host work outlasts its kernels, so the CUDA
+        # events above time the host; the profiler gives the device's
+        # time (its kernels' durations summed).
+        def dev_ms(fn, what):
+            prof = device_profile(torch, f"{kname} {label} {what} x{iters}",
+                                  lambda: [fn() for _ in range(iters)], top=2)
+            return prof and prof["device_busy_ms"] / iters
+
+        dev = dict(device_ms=dev_ms(kernel, "kernel"),
+                   library_device_ms=dev_ms(library, "library")
+                   if lib_ms is not None else None) if on_device else {}
         moved = in_bytes + nbytes(got)
         bound_ms, bound_by = bound(moved, flops, dname)
         name = f"{kname} {label} M{m} K{k} N{n} E{e} {dname}"
@@ -735,6 +763,11 @@ def gmm_case(torch, gm, label, sizes, k, n, dtype, iters, attrs,
             "none (torch._grouped_mm takes bf16 only)" if not bf16 else "none"
         earlier_s = f", earlier (fma) {earlier_ms:.4f} ms" \
             if earlier_ms else ""
+        if dev:
+            ms_s = {k: "not measured" if v is None else f"{v:.4f} ms"
+                    for k, v in dev.items()}
+            earlier_s += (f", device time {ms_s['device_ms']} (library "
+                          f"{ms_s['library_device_ms']})")
         log(f"  {name} groups {sizes}: route {route}, rel err {err:.3e} (tol "
             f"{tol:g}, of the plain version's max abs), kernel {ms:.4f} ms"
             f"{earlier_s}, plain "
@@ -749,15 +782,26 @@ def gmm_case(torch, gm, label, sizes, k, n, dtype, iters, attrs,
                     earlier_ms=earlier_ms, plain_ms=plain_ms,
                     library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
                     kernel_attrs=attrs.get(kname) if route == "wgmma"
-                    else None)
+                    else None, **dev)
 
+    route = gm.grouped_route(dtype)
+    splits = gm._gmm_split_k(m, k, n, e, gm._sm_count(lhs.device)) \
+        if route == "wgmma" else 1
     out = {"K5": one(
         "K5 gmm", lambda: gm._gmm_cuda(lhs, rhs, gs),
         lambda: gm._gmm_reference(lhs, rhs, gs),
         lambda: torch._grouped_mm(lhs, rhs, offs=offs),
-        nbytes(lhs) + rhs_bytes)}
+        nbytes(lhs) + rhs_bytes, route,
+        lambda: gm._gmm_cuda(lhs, rhs, gs, route="fma"),
+        on_device=bf16 and m < 1024)}
+    out["K5"]["k_splits"] = splits
+    if splits > 1:
+        log(f"    K5 {label}: contraction in {splits} splits")
+        again = gm._gmm_cuda(lhs, rhs, gs)
+        check(torch.equal(gm._gmm_cuda(lhs, rhs, gs).view(torch.int16),
+                          again.view(torch.int16)),
+              f"K5 {label}: split-K result differs between two launches")
     if backward:
-        route = gm.grouped_bwd_route(dtype)
         out["K6 dlhs"] = one(
             "K6 dlhs", lambda: gm._gmm_dlhs_cuda(grad, rhs, gs),
             lambda: gm._gmm_dlhs_reference(grad, rhs, gs),
@@ -1012,9 +1056,9 @@ def run_moe_engine(torch, ctr, DecodeEngine, Request, params, cfg):
 
 def run_bf16_grad_check(torch, ctr, fa, llama, train_step, cfg):
     """The MoE model at 2 layers and bf16 (B2 T256, remat "none"): one
-    grad call on the card, where K1 and K6 take the wgmma route, against
-    the same call in bf16 on the CPU, where every op takes its plain
-    version.
+    grad call on the card, where K1, K2, K5 and K6 take the wgmma route,
+    against the same call in bf16 on the CPU, where every op takes its
+    plain version.
 
     bf16 gradients of this model are chaotic at the last bit: changing
     only how K1's output rounds (its plain version fed f64 inputs, which
@@ -1065,7 +1109,7 @@ def run_bf16_grad_check(torch, ctr, fa, llama, train_step, cfg):
     loss, grads = value_and_grad(card_params, "cuda")
     by_route = check_wgmma_routes(ctr, "bf16 MoE grad call")
     launched = counts(ctr)
-    want = {"K1": 2, "K6 dlhs": 6, "K6 tgmm": 6}
+    want = {"K1": 2, "K2": 2, "K5": 6, "K6 dlhs": 6, "K6 tgmm": 6}
     loss_err = abs(loss - cpu_loss) / abs(cpu_loss)
     err = norm_rel(grads, cpu_grads)
     ratio = max(e / (2 * f + 1e-2) for e, f in zip(err, floor))
@@ -1145,18 +1189,19 @@ def main():
           flash_case(torch, fa, 4, 2048, bf16, 20, attrs),
           flash_case(torch, fa, 2, 2048, bf16, 20, attrs, hkv=8),
           flash_case(torch, fa, 4, 128, f32, 20, attrs)]
-    bwd = [bwd_case(torch, fa, 4, 2048, bf16, 5),
-           bwd_case(torch, fa, 2, 2048, bf16, 5, hkv=8),
-           bwd_case(torch, fa, 1, 77, bf16, 20),
-           bwd_case(torch, fa, 2, 256, f32, 10)]
+    bwd = [bwd_case(torch, fa, 4, 2048, bf16, 5, attrs),
+           bwd_case(torch, fa, 2, 2048, bf16, 5, attrs, hkv=8),
+           bwd_case(torch, fa, 1, 77, bf16, 20, attrs),
+           bwd_case(torch, fa, 2, 256, f32, 10, attrs)]
     k2, k3 = [c[0] for c in bwd], [c[1] for c in bwd]
     k4 = [decode_case(torch, da, 16, 4, 4, 192, 150, bf16, 100),
           decode_case(torch, da, 1, 4, 4, 32768, 32767, bf16, 50),
           decode_case(torch, da, 16, 4, 4, 192, 150, f32, 50)]
     # K5/K6 at the MoE paths' shapes: one train microbatch routes 8192
     # rows (B2 T2048, top-2), a b16 x 128 prefill 4096, a b16 decode step
-    # 32; then f32 (the parity phase's B2 T256) and a skewed routing with
-    # an empty group and boundaries off the 128-row tile.
+    # 32 (gate/up and down: the shapes K5 splits along K); then f32 (the
+    # parity phase's B2 T256) and a skewed routing with an empty group and
+    # boundaries off the 128-row tile.
     train_sizes = [2100, 1900, 2300, 1892]
     gmm_cases = [
         gmm_case(torch, gm, "train gate/up", train_sizes, 2048, 4096, bf16,
@@ -1165,7 +1210,11 @@ def main():
                  attrs),
         gmm_case(torch, gm, "prefill gate/up", [1000, 1100, 980, 1016],
                  2048, 4096, bf16, 5, attrs, backward=False),
+        gmm_case(torch, gm, "prefill down", [1000, 1100, 980, 1016],
+                 4096, 2048, bf16, 5, attrs, backward=False),
         gmm_case(torch, gm, "decode gate/up", [9, 7, 10, 6], 2048, 4096,
+                 bf16, 20, attrs, backward=False),
+        gmm_case(torch, gm, "decode down", [9, 7, 10, 6], 4096, 2048,
                  bf16, 20, attrs, backward=False),
         gmm_case(torch, gm, "f32 gate/up", [300, 250, 222, 252], 2048, 4096,
                  f32, 3, attrs),
@@ -1255,8 +1304,9 @@ def main():
     def row(name, source, replaces, keys, cases, head=None):
         by_path = {p: sum(n[k] for k in keys) for p, n in paths.items()}
         head = head or cases[0]
-        # kernel_route: the bf16 main path's kernel (K1 and K6: wgmma,
-        # with earlier_ms the FMA kernel's time on the same inputs).
+        # kernel_route: the bf16 main path's kernel (K1, K2, K5, K6:
+        # wgmma, with earlier_ms the FMA kernel's time on the same inputs;
+        # K3, K4: fma).
         extra = {k: head[k] for k in ("kernel_route", "earlier_ms")
                  if k in head}
         return dict(name=name, route="cuda", source=source,
@@ -1282,14 +1332,14 @@ def main():
         row("K1 flash_fwd", "horovod_tpu_torch/csrc/flash_fwd_wgmma.cu",
             "horovod_tpu/ops/flash_attention.py:50", ["K1"], k1,
             head=k1[3]),
-        row("K2 flash_bwd_dkv", "horovod_tpu_torch/csrc/flash_bwd.cu",
+        row("K2 flash_bwd_dkv", "horovod_tpu_torch/csrc/flash_bwd_wgmma.cu",
             "horovod_tpu/ops/flash_attention.py:134", ["K2"], k2),
         row("K3 flash_bwd_dq", "horovod_tpu_torch/csrc/flash_bwd.cu",
             "horovod_tpu/ops/flash_attention.py:208", ["K3"], k3),
         row("K4 decode_attention",
             "horovod_tpu_torch/csrc/decode_attention.cu",
             "horovod_tpu/ops/decode_attention.py:36", ["K4"], k4),
-        row("K5 gmm", "horovod_tpu_torch/csrc/grouped_mm.cu",
+        row("K5 gmm", "horovod_tpu_torch/csrc/grouped_mm_wgmma.cu",
             "horovod_tpu/ops/grouped_moe.py:137", ["K5"], k5),
         row("K6 gmm_dlhs + tgmm",
             "horovod_tpu_torch/csrc/grouped_mm_wgmma.cu",

@@ -4,7 +4,9 @@ Entry points run on the card unless the caller asks for the CPU. With
 no device given and no CUDA they raise: a run that silently fell back
 to the CPU would report CPU numbers under a GPU's name. Below them, an
 op runs its kernel for CUDA tensors and its plain PyTorch version only
-for CPU tensors (:func:`kernel_or_plain`).
+for CPU tensors (:func:`kernel_or_plain`), and a kernel with two
+routes picks one from the dtype alone (:func:`dtype_route`,
+:func:`pick_route`).
 """
 
 import torch
@@ -49,3 +51,26 @@ def kernel_or_plain(label, x, kernel, plain, *args):
     if x.device.type == "cpu":
         return plain(x, *args)
     raise ValueError(f"{label} has no path for {x.device}")
+
+
+def dtype_route(kernel, dtype):
+    """The route of a two-kernel op for ``dtype``: ``"wgmma"`` (the
+    tensor-core kernel) for bfloat16, ``"fma"`` for float32; a ValueError
+    for anything else. ``kernel`` names the op in the error."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "fma"
+    raise ValueError(f"{kernel} has no kernel for {dtype}: it takes float32 "
+                     f"(fma) or bfloat16 (wgmma)")
+
+
+def pick_route(kernel, dtype, want, route=None):
+    """``route`` if given ("fma" also takes bfloat16: the earlier kernel,
+    kept as the wgmma kernel's yardstick), else ``want``, the dtype's
+    route; a ValueError for a route that does not take ``dtype``."""
+    route = route or want
+    if route not in ("wgmma", "fma") or (route == "wgmma" and
+                                         want != "wgmma"):
+        raise ValueError(f"{kernel} route {route!r} does not take {dtype}")
+    return route

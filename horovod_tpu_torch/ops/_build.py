@@ -22,8 +22,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("flash_fwd", "flash_fwd_wgmma", "flash_bwd", "decode_attention",
-           "grouped_mm", "grouped_mm_wgmma")
+SOURCES = ("flash_fwd", "flash_fwd_wgmma", "flash_bwd", "flash_bwd_wgmma",
+           "decode_attention", "grouped_mm", "grouped_mm_wgmma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

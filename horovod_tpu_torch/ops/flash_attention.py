@@ -4,9 +4,11 @@ Counterpart of horovod_tpu/ops/flash_attention.py. The TPU module's
 Pallas ``_fwd_kernel`` becomes K1, launched by :func:`_flash_fwd_cuda`
 along the route :func:`flash_fwd_route` picks from the dtype: bf16 on
 the tensor cores (``csrc/flash_fwd_wgmma.cu``), f32 on FMA
-(``csrc/flash_fwd.cu``); ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``
-become ``csrc/flash_bwd.cu`` (K2 and K3, launched by
-:func:`_flash_bwd_cuda`). :func:`_flash_fwd_reference` and
+(``csrc/flash_fwd.cu``); ``_bwd_dkv_kernel`` becomes K2
+(:func:`_flash_bwd_dkv_cuda`, along :func:`flash_bwd_route`: bf16 on
+``csrc/flash_bwd_wgmma.cu``, f32 on ``csrc/flash_bwd.cu``) and
+``_bwd_dq_kernel`` K3 (``csrc/flash_bwd.cu``, FMA for both dtypes),
+launched together by :func:`_flash_bwd_cuda`. :func:`_flash_fwd_reference` and
 :func:`_flash_bwd_reference` are their plain PyTorch versions, used for
 tensors on the CPU and as the kernels' yardstick on the card. The
 per-key bias and the ring-step offsets (with their lse cotangent) are
@@ -26,10 +28,11 @@ reads kv head h // n_rep, and k/v are never repeated).
 """
 
 import ctypes
+import functools
 
 import torch
 
-from horovod_tpu_torch._device import kernel_or_plain
+from horovod_tpu_torch._device import dtype_route, kernel_or_plain, pick_route
 from horovod_tpu_torch.ops import _build
 
 _NEG = -1e30
@@ -135,10 +138,11 @@ def _check_kernel_inputs(name, q, k, v, *more):
         raise ValueError(f"{name} takes contiguous tensors")
 
 
+@functools.cache
 def _bind(source, name, n_ptrs):
     """The ctypes entry ``name`` of csrc/<source>.cu: ``n_ptrs``
     pointers, then B, H, Hkv, Tq, Tk, D, causal, is_bf16, the scale and
-    the stream."""
+    the stream (bound once)."""
     fn = getattr(_build.load(source), name)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p]
@@ -157,18 +161,26 @@ def _launch(label, fn, tensors, q, k, causal):
         raise RuntimeError(f"{label} launch failed: CUDA error {err}")
 
 
+def _route(kernel, dtype, head_dim):
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"{kernel} takes head_dim in {_HEAD_DIMS}, got "
+                         f"{head_dim}")
+    return dtype_route(kernel, dtype)
+
+
 def flash_fwd_route(dtype, head_dim):
     """The K1 kernel that takes (dtype, head_dim): ``"wgmma"``
     (csrc/flash_fwd_wgmma.cu, tensor cores) for bfloat16, ``"fma"``
     (csrc/flash_fwd.cu) for float32; a ValueError for anything else."""
-    if head_dim not in _HEAD_DIMS:
-        raise ValueError(f"K1 takes head_dim in {_HEAD_DIMS}, got {head_dim}")
-    if dtype == torch.bfloat16:
-        return "wgmma"
-    if dtype == torch.float32:
-        return "fma"
-    raise ValueError(f"K1 has no kernel for {dtype}: it takes float32 "
-                     f"(fma) or bfloat16 (wgmma)")
+    return _route("K1", dtype, head_dim)
+
+
+def flash_bwd_route(dtype, head_dim):
+    """The K2 kernel that takes (dtype, head_dim): ``"wgmma"``
+    (csrc/flash_bwd_wgmma.cu, tensor cores) for bfloat16, ``"fma"``
+    (csrc/flash_bwd.cu flash_bwd_dkv) for float32; a ValueError for
+    anything else. K3 runs on FMA for both."""
+    return _route("K2", dtype, head_dim)
 
 
 # The ctypes entry of each K1 route: (source, function).
@@ -182,10 +194,8 @@ def _flash_fwd_cuda(q, k, v, causal=True, route=None):
     kept as the wgmma kernel's yardstick). Same contract as
     :func:`_flash_fwd_reference`."""
     _check_kernel_inputs("K1", q, k, v)
-    want = flash_fwd_route(q.dtype, q.shape[3])
-    route = route or want
-    if route not in _FWD_ENTRY or (route == "wgmma" and want != "wgmma"):
-        raise ValueError(f"K1 route {route!r} does not take {q.dtype}")
+    route = pick_route("K1", q.dtype, flash_fwd_route(q.dtype, q.shape[3]),
+                       route)
     b, h, t, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t, 1), dtype=torch.float32, device=q.device)
@@ -211,21 +221,40 @@ def _check_residuals(q, lse, delta):
                              f"{q.device}")
 
 
-def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True):
-    """Launch K2 (csrc/flash_bwd.cu flash_bwd_dkv): per-query-head
-    (dk, dv) [B, H, Tk, D] in k's dtype."""
+# The ctypes entry of each K2 route: (source, function).
+_DKV_ENTRY = {"wgmma": ("flash_bwd_wgmma", "flash_bwd_dkv_wgmma"),
+              "fma": ("flash_bwd", "flash_bwd_dkv")}
+
+
+def _pad_queries(x, tq):
+    """[B, H, Tq, 1] f32 -> [B*H, Tp], Tp = Tq rounded up to 64 with
+    zeros: the wgmma kernel copies each 64-query tile's 256 bytes whole."""
+    return torch.nn.functional.pad(x.reshape(x.shape[0] * x.shape[1], tq),
+                                   (0, -tq % 64))
+
+
+def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True, route=None):
+    """Launch K2 along :func:`flash_bwd_route` unless ``route`` names one
+    ("fma" also takes bfloat16): per-query-head (dk, dv) [B, H, Tk, D] in
+    k's dtype."""
     _check_kernel_inputs("K2", q, k, v, do)
     _check_residuals(q, lse, delta)
-    b, h, _, d = q.shape
+    route = pick_route("K2", q.dtype, flash_bwd_route(q.dtype, q.shape[3]),
+                       route)
+    b, h, t, d = q.shape
     dk = torch.empty((b, h, k.shape[2], d), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
-    _launch("K2 flash_bwd_dkv", _bind("flash_bwd", "flash_bwd_dkv", 8),
+    if route == "wgmma":
+        lse, delta = _pad_queries(lse, t), _pad_queries(delta, t)
+    _launch(f"K2 flash_bwd_dkv ({route})", _bind(*_DKV_ENTRY[route], 8),
             (q, k, v, do, lse, delta, dk, dv), q, k, causal)
     _flash_bwd_dkv_cuda.launches += 1
+    _flash_bwd_dkv_cuda.launches_by_route[route] += 1
     return dk, dv
 
 
 _flash_bwd_dkv_cuda.launches = 0
+_flash_bwd_dkv_cuda.launches_by_route = {"wgmma": 0, "fma": 0}
 
 
 def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=True):

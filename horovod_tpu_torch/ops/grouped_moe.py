@@ -11,13 +11,14 @@ tokens. The gather and the un-permute have inverse-gather backwards
 (permute back with ``argsort``, then a reshape-sum over K): no scatter
 on the path.
 
-The TPU module's megablox ``gmm`` (``_gmm_tpu``, :137) becomes
-``csrc/grouped_mm.cu`` ``grouped_mm`` (K5, :func:`_gmm_cuda`); its
-backward ``_gmm_tpu_bwd`` (:151) becomes K6, dlhs
-(:func:`_gmm_dlhs_cuda`) and tgmm (:func:`_tgmm_cuda`), along the route
-:func:`grouped_bwd_route` picks from the dtype: bf16 on the tensor cores
-(``csrc/grouped_mm_wgmma.cu``), f32 on FMA (the K5 kernel reading rhs
-transposed, and ``grouped_tgmm``). :func:`_gmm_reference` and
+The TPU module's megablox ``gmm`` (``_gmm_tpu``, :137) becomes K5
+(:func:`_gmm_cuda`); its backward ``_gmm_tpu_bwd`` (:151) becomes K6,
+dlhs (:func:`_gmm_dlhs_cuda`) and tgmm (:func:`_tgmm_cuda`). All three
+take the route :func:`grouped_route` picks from the dtype: bf16 on the
+tensor cores (``csrc/grouped_mm_wgmma.cu``; K5 split along the
+contraction at small M, :func:`_gmm_split_k`), f32 on FMA
+(``csrc/grouped_mm.cu``: ``grouped_mm``, reading rhs transposed for
+dlhs, and ``grouped_tgmm``). :func:`_gmm_reference` and
 :func:`_tgmm_reference` are their plain versions, used for tensors on
 the CPU and as the kernels' yardstick on the card. Group boundaries stay
 on the device: no wrapper reads ``group_sizes`` on the host.
@@ -34,11 +35,12 @@ keeps the replay from re-running the down product only to discard it.
 """
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
-from horovod_tpu_torch._device import kernel_or_plain
+from horovod_tpu_torch._device import dtype_route, kernel_or_plain, pick_route
 from horovod_tpu_torch.ops import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -106,23 +108,28 @@ def _check_kernel_inputs(name, a, b, group_sizes, n_groups):
 
 def _offsets(group_sizes):
     """The E + 1 group boundaries (0, then the running sum) as int32 on
-    group_sizes' device: computed there, never read on the host."""
+    group_sizes' device, for the FMA kernels (the wgmma kernels read the
+    sizes): computed there, never read on the host."""
     return F.pad(torch.cumsum(group_sizes, 0, dtype=torch.int32), (1, 0))
 
 
-def _bind(name, n_ints, source="grouped_mm"):
-    """The ctypes entry ``name`` of csrc/<source>.cu: four pointers,
-    ``n_ints`` ints, then the stream."""
+@functools.cache
+def _bind(name, n_ints, source="grouped_mm", n_ptrs=4):
+    """The ctypes entry ``name`` of csrc/<source>.cu: ``n_ptrs`` pointers,
+    ``n_ints`` ints, then the stream (bound once)."""
     fn = getattr(_build.load(source), name)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints + [
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(label, fn, *args):
+    """``fn`` on the current stream of the first tensor's device: tensors
+    pass as pointers, the rest as they are."""
     with torch.cuda.device(args[0].device):
-        err = fn(*(t.data_ptr() for t in args[:4]), *args[4:],
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args),
                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{label} launch failed: CUDA error {err}")
@@ -151,38 +158,92 @@ def _grouped_mm_cuda(label, lhs, rhs, group_sizes, transpose_rhs):
     return out, True
 
 
-def _gmm_cuda(lhs, rhs, group_sizes):
-    """Launch K5 on the current stream. Same contract as
-    :func:`_gmm_reference`."""
-    out, launched = _grouped_mm_cuda("K5 gmm", lhs, rhs, group_sizes, False)
-    _gmm_cuda.launches += int(launched)
+# The wgmma kernels' output tile (rows and columns) and stage depth
+# (csrc/grouped_mm_wgmma.cu BT, BC).
+_TILE, _STAGE_K = 128, 64
+_MAX_SPLITS = 8
+
+
+@functools.cache
+def _gmm_split_k(m, k, n, e, sms):
+    """How many 64-aligned contraction splits K5's wgmma kernel runs, from
+    the shapes alone (never from group_sizes): 1 when the grid's (row-tile
+    visit, N tile) blocks fill the ``sms`` SMs; else the S in
+    2..min(stages, 8) with the fewest waves per unit of work (the least
+    ceil(blocks * S / sms) / S, the smallest S on a tie), cut to a count
+    whose ranges are all non-empty."""
+    visits = -(-m // _TILE) + e - 1
+    blocks = visits * -(-n // _TILE)
+    stages = -(-k // _STAGE_K)
+    if blocks >= sms or stages < 2:
+        return 1
+    s = min(range(2, min(stages, _MAX_SPLITS) + 1),
+            key=lambda s: (-(-blocks * s // sms) / s, s))
+    return -(-stages // -(-stages // s))
+
+
+def _split_k_ranges(k, splits):
+    """The contraction range [start, end) of each split, as the kernel
+    walks them: ``k_per`` (a multiple of 64) wide, the last one cut at k,
+    none empty."""
+    k_per = -(-(-(-k // _STAGE_K)) // splits) * _STAGE_K
+    return [(z * k_per, min(k, (z + 1) * k_per))
+            for z in range(splits) if z * k_per < k]
+
+
+@functools.cache
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _gmm_cuda(lhs, rhs, group_sizes, route=None):
+    """Launch K5 on the current stream: csrc/grouped_mm_wgmma.cu
+    grouped_gmm_wgmma for bf16 (split along K at small M by
+    :func:`_gmm_split_k`), csrc/grouped_mm.cu grouped_mm for f32 (and for
+    bf16 when ``route="fma"``). Same contract as :func:`_gmm_reference`."""
+    route = _pick_route("K5 gmm", lhs.dtype, route)
+    if route == "fma":
+        out, launched = _grouped_mm_cuda("K5 gmm", lhs, rhs, group_sizes,
+                                         False)
+        _count(_gmm_cuda, route, launched)
+        return out
+    if lhs.dim() != 2 or rhs.dim() != 3 or rhs.shape[1] != lhs.shape[1]:
+        raise ValueError(f"K5 gmm takes lhs [M, K] and rhs [E, K, N], got "
+                         f"{tuple(lhs.shape)} and {tuple(rhs.shape)}")
+    _check_kernel_inputs("K5 gmm", lhs, rhs, group_sizes, rhs.shape[0])
+    (m, k), (n_groups, n) = lhs.shape, (rhs.shape[0], rhs.shape[2])
+    _check_wgmma_widths("K5 gmm", K=k, N=n)
+    launched = m > 0 and k > 0 and n > 0
+    ranges = _split_k_ranges(k, _gmm_split_k(
+        m, k, n, n_groups, _sm_count(lhs.device))) if launched else [(0, k)]
+    splits = len(ranges)
+    # The kernel writes every element (rows no group covers as 0).
+    out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
+    if launched:
+        ws = torch.empty((splits, m, n) if splits > 1 else (0,),
+                         dtype=torch.float32, device=lhs.device)
+        k_per = -(-ranges[0][1] // _STAGE_K) * _STAGE_K
+        _launch("K5 gmm (wgmma)",
+                _bind("grouped_gmm_wgmma", 5, "grouped_mm_wgmma", n_ptrs=5),
+                lhs, rhs, group_sizes, out, ws, m, k, n, n_groups, k_per)
+    _count(_gmm_cuda, route, launched)
     return out
 
 
 _gmm_cuda.launches = 0
+_gmm_cuda.launches_by_route = {"wgmma": 0, "fma": 0}
 
 
-def grouped_bwd_route(dtype):
-    """The K6 kernels (dlhs and tgmm) that take ``dtype``: ``"wgmma"``
-    (csrc/grouped_mm_wgmma.cu, tensor cores) for bfloat16, ``"fma"``
-    (csrc/grouped_mm.cu) for float32; a ValueError for anything else."""
-    if dtype == torch.bfloat16:
-        return "wgmma"
-    if dtype == torch.float32:
-        return "fma"
-    raise ValueError(f"K6 has no kernel for {dtype}: it takes float32 "
-                     f"(fma) or bfloat16 (wgmma)")
+def grouped_route(dtype):
+    """The grouped-matmul kernels (K5, and K6's dlhs and tgmm) that take
+    ``dtype``: ``"wgmma"`` (csrc/grouped_mm_wgmma.cu, tensor cores) for
+    bfloat16, ``"fma"`` (csrc/grouped_mm.cu) for float32; a ValueError for
+    anything else."""
+    return dtype_route("the grouped matmul (K5, K6)", dtype)
 
 
 def _pick_route(label, dtype, route):
-    """``route`` if given ("fma" also takes bfloat16: the earlier kernel,
-    kept as the wgmma kernel's yardstick), else the dtype's route."""
-    want = grouped_bwd_route(dtype)
-    route = route or want
-    if route not in ("wgmma", "fma") or (route == "wgmma" and
-                                         want != "wgmma"):
-        raise ValueError(f"{label} route {route!r} does not take {dtype}")
-    return route
+    return pick_route(label, dtype, grouped_route(dtype), route)
 
 
 def _check_wgmma_widths(label, **widths):
@@ -216,13 +277,14 @@ def _gmm_dlhs_cuda(grad, rhs, group_sizes, route=None):
     _check_kernel_inputs("K6 dlhs", grad, rhs, group_sizes, rhs.shape[0])
     (m, n), (n_groups, k) = grad.shape, rhs.shape[:2]
     _check_wgmma_widths("K6 dlhs", K=k, N=n)
-    # Zeros: rows that no group covers stay 0, as in the plain version.
-    out = torch.zeros((m, k), dtype=grad.dtype, device=grad.device)
+    # The kernel writes every element (rows no group covers as 0).
     launched = m > 0 and k > 0 and n > 0
+    out = (torch.empty if launched else torch.zeros)(
+        (m, k), dtype=grad.dtype, device=grad.device)
     if launched:
         _launch("K6 dlhs (wgmma)",
                 _bind("grouped_dlhs_wgmma", 4, "grouped_mm_wgmma"), grad,
-                rhs, _offsets(group_sizes), out, m, n, k, n_groups)
+                rhs, group_sizes, out, m, n, k, n_groups)
     _count(_gmm_dlhs_cuda, route, launched)
     return out
 
@@ -257,7 +319,7 @@ def _tgmm_cuda(lhs, grad, group_sizes, route=None):
     else:
         _launch("K6 tgmm (wgmma)",
                 _bind("grouped_tgmm_wgmma", 4, "grouped_mm_wgmma"), lhs,
-                grad, _offsets(group_sizes), out, m, kd, nd, n_groups)
+                grad, group_sizes, out, m, kd, nd, n_groups)
     _count(_tgmm_cuda, route, True)
     return out
 

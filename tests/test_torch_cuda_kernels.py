@@ -10,9 +10,10 @@ same f32 products summed in another order, then one bf16 rounding of p
 or ds may land differently). K5/K6 relative to the plain version's
 largest entry: f32 1e-5, bf16 1e-2 (both sum in f32 and round once, so
 an element may differ by one bf16 ulp); an empty group's tgmm slice is
-exactly 0. bf16 K1 and K6 run on the wgmma kernels (the route their
-wrappers pick from the dtype), f32 on the FMA kernels: each route is
-held to the same tolerance.
+exactly 0. bf16 K1, K2, K5 and K6 run on the wgmma kernels (the route
+their wrappers pick from the dtype), f32 on the FMA kernels: each route
+is held to the same tolerance. K5's split-K path gives the same bits on
+every launch (a fixed-order reduction, no atomics).
 """
 
 import pytest
@@ -296,3 +297,146 @@ def test_grouped_moe_ffn_runs_without_host_sync():
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# K5 on the wgmma route at small and ragged M: (M, K, N, group sizes).
+# Rows around the 64-row warpgroup and 128-row tile, empty groups, groups
+# that leave rows uncovered, K and N off 128.
+K5_LAYOUTS = {
+    "m1": (1, 2048, 4096, [0, 1, 0, 0]),
+    "m63": (63, 192, 136, [20, 0, 43]),
+    "m64": (64, 256, 264, [64, 0, 0]),
+    "m65": (65, 136, 128, [0, 30, 35]),
+    "m127": (127, 128, 200, [60, 7, 50]),  # row 117.. uncovered
+    "m129": (129, 4096, 2048, [9, 100, 0, 20]),
+    "uncovered": (100, 64, 72, [10, 0, 30]),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(K5_LAYOUTS))
+def test_gmm_wgmma_matches_plain(layout):
+    m, k, n, sizes = K5_LAYOUTS[layout]
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    lhs = _rand((m, k), torch.bfloat16, 41)
+    rhs = (_rand((len(sizes), k, n), torch.bfloat16, 42).float()
+           * k ** -0.5).bfloat16()
+    before = dict(gm._gmm_cuda.launches_by_route)
+    got = gm._gmm_cuda(lhs, rhs, gs)
+    want = gm._gmm_reference(lhs, rhs, gs)
+    torch.cuda.synchronize()
+    assert gm._gmm_cuda.launches_by_route == dict(
+        before, wgmma=before["wgmma"] + 1)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert _rel(got, want) <= 1e-2
+    covered = sum(sizes)
+    assert not got[covered:].any(), "rows no group covers must be 0"
+
+
+def test_gmm_wgmma_every_group_empty():
+    """M = 0 launches nothing; rows with every group empty stay 0."""
+    rhs = _rand((4, 128, 256), torch.bfloat16, 43)
+    zero = torch.zeros(4, dtype=torch.int32, device="cuda")
+    out = gm._gmm_cuda(_rand((0, 128), torch.bfloat16, 44), rhs, zero)
+    assert out.shape == (0, 256)
+    out = gm._gmm_cuda(_rand((40, 128), torch.bfloat16, 45), rhs, zero)
+    torch.cuda.synchronize()
+    assert out.shape == (40, 256) and not out.any()
+
+
+@pytest.mark.parametrize("k,n", [(2048, 4096), (4096, 2048)])
+def test_gmm_split_k_matches_plain_and_repeats_its_bits(k, n):
+    """A decode step's 32 routed rows: the plan splits K; the result is
+    within tolerance and the same bits on a second launch."""
+    sizes = [9, 7, 10, 6]
+    m = sum(sizes)
+    assert gm._gmm_split_k(m, k, n, 4, gm._sm_count(
+        torch.device("cuda", torch.cuda.current_device()))) > 1
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    lhs = _rand((m, k), torch.bfloat16, 46)
+    rhs = (_rand((4, k, n), torch.bfloat16, 47).float()
+           * k ** -0.5).bfloat16()
+    a = gm._gmm_cuda(lhs, rhs, gs)
+    b = gm._gmm_cuda(lhs, rhs, gs)
+    want = gm._gmm_reference(lhs, rhs, gs)
+    torch.cuda.synchronize()
+    assert _rel(a, want) <= 1e-2
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    # Fewer rows than the groups name: the uncovered tail is exactly 0.
+    short = torch.tensor([9, 7, 10, 0], dtype=torch.int32, device="cuda")
+    c = gm._gmm_cuda(lhs, rhs, short)
+    torch.cuda.synchronize()
+    assert not c[26:].any()
+    assert _rel(c[:26], gm._gmm_reference(lhs, rhs, short)[:26]) <= 1e-2
+
+
+def test_gmm_routes_by_dtype_and_raises_on_widths_off_8():
+    gs = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
+    lhs = _rand((8, 64), torch.bfloat16, 48)
+    rhs = _rand((2, 64, 72), torch.bfloat16, 49)
+    before = dict(gm._gmm_cuda.launches_by_route)
+    w = gm._gmm_cuda(lhs, rhs, gs)
+    f = gm._gmm_cuda(lhs, rhs, gs, route="fma")
+    gm._gmm_cuda(lhs.float(), rhs.float(), gs)
+    torch.cuda.synchronize()
+    assert gm._gmm_cuda.launches_by_route == {
+        "wgmma": before["wgmma"] + 1, "fma": before["fma"] + 2}
+    assert _rel(w, f) <= 1e-2
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gm._gmm_cuda(lhs, _rand((2, 64, 70), torch.bfloat16, 50), gs)
+    with pytest.raises(ValueError, match="route 'wgmma'"):
+        gm._gmm_cuda(lhs.float(), rhs.float(), gs, route="wgmma")
+
+
+# K2 at the model's head dims on the wgmma route: ragged T around the
+# 64-query tile and 128-key block, one row, a train length; n_rep 4 and
+# 2; causal or not.
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hkv", [4, 8])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 129, 200, 2048])
+def test_flash_bwd_dkv_wgmma_matches_plain(t, hkv, causal, d):
+    b = 2 if t < 2048 else 1
+    q = _rand((b, 16, t, d), torch.bfloat16, 51)
+    k = _rand((b, hkv, t, d), torch.bfloat16, 52)
+    v = _rand((b, hkv, t, d), torch.bfloat16, 53)
+    do = _rand((b, 16, t, d), torch.bfloat16, 54)
+    o, lse = fa._flash_fwd_cuda(q, k, v, causal)
+    delta = fa._delta(o, do)
+    before = dict(fa._flash_bwd_dkv_cuda.launches_by_route)
+    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal)
+    _, dk_ref, dv_ref = fa._flash_bwd_reference(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert fa._flash_bwd_dkv_cuda.launches_by_route == dict(
+        before, wgmma=before["wgmma"] + 1)
+    for name, g, w in (("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        # Relative to the reference's largest entry, or to 1e-3 where that
+        # is smaller: with one key (T = 1) dp equals delta, so dk is 0 up
+        # to each side's rounding and there is no scale of its own.
+        err = float((g.float() - w.float()).abs().max()
+                    / w.float().abs().max().clamp_min(1e-3))
+        assert err <= 2e-2, f"{name}: relative error {err}"
+
+
+def test_flash_bwd_dkv_routes_by_dtype():
+    """bf16 goes to the wgmma kernel, f32 to the FMA kernel; the FMA
+    kernel still takes bf16 when asked by name, and agrees."""
+    q = _rand((1, 4, 70, 64), torch.bfloat16, 55)
+    kv = _rand((1, 2, 70, 64), torch.bfloat16, 56)
+    o, lse = fa._flash_fwd_cuda(q, kv, kv, True)
+    delta = fa._delta(o, q)
+    before = dict(fa._flash_bwd_dkv_cuda.launches_by_route)
+    w = fa._flash_bwd_dkv_cuda(q, kv, kv, q, lse, delta, True)
+    f = fa._flash_bwd_dkv_cuda(q, kv, kv, q, lse, delta, True, route="fma")
+    q32, kv32 = q.float(), kv.float()
+    o32, lse32 = fa._flash_fwd_cuda(q32, kv32, kv32, True)
+    fa._flash_bwd_dkv_cuda(q32, kv32, kv32, q32, lse32, fa._delta(o32, q32),
+                           True)
+    torch.cuda.synchronize()
+    assert fa._flash_bwd_dkv_cuda.launches_by_route == {
+        "wgmma": before["wgmma"] + 1, "fma": before["fma"] + 2}
+    for a, b in zip(w, f):
+        assert _rel(a, b) <= 2e-2
+    with pytest.raises(ValueError, match="route 'wgmma'"):
+        fa._flash_bwd_dkv_cuda(q32, kv32, kv32, q32, lse32, lse32, True,
+                               route="wgmma")
