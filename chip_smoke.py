@@ -19,12 +19,15 @@ any failed phase exits non-zero before the result line.
    and MoE (Hkv8) train shapes, K4 decode, K5 grouped matmul and K6
    (its dlhs and tgmm) at the MoE train, prefill and decode shapes (gate/
    up and down; K5 splits the contraction at decode), at f32 and on a
-   skewed routing with an empty group. K1, K2, K5 and K6 take two routes,
+   skewed routing with an empty group. Every kernel takes two routes,
    chosen by dtype: bf16 on the wgmma kernels, f32 on the FMA kernels;
-   each bf16 case reports its route, TFLOP/s, the compiled kernel's
-   registers, spills and shared memory, and the FMA kernel's time on the
-   same inputs (``earlier_ms``). Every bf16 launch of K1, K2, K5 and K6
-   on the main paths below must take the wgmma route.
+   each bf16 case reports its route, TFLOP/s (K1-K3, K5, K6), the
+   compiled kernel's registers, spills and shared memory, and the FMA
+   kernel's time on the same inputs (``earlier_ms``). K3 and K4 give the
+   same bits on two launches; K4 at both generate paths' decode shapes
+   (B16 Hkv4 n_rep4 and Hkv8 n_rep2, S192) is one CUDA launch a call,
+   and reports its device time. Every bf16 launch of K1-K6 on the main
+   paths below must take the wgmma route.
 3. ``llama_generate``: greedy, batch 16, prompt 128, 64 new tokens;
    K1 must launch once per layer, K4 once per layer per decode step.
 4. ``DecodeEngine``: 16 requests of 17-128 prompt tokens, 32 new
@@ -202,19 +205,28 @@ def wgmma_attrs(_build):
     import ctypes
 
     out, buf = {}, (ctypes.c_int * 4)()
-    for key, source, entry, arg in (
-            ("K1 D128", "flash_fwd_wgmma", "flash_fwd_wgmma_attrs", 128),
-            ("K1 D64", "flash_fwd_wgmma", "flash_fwd_wgmma_attrs", 64),
-            ("K2 D128", "flash_bwd_wgmma", "flash_bwd_wgmma_attrs", 128),
-            ("K2 D64", "flash_bwd_wgmma", "flash_bwd_wgmma_attrs", 64),
-            ("K5 gmm", "grouped_mm_wgmma", "grouped_wgmma_attrs", 2),
-            ("K6 dlhs", "grouped_mm_wgmma", "grouped_wgmma_attrs", 0),
-            ("K6 tgmm", "grouped_mm_wgmma", "grouped_wgmma_attrs", 1)):
+    for key, source, entry, args in (
+            ("K1 D128", "flash_fwd_wgmma", "flash_fwd_wgmma_attrs", (128,)),
+            ("K1 D64", "flash_fwd_wgmma", "flash_fwd_wgmma_attrs", (64,)),
+            ("K2 D128", "flash_bwd_wgmma", "flash_bwd_wgmma_attrs", (128,)),
+            ("K2 D64", "flash_bwd_wgmma", "flash_bwd_wgmma_attrs", (64,)),
+            ("K3 D128", "flash_bwd_dq_wgmma", "flash_bwd_dq_wgmma_attrs",
+             (128,)),
+            ("K3 D64", "flash_bwd_dq_wgmma", "flash_bwd_dq_wgmma_attrs",
+             (64,)),
+            ("K4 n_rep4 D128", "decode_attention_wgmma",
+             "decode_attention_wgmma_attrs", (4, 128)),
+            ("K4 n_rep2 D128", "decode_attention_wgmma",
+             "decode_attention_wgmma_attrs", (2, 128)),
+            ("K5 gmm", "grouped_mm_wgmma", "grouped_wgmma_attrs", (2,)),
+            ("K6 dlhs", "grouped_mm_wgmma", "grouped_wgmma_attrs", (0,)),
+            ("K6 tgmm", "grouped_mm_wgmma", "grouped_wgmma_attrs", (1,))):
         fn = getattr(_build.load(source), entry)
-        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [ctypes.c_int] * len(args) + [
+            ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
-        err = fn(arg, buf)
-        check(err == 0, f"{entry}({arg}): CUDA error {err}")
+        err = fn(*args, buf)
+        check(err == 0, f"{entry}{args}: CUDA error {err}")
         out[key] = dict(registers=buf[0], spill_bytes=buf[1],
                         smem_bytes=buf[2] + buf[3])
         log(f"  {key} wgmma kernel: {buf[0]} registers at entry, "
@@ -270,10 +282,20 @@ def flash_case(torch, fa, b, t, dtype, iters, attrs, h=16, hkv=4, d=128):
                 kernel_attrs=kattrs)
 
 
+def same_bits(torch, fn):
+    """Two launches of ``fn`` give the same bits (no atomics, fixed-order
+    sums)."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    return torch.equal(a.view(torch.int16), b.view(torch.int16)) \
+        if a.dtype == torch.bfloat16 else torch.equal(a, b)
+
+
 def bwd_case(torch, fa, b, t, dtype, iters, attrs, h=16, hkv=4, d=128):
     """K2 and K3 against the plain backward on the same q, k, v, do and
-    K1's o and lse (causal). K2 takes its dtype's route (bf16: wgmma) and
-    is timed on the FMA route too (``earlier_ms``); K3 runs on FMA."""
+    K1's o and lse (causal). Each takes its dtype's route (bf16: wgmma)
+    and is timed on the FMA route too (``earlier_ms``); K3 gives the same
+    bits on two launches."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(b * 1000 + t + 7)
@@ -298,6 +320,11 @@ def bwd_case(torch, fa, b, t, dtype, iters, attrs, h=16, hkv=4, d=128):
         if route == "wgmma" else None
     k3_ms = cuda_ms(torch, lambda: fa._flash_bwd_dq_cuda(
         q, k, v, do, lse, delta, True), iters)
+    k3_earlier_ms = cuda_ms(torch, lambda: fa._flash_bwd_dq_cuda(
+        q, k, v, do, lse, delta, True, route="fma"), max(1, iters // 2)) \
+        if route == "wgmma" else None
+    k3_same = same_bits(torch, lambda: fa._flash_bwd_dq_cuda(
+        q, k, v, do, lse, delta, True))
     pair_ms = cuda_ms(torch, lambda: fa._flash_bwd_cuda(
         q, k, v, o, lse, do, True), iters)
     plain_ms = cuda_ms(torch, lambda: fa._flash_bwd_reference(
@@ -319,16 +346,21 @@ def bwd_case(torch, fa, b, t, dtype, iters, attrs, h=16, hkv=4, d=128):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     name = f"B{b} H{h} Hkv{hkv} T{t} D{d} {dname} causal"
     k2_tflops = 8 * d * pairs / k2_ms / 1e9
+    k3_tflops = 6 * d * pairs / k3_ms / 1e9
     earlier = f", earlier (fma) {earlier_ms:.4f} ms" if earlier_ms else ""
+    k3_earlier = f", earlier (fma) {k3_earlier_ms:.4f} ms" \
+        if k3_earlier_ms else ""
     log(f"  K2/K3 {name}: rel err dq {rel_err['dq']:.3e} dk "
         f"{rel_err['dk']:.3e} dv {rel_err['dv']:.3e} (tol {tol:g}, of "
         f"the reference's max abs); K2 route {route} {k2_ms:.4f} ms "
         f"({k2_tflops:.1f} TFLOP/s{earlier}; bound {k2_bound:.4f}"
-        f" {k2_by}), K3 {k3_ms:.4f} ms (bound {k3_bound:.4f} {k3_by}), "
-        f"pair {pair_ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA "
-        f"backward) {library_ms:.4f} ms")
+        f" {k2_by}), K3 route {route} {k3_ms:.4f} ms ({k3_tflops:.1f} "
+        f"TFLOP/s{k3_earlier}; bound {k3_bound:.4f} {k3_by}; same bits on "
+        f"two launches: {k3_same}), pair {pair_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library (SDPA backward) {library_ms:.4f} ms")
     for grad, err in rel_err.items():
         check(err <= tol, f"K2/K3 {name}: {grad} error {err} above {tol}")
+    check(k3_same, f"K3 {name}: two launches gave different bits")
     common = dict(plain_ms=plain_ms, library_ms=library_ms, pair_ms=pair_ms)
     return (dict(case=f"K2 {name}", kernel_route=route,
                  max_abs_err=max(abs_err["dk"], abs_err["dv"]),
@@ -337,13 +369,37 @@ def bwd_case(torch, fa, b, t, dtype, iters, attrs, h=16, hkv=4, d=128):
                  bound_ms=k2_bound, bound_by=k2_by,
                  kernel_attrs=attrs[f"K2 D{128 if d == 128 else 64}"]
                  if route == "wgmma" else None, **common),
-            dict(case=f"K3 {name}", kernel_route="fma",
+            dict(case=f"K3 {name}", kernel_route=route,
                  max_abs_err=abs_err["dq"],
                  rel_err={"dq": rel_err["dq"]}, ms=k3_ms,
-                 bound_ms=k3_bound, bound_by=k3_by, **common))
+                 tflops=k3_tflops, earlier_ms=k3_earlier_ms,
+                 bound_ms=k3_bound, bound_by=k3_by, same_bits=k3_same,
+                 kernel_attrs=attrs[f"K3 D{128 if d == 128 else 64}"]
+                 if route == "wgmma" else None, **common))
 
 
-def decode_case(torch, da, b, hkv, n_rep, s, pos, dtype, iters, d=128):
+def device_launches(torch, fn):
+    """The CUDA kernels one call of ``fn`` launches, by name, from the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def decode_case(torch, da, b, hkv, n_rep, s, pos, dtype, iters, attrs,
+                d=128, one_launch=False):
+    """K4 against its plain version: its dtype's route (bf16: wgmma), the
+    FMA kernel's time on the same inputs (``earlier_ms``), the device time
+    of the kernel and of the library call (the profiler's: at the decode
+    shapes a call's host work outlasts its kernel, so the CUDA events time
+    the host), the same bits on two launches, and with ``one_launch`` the
+    check that a call is one CUDA launch."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(b * 7 + s)
@@ -351,19 +407,38 @@ def decode_case(torch, da, b, hkv, n_rep, s, pos, dtype, iters, d=128):
     q = torch.randn((b, 1, h, d), generator=g, device="cuda").to(dtype)
     ck = torch.randn((b, hkv, s, d), generator=g, device="cuda").to(dtype)
     cv = torch.randn((b, hkv, s, d), generator=g, device="cuda").to(dtype)
+    route = da.decode_route(dtype, d)
     out = da._decode_attention_cuda(q, ck, cv, pos)
     ref = da._decode_attention_reference(q, ck, cv, pos)
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
-    kernel_ms = cuda_ms(
-        torch, lambda: da._decode_attention_cuda(q, ck, cv, pos), iters)
+    def kernel():
+        return da._decode_attention_cuda(q, ck, cv, pos)
+
+    same = same_bits(torch, kernel)
+    kernels = device_launches(torch, kernel)
+    kernel_ms = cuda_ms(torch, kernel, iters)
+    earlier_ms = cuda_ms(torch, lambda: da._decode_attention_cuda(
+        q, ck, cv, pos, route="fma"), max(1, iters // 2)) \
+        if route == "wgmma" else None
     plain_ms = cuda_ms(
         torch, lambda: da._decode_attention_reference(q, ck, cv, pos),
         max(1, iters // 4), warmup=1)
     qt = q.transpose(1, 2)                      # [B, H, 1, D]
     kv_k, kv_v = ck[:, :, :pos + 1], cv[:, :, :pos + 1]
-    library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kv_k, kv_v, enable_gqa=True), iters)
+    def library():
+        return F.scaled_dot_product_attention(qt, kv_k, kv_v,
+                                              enable_gqa=True)
+
+    library_ms = cuda_ms(torch, library, iters)
+
+    def dev_ms(fn, what):
+        prof = device_profile(torch, f"K4 {what} x{iters}",
+                              lambda: [fn() for _ in range(iters)], top=2)
+        return prof and prof["device_busy_ms"] / iters
+
+    device_ms = dev_ms(kernel, "kernel")
+    library_device_ms = dev_ms(library, "library")
     n_valid = min(pos + 1, s)
     read = 2 * b * hkv * n_valid * d * ck.element_size()
     dname = str(dtype).replace("torch.", "")
@@ -371,13 +446,32 @@ def decode_case(torch, da, b, hkv, n_rep, s, pos, dtype, iters, d=128):
                                4 * b * h * n_valid * d, dname)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     name = f"K4 B{b} Hkv{hkv} n_rep{n_rep} S{s} pos{pos} D{d} {dname}"
-    log(f"  {name}: max_abs_err {err:.3e} (tol {tol:g}), kernel "
-        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    plan = da._decode_plan(b * hkv, n_rep, n_valid, *da._card(
+        torch.cuda.current_device(), n_rep, d)) if route == "wgmma" else None
+    kattrs = attrs[f"K4 n_rep{n_rep} D{d}"] \
+        if route == "wgmma" and f"K4 n_rep{n_rep} D{d}" in attrs else None
+    def fmt(v):
+        return "not measured" if v is None else f"{v:.4f} ms"
+
+    earlier = f", earlier (fma) {earlier_ms:.4f} ms" if earlier_ms else ""
+    log(f"  {name}: route {route}"
+        f"{f' (cluster, tiles a block, spill) {plan}' if plan else ''}, "
+        f"max_abs_err {err:.3e} (tol {tol:g}), same bits on two launches: "
+        f"{same}, CUDA launches a call {len(kernels)}, kernel "
+        f"{kernel_ms:.4f} ms{earlier}, device {fmt(device_ms)}, plain "
+        f"{plain_ms:.4f} ms, library {library_ms:.4f} ms (device "
+        f"{fmt(library_device_ms)}), bound {bound_ms:.4f} ms ({bound_by})")
     check(err <= tol, f"{name}: error {err} above {tol}")
-    return dict(case=name, kernel_route="fma", max_abs_err=err,
-                ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    check(same, f"{name}: two launches gave different bits")
+    if one_launch:
+        check(len(kernels) == 1, f"{name}: a call launched {kernels}, "
+              f"expected one kernel")
+    return dict(case=name, kernel_route=route, max_abs_err=err,
+                same_bits=same, cuda_launches_per_call=len(kernels),
+                plan=plan, ms=kernel_ms, earlier_ms=earlier_ms,
+                device_ms=device_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_device_ms=library_device_ms,
+                bound_ms=bound_ms, bound_by=bound_by, kernel_attrs=kattrs)
 
 
 # ---- phases 3-5: the serving path --------------------------------------
@@ -401,7 +495,7 @@ def launch_counters(fa, da, gm):
 
 
 # The kernels with a wgmma route for bf16 (and an FMA route for f32).
-ROUTED = ("K1", "K2", "K5", "K6 dlhs", "K6 tgmm")
+ROUTED = ("K1", "K2", "K3", "K4", "K5", "K6 dlhs", "K6 tgmm")
 
 
 def reset_counts(ctr):
@@ -1194,9 +1288,14 @@ def main():
            bwd_case(torch, fa, 1, 77, bf16, 20, attrs),
            bwd_case(torch, fa, 2, 256, f32, 10, attrs)]
     k2, k3 = [c[0] for c in bwd], [c[1] for c in bwd]
-    k4 = [decode_case(torch, da, 16, 4, 4, 192, 150, bf16, 100),
-          decode_case(torch, da, 1, 4, 4, 32768, 32767, bf16, 50),
-          decode_case(torch, da, 16, 4, 4, 192, 150, f32, 50)]
+    # K4 at both generate paths' decode steps (dense Hkv4 n_rep4, MoE
+    # Hkv8 n_rep2; S192), a long cache, and f32 (the FMA route).
+    k4 = [decode_case(torch, da, 16, 4, 4, 192, 150, bf16, 100, attrs,
+                      one_launch=True),
+          decode_case(torch, da, 16, 8, 2, 192, 150, bf16, 100, attrs,
+                      one_launch=True),
+          decode_case(torch, da, 1, 4, 4, 32768, 32767, bf16, 50, attrs),
+          decode_case(torch, da, 16, 4, 4, 192, 150, f32, 50, attrs)]
     # K5/K6 at the MoE paths' shapes: one train microbatch routes 8192
     # rows (B2 T2048, top-2), a b16 x 128 prefill 4096, a b16 decode step
     # 32 (gate/up and down: the shapes K5 splits along K); then f32 (the
@@ -1304,9 +1403,8 @@ def main():
     def row(name, source, replaces, keys, cases, head=None):
         by_path = {p: sum(n[k] for k in keys) for p, n in paths.items()}
         head = head or cases[0]
-        # kernel_route: the bf16 main path's kernel (K1, K2, K5, K6:
-        # wgmma, with earlier_ms the FMA kernel's time on the same inputs;
-        # K3, K4: fma).
+        # kernel_route: the bf16 main path's kernel (wgmma for all six),
+        # with earlier_ms the FMA kernel's time on the same inputs.
         extra = {k: head[k] for k in ("kernel_route", "earlier_ms")
                  if k in head}
         return dict(name=name, route="cuda", source=source,
@@ -1334,10 +1432,11 @@ def main():
             head=k1[3]),
         row("K2 flash_bwd_dkv", "horovod_tpu_torch/csrc/flash_bwd_wgmma.cu",
             "horovod_tpu/ops/flash_attention.py:134", ["K2"], k2),
-        row("K3 flash_bwd_dq", "horovod_tpu_torch/csrc/flash_bwd.cu",
+        row("K3 flash_bwd_dq",
+            "horovod_tpu_torch/csrc/flash_bwd_dq_wgmma.cu",
             "horovod_tpu/ops/flash_attention.py:208", ["K3"], k3),
         row("K4 decode_attention",
-            "horovod_tpu_torch/csrc/decode_attention.cu",
+            "horovod_tpu_torch/csrc/decode_attention_wgmma.cu",
             "horovod_tpu/ops/decode_attention.py:36", ["K4"], k4),
         row("K5 gmm", "horovod_tpu_torch/csrc/grouped_mm_wgmma.cu",
             "horovod_tpu/ops/grouped_moe.py:137", ["K5"], k5),

@@ -53,6 +53,14 @@ def kernel_or_plain(label, x, kernel, plain, *args):
     raise ValueError(f"{label} has no path for {x.device}")
 
 
+def current_stream_ptr(device_index):
+    """The raw ``cudaStream_t`` of the current stream on the device, as an
+    int for a ctypes launch: ``torch.cuda.current_stream().cuda_stream``
+    without building a Stream object, which costs more host time than a
+    small kernel's launch (the decode step's K4)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
 def dtype_route(kernel, dtype):
     """The route of a two-kernel op for ``dtype``: ``"wgmma"`` (the
     tensor-core kernel) for bfloat16, ``"fma"`` for float32; a ValueError

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels, as
 // raw PTX: mbarriers, TMA tile loads, the wgmma shared-memory descriptor
 // for 128-byte swizzled tiles, wgmma's fence/commit/wait and the
-// m64nNk16 bf16 -> f32 products (A from shared memory or registers), and
-// plain bulk copies of contiguous bytes.
+// m64nNk16 bf16 -> f32 products (A from shared memory or registers),
+// plain bulk copies of contiguous bytes, and thread-block clusters (rank,
+// barrier, reads of a peer block's shared memory).
 //
 // Tile convention. Every operand tile in shared memory is a stack of
 // 128-byte rows (64 bf16) written by TMA with CU_TENSOR_MAP_SWIZZLE_128B,
@@ -277,6 +278,63 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
         "n"(TB));
+}
+
+// The narrow products: N = 8 or 16 columns (4 or 8 f32 a thread, in the
+// fragment layout above), both operands from shared memory.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n8k16_ss(float (&d)[4], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[8], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// ---- thread-block clusters ---------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives, then waits: writes
+// to shared (and global) memory before it are seen after it by the
+// cluster's blocks. Each thread of a block must take part.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The f32 at this block's shared address `p`, read from the shared
+// memory of the cluster's block `rank` (the same offset there).
+__device__ __forceinline__ float ld_cluster_f32(const void* p, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 // ---- host: tensor maps ---------------------------------------------------

@@ -225,13 +225,20 @@ def moe_route(h, router_w, n_experts_per_token):
     load-balancing aux loss E * <fraction routed top-1 to e> . <mean
     prob of e>, with means over all leading axes.
 
+    The top-K is the first K columns of a stable descending sort, not
+    ``torch.topk``: ``lax.top_k`` puts the lower expert index first when
+    two probabilities are exactly equal, and ``torch.topk`` promises no
+    order on ties, so a tie could pick (or rank first) another expert.
+
     ``h`` is [..., D]; returns (gate_vals [..., K] f32, gate_idx
     [..., K] int32, aux). The one-hot is a compare with the expert ids:
     ``F.one_hot`` on CUDA reads the indices' range on the host."""
     E = router_w.shape[-1]
     logits = h.float() @ router_w.float()
     probs = torch.softmax(logits, dim=-1)                    # [..., E]
-    gate_vals, gate_idx = torch.topk(probs, n_experts_per_token, dim=-1)
+    ranked = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals = ranked.values[..., :n_experts_per_token]
+    gate_idx = ranked.indices[..., :n_experts_per_token]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
     lead = tuple(range(probs.dim() - 1))

@@ -1,13 +1,16 @@
-"""Single-position decode attention on the hand-written K4 kernel.
+"""Single-position decode attention on the hand-written K4 kernels.
 
 Counterpart of horovod_tpu/ops/decode_attention.py. The TPU module's
-Pallas ``_kernel`` becomes ``csrc/decode_attention.cu`` (launched by
-:func:`_decode_attention_cuda`); :func:`_decode_attention_reference`
-is its plain PyTorch version (the counterpart of the JAX
-``_decode_attention_xla``), used for tensors on the CPU and as the
-kernel's yardstick on the card. Unlike the TPU kernel, K4 covers any
-cache length: it splits S across blocks instead of falling back to an
-einsum past a memory budget.
+Pallas ``_kernel`` becomes K4, launched by :func:`_decode_attention_cuda`
+along the route :func:`decode_route` picks from the dtype: bf16 on
+``csrc/decode_attention_wgmma.cu`` (one launch: a thread-block cluster
+per (batch, kv head), both products on wgmma), f32 on
+``csrc/decode_attention.cu`` (three passes on FMA).
+:func:`_decode_attention_reference` is their plain PyTorch version (the
+counterpart of the JAX ``_decode_attention_xla``), used for tensors on
+the CPU and as the kernels' yardstick on the card. Unlike the TPU
+kernel, K4 covers any cache length: it splits S across blocks instead of
+falling back to an einsum past a memory budget.
 
 :func:`decode_attention_ragged` (the continuous-batching step's
 attention) was an einsum chain on every platform in the JAX package,
@@ -18,16 +21,27 @@ and then cast to the value dtype, f32-accumulated PV.
 """
 
 import ctypes
+import functools
 
 import torch
 
-from horovod_tpu_torch._device import kernel_or_plain
+from horovod_tpu_torch._device import (
+    current_stream_ptr,
+    dtype_route,
+    kernel_or_plain,
+    pick_route,
+)
 from horovod_tpu_torch.ops import _build
 
 _NEG = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_REP = 16
-_CHUNK = 128   # cache slots per block of K4's passes
+_CHUNK = 128   # cache slots per block of the FMA kernel's passes
+_TILE = 64     # cache slots per tile of the wgmma kernel
+_WGMMA_HEAD_DIMS = (16, 32, 64, 128, 256)
+# n_rep x slice slots of scores one wgmma block holds in shared memory
+# (csrc/decode_attention_wgmma.cu SCORE_FLOATS); beyond, an f32 scratch.
+_SCORE_FLOATS = 8192
 
 
 def _softmax(s):
@@ -79,42 +93,132 @@ def _check_kernel_inputs(q, cache_k, cache_v, pos):
         raise ValueError("K4 takes contiguous q and caches")
 
 
-def _decode_attention_cuda(q, cache_k, cache_v, pos):
-    """Launch K4 (csrc/decode_attention.cu, its three passes) on the
-    current stream. Same contract as the plain version."""
+def decode_route(dtype, head_dim):
+    """The K4 kernel that takes (dtype, head_dim): ``"wgmma"``
+    (csrc/decode_attention_wgmma.cu) for bfloat16 at head_dim 16-256
+    dividing 256, ``"fma"`` (csrc/decode_attention.cu) for float32; a
+    ValueError for anything else."""
+    route = dtype_route("K4", dtype)
+    if route == "wgmma" and head_dim not in _WGMMA_HEAD_DIMS:
+        raise ValueError(f"K4 takes bfloat16 head_dim in "
+                         f"{_WGMMA_HEAD_DIMS}, got {head_dim}")
+    return route
+
+
+@functools.cache
+def _bind(name, argtypes):
+    """The ctypes entry ``name`` of csrc/<source>.cu, bound once:
+    ``name`` is "<source>.<function>"."""
+    source, function = name.split(".")
+    fn = getattr(_build.load(source), function)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FMA_ARGS = (_P,) * 7 + (_I,) * 8 + (_F, _P)
+_WGMMA_ARGS = (_P,) * 5 + (_I,) * 8 + (_F, _P)
+
+
+@functools.cache
+def _card(device_index, n_rep, head_dim):
+    """(SMs, clusters): the card's SM count, and how many clusters of 1,
+    2, 4, 8 and 16 blocks of the wgmma kernel for (n_rep, head_dim) it
+    holds at once."""
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device_index):
+        err = _bind("decode_attention_wgmma.decode_attention_wgmma_clusters",
+                    (_I, _I, ctypes.POINTER(ctypes.c_int)))(
+            n_rep, head_dim, out)
+    if err:
+        raise RuntimeError(f"K4 cluster query failed: CUDA error {err}")
+    sms = torch.cuda.get_device_properties(
+        device_index).multi_processor_count
+    return sms, tuple(out)
+
+
+def _decode_plan(pairs, n_rep, n_valid, sms, clusters):
+    """(cluster, tiles_per_block, spill) of the wgmma kernel, from shapes
+    and the card alone: per (batch, kv head) a cluster of C blocks, C the
+    largest power of two up to 16 such that the ``pairs`` clusters fill
+    at most the card's ``sms`` and all fit at once (``clusters[i]``
+    clusters of 2^i blocks do), and no more blocks than 64-slot tiles;
+    each block takes ``tiles_per_block`` tiles. ``spill``: a block's
+    scores (n_rep x its slots) outgrow its shared memory and go to an f32
+    scratch."""
+    n_tiles = -(-n_valid // _TILE)
+    c, i = 1, 0
+    while i + 1 < len(clusters) and pairs * c * 2 <= sms \
+            and pairs <= clusters[i + 1] and c * 2 <= n_tiles:
+        c, i = c * 2, i + 1
+    tpb = -(-n_tiles // c)
+    return c, tpb, n_rep * tpb * _TILE > _SCORE_FLOATS
+
+
+def _decode_attention_cuda(q, cache_k, cache_v, pos, route=None):
+    """Launch K4 on the current stream, by :func:`decode_route` unless
+    ``route`` names one ("fma" also takes bfloat16: the earlier kernel,
+    kept as the wgmma kernel's yardstick). Same contract as the plain
+    version."""
     pos = int(pos)
     _check_kernel_inputs(q, cache_k, cache_v, pos)
     b, _, hq, d = q.shape
     hkv, s_len = cache_k.shape[1], cache_k.shape[2]
     n_rep = hq // hkv
-    # Slots past pos softmax to exactly 0; the kernel skips them.
+    route = pick_route("K4", q.dtype, decode_route(q.dtype, d), route)
+    # Slots past pos softmax to exactly 0; the kernels skip them.
     n_valid = min(pos + 1, s_len)
+    out = torch.empty_like(q)     # [B, 1, H, D] is [B, Hkv, n_rep, D]
+    # Entering the device's context costs more host time than a decode
+    # step's kernel takes; skip it when the device is already current.
+    if q.device.index == torch.cuda.current_device():
+        err = _launch(route, q, cache_k, cache_v, out, b, hkv, n_rep,
+                      s_len, d, n_valid)
+    else:
+        with torch.cuda.device(q.device):
+            err = _launch(route, q, cache_k, cache_v, out, b, hkv, n_rep,
+                          s_len, d, n_valid)
+    if err:
+        raise RuntimeError(f"K4 decode_attention ({route}) launch failed: "
+                           f"CUDA error {err}")
+    _decode_attention_cuda.launches += 1
+    _decode_attention_cuda.launches_by_route[route] += 1
+    return out
+
+
+_decode_attention_cuda.launches = 0
+_decode_attention_cuda.launches_by_route = {"wgmma": 0, "fma": 0}
+
+
+def _launch(route, q, cache_k, cache_v, out, b, hkv, n_rep, s_len, d,
+            n_valid):
+    """One call of the route's C entry on the current device's current
+    stream; returns its CUDA error code."""
+    dev = q.device.index
+    stream = current_stream_ptr(dev)
+    if route == "wgmma":
+        cluster, tpb, spill = _decode_plan(b * hkv, n_rep, n_valid,
+                                           *_card(dev, n_rep, d))
+        scratch = torch.empty((b * hkv * cluster, n_rep, tpb * _TILE),
+                              dtype=torch.float32, device=q.device) \
+            if spill else None
+        return _bind("decode_attention_wgmma.decode_attention_wgmma",
+                     _WGMMA_ARGS)(
+            q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+            out.data_ptr(), 0 if scratch is None else scratch.data_ptr(), b,
+            hkv, n_rep, s_len, d, n_valid, cluster, tpb, d ** -0.5, stream)
     n_split = -(-n_valid // _CHUNK)
     f32 = dict(dtype=torch.float32, device=q.device)
     scores = torch.empty((b, hkv, n_rep, n_split * _CHUNK), **f32)
     ml = torch.empty((b, hkv, n_split, n_rep, 2), **f32)
     partial = torch.empty((b, hkv, n_split if n_split > 1 else 0, n_rep,
                            d), **f32)
-    out = torch.empty((b, hkv, n_rep, d), dtype=q.dtype, device=q.device)
-    lib = _build.load("decode_attention")
-    fn = lib.decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-                 out.data_ptr(), scores.data_ptr(), ml.data_ptr(),
-                 partial.data_ptr(), b, hkv, n_rep, s_len, d, n_valid,
-                 _CHUNK, int(q.dtype == torch.bfloat16), d ** -0.5,
-                 torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"K4 decode_attention launch failed: CUDA "
-                           f"error {err}")
-    _decode_attention_cuda.launches += 1
-    return out.reshape(b, 1, hq, d)
-
-
-_decode_attention_cuda.launches = 0
+    return _bind("decode_attention.decode_attention", _FMA_ARGS)(
+        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+        out.data_ptr(), scores.data_ptr(), ml.data_ptr(), partial.data_ptr(),
+        b, hkv, n_rep, s_len, d, n_valid, _CHUNK,
+        int(q.dtype == torch.bfloat16), d ** -0.5, stream)
 
 
 def decode_attention(q, cache_k, cache_v, pos):

@@ -7,7 +7,8 @@ the tensor cores (``csrc/flash_fwd_wgmma.cu``), f32 on FMA
 (``csrc/flash_fwd.cu``); ``_bwd_dkv_kernel`` becomes K2
 (:func:`_flash_bwd_dkv_cuda`, along :func:`flash_bwd_route`: bf16 on
 ``csrc/flash_bwd_wgmma.cu``, f32 on ``csrc/flash_bwd.cu``) and
-``_bwd_dq_kernel`` K3 (``csrc/flash_bwd.cu``, FMA for both dtypes),
+``_bwd_dq_kernel`` K3 (:func:`_flash_bwd_dq_cuda`, along the same route:
+bf16 on ``csrc/flash_bwd_dq_wgmma.cu``, f32 on ``csrc/flash_bwd.cu``),
 launched together by :func:`_flash_bwd_cuda`. :func:`_flash_fwd_reference` and
 :func:`_flash_bwd_reference` are their plain PyTorch versions, used for
 tensors on the CPU and as the kernels' yardstick on the card. The
@@ -175,12 +176,13 @@ def flash_fwd_route(dtype, head_dim):
     return _route("K1", dtype, head_dim)
 
 
-def flash_bwd_route(dtype, head_dim):
-    """The K2 kernel that takes (dtype, head_dim): ``"wgmma"``
-    (csrc/flash_bwd_wgmma.cu, tensor cores) for bfloat16, ``"fma"``
-    (csrc/flash_bwd.cu flash_bwd_dkv) for float32; a ValueError for
-    anything else. K3 runs on FMA for both."""
-    return _route("K2", dtype, head_dim)
+def flash_bwd_route(dtype, head_dim, kernel="K2"):
+    """The K2 and K3 kernels that take (dtype, head_dim): ``"wgmma"``
+    (tensor cores: csrc/flash_bwd_wgmma.cu for K2,
+    csrc/flash_bwd_dq_wgmma.cu for K3) for bfloat16, ``"fma"``
+    (csrc/flash_bwd.cu flash_bwd_dkv and flash_bwd_dq) for float32; a
+    ValueError, naming ``kernel``, for anything else."""
+    return _route(kernel, dtype, head_dim)
 
 
 # The ctypes entry of each K1 route: (source, function).
@@ -228,15 +230,26 @@ _DKV_ENTRY = {"wgmma": ("flash_bwd_wgmma", "flash_bwd_dkv_wgmma"),
 
 def _pad_queries(x, tq):
     """[B, H, Tq, 1] f32 -> [B*H, Tp], Tp = Tq rounded up to 64 with
-    zeros: the wgmma kernel copies each 64-query tile's 256 bytes whole."""
+    zeros: the wgmma kernels copy each 64-query tile's 256 bytes whole."""
     return torch.nn.functional.pad(x.reshape(x.shape[0] * x.shape[1], tq),
                                    (0, -tq % 64))
 
 
-def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True, route=None):
+def _residuals(route, q, lse, delta, padded):
+    """lse and delta as the route's kernel reads them: as given for FMA,
+    padded by :func:`_pad_queries` for wgmma (``padded``, the pair
+    :func:`_flash_bwd_cuda` pads once for K2 and K3, else padded here)."""
+    if route != "wgmma":
+        return lse, delta
+    t = q.shape[2]
+    return padded or (_pad_queries(lse, t), _pad_queries(delta, t))
+
+
+def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True, route=None,
+                        padded=None):
     """Launch K2 along :func:`flash_bwd_route` unless ``route`` names one
     ("fma" also takes bfloat16): per-query-head (dk, dv) [B, H, Tk, D] in
-    k's dtype."""
+    k's dtype. ``padded``: lse and delta already padded for wgmma."""
     _check_kernel_inputs("K2", q, k, v, do)
     _check_residuals(q, lse, delta)
     route = pick_route("K2", q.dtype, flash_bwd_route(q.dtype, q.shape[3]),
@@ -244,8 +257,7 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True, route=None):
     b, h, t, d = q.shape
     dk = torch.empty((b, h, k.shape[2], d), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
-    if route == "wgmma":
-        lse, delta = _pad_queries(lse, t), _pad_queries(delta, t)
+    lse, delta = _residuals(route, q, lse, delta, padded)
     _launch(f"K2 flash_bwd_dkv ({route})", _bind(*_DKV_ENTRY[route], 8),
             (q, k, v, do, lse, delta, dk, dv), q, k, causal)
     _flash_bwd_dkv_cuda.launches += 1
@@ -257,27 +269,45 @@ _flash_bwd_dkv_cuda.launches = 0
 _flash_bwd_dkv_cuda.launches_by_route = {"wgmma": 0, "fma": 0}
 
 
-def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=True):
-    """Launch K3 (csrc/flash_bwd.cu flash_bwd_dq): dq [B, H, T, D] in
-    q's dtype."""
+# The ctypes entry of each K3 route: (source, function).
+_DQ_ENTRY = {"wgmma": ("flash_bwd_dq_wgmma", "flash_bwd_dq_wgmma"),
+             "fma": ("flash_bwd", "flash_bwd_dq")}
+
+
+def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=True, route=None,
+                       padded=None):
+    """Launch K3 along :func:`flash_bwd_route` unless ``route`` names one
+    ("fma" also takes bfloat16): dq [B, H, T, D] in q's dtype.
+    ``padded``: lse and delta already padded for wgmma."""
     _check_kernel_inputs("K3", q, k, v, do)
     _check_residuals(q, lse, delta)
+    route = pick_route("K3", q.dtype,
+                       flash_bwd_route(q.dtype, q.shape[3], "K3"), route)
     dq = torch.empty_like(q)
-    _launch("K3 flash_bwd_dq", _bind("flash_bwd", "flash_bwd_dq", 7),
+    lse, delta = _residuals(route, q, lse, delta, padded)
+    _launch(f"K3 flash_bwd_dq ({route})", _bind(*_DQ_ENTRY[route], 7),
             (q, k, v, do, lse, delta, dq), q, k, causal)
     _flash_bwd_dq_cuda.launches += 1
+    _flash_bwd_dq_cuda.launches_by_route[route] += 1
     return dq
 
 
 _flash_bwd_dq_cuda.launches = 0
+_flash_bwd_dq_cuda.launches_by_route = {"wgmma": 0, "fma": 0}
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, causal=True):
-    """K2 then K3 on the current stream. Same contract as
-    :func:`_flash_bwd_reference`."""
+    """K2 then K3 on the current stream, along their dtype's route, the
+    wgmma route's padded lse and delta made once for both. Same contract
+    as :func:`_flash_bwd_reference`."""
     delta = _delta(o, do)
-    dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal)
-    dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
+    padded = None
+    if flash_bwd_route(q.dtype, q.shape[3]) == "wgmma":
+        t = q.shape[2]
+        padded = _pad_queries(lse, t), _pad_queries(delta, t)
+    dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal,
+                                 padded=padded)
+    dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, padded=padded)
     return dq, dk, dv
 
 

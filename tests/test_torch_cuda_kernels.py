@@ -10,10 +10,11 @@ same f32 products summed in another order, then one bf16 rounding of p
 or ds may land differently). K5/K6 relative to the plain version's
 largest entry: f32 1e-5, bf16 1e-2 (both sum in f32 and round once, so
 an element may differ by one bf16 ulp); an empty group's tgmm slice is
-exactly 0. bf16 K1, K2, K5 and K6 run on the wgmma kernels (the route
-their wrappers pick from the dtype), f32 on the FMA kernels: each route
-is held to the same tolerance. K5's split-K path gives the same bits on
-every launch (a fixed-order reduction, no atomics).
+exactly 0. bf16 K1-K6 run on the wgmma kernels (the route their
+wrappers pick from the dtype), f32 on the FMA kernels: each route is held
+to the same tolerance. K3, K4 and K5's split-K path give the same bits on
+every launch (fixed-order sums, no atomics). The MoE router breaks exact
+ties as ``lax.top_k`` does, lower expert index first, on the card too.
 """
 
 import pytest
@@ -440,3 +441,145 @@ def test_flash_bwd_dkv_routes_by_dtype():
     with pytest.raises(ValueError, match="route 'wgmma'"):
         fa._flash_bwd_dkv_cuda(q32, kv32, kv32, q32, lse32, lse32, True,
                                route="wgmma")
+
+
+# K3 on the wgmma route: ragged T around the 64-key tile and the 128-row
+# block, one row, a train length; every head dim and n_rep; causal or not.
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("t", [1, 37, 63, 64, 65, 130, 2048])
+def test_flash_bwd_dq_wgmma_matches_plain(t, d, n_rep, causal):
+    b, hkv = (1, 2) if t == 2048 else (2, 2)
+    h = hkv * n_rep
+    q = _rand((b, h, t, d), torch.bfloat16, 57)
+    k = _rand((b, hkv, t, d), torch.bfloat16, 58)
+    v = _rand((b, hkv, t, d), torch.bfloat16, 59)
+    do = _rand((b, h, t, d), torch.bfloat16, 60)
+    o, lse = fa._flash_fwd_cuda(q, k, v, causal)
+    delta = fa._delta(o, do)
+    before = dict(fa._flash_bwd_dq_cuda.launches_by_route)
+    dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
+    again = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
+    dq_ref = fa._flash_bwd_reference(q, k, v, o, lse, do, causal)[0]
+    torch.cuda.synchronize()
+    assert fa._flash_bwd_dq_cuda.launches_by_route == dict(
+        before, wgmma=before["wgmma"] + 2)
+    assert dq.shape == dq_ref.shape and dq.dtype == dq_ref.dtype
+    # Relative to the reference's largest entry, floored at 1e-3 as K2's
+    # test does (at T = 1 there is a single key and dq may be ~0).
+    err = float((dq.float() - dq_ref.float()).abs().max()
+                / dq_ref.float().abs().max().clamp_min(1e-3))
+    assert err <= 2e-2, f"dq: relative error {err}"
+    assert torch.equal(dq.view(torch.int16), again.view(torch.int16))
+
+
+def test_flash_bwd_dq_routes_by_dtype():
+    """bf16 goes to the wgmma kernel, f32 to the FMA kernel; the FMA
+    kernel still takes bf16 when asked by name, and agrees."""
+    q = _rand((1, 4, 70, 64), torch.bfloat16, 61)
+    kv = _rand((1, 2, 70, 64), torch.bfloat16, 62)
+    o, lse = fa._flash_fwd_cuda(q, kv, kv, True)
+    delta = fa._delta(o, q)
+    before = dict(fa._flash_bwd_dq_cuda.launches_by_route)
+    w = fa._flash_bwd_dq_cuda(q, kv, kv, q, lse, delta, True)
+    f = fa._flash_bwd_dq_cuda(q, kv, kv, q, lse, delta, True, route="fma")
+    q32, kv32 = q.float(), kv.float()
+    o32, lse32 = fa._flash_fwd_cuda(q32, kv32, kv32, True)
+    fa._flash_bwd_dq_cuda(q32, kv32, kv32, q32, lse32, fa._delta(o32, q32),
+                          True)
+    torch.cuda.synchronize()
+    assert fa._flash_bwd_dq_cuda.launches_by_route == {
+        "wgmma": before["wgmma"] + 1, "fma": before["fma"] + 2}
+    assert _rel(w, f) <= 2e-2
+    with pytest.raises(ValueError, match="K3 route 'wgmma'"):
+        fa._flash_bwd_dq_cuda(q32, kv32, kv32, q32, lse32, lse32, True,
+                              route="wgmma")
+
+
+# K4 on the wgmma route: the FMA test's four shapes (one slot; n_rep 16
+# at D256), both generate paths' decode steps (dense Hkv4 n_rep4 and MoE
+# Hkv8 n_rep2 at S192, and at pos 0), a long cache over a 16-block
+# cluster, one whose last three cluster ranks get no tile (65 tiles over
+# 16 blocks of 5), and one whose scores spill to the f32 scratch.
+K4_SHAPES = {
+    "b3-s12-d16-pos0": (3, 2, 1, 12, 16, 0),
+    "b2-s300-d64": (2, 2, 4, 300, 64, 150),
+    "b1-s5000": (1, 4, 4, 5000, 128, 4999),
+    "b2-rep16-d256": (2, 1, 16, 129, 256, 128),
+    "dense-decode": (16, 4, 4, 192, 128, 150),
+    "moe-decode": (16, 8, 2, 192, 128, 150),
+    "dense-pos0": (16, 4, 4, 192, 128, 0),
+    "moe-pos0": (16, 8, 2, 192, 128, 0),
+    "b1-s32768": (1, 4, 4, 32768, 128, 32767),
+    "empty-ranks": (1, 1, 4, 4160, 128, 4159),
+    "spill": (1, 1, 16, 40000, 128, 39999),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(K4_SHAPES))
+def test_decode_attention_wgmma_matches_plain(shape):
+    b, hkv, n_rep, s, d, pos = K4_SHAPES[shape]
+    q = _rand((b, 1, hkv * n_rep, d), torch.bfloat16, 63)
+    ck = _rand((b, hkv, s, d), torch.bfloat16, 64)
+    cv = _rand((b, hkv, s, d), torch.bfloat16, 65)
+    before = dict(da._decode_attention_cuda.launches_by_route)
+    out = da._decode_attention_cuda(q, ck, cv, pos)
+    again = da._decode_attention_cuda(q, ck, cv, pos)
+    ref = da._decode_attention_reference(q, ck, cv, pos)
+    torch.cuda.synchronize()
+    assert da._decode_attention_cuda.launches_by_route == dict(
+        before, wgmma=before["wgmma"] + 2)
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=2e-2)
+    assert torch.equal(out.view(torch.int16), again.view(torch.int16))
+
+
+def test_decode_attention_spill_shape_spills():
+    """The spill case above does take the f32-scratch schedule."""
+    dev = torch.cuda.current_device()
+    _, _, spill = da._decode_plan(1, 16, 40000, *da._card(dev, 16, 128))
+    assert spill
+
+
+def test_decode_attention_routes_by_dtype():
+    """bf16 goes to the wgmma kernel, f32 to the FMA kernel; the FMA
+    kernel still takes bf16 when asked by name, and agrees."""
+    q = _rand((2, 1, 8, 64), torch.bfloat16, 66)
+    ck = _rand((2, 2, 100, 64), torch.bfloat16, 67)
+    cv = _rand((2, 2, 100, 64), torch.bfloat16, 68)
+    before = dict(da._decode_attention_cuda.launches_by_route)
+    w = da._decode_attention_cuda(q, ck, cv, 80)
+    f = da._decode_attention_cuda(q, ck, cv, 80, route="fma")
+    da._decode_attention_cuda(q.float(), ck.float(), cv.float(), 80)
+    torch.cuda.synchronize()
+    assert da._decode_attention_cuda.launches_by_route == {
+        "wgmma": before["wgmma"] + 1, "fma": before["fma"] + 2}
+    torch.testing.assert_close(w.float(), f.float(), rtol=0, atol=2e-2)
+    with pytest.raises(ValueError, match="K4 route 'wgmma'"):
+        da._decode_attention_cuda(q.float(), ck.float(), cv.float(), 80,
+                                  route="wgmma")
+
+
+@pytest.mark.parametrize("e", [4, 8, 64])
+def test_moe_route_breaks_exact_ties_like_lax_top_k(e):
+    """torch.sort(stable=True) on the card ranks equal probabilities by
+    expert index, as lax.top_k does: columns 0 and 1 of the router are
+    equal (a tie in every row), and zero rows tie across all E."""
+    from horovod_tpu_torch.models.llama import moe_route
+
+    h = _rand((64, 64), torch.float32, 69)
+    h[:5] = 0.0
+    w = _rand((64, e), torch.float32, 70) * 64 ** -0.5
+    w[:, 1] = w[:, 0]
+    probs = torch.softmax(h @ w, -1)
+    assert bool((probs[:, 0] == probs[:, 1]).all())
+    for k in (1, 2):
+        _, idx, _ = moe_route(h, w, k)
+        # The stable order computed on the host from the card's own
+        # probabilities: descending, ties by index.
+        want = torch.from_numpy(
+            (-probs.cpu().numpy()).argsort(-1, kind="stable")[:, :k])
+        assert torch.equal(idx.cpu().long(), want)
+        assert torch.equal(idx[:5].cpu().long(),
+                           torch.arange(k).expand(5, k))

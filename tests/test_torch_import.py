@@ -73,7 +73,8 @@ def test_build_lists_every_kernel_source():
                      .glob("*.cu"))
     assert sorted(_build.SOURCES) == sources
     assert {"grouped_mm", "flash_fwd_wgmma", "grouped_mm_wgmma",
-            "flash_bwd_wgmma"} <= set(_build.SOURCES)
+            "flash_bwd_wgmma", "flash_bwd_dq_wgmma",
+            "decode_attention_wgmma"} <= set(_build.SOURCES)
 
 
 def test_import_builds_nothing():

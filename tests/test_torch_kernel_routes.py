@@ -1,13 +1,16 @@
 """Which kernel each op launches, decided on the host without a card.
 
-K1, K2, K5 and K6 have two kernels each: bf16 runs on the tensor cores
-(the wgmma kernels, csrc/flash_fwd_wgmma.cu, csrc/flash_bwd_wgmma.cu and
+K1-K6 have two kernels each: bf16 runs on the tensor cores (the wgmma
+kernels, csrc/flash_fwd_wgmma.cu, csrc/flash_bwd_wgmma.cu,
+csrc/flash_bwd_dq_wgmma.cu, csrc/decode_attention_wgmma.cu and
 csrc/grouped_mm_wgmma.cu), f32 on FMA (csrc/flash_fwd.cu,
-csrc/flash_bwd.cu and csrc/grouped_mm.cu). The route is a pure function
-of the dtype (and, for K1 and K2, the head dim), never a fallback; the
-wgmma kernels' width rule, K5's split-K plan, the build's hash and the
-kernels' headers are checked here too (tests/test_torch_import.py checks
-the source list); tests/test_torch_cuda_kernels.py runs the kernels.
+csrc/flash_bwd.cu, csrc/decode_attention.cu and csrc/grouped_mm.cu). The
+route is a pure function of the dtype (and, for K1-K4, the head dim),
+never a fallback; the wgmma kernels' width rule, K5's split-K plan, K4's
+cluster plan, the padded residuals K2 and K3 share, the build's hash and
+the kernels' headers are checked here too (tests/test_torch_import.py
+checks the source list); tests/test_torch_cuda_kernels.py runs the
+kernels.
 """
 
 from pathlib import Path
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from horovod_tpu_torch.ops import _build
+from horovod_tpu_torch.ops import decode_attention as da
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import grouped_moe as gm
 
@@ -56,14 +60,51 @@ def test_flash_bwd_route_raises_for_what_no_kernel_takes(dtype, d, match):
         fa.flash_bwd_route(dtype, d)
 
 
+@pytest.mark.parametrize("dtype,d,match", [
+    (torch.float16, 128, "K3 has no kernel for torch.float16"),
+    (torch.bfloat16, 256, "head_dim"),
+    (torch.float32, 48, "head_dim")])
+def test_k3_route_raises_naming_k3(dtype, d, match):
+    """K3 shares K2's route rule; its errors name K3."""
+    with pytest.raises(ValueError, match=match):
+        fa.flash_bwd_route(dtype, d, "K3")
+
+
 @pytest.mark.parametrize("dtype,asked,want", [
     (torch.bfloat16, None, "wgmma"), (torch.float32, None, "fma"),
     (torch.bfloat16, "fma", "fma")])
 def test_flash_routes_by_name(dtype, asked, want):
     for kernel, route in (("K1", fa.flash_fwd_route),
-                          ("K2", fa.flash_bwd_route)):
+                          ("K2", fa.flash_bwd_route),
+                          ("K3", fa.flash_bwd_route)):
         assert fa.pick_route(kernel, dtype, route(dtype, 128),
                              asked) == want
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_decode_route_by_dtype(d):
+    assert da.decode_route(torch.bfloat16, d) == "wgmma"
+    assert da.decode_route(torch.float32, d) == "fma"
+
+
+@pytest.mark.parametrize("dtype,d,match", [
+    (torch.float16, 128, "K4 has no kernel for torch.float16"),
+    (torch.bfloat16, 8, "head_dim"),
+    (torch.bfloat16, 48, "head_dim")])
+def test_decode_route_raises_for_what_no_kernel_takes(dtype, d, match):
+    with pytest.raises(ValueError, match=match):
+        da.decode_route(dtype, d)
+
+
+@pytest.mark.parametrize("dtype,asked,want", [
+    (torch.bfloat16, None, "wgmma"), (torch.float32, None, "fma"),
+    (torch.bfloat16, "fma", "fma")])
+def test_decode_routes_by_name(dtype, asked, want):
+    assert da.pick_route("K4", dtype, da.decode_route(dtype, 128),
+                         asked) == want
+    if dtype == torch.float32:
+        with pytest.raises(ValueError, match="K4 route 'wgmma' does not"):
+            da.pick_route("K4", dtype, da.decode_route(dtype, 128), "wgmma")
 
 
 @pytest.mark.parametrize("dtype,asked", [(torch.float32, "wgmma"),
@@ -166,21 +207,28 @@ def test_split_k_plan_depends_on_shapes_only(m, k, n):
         assert s == 1
 
 
+WRAPPERS = (fa._flash_fwd_cuda, fa._flash_bwd_dkv_cuda,
+            fa._flash_bwd_dq_cuda, da._decode_attention_cuda, gm._gmm_cuda,
+            gm._gmm_dlhs_cuda, gm._tgmm_cuda)
+
+
 def test_wrappers_count_by_route():
-    for fn in (fa._flash_fwd_cuda, fa._flash_bwd_dkv_cuda, gm._gmm_cuda,
-               gm._gmm_dlhs_cuda, gm._tgmm_cuda):
+    for fn in WRAPPERS:
         assert set(fn.launches_by_route) == {"wgmma", "fma"}
+        assert fn.launches == 0 or fn.launches == sum(
+            fn.launches_by_route.values())
 
 
 def test_cpu_tensors_take_the_plain_version_not_a_route():
     """On CPU tensors the ops run their plain versions: no route, no
     launch, whatever the dtype."""
-    wrappers = (fa._flash_fwd_cuda, fa._flash_bwd_dkv_cuda, gm._gmm_cuda,
-                gm._gmm_dlhs_cuda, gm._tgmm_cuda)
+    wrappers = WRAPPERS
     before = [dict(fn.launches_by_route, all=fn.launches) for fn in wrappers]
     q = torch.randn(1, 2, 5, 16).bfloat16()
     o, lse = fa._flash_fwd_impl(q, q[:, :1], q[:, :1], True)
     fa._flash_bwd_impl(q, q[:, :1], q[:, :1], o, lse, q, True)
+    da.decode_attention(q[:, :, :1].transpose(1, 2).contiguous(),
+                        q[:, :1], q[:, :1], 3)
     lhs, rhs = torch.randn(6, 8).bfloat16(), torch.randn(2, 8, 16).bfloat16()
     gs = torch.tensor([2, 4], dtype=torch.int32)
     gm._gmm_impl(lhs, rhs, gs)
@@ -213,7 +261,9 @@ def test_kernel_sources_include_no_framework_headers():
                 assert header in allowed, f"{path.name} includes {header}"
 
 
-@pytest.mark.parametrize("source", ["flash_bwd_wgmma", "grouped_mm_wgmma"])
+@pytest.mark.parametrize("source", ["flash_bwd_wgmma", "flash_bwd_dq_wgmma",
+                                    "decode_attention_wgmma",
+                                    "grouped_mm_wgmma"])
 def test_build_hash_covers_each_wgmma_source(tmp_path, monkeypatch, source):
     """An edit of one kernel source rebuilds that library alone."""
     for f in CSRC.iterdir():
@@ -224,3 +274,75 @@ def test_build_hash_covers_each_wgmma_source(tmp_path, monkeypatch, source):
         f.write("\n")
     after = {n: _build._library_path(n) for n in _build.SOURCES}
     assert {n for n in _build.SOURCES if before[n] != after[n]} == {source}
+
+
+@pytest.mark.parametrize("source", sorted(
+    p.stem for p in CSRC.glob("*_wgmma.cu")))
+def test_wgmma_sources_build_on_the_hopper_header(source):
+    """Every wgmma kernel takes its PTX helpers (the narrow products and
+    the cluster helpers included) from hopper.cuh, whose every edit
+    rebuilds it (test_build_hash_covers_the_hopper_header)."""
+    text = (CSRC / f"{source}.cu").read_text()
+    assert '#include "hopper.cuh"' in text
+    assert source in _build.SOURCES
+
+
+def test_hopper_header_has_the_k4_helpers():
+    text = (CSRC / "hopper.cuh").read_text()
+    for helper in ("wgmma_m64n8k16_ss", "wgmma_m64n16k16_ss", "cluster_rank",
+                   "cluster_sync", "ld_cluster_f32", "mapa.shared::cluster",
+                   "barrier.cluster.arrive", "ld.shared::cluster"):
+        assert helper in text, helper
+
+
+# An H100 SXM: 132 SMs, and how many clusters of 1, 2, 4, 8 and 16 K4
+# blocks it holds at once (cudaOccupancyMaxActiveClusters on the card).
+H100 = (132, (132, 66, 30, 15, 7))
+
+
+@pytest.mark.parametrize("b,hkv,n_rep,n_valid,want", [
+    (16, 4, 4, 151, (2, 2, False)),     # dense decode step, S192
+    (16, 4, 4, 192, (2, 2, False)),
+    (16, 8, 2, 151, (1, 3, False)),     # MoE decode step: 128 blocks
+    (16, 4, 4, 1, (1, 1, False)),       # pos 0: one tile
+    (1, 4, 4, 32768, (16, 32, False)),  # long cache: 16-block clusters
+    (1, 1, 16, 40000, (16, 40, True)),  # n_rep 16: the scores spill
+    (2, 1, 16, 129, (2, 2, False))])
+def test_decode_plan_at_the_main_path_shapes(b, hkv, n_rep, n_valid, want):
+    assert da._decode_plan(b * hkv, n_rep, n_valid, *H100) == want
+
+
+@pytest.mark.parametrize("pairs", [1, 3, 4, 16, 64, 128, 132, 300])
+@pytest.mark.parametrize("n_valid", [1, 63, 64, 65, 151, 1000, 4100, 32768,
+                                     40000])
+@pytest.mark.parametrize("n_rep", [1, 4, 16])
+def test_decode_plan_covers_the_cache_in_one_wave(pairs, n_valid, n_rep):
+    """The plan is a pure function of shapes and the card: its C * tpb
+    tiles cover n_valid with the fewest tiles a block (the last ranks may
+    get none: the kernel takes an empty slice), one cluster per (batch,
+    kv head) fits the card at once whenever C > 1, and the scores spill
+    exactly when they outgrow shared memory."""
+    c, tpb, spill = da._decode_plan(pairs, n_rep, n_valid, *H100)
+    tiles = -(-n_valid // 64)
+    assert (c, tpb, spill) == da._decode_plan(pairs, n_rep, n_valid, *H100)
+    assert c in (1, 2, 4, 8, 16) and c <= tiles
+    assert c * tpb >= tiles > c * (tpb - 1)
+    if c > 1:
+        assert pairs * c <= H100[0]
+        assert pairs <= H100[1][c.bit_length() - 1]
+    assert spill == (n_rep * tpb * 64 > 8192)
+
+
+def test_k2_and_k3_share_padded_residuals():
+    """On the wgmma route lse and delta are padded to 64 queries with
+    zeros (each tile one 256-byte copy); a pair padded once by
+    _flash_bwd_cuda passes through as is; the FMA route takes them as
+    given."""
+    q = torch.zeros(2, 3, 70, 16)
+    lse, delta = torch.randn(2, 3, 70, 1), torch.randn(2, 3, 70, 1)
+    pl, pd = fa._residuals("wgmma", q, lse, delta, None)
+    assert pl.shape == pd.shape == (6, 128)
+    assert torch.equal(pl[:, :70], lse.reshape(6, 70))
+    assert not pl[:, 70:].any() and not pd[:, 70:].any()
+    assert fa._residuals("wgmma", q, lse, delta, (pl, pd)) == (pl, pd)
+    assert fa._residuals("fma", q, lse, delta, (pl, pd)) == (lse, delta)
