@@ -60,8 +60,23 @@ any failed phase exits non-zero before the result line.
    attn+moe/moe); engine tokens equal ``llama_generate``'s. Then the
    same 2-layer grad call at bf16 on the card (K1, K2, K5, K6 on wgmma)
    against bf16 on the CPU (the plain versions).
-11. A ``kernels`` JSON line (K1-K6), the card line, and the result line
-   ``{"ok": true, "device": {...}}``.
+11. The Horovod eager lane (``horovod_tpu_torch.torch``) on NCCL at
+   world size 1 (one card): the NCCL version and each group's backend;
+   every op on CUDA tensors in f32, bf16, f16 and int32 (Adasum floating
+   only), prescaled and postscaled, in place and out of place, grouped
+   and single, each result on the card and equal to its analytic value,
+   one NCCL call per response and none on gloo; ``broadcast_parameters``
+   over the flagship's params; the bf16 gradients of one flagship
+   backward (phase 6's shape) through ``grouped_allreduce_`` (one atomic
+   response) and per-leaf ``allreduce_async_`` (the optimizer's traffic,
+   64 MiB threshold), Average bit for bit, each timed per gradient set
+   beside the bound of the bytes the lane moves, with the lane's host
+   time and the device's idle share; a tensor written on a side stream
+   behind a long kernel is read only after the write (and, as a
+   control, read stale without the lane's wait on its producer); a CUDA
+   tensor on a lane opened with ``device="cpu"`` raises.
+12. A ``kernels`` JSON line (K1-K6; the lane adds no kernel), the card
+   line, and the result line ``{"ok": true, "device": {...}}``.
 
 Weights are random (``torch.Generator`` seeds); nothing is downloaded.
 """
@@ -1227,6 +1242,287 @@ def run_bf16_grad_check(torch, ctr, fa, llama, train_step, cfg):
                 launches_by_route=by_route, cpu_grad_call_s=cpu_s)
 
 
+# ---- phase 11: the Horovod eager lane on NCCL ---------------------------
+
+
+def raises(exc, fn):
+    """Whether ``fn()`` raises ``exc`` (an expected refusal)."""
+    try:
+        fn()
+    except exc:
+        return True
+    return False
+
+
+def host_ms(torch, fn, reps, warmup=2):
+    """Median host ms of ``fn`` (which ends in a synchronize) and every
+    repeat's ms."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), times
+
+
+def lane_expected(torch, x):
+    """A world of one with prescale 2 and postscale 0.25: a float result
+    is exactly x / 2 (powers of two round exactly), an integer one
+    trunc(x * 2 * 0.25)."""
+    if x.dtype.is_floating_point:
+        return x * 0.5
+    return torch.trunc(x.double() * 2 * 0.25).to(x.dtype)
+
+
+def lane_ops(torch, hvd, rt):
+    """Every op of the frontend on CUDA tensors, each against its value
+    at world size 1; every response one NCCL call, none on gloo."""
+    dp = rt.data_plane
+    dp.reset_counts()
+    before = rt.stats["responses"]
+    n = 0
+
+    def same(got, want, what):
+        nonlocal n
+        check(got.is_cuda and got.device == want.device,
+              f"lane {what}: result on {got.device}")
+        check(got.dtype == want.dtype and got.shape == want.shape and
+              torch.equal(got, want), f"lane {what}: wrong values")
+        n += 1
+
+    kw = dict(prescale_factor=2.0, postscale_factor=0.25)
+    for d, dtype in enumerate((torch.float32, torch.bfloat16,
+                               torch.float16, torch.int32)):
+        n_before = n
+        g = torch.Generator(device="cuda").manual_seed(d)
+        if dtype.is_floating_point:
+            x = torch.randn((257, 33), generator=g, device="cuda").to(dtype)
+        else:
+            x = torch.randint(-99, 100, (257, 33), generator=g,
+                              device="cuda", dtype=dtype)
+        half = lane_expected(torch, x)
+        ops = ("Sum", "Average", "Min", "Max", "Product") + (
+            ("Adasum",) if dtype.is_floating_point else ())
+        for op in ops:
+            same(hvd.allreduce(x, op=getattr(hvd, op), **kw), half,
+                 f"allreduce {op} {dtype}")
+            y = x.clone()
+            ptr = y.data_ptr()
+            hvd.allreduce_(y, op=getattr(hvd, op), **kw)
+            check(y.data_ptr() == ptr, "allreduce_ moved its storage")
+            same(y, half, f"allreduce_ {op} {dtype}")
+        xs = [x, x[:100], x[7:9]]
+        for got, t in zip(hvd.grouped_allreduce(xs, op=hvd.Average, **kw),
+                          xs):
+            same(got, lane_expected(torch, t), f"grouped_allreduce {dtype}")
+        ys = [t.clone() for t in xs]
+        hvd.grouped_allreduce_(ys, op=hvd.Sum, **kw)
+        for t, y in zip(xs, ys):
+            same(y, lane_expected(torch, t), f"grouped_allreduce_ {dtype}")
+        same(hvd.allgather(x), x, f"allgather {dtype}")
+        for got, t in zip(hvd.grouped_allgather([x, x[:5]]), [x, x[:5]]):
+            same(got, t, f"grouped_allgather {dtype}")
+        same(hvd.broadcast(x, root_rank=0), x, f"broadcast {dtype}")
+        y = x.clone()
+        hvd.broadcast_(y, root_rank=0)
+        same(y, x, f"broadcast_ {dtype}")
+        same(hvd.alltoall(x, splits=[257]), x, f"alltoall {dtype}")
+        same(hvd.reducescatter(x, op=hvd.Average, **kw), half,
+             f"reducescatter {dtype}")
+        for got, t in zip(hvd.grouped_reducescatter([x, x[:3]], op=hvd.Max),
+                          [x, x[:3]]):
+            same(got, t, f"grouped_reducescatter {dtype}")
+        log(f"  {str(dtype).removeprefix('torch.')}: allreduce and "
+            f"allreduce_ {'/'.join(ops)}, grouped_allreduce(_), allgather, "
+            f"grouped_allgather, broadcast(_), alltoall, reducescatter, "
+            f"grouped_reducescatter: {n - n_before} results equal to their "
+            f"values")
+    torch.cuda.synchronize()
+    responses = rt.stats["responses"] - before
+    launches = dict(dp.launches)
+    check(launches.get("gloo", 0) == 0,
+          f"lane ops: a CUDA op went through gloo: {launches}")
+    check(launches.get("nccl", 0) == responses,
+          f"lane ops: {launches} NCCL calls for {responses} responses")
+    by_op = {f"{b}:{o}": c for (b, o), c in sorted(dp.by_op.items())}
+    log(f"  ops: {n} results on the card, each equal to its value at "
+        f"world size 1 (f32, bf16, f16, int32; Sum/Average/Min/Max/Product/"
+        f"Adasum; prescale 2, postscale 0.25; in place and out of place; "
+        f"grouped and single); {responses} responses, {launches['nccl']} "
+        f"NCCL calls, 0 gloo: {by_op}")
+    return dict(checks=n, responses=responses, calls=by_op)
+
+
+def lane_stream_order(torch, hvd, rt):
+    """A tensor written on a side stream behind a ~0.5 s kernel: the
+    lane must wait for the write (its event wait), and, as a control,
+    reads the stale zeros when that wait is switched off."""
+    def produce_then_reduce():
+        x = torch.zeros(1 << 20, device="cuda")
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(int(1e9))
+            x.fill_(3.0)
+            out = hvd.allreduce_async(x, op=hvd.Sum).synchronize()
+            got = out.cpu()
+        return got
+
+    got = produce_then_reduce()
+    check(bool((got == 3.0).all()), f"lane read a side-stream tensor before "
+          f"its producer wrote it: {got.unique()}")
+    rt.data_plane.wait_for_producers = False
+    try:
+        stale = produce_then_reduce()
+    finally:
+        rt.data_plane.wait_for_producers = True
+    check(not bool((stale == 3.0).all()),
+          "control: without the lane's wait on the producer's event the "
+          "result still held the producer's value, so the ordering check "
+          "could not catch a missing wait")
+    log(f"  stream order: side-stream producer behind a ~0.5 s kernel read "
+        f"after its write (3.0); without the event wait the lane reads "
+        f"{sorted(set(stale.unique().tolist()))} (stale)")
+    return dict(ordered=True, stale_without_wait=sorted(
+        set(stale.unique().tolist())))
+
+
+def lane_gradients(torch, hvd, rt, llama, train_step, cfg, card):
+    """broadcast_parameters over the flagship's params, then the bf16
+    gradients of one backward through the lane, two ways."""
+    from horovod_tpu_torch.parallel._tree import tree_leaves
+
+    dp = rt.data_plane
+    params = llama.llama_init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    leaves = tree_leaves(params)
+    before = [p.clone() for p in leaves]
+    dp.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hvd.broadcast_parameters(params, root_rank=0)
+    torch.cuda.synchronize()
+    bcast_ms = (time.perf_counter() - t0) * 1e3
+    pbytes = sum(p.nbytes for p in leaves)
+    check(all(torch.equal(p, b) for p, b in zip(leaves, before)),
+          "broadcast_parameters changed a parameter at world size 1")
+    check(dp.launches == {"nccl": len(leaves)},
+          f"broadcast_parameters: {dict(dp.launches)} calls for "
+          f"{len(leaves)} leaves")
+    log(f"  broadcast_parameters: {len(leaves)} leaves, {pbytes / 1e9:.3f} "
+        f"GB, {bcast_ms:.2f} ms through NCCL; card {card}")
+    del before
+
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        4, 2048)).astype(np.int32)).cuda()
+    data = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+    _, grads = train_step._value_and_grad(
+        lambda p, d: llama.llama_loss(p, d, cfg), params, data, 1)
+    grads = tree_leaves(grads)
+    del params, leaves
+    torch.cuda.empty_cache()
+    want = [g.clone() for g in grads]
+    gbytes = sum(g.nbytes for g in grads)
+
+    def grouped():
+        hvd.grouped_allreduce_(grads, op=hvd.Average)
+        torch.cuda.synchronize()
+
+    def per_leaf():
+        hs = [hvd.allreduce_async_(g, name=f"grad.{i}")
+              for i, g in enumerate(grads)]
+        for h in hs:
+            h.synchronize()
+        torch.cuda.synchronize()
+
+    out = dict(broadcast_ms=bcast_ms, broadcast_bytes=pbytes,
+               grad_bytes=gbytes, leaves=len(grads))
+    for label, fn in (("grouped_allreduce_", grouped),
+                      ("per-leaf allreduce_async_", per_leaf)):
+        dp.reset_counts()
+        s0 = dict(rt.stats)
+        fn()
+        moved, launches = dp.bytes_moved, dict(dp.launches)
+        responses = rt.stats["responses"] - s0["responses"]
+        fused = rt.stats["fused"] - s0["fused"]
+        check(all(torch.equal(g.view(torch.int16), w.view(torch.int16))
+                  for g, w in zip(grads, want)),
+              f"lane {label}: Average at world size 1 changed a gradient")
+        check(launches == {"nccl": responses},
+              f"lane {label}: {launches} calls for {responses} responses")
+        s1 = dict(rt.stats)
+        ms, times = host_ms(torch, fn, 10)
+        s2 = dict(rt.stats)
+        cycles = s2["cycles"] - s1["cycles"]
+        resp = s2["responses"] - s1["responses"]
+        negotiate = (s2["negotiate_s"] - s1["negotiate_s"]) * 1e3
+        execute = (s2["execute_s"] - s1["execute_s"]) * 1e3
+        check(all(torch.equal(g.view(torch.int16), w.view(torch.int16))
+                  for g, w in zip(grads, want)),
+              f"lane {label}: gradients changed over the timed repeats")
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        prof = device_profile(torch, f"lane {label}", fn)
+        log(f"  {label} of {len(grads)} bf16 gradient leaves "
+            f"({gbytes / 1e9:.3f} GB), Average: bit for bit; {responses} "
+            f"responses ({fused} fused), {launches['nccl']} NCCL calls; "
+            f"{ms:.3f} ms per gradient set (median of 10, spread "
+            f"{min(times):.3f}-{max(times):.3f}); the lane moves "
+            f"{moved / 1e9:.3f} GB a set: bound {bound_ms:.3f} ms at "
+            f"3.35 TB/s; lane host time {negotiate / cycles:.3f} ms "
+            f"negotiating per cycle ({cycles} cycles), "
+            f"{execute / max(resp, 1):.3f} ms queuing per response; "
+            f"card {card}")
+        out[label] = dict(
+            ms=ms, times_ms=times, responses=responses, fused=fused,
+            nccl_calls=launches["nccl"], bytes_moved=moved,
+            bound_ms=bound_ms, cycles=cycles,
+            negotiate_ms_per_cycle=negotiate / cycles,
+            execute_ms_per_response=execute / max(resp, 1),
+            idle_share=None if prof is None else prof["idle_share"],
+            profile=prof)
+    return out
+
+
+def run_lane(torch, llama, train_step, cfg, card):
+    import torch.distributed as dist
+
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.common import basics
+
+    hvd.init()
+    try:
+        rt = basics.lane()
+        groups = rt.set_groups(0).groups
+        backends = {"control": dist.get_backend(dist.group.WORLD),
+                    **{k: dist.get_backend(g) for k, g in groups.items()}}
+        nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
+        check(hvd.size() == 1 and hvd.rank() == 0 and
+              backends["cuda"] == "nccl" and backends["cpu"] == "gloo",
+              f"lane: size {hvd.size()}, groups {backends}")
+        log(f"  hvd.init(): world size {hvd.size()}, NCCL {nccl}, groups "
+            f"{backends}, card {basics.device()}")
+        ops = lane_ops(torch, hvd, rt)
+        order = lane_stream_order(torch, hvd, rt)
+        grads = lane_gradients(torch, hvd, rt, llama, train_step, cfg,
+                               card)
+    finally:
+        hvd.shutdown()
+    hvd.init(device="cpu")
+    try:
+        refused = raises(ValueError, lambda: hvd.allreduce(
+            torch.ones(2, device="cuda")))
+    finally:
+        hvd.shutdown()
+    check(refused, "a CUDA tensor on a lane opened with device='cpu' did "
+          "not raise")
+    log("  a CUDA tensor on a lane opened with device='cpu' raises")
+    return dict(nccl=nccl, groups=backends, ops=ops, stream_order=order,
+                gradients=grads)
+
+
 def main():
     import torch
 
@@ -1387,14 +1683,19 @@ def main():
     bf16_check = run_bf16_grad_check(torch, ctr, fa, llama, train_step,
                                      mcfg)
 
-    log("phase 11: results")
+    log("phase 11: the Horovod eager lane on NCCL (world size 1)")
+    lane = run_lane(torch, llama, train_step, cfg, card)
+    torch.cuda.empty_cache()
+
+    log("phase 12: results")
     log(json.dumps({"generate": gen_stats, "engine": eng_stats,
                     "train": train_stats, "train_parity": parity,
                     "moe_train": moe_train_stats,
                     "moe_generate": moe_gen_stats,
                     "moe_engine": moe_eng_stats,
                     "moe_train_parity": moe_parity,
-                    "moe_bf16_grad_check": bf16_check, "card": card}))
+                    "moe_bf16_grad_check": bf16_check, "lane": lane,
+                    "card": card}))
     paths = {"llama_generate": gen_launch, "DecodeEngine": eng_launch,
              "train_step": train_launch, "moe_train_step": moe_train_launch,
              "moe_llama_generate": moe_gen_launch,

@@ -41,6 +41,7 @@ def test_import_loads_no_jax_triton_or_reference_package():
         "import horovod_tpu_torch.serving.engine\n"
         "import horovod_tpu_torch.parallel.train_step\n"
         "import horovod_tpu_torch.parallel.precision\n"
+        "import horovod_tpu_torch.torch\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'triton', 'ml_dtypes', 'horovod_tpu'))\n"
@@ -89,6 +90,7 @@ def test_import_builds_nothing():
         "import horovod_tpu_torch.ops.grouped_moe\n"
         "import horovod_tpu_torch.serving.engine\n"
         "import horovod_tpu_torch.parallel.train_step\n"
+        "import horovod_tpu_torch.torch\n"
         "from horovod_tpu_torch.ops import _build\n"
         "assert _build._libs == {}, _build._libs\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -115,6 +117,7 @@ def _entry_points():
     )
     from horovod_tpu_torch.parallel.precision import FusedAdamState
     from horovod_tpu_torch.serving.engine import DecodeEngine
+    import horovod_tpu_torch.torch as hvd
 
     cfg = LlamaConfig.tiny(dtype="float32")
     params = llama_init(cfg, torch.Generator().manual_seed(0),
@@ -137,6 +140,7 @@ def _entry_points():
             params, {"tokens": prompt, "targets": prompt}, cfg),
         "from_jax_opt_state": lambda: from_jax_opt_state(FusedAdamState(
             count=np.zeros((), np.int32), mu={}, nu={})),
+        "hvd.init": hvd.init,
     }
 
 
@@ -144,7 +148,7 @@ def _entry_points():
                                   "llama_generate", "llama_prefill",
                                   "llama_decode_step", "DecodeEngine",
                                   "llama_forward", "llama_loss",
-                                  "from_jax_opt_state"])
+                                  "from_jax_opt_state", "hvd.init"])
 def test_entry_point_without_device_raises_without_cuda(name,
                                                         monkeypatch):
     calls = _entry_points()
