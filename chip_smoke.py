@@ -65,16 +65,25 @@ any failed phase exits non-zero before the result line.
    every op on CUDA tensors in f32, bf16, f16 and int32 (Adasum floating
    only), prescaled and postscaled, in place and out of place, grouped
    and single, each result on the card and equal to its analytic value,
-   one NCCL call per response and none on gloo; ``broadcast_parameters``
-   over the flagship's params; the bf16 gradients of one flagship
-   backward (phase 6's shape) through ``grouped_allreduce_`` (one atomic
-   response) and per-leaf ``allreduce_async_`` (the optimizer's traffic,
-   64 MiB threshold), Average bit for bit, each timed per gradient set
-   beside the bound of the bytes the lane moves, with the lane's host
-   time and the device's idle share; a tensor written on a side stream
-   behind a long kernel is read only after the write (and, as a
-   control, read stale without the lane's wait on its producer); a CUDA
-   tensor on a lane opened with ``device="cpu"`` raises.
+   one NCCL call per response and none on gloo; a tensor written on a
+   side stream behind a long kernel is read only after the write (and,
+   as a control, read stale without the lane's wait on its producer),
+   with the timeline on; ``/healthz`` and ``/metrics`` of the debug
+   server (``HOROVOD_DEBUG_PORT=0``); ``broadcast_parameters`` over the
+   flagship's params; the bf16 gradients of one flagship backward (phase
+   6's shape) through ``grouped_allreduce_`` (one atomic response) and
+   per-leaf ``allreduce_async_`` (the optimizer's traffic, 64 MiB
+   threshold), 13 sets each, with the response cache on and again with
+   ``HOROVOD_CACHE_CAPACITY=0``: Average bit for bit, the same responses
+   per steady set, per leaf one miss per leaf and then only hits, the
+   metrics' ``device_ops`` equal to the bytes sent; ms per set beside
+   the bound of the bytes the lane moves, the lane's host time per
+   active cycle and per response, the device's idle share; one per-leaf
+   set under a timeline (every gradient negotiates and runs
+   ``NCCL_ALLREDUCE``) and ms per set with it on; ``SyncBatchNorm``'s
+   function on a ``[32, 256, 56, 56]`` activation, f32 and bf16, against
+   ``nn.BatchNorm2d`` (forward, backward, running statistics, both
+   times); a CUDA tensor on a lane opened with ``device="cpu"`` raises.
 12. A ``kernels`` JSON line (K1-K6; the lane adds no kernel), the card
    line, and the result line ``{"ok": true, "device": {...}}``.
 
@@ -83,6 +92,7 @@ Weights are random (``torch.Generator`` seeds); nothing is downloaded.
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1254,19 +1264,6 @@ def raises(exc, fn):
     return False
 
 
-def host_ms(torch, fn, reps, warmup=2):
-    """Median host ms of ``fn`` (which ends in a synchronize) and every
-    repeat's ms."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(times)), times
-
-
 def lane_expected(torch, x):
     """A world of one with prescale 2 and postscale 0.25: a float result
     is exactly x / 2 (powers of two round exactly), an integer one
@@ -1276,12 +1273,17 @@ def lane_expected(torch, x):
     return torch.trunc(x.double() * 2 * 0.25).to(x.dtype)
 
 
+def lane_responses(hvd):
+    """CUDA responses run so far, by the lane's metrics registry."""
+    return sum(c["responses"] for c in hvd.metrics()["device_ops"].values())
+
+
 def lane_ops(torch, hvd, rt):
     """Every op of the frontend on CUDA tensors, each against its value
     at world size 1; every response one NCCL call, none on gloo."""
     dp = rt.data_plane
     dp.reset_counts()
-    before = rt.stats["responses"]
+    before = lane_responses(hvd)
     n = 0
 
     def same(got, want, what):
@@ -1340,7 +1342,7 @@ def lane_ops(torch, hvd, rt):
             f"grouped_reducescatter: {n - n_before} results equal to their "
             f"values")
     torch.cuda.synchronize()
-    responses = rt.stats["responses"] - before
+    responses = lane_responses(hvd) - before
     launches = dict(dp.launches)
     check(launches.get("gloo", 0) == 0,
           f"lane ops: a CUDA op went through gloo: {launches}")
@@ -1382,16 +1384,16 @@ def lane_stream_order(torch, hvd, rt):
           "control: without the lane's wait on the producer's event the "
           "result still held the producer's value, so the ordering check "
           "could not catch a missing wait")
-    log(f"  stream order: side-stream producer behind a ~0.5 s kernel read "
-        f"after its write (3.0); without the event wait the lane reads "
-        f"{sorted(set(stale.unique().tolist()))} (stale)")
-    return dict(ordered=True, stale_without_wait=sorted(
+    log(f"  stream order (timeline on): side-stream producer behind a "
+        f"~0.5 s kernel read after its write (3.0); without the event wait "
+        f"the lane reads {sorted(set(stale.unique().tolist()))} (stale)")
+    return dict(ordered=True, timeline=True, stale_without_wait=sorted(
         set(stale.unique().tolist())))
 
 
 def lane_gradients(torch, hvd, rt, llama, train_step, cfg, card):
-    """broadcast_parameters over the flagship's params, then the bf16
-    gradients of one backward through the lane, two ways."""
+    """broadcast_parameters over the flagship's params; the bf16
+    gradients of one backward and a copy of them."""
     from horovod_tpu_torch.parallel._tree import tree_leaves
 
     dp = rt.data_plane
@@ -1424,9 +1426,14 @@ def lane_gradients(torch, hvd, rt, llama, train_step, cfg, card):
     grads = tree_leaves(grads)
     del params, leaves
     torch.cuda.empty_cache()
-    want = [g.clone() for g in grads]
-    gbytes = sum(g.nbytes for g in grads)
+    return grads, [g.clone() for g in grads], dict(
+        broadcast_ms=bcast_ms, broadcast_bytes=pbytes,
+        grad_bytes=sum(g.nbytes for g in grads), leaves=len(grads))
 
+
+def lane_set_fns(torch, hvd, grads):
+    """One gradient set through the lane: as one atomic group, and per
+    leaf as ``DistributedOptimizer`` sends it."""
     def grouped():
         hvd.grouped_allreduce_(grads, op=hvd.Average)
         torch.cuda.synchronize()
@@ -1438,51 +1445,220 @@ def lane_gradients(torch, hvd, rt, llama, train_step, cfg, card):
             h.synchronize()
         torch.cuda.synchronize()
 
-    out = dict(broadcast_ms=bcast_ms, broadcast_bytes=pbytes,
-               grad_bytes=gbytes, leaves=len(grads))
-    for label, fn in (("grouped_allreduce_", grouped),
-                      ("per-leaf allreduce_async_", per_leaf)):
+    return {"grouped_allreduce_": grouped,
+            "per-leaf allreduce_async_": per_leaf}
+
+
+def lane_sets(torch, hvd, rt, grads, want, card, cache, sets=13):
+    """Each shape of the gradient set ``sets`` times (the first checked
+    alone): bit for bit, responses per set, ms per set, the lane's host
+    time per active cycle and per response, and the response cache's
+    counts; with the cache on, the per-leaf shape must miss once per
+    leaf and hit every leaf of every later set."""
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.common.metrics import REGISTRY
+
+    dp = rt.data_plane
+    out = {}
+    for label, fn in lane_set_fns(torch, hvd, grads).items():
+        c0 = basics.response_cache_stats()
+        m0 = hvd.metrics()
         dp.reset_counts()
-        s0 = dict(rt.stats)
-        fn()
-        moved, launches = dp.bytes_moved, dict(dp.launches)
-        responses = rt.stats["responses"] - s0["responses"]
-        fused = rt.stats["fused"] - s0["fused"]
+        per_set, times = [], []
+        neg0 = (REGISTRY.negotiation_us.sum, REGISTRY.negotiation_us.count)
+        exe0 = (REGISTRY.execute_us.sum, REGISTRY.execute_us.count)
+        for k in range(sets):
+            r0 = lane_responses(hvd)
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+            per_set.append(lane_responses(hvd) - r0)
+            if k == 0:
+                moved, launches = dp.bytes_moved, dict(dp.launches)
+                check(launches == {"nccl": per_set[0]},
+                      f"lane {label}: {launches} calls for {per_set[0]} "
+                      "responses")
         check(all(torch.equal(g.view(torch.int16), w.view(torch.int16))
                   for g, w in zip(grads, want)),
-              f"lane {label}: Average at world size 1 changed a gradient")
-        check(launches == {"nccl": responses},
-              f"lane {label}: {launches} calls for {responses} responses")
-        s1 = dict(rt.stats)
-        ms, times = host_ms(torch, fn, 10)
-        s2 = dict(rt.stats)
-        cycles = s2["cycles"] - s1["cycles"]
-        resp = s2["responses"] - s1["responses"]
-        negotiate = (s2["negotiate_s"] - s1["negotiate_s"]) * 1e3
-        execute = (s2["execute_s"] - s1["execute_s"]) * 1e3
-        check(all(torch.equal(g.view(torch.int16), w.view(torch.int16))
-                  for g, w in zip(grads, want)),
-              f"lane {label}: gradients changed over the timed repeats")
+              f"lane {label} (cache {cache}): Average at world size 1 "
+              "changed a gradient")
+        c1 = basics.response_cache_stats()
+        m1 = hvd.metrics()
+        hits, misses = c1[0] - c0[0], c1[1] - c0[1]
+        leaves = len(grads)
+        gbytes = sum(g.nbytes for g in grads)
+        dev0 = m0["device_ops"].get("allreduce", {})
+        dev1 = m1["device_ops"]["allreduce"]
+        dev = {k: dev1[k] - dev0.get(k, 0)
+               for k in ("responses", "tensors", "bytes")}
+        check(dev == {"responses": sum(per_set), "tensors": sets * leaves,
+                      "bytes": sets * gbytes},
+              f"lane {label}: device_ops {dev} for {sets} sets of {leaves} "
+              f"leaves, {gbytes} bytes, {sum(per_set)} responses")
+        # A group never rides the cache; a lookup that does not hit
+        # counts as a miss, with the cache off too.
+        rides = label.startswith("per-leaf") and cache == "on"
+        check((hits, misses) == ((leaves * (sets - 1), leaves) if rides
+                                 else (0, leaves * sets)),
+              f"lane {label} (cache {cache}): {hits} cache hits, {misses} "
+              f"misses over {sets} sets of {leaves} leaves")
+        neg = ((REGISTRY.negotiation_us.sum - neg0[0]) / 1e3,
+               REGISTRY.negotiation_us.count - neg0[1])
+        exe = ((REGISTRY.execute_us.sum - exe0[0]) / 1e3,
+               REGISTRY.execute_us.count - exe0[1])
+        steady = times[3:]
+        ms = float(np.median(steady))
+        prof = device_profile(torch, f"lane {label} (cache {cache})", fn) \
+            if cache == "on" else None
         bound_ms = moved / HBM_BYTES_PER_S * 1e3
-        prof = device_profile(torch, f"lane {label}", fn)
-        log(f"  {label} of {len(grads)} bf16 gradient leaves "
-            f"({gbytes / 1e9:.3f} GB), Average: bit for bit; {responses} "
-            f"responses ({fused} fused), {launches['nccl']} NCCL calls; "
-            f"{ms:.3f} ms per gradient set (median of 10, spread "
-            f"{min(times):.3f}-{max(times):.3f}); the lane moves "
-            f"{moved / 1e9:.3f} GB a set: bound {bound_ms:.3f} ms at "
-            f"3.35 TB/s; lane host time {negotiate / cycles:.3f} ms "
-            f"negotiating per cycle ({cycles} cycles), "
-            f"{execute / max(resp, 1):.3f} ms queuing per response; "
+        common = max(set(per_set[1:]), key=per_set[1:].count)
+        log(f"  cache {cache}: {label} of {leaves} bf16 gradient leaves "
+            f"({gbytes / 1e9:.3f} GB), Average: bit for bit; responses per "
+            f"set {per_set[0]} (first), {common} (most later sets; all "
+            f"{sorted(set(per_set))}); {ms:.3f} ms per gradient set (median "
+            f"of {len(steady)}, spread {min(steady):.3f}-{max(steady):.3f}); "
+            f"the lane moves {moved / 1e9:.3f} GB a set: bound "
+            f"{bound_ms:.3f} ms at 3.35 TB/s; host {neg[0] / neg[1]:.3f} ms "
+            f"negotiating per active cycle ({neg[1]} cycles), "
+            f"{exe[0] / max(exe[1], 1):.3f} ms queuing per response; cache "
+            f"{hits} hits, {misses} misses; device_ops allreduce {dev}; "
             f"card {card}")
         out[label] = dict(
-            ms=ms, times_ms=times, responses=responses, fused=fused,
-            nccl_calls=launches["nccl"], bytes_moved=moved,
-            bound_ms=bound_ms, cycles=cycles,
-            negotiate_ms_per_cycle=negotiate / cycles,
-            execute_ms_per_response=execute / max(resp, 1),
+            ms=ms, times_ms=times, responses_first=per_set[0],
+            responses_steady=common, responses_per_set=per_set,
+            bytes_moved=moved, bound_ms=bound_ms, cache_hits=hits,
+            cache_misses=misses, active_cycles=neg[1],
+            negotiate_ms_per_cycle=neg[0] / neg[1],
+            execute_ms_per_response=exe[0] / max(exe[1], 1),
+            device_ops=dev,
             idle_share=None if prof is None else prof["idle_share"],
             profile=prof)
+    return out
+
+
+def lane_timeline(torch, hvd, grads, card, sets=10):
+    """One per-leaf set under a timeline: every gradient negotiates and
+    runs one NCCL allreduce; then ms per set with the timeline on."""
+    from horovod_tpu_torch.common import basics
+
+    fn = lane_set_fns(torch, hvd, grads)["per-leaf allreduce_async_"]
+    path = "build/lane_timeline.json"
+    os.makedirs("build", exist_ok=True)
+    hvd.start_timeline(path)
+    try:
+        fn()
+        basics.lane().timeline.flush()
+        with open(path) as f:
+            trace = json.load(f)
+        check(trace[0]["name"] == "CLOCK_SYNC",
+              f"timeline opens with {trace[0]}")
+        states = {}
+        for ev in trace:
+            tensor = ev.get("args", {}).get("tensor")
+            if tensor is not None:
+                states.setdefault(tensor, []).append((ev["ph"], ev["name"]))
+        for i in range(len(grads)):
+            got = states.get(f"grad.{i}", [])
+            check(("B", "NEGOTIATE") in got and ("E", "NEGOTIATE") in got
+                  and ("B", "NCCL_ALLREDUCE") in got and got[-1] ==
+                  ("i", "DONE"), f"timeline of grad.{i}: {got}")
+        times = []
+        for _ in range(sets):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        hvd.stop_timeline()
+    ms = float(np.median(times[2:]))
+    log(f"  timeline: one per-leaf set, {len(trace)} events; every "
+        f"gradient has NEGOTIATE and NCCL_ALLREDUCE then DONE; with the "
+        f"timeline on {ms:.3f} ms per set (median of {len(times) - 2}, "
+        f"spread {min(times[2:]):.3f}-{max(times[2:]):.3f}); card {card}")
+    return dict(events=len(trace), ms=ms, times_ms=times)
+
+
+def lane_debug_port(hvd):
+    """GET /healthz and /metrics of the debug server while the lane
+    runs on the card."""
+    import urllib.request
+
+    port = hvd.debug_port()
+    check(isinstance(port, int) and port > 0, f"debug_port() is {port}")
+    got = {}
+    for path in ("/healthz", "/metrics"):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            got[path] = (r.status, r.read().decode())
+    health = json.loads(got["/healthz"][1])
+    check(got["/healthz"][0] == got["/metrics"][0] == 200 and
+          health["initialized"] and health["debug_port"] == port,
+          f"debug server: {got['/healthz']}")
+    check('hvdtpu_op_bytes_total{op="allreduce",plane="device"' in
+          got["/metrics"][1], "debug server /metrics lacks device bytes")
+    log(f"  debug server on port {port}: /healthz 200 ({health}), "
+        f"/metrics 200 ({len(got['/metrics'][1].splitlines())} lines)")
+    return dict(port=port, healthz=health)
+
+
+def lane_sync_bn(torch, hvd, card):
+    """SyncBatchNorm's function (the lane's allreduces, NCCL at world
+    size 1) against nn.BatchNorm2d on a ResNet-50 activation: forward,
+    backward and running statistics, f32 then bf16; both times."""
+    from horovod_tpu_torch.torch.sync_batch_norm import _SyncBatchNormFn
+
+    out = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        g = torch.Generator(device="cuda").manual_seed(7)
+        x = (torch.randn((32, 256, 56, 56), generator=g, device="cuda")
+             * 2 + 0.5).to(dtype)
+        dy = torch.randn(x.shape, generator=g, device="cuda").to(dtype)
+        ref = torch.nn.BatchNorm2d(256).cuda().to(dtype)
+        with torch.no_grad():
+            ref.weight.normal_(1.0, 0.1, generator=g)
+            ref.bias.normal_(0.0, 0.1, generator=g)
+        weight = ref.weight.detach().clone().requires_grad_(True)
+        bias = ref.bias.detach().clone().requires_grad_(True)
+        rmean, rvar = ref.running_mean.clone(), ref.running_var.clone()
+        n0 = lane_responses(hvd)
+
+        def sync():
+            xi = x.detach().requires_grad_(True)
+            y = _SyncBatchNormFn.apply(xi, weight, bias, rmean, rvar, 1e-5,
+                                       0.1, True, "resnet")
+            y.backward(dy)
+            return y, xi.grad
+
+        def plain():
+            xi = x.detach().requires_grad_(True)
+            y = ref(xi)
+            y.backward(dy)
+            return y, xi.grad
+
+        y, dx = sync()
+        yr, dxr = plain()
+        check(lane_responses(hvd) - n0 == 2, "SyncBatchNorm: not two lane "
+              "allreduces (forward statistics, backward sums)")
+        err = {}
+        for name, a, b in (("y", y, yr), ("dx", dx, dxr),
+                           ("dweight", weight.grad, ref.weight.grad),
+                           ("dbias", bias.grad, ref.bias.grad),
+                           ("running_mean", rmean, ref.running_mean),
+                           ("running_var", rvar, ref.running_var)):
+            a, b = a.float(), b.float()
+            scale = max(b.abs().max().item(), 1.0)
+            err[name] = (a - b).abs().max().item() / scale
+            check(torch.isfinite(a).all() and err[name] < tol,
+                  f"SyncBatchNorm {dtype} {name}: error {err[name]:.3e} of "
+                  f"the plain version's max (tol {tol})")
+        ms = cuda_ms(torch, sync, 10)
+        plain_ms = cuda_ms(torch, plain, 10)
+        name = str(dtype).removeprefix("torch.")
+        log(f"  SyncBatchNorm [32, 256, 56, 56] {name}: forward + backward "
+            f"through the lane {ms:.3f} ms, nn.BatchNorm2d {plain_ms:.3f} ms;"
+            f" max error over max: " + ", ".join(
+                f"{k} {v:.2e}" for k, v in err.items()) + f" (tol {tol}); "
+            f"card {card}")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, rel_err=err)
     return out
 
 
@@ -1492,6 +1668,7 @@ def run_lane(torch, llama, train_step, cfg, card):
     import horovod_tpu_torch.torch as hvd
     from horovod_tpu_torch.common import basics
 
+    os.environ["HOROVOD_DEBUG_PORT"] = "0"
     hvd.init()
     try:
         rt = basics.lane()
@@ -1505,11 +1682,51 @@ def run_lane(torch, llama, train_step, cfg, card):
         log(f"  hvd.init(): world size {hvd.size()}, NCCL {nccl}, groups "
             f"{backends}, card {basics.device()}")
         ops = lane_ops(torch, hvd, rt)
-        order = lane_stream_order(torch, hvd, rt)
-        grads = lane_gradients(torch, hvd, rt, llama, train_step, cfg,
-                               card)
+        os.makedirs("build", exist_ok=True)
+        hvd.start_timeline("build/lane_order_timeline.json")
+        try:
+            order = lane_stream_order(torch, hvd, rt)
+        finally:
+            hvd.stop_timeline()
+        debug = lane_debug_port(hvd)
+        grads, want, grad_info = lane_gradients(torch, hvd, rt, llama,
+                                                train_step, cfg, card)
+        cache_on = lane_sets(torch, hvd, rt, grads, want, card, "on")
+        timeline = lane_timeline(torch, hvd, grads, card)
+        sync_bn = lane_sync_bn(torch, hvd, card)
+        events = {e["type"] for e in hvd.events()}
+        check({"negotiate_begin", "negotiate_end", "response_launch",
+               "phase", "wait"} <= events, f"lane events: {events}")
     finally:
         hvd.shutdown()
+        del os.environ["HOROVOD_DEBUG_PORT"]
+    os.environ["HOROVOD_CACHE_CAPACITY"] = "0"
+    hvd.init()
+    try:
+        cache_off = lane_sets(torch, hvd, basics.lane(), grads, want, card,
+                              "off")
+    finally:
+        hvd.shutdown()
+        del os.environ["HOROVOD_CACHE_CAPACITY"]
+    for label in cache_on:
+        check(cache_on[label]["responses_steady"] ==
+              cache_off[label]["responses_steady"],
+              f"lane {label}: {cache_on[label]['responses_steady']} "
+              f"responses a steady set with the cache, "
+              f"{cache_off[label]['responses_steady']} without")
+    log("  per gradient set, cache on / off (the lane before it had a "
+        "response cache, same shapes and card: grouped 5.529-8.819 ms, "
+        "0.653-2.958 ms negotiating per cycle; per leaf 6.103-16.442 ms, "
+        "1.174-4.402 ms per cycle): " + "; ".join(
+            f"{label} {cache_on[label]['ms']:.3f} / "
+            f"{cache_off[label]['ms']:.3f} ms, "
+            f"{cache_on[label]['negotiate_ms_per_cycle']:.3f} / "
+            f"{cache_off[label]['negotiate_ms_per_cycle']:.3f} ms "
+            f"negotiating per active cycle, "
+            f"{cache_on[label]['execute_ms_per_response']:.3f} / "
+            f"{cache_off[label]['execute_ms_per_response']:.3f} ms queuing "
+            f"per response" for label in cache_on))
+    del grads, want
     hvd.init(device="cpu")
     try:
         refused = raises(ValueError, lambda: hvd.allreduce(
@@ -1520,7 +1737,8 @@ def run_lane(torch, llama, train_step, cfg, card):
           "not raise")
     log("  a CUDA tensor on a lane opened with device='cpu' raises")
     return dict(nccl=nccl, groups=backends, ops=ops, stream_order=order,
-                gradients=grads)
+                gradients=grad_info, cache_on=cache_on, cache_off=cache_off,
+                timeline=timeline, debug_server=debug, sync_bn=sync_bn)
 
 
 def main():

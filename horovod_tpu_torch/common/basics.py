@@ -6,9 +6,21 @@ It reads the same environment: ``HOROVOD_RANK``/``SIZE`` (default 0/1),
 ``HOROVOD_LOCAL_RANK``/``LOCAL_SIZE`` (default rank/size),
 ``HOROVOD_CROSS_RANK``/``CROSS_SIZE`` (default 0/1), the launchers'
 variables when those are unset (mpirun, srun, jsrun),
-``HOROVOD_CONTROLLER_ADDR``/``PORT`` (default 127.0.0.1:29500), and two
-knobs: ``HOROVOD_FUSION_THRESHOLD`` (bytes, default 64 MiB) and
-``HOROVOD_CYCLE_TIME`` (ms, default 1.0).
+``HOROVOD_CONTROLLER_ADDR``/``PORT`` (default 127.0.0.1:29500), and the
+knobs ``HOROVOD_FUSION_THRESHOLD`` (bytes, default 64 MiB),
+``HOROVOD_CYCLE_TIME`` (ms, default 1.0), ``HOROVOD_CACHE_CAPACITY``
+(response cache positions, default 1024, 0 disables),
+``HOROVOD_STALL_CHECK_TIME`` (s, default 60) and
+``HOROVOD_STALL_CHECK_DISABLE``, ``HOROVOD_TIMELINE`` (a path: rank 0
+writes the timeline from init on) and ``HOROVOD_TIMELINE_MARK_CYCLES``,
+and ``HOROVOD_DEBUG_PORT`` (rank r serves ``telemetry/debug_server.py``
+on that port + r; 0 binds an ephemeral port).
+
+The lane's instruments are read here: :func:`metrics` (the registry's
+snapshot), :func:`metrics_reset`, :func:`events` and
+:func:`events_drain` (the event ring), :func:`start_timeline` and
+:func:`stop_timeline`, :func:`step_mark`, :func:`debug_port` and
+:func:`response_cache_stats`.
 
 ``init()`` builds one ``TCPStore`` at the controller address (a world of
 one needs no rendezvous and keeps an in-process store), opens
@@ -24,13 +36,16 @@ tensor over NCCL.
 import atexit
 import datetime
 import os
+import sys
 import threading
 
 import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch._device import resolve_device
+from horovod_tpu_torch.common import events as _events
 from horovod_tpu_torch.common.data_plane import DataPlane
+from horovod_tpu_torch.common.metrics import REGISTRY, now_us
 from horovod_tpu_torch.common.operations import Runtime, SetGroups
 
 _TIMEOUT = datetime.timedelta(seconds=600)
@@ -96,6 +111,7 @@ def init(device=None):
             raise RuntimeError(
                 "torch.distributed is already initialized: hvd.init() opens "
                 "its own process groups")
+        t_rendezvous = now_us()
         if size == 1:
             store = dist.HashStore()
         else:
@@ -110,8 +126,25 @@ def init(device=None):
         except BaseException:
             dist.destroy_process_group()
             raise
+        REGISTRY.record_phase("rendezvous", now_us() - t_rendezvous)
+        timeline = os.environ.get("HOROVOD_TIMELINE")
+        if timeline and rank == 0:
+            # One file per job: the ranks share the path, so only the
+            # coordinator writes it (hvd.start_timeline works on any rank).
+            runtime.timeline.start(timeline, rank, _mark_cycles())
         runtime.start()
         _lane = _Lane(runtime, layout, card)
+    if os.environ.get("HOROVOD_DEBUG_PORT"):
+        try:
+            from horovod_tpu_torch.telemetry import debug_server
+
+            debug_server.maybe_start(rank)
+        except Exception as e:  # noqa: BLE001 — never fatal
+            print(f"hvdtpu debug server not started: {e}", file=sys.stderr)
+
+
+def _mark_cycles():
+    return _env_int("HOROVOD_TIMELINE_MARK_CYCLES", 0) != 0
 
 
 def _open_lane(rank, size, card):
@@ -135,10 +168,14 @@ def _open_lane(rank, size, card):
             dist.all_reduce(probe, group=groups["cuda"])
             torch.cuda.synchronize(card)
     threshold = _env_int("HOROVOD_FUSION_THRESHOLD", 64 << 20)
+    stall_s = None if _env_int("HOROVOD_STALL_CHECK_DISABLE", 0) else float(
+        os.environ.get("HOROVOD_STALL_CHECK_TIME") or 60.0)
     return Runtime(rank, size, dist.group.WORLD, DataPlane(card, threshold),
                    {0: SetGroups(world, rank, groups)}, threshold,
                    float(os.environ.get("HOROVOD_CYCLE_TIME") or 1.0),
-                   make_groups)
+                   make_groups,
+                   cache_capacity=_env_int("HOROVOD_CACHE_CAPACITY", 1024),
+                   stall_warning_s=stall_s)
 
 
 def shutdown():
@@ -150,7 +187,12 @@ def shutdown():
         lane, _lane = _lane, None
     if lane is None:
         return
-    if lane.runtime.shutdown(_TIMEOUT.total_seconds()):
+    server = sys.modules.get("horovod_tpu_torch.telemetry.debug_server")
+    if server is not None:
+        server.stop()
+    ended = lane.runtime.shutdown(_TIMEOUT.total_seconds())
+    lane.runtime.timeline.stop()
+    if ended:
         dist.destroy_process_group()
 
 
@@ -215,3 +257,87 @@ def loop_failed():
     """Whether the lane stopped on a failed collective."""
     current = _lane
     return current is not None and current.runtime.failure is not None
+
+
+# ---- the instruments ----------------------------------------------------
+
+
+def start_timeline(file_path, mark_cycles=False):
+    """Start (or restart) this rank's timeline at ``file_path``; cycle
+    marks with ``mark_cycles`` or ``HOROVOD_TIMELINE_MARK_CYCLES``."""
+    current = _lane
+    if current is None:
+        raise ValueError(f"could not start timeline at {file_path!r} "
+                         "(is Horovod initialized and the path writable?)")
+    current.runtime.timeline.start(file_path, current.layout["rank"],
+                                   bool(mark_cycles) or _mark_cycles())
+
+
+def stop_timeline():
+    """Stop the timeline and close its file (valid JSON either way)."""
+    current = _lane
+    if current is not None:
+        current.runtime.timeline.stop()
+
+
+def response_cache_stats():
+    """(hits, misses, entries) of this rank's response cache."""
+    c = lane().cache
+    return c.hits, c.misses, c.entries
+
+
+def metrics():
+    """One snapshot of the metrics registry (``metrics.py`` lists its
+    sections); before init it carries ``initialized: False``."""
+    current = _lane
+    if current is None:
+        return REGISTRY.snapshot()
+    rt = current.runtime
+    c = rt.cache
+    return REGISTRY.snapshot(
+        initialized=True, rank=rt.rank, size=rt.size,
+        fusion_threshold_bytes=rt.fusion_threshold,
+        cycle_time_ms=rt.cycle_time_ms,
+        cache=(c.hits, c.misses, c.entries, c.hit_bytes))
+
+
+def metrics_reset():
+    """Zero every counter and histogram of the registry."""
+    REGISTRY.reset()
+
+
+def events(last_n=0):
+    """The newest ``last_n`` events of the ring (0: all it holds), as
+    dicts; does not consume them."""
+    return _events.peek(int(last_n))
+
+
+def events_drain():
+    """Every event recorded since the last drain, consumed."""
+    return _events.drain()
+
+
+_step = dict(open=-1, count=0, begin_us=0)
+
+
+def step_mark(begin=True):
+    """Mark a training-step boundary: ``begin`` closes an open step
+    (``step_end``) and opens the next (``step_begin``), returning its
+    id; ``begin=False`` closes the open step and returns its id, or -1."""
+    now = now_us()
+    open_id = _step["open"]
+    _step["open"] = -1
+    if open_id >= 0:
+        _events.record("step_end", c=open_id, d=now - _step["begin_us"])
+    if not begin:
+        return open_id
+    _step["count"] += 1
+    _step["open"], _step["begin_us"] = _step["count"], now
+    _events.record("step_begin", c=_step["count"])
+    return _step["count"]
+
+
+def debug_port():
+    """The port this rank's debug server listens on, or None."""
+    server = sys.modules.get("horovod_tpu_torch.telemetry.debug_server")
+    return None if server is None else server.debug_port()

@@ -12,58 +12,103 @@ each ready tensor into a response, or an error when the ranks disagree
 :class:`~message.ResponseList`. Ranks may enqueue in different orders
 and still run the same collectives in the same order.
 
-The response cache (ROADMAP.md L1), the stall check (L2) and the
-control tree with wire checksums (L8) are not ported.
+The steady state rides the response cache (``response_cache.py``): a
+request whose response is cached travels as its position's bit
+(``BuildRequestList:777``); the coordinator completes a position once
+every member has sent its bit or joined (``HandleCacheBits:811``),
+fuses consecutive ready hits as it fuses requests
+(``CollectCacheHits:838``), and every rank evicts, rebuilds the hits'
+responses from its own copy and inserts the new responses in the same
+order (``ApplyCacheVerdicts:903``). The coordinator also warns on
+stderr of a tensor some rank has not submitted within
+``HOROVOD_STALL_CHECK_TIME`` (``CheckForStalledTensors:947``), and
+counts which rank completed each tensor last (the straggler table).
+
+Still to port (ROADMAP.md): re-forming after a lost peer (L5), the
+autotuned knobs the response list carries (L6), the hierarchical split
+(L7), the control tree and wire checksums (L8), the MPI controller (L9).
 """
 
 import collections
 import struct
+import sys
 
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch.common import events
+from horovod_tpu_torch.common import response_cache as rc
 from horovod_tpu_torch.common.message import (
     ReduceOp,
+    RequestList,
     RequestType,
     Response,
     ResponseList,
     ResponseType,
     decode,
     encode,
+    nbytes,
+    response_bytes,
 )
-
-
-def dtype_size(name):
-    """Bytes per element of the torch dtype called ``name``."""
-    return getattr(torch, name).itemsize
-
-
-def nbytes(dtype_name, shape):
-    n = 1
-    for d in shape:
-        n *= d
-    return n * dtype_size(dtype_name)
+from horovod_tpu_torch.common.metrics import REGISTRY, now_us
 
 
 class _Pending:
-    __slots__ = ("requests", "ranks_seen", "queued")
+    """A tensor's full requests so far, and when its first came."""
 
-    def __init__(self):
+    __slots__ = ("requests", "ranks_seen", "queued", "first_seen",
+                 "first_round")
+
+    def __init__(self, round_):
         self.requests = []
         self.ranks_seen = set()
         self.queued = False
+        self.first_seen = now_us()
+        self.first_round = round_
+
+
+class _PendingBits:
+    """A cached position's bits so far (``PendingBits``)."""
+
+    __slots__ = ("ranks", "first_seen", "first_round", "last_rank")
+
+    def __init__(self, round_):
+        self.ranks = set()
+        self.first_seen = now_us()
+        self.first_round = round_
+        self.last_rank = -1
+
+
+def _fusable(a, b):
+    """Whether two allreduces may share a fused response
+    (``FusableAllreducePair``)."""
+    return ((a.tensor_type, a.process_set_id, a.reduce_op, a.device) ==
+            (b.tensor_type, b.process_set_id, b.reduce_op, b.device))
+
+
+def _missing(members, seen, joined):
+    # The reference's "r r " list, trailing space and all.
+    return [m for m in members if m not in seen and m not in joined]
 
 
 class Controller:
     """The coordinator's negotiation state, kept across cycles.
 
     ``members_of(process_set_id)`` gives a set's sorted global ranks, or
-    None for a set this rank does not know."""
+    None for a set this rank does not know. ``cache`` is this rank's
+    :class:`~response_cache.ResponseCache`; ``stall_warning_s`` the
+    stall check's threshold (None: off)."""
 
-    def __init__(self, size, fusion_threshold, members_of):
+    def __init__(self, size, fusion_threshold, members_of, cache,
+                 stall_warning_s=60.0):
         self.size = size
         self.fusion_threshold = fusion_threshold
         self._members_of = members_of
+        self.cache = cache
+        self.stall_warning_s = stall_warning_s
+        self.round = 0
+        self._last_stall_check = now_us()
+        self._bits = {}                       # position -> _PendingBits
         self._table = {}                      # (set, name) -> _Pending
         self._ready = collections.deque()     # keys, in readiness order
         self._groups = {}                     # (set, group id) -> keys
@@ -89,12 +134,21 @@ class Controller:
                     new_join = True
                 continue
             key = self.key(req)
-            pt = self._table.setdefault(key, _Pending())
+            pt = self._table.get(key)
+            if pt is None:
+                pt = self._table[key] = _Pending(self.round)
             if req.request_rank in pt.ranks_seen:
                 continue
             pt.ranks_seen.add(req.request_rank)
             pt.requests.append(req)
+            was_queued = pt.queued
             self._maybe_promote(key, pt)
+            if (not was_queued and pt.queued and len(pt.ranks_seen) > 1 and
+                    self.round > pt.first_round):
+                # Completed in a later round than its first request: this
+                # rank kept the tensor waiting.
+                REGISTRY.record_straggler(req.request_rank,
+                                          now_us() - pt.first_seen)
         if new_join:
             # A join can complete readiness of any pending tensor.
             for key, pt in list(self._table.items()):
@@ -233,6 +287,104 @@ class Controller:
         res.splits = [by_rank[m] for m in members]
         return res
 
+    # ---- the response cache's bits ------------------------------------
+
+    def handle_cache_bits(self, request_list, from_rank, evictions):
+        """Note ``from_rank``'s cache bits; an invalid bit evicts its
+        position everywhere (``evictions``, in first-seen order)."""
+        for pos in request_list.cache_invalid:
+            if pos not in evictions:
+                evictions.append(pos)
+            self._bits.pop(pos, None)
+        for pos in request_list.cache_hits:
+            # A bit of a position evicted meanwhile is dropped: its
+            # sender resubmits the full request on the eviction.
+            if not self.cache.has(pos) or pos in evictions:
+                continue
+            pb = self._bits.get(pos)
+            if pb is None:
+                pb = self._bits[pos] = _PendingBits(self.round)
+            if from_rank not in pb.ranks:
+                pb.ranks.add(from_rank)
+                pb.last_rank = from_rank
+
+    def collect_cache_hits(self, out):
+        """Move every position whose set is complete (bits or joins) to
+        ``out``, in position order, consecutive fusable allreduces
+        grouped up to the threshold. Runs before :meth:`fuse_responses`,
+        whose all-joined cycle clears the joins these rely on."""
+        completed = []
+        for pos in sorted(self._bits):
+            pb = self._bits[pos]
+            r = self.cache.get(pos)
+            if _missing(self._members_of(r.process_set_id) or (), pb.ranks,
+                        self._joined):
+                continue
+            completed.append(pos)
+            if len(pb.ranks) > 1 and self.round > pb.first_round:
+                REGISTRY.record_straggler(pb.last_rank,
+                                          now_us() - pb.first_seen)
+        i = 0
+        while i < len(completed):
+            r0 = self.cache.get(completed[i])
+            group = 1
+            if r0.response_type == ResponseType.ALLREDUCE:
+                size = response_bytes(r0)
+                while i + group < len(completed):
+                    rn = self.cache.get(completed[i + group])
+                    if (rn.response_type != ResponseType.ALLREDUCE or
+                            not _fusable(rn, r0)):
+                        break
+                    nsize = response_bytes(rn)
+                    if size + nsize > self.fusion_threshold:
+                        break
+                    size += nsize
+                    group += 1
+            for pos in completed[i:i + group]:
+                out.cache_hit_positions.append(pos)
+                del self._bits[pos]
+            out.cache_hit_group_sizes.append(group)
+            i += group
+
+    def check_for_stalled_tensors(self):
+        """Warn on stderr, and record a ``stall`` event, for every tensor
+        some member has not submitted within the threshold, at most
+        every ``min(10, max(0.1, threshold / 2))`` s. Never aborts. Unlike
+        the reference, a tensor missing no rank is not reported."""
+        if self.stall_warning_s is None:
+            return
+        now = now_us()
+        interval = min(10.0, max(0.1, self.stall_warning_s / 2))
+        if now - self._last_stall_check < interval * 1e6:
+            return
+        self._last_stall_check = now
+        stalled = []
+        for pt in self._table.values():
+            first = pt.requests[0]
+            stalled.append(("tensor", first.tensor_name, pt.first_seen,
+                            first.process_set_id, pt.ranks_seen))
+        for pos, pb in self._bits.items():
+            if self.cache.has(pos):
+                r = self.cache.get(pos)
+                stalled.append(("cached tensor", r.tensor_names[0],
+                                pb.first_seen, r.process_set_id, pb.ranks))
+        for what, name, first_seen, ps, seen in stalled:
+            waited = (now - first_seen) / 1e6
+            if waited <= self.stall_warning_s:
+                continue
+            missing = _missing(self._members_of(ps) or (), seen,
+                               self._joined)
+            if not missing:
+                # Completed this cycle (its response is built next), or a
+                # group member whose peers are reported themselves.
+                continue
+            events.record("stall", int(waited), len(missing))
+            print(f"[hvdtpu WARN] Stall detected: {what} {name} has waited "
+                  f"{waited:.0f}s; missing ranks: "
+                  f"{''.join(f'{r} ' for r in missing)} (one or more ranks "
+                  "did not submit this collective)", file=sys.stderr,
+                  flush=True)
+
     def fuse_responses(self):
         """Turn the ready queue into this cycle's response list."""
         out = ResponseList()
@@ -259,10 +411,7 @@ class Controller:
                     if first.group_id < 0 and nreq.group_id >= 0:
                         break
                     if (nreq.request_type != RequestType.ALLREDUCE or
-                            (nreq.tensor_type, nreq.process_set_id,
-                             nreq.reduce_op, nreq.device) !=
-                            (first.tensor_type, first.process_set_id,
-                             first.reduce_op, first.device)):
+                            not _fusable(nreq, first)):
                         break
                     nres = self._build_response(nkey)
                     if nres.response_type == ResponseType.ERROR:
@@ -316,17 +465,73 @@ def _unframe(block):
 class ControlPlane:
     """One negotiation per cycle over the control group (gloo): every
     rank's request list to every rank (all-gather), the coordinator's
-    response list from rank 0 (broadcast). Only the coordinator has a
-    :class:`Controller`."""
+    response list from rank 0 (broadcast). Every rank holds a response
+    cache (``cache``); only the coordinator has a :class:`Controller`,
+    which shares rank 0's cache."""
 
-    def __init__(self, group, rank, size, controller=None):
+    def __init__(self, group, rank, size, cache, controller=None):
         self.group = group
         self.rank = rank
         self.size = size
+        self.cache = cache
         self.controller = controller
+        self._inflight_hits = {}     # position -> Request sent as a bit
+        self._resubmit = []
 
-    def exchange(self, request_list):
-        block, rest = _frame(encode(request_list))
+    def build_request_list(self, requests, shutdown):
+        """This cycle's list through the cache (``BuildRequestList``): a
+        hit travels as its bit, an invalid entry as its bit and its full
+        request; requests whose bit was evicted in flight go again."""
+        out = RequestList(shutdown=shutdown)
+        requests, self._resubmit = self._resubmit + requests, []
+        for req in requests:
+            if req.request_type == RequestType.JOIN:
+                out.requests.append(req)
+                continue
+            verdict, pos = self.cache.lookup(req)
+            if verdict == rc.HIT:
+                out.cache_hits.append(pos)
+                self._inflight_hits[pos] = req
+            else:
+                if verdict == rc.INVALID:
+                    out.cache_invalid.append(pos)
+                out.requests.append(req)
+        return out
+
+    def apply_cache_verdicts(self, response_list):
+        """On every rank, in this order: evict, rebuild the hits'
+        responses from this rank's copy, insert the new responses; the
+        hits run first (``ApplyCacheVerdicts``)."""
+        for pos in response_list.cache_evictions:
+            self.cache.evict(pos)
+            req = self._inflight_hits.pop(pos, None)
+            if req is not None:
+                self._resubmit.append(req)
+        hits = []
+        positions = iter(response_list.cache_hit_positions)
+        for group in response_list.cache_hit_group_sizes:
+            group = [next(positions) for _ in range(group)]
+            first = self.cache.get(group[0])
+            merged = Response(
+                response_type=first.response_type,
+                tensor_names=[self.cache.get(p).tensor_names[0]
+                              for p in group],
+                tensor_type=first.tensor_type,
+                tensor_shapes=[self.cache.get(p).tensor_shapes[0]
+                               for p in group],
+                reduce_op=first.reduce_op, root_rank=first.root_rank,
+                process_set_id=first.process_set_id, device=first.device)
+            for p in group:
+                self._inflight_hits.pop(p, None)
+            hits.append(merged)
+        self.cache.insert_from_responses(response_list.responses)
+        response_list.responses[:0] = hits
+
+    def exchange(self, requests, shutdown):
+        """One cycle's negotiation; the responses to run, in order."""
+        block, rest = _frame(encode(self.build_request_list(requests,
+                                                            shutdown)))
+        t_gather = now_us()
         blocks = [torch.empty(_BLOCK, dtype=torch.uint8)
                   for _ in range(self.size)]
         dist.all_gather(blocks, block, group=self.group)
@@ -341,14 +546,30 @@ class ControlPlane:
                      for _ in range(self.size)]
             dist.all_gather(tails, tail, group=self.group)
         if self.rank == 0:
+            ctl = self.controller
+            ctl.round += 1
+            evictions = []
             for r, (length, head) in enumerate(heads):
                 body = head
                 if length > len(head):
                     body += tails[r].numpy().tobytes()[:length - len(head)]
-                self.controller.handle_request_list(decode(body), r)
-            payload = encode(self.controller.fuse_responses())
+                request_list = decode(body)
+                ctl.handle_cache_bits(request_list, r, evictions)
+                ctl.handle_request_list(request_list, r)
+            gather_us = now_us() - t_gather
+            ctl.check_for_stalled_tensors()
+            out = ResponseList(cache_evictions=evictions)
+            ctl.collect_cache_hits(out)
+            fused = ctl.fuse_responses()
+            out.responses, out.shutdown = fused.responses, fused.shutdown
+            # Idle cycles stay on the histograms but out of the ring.
+            busy = bool(out.responses or out.cache_hit_positions or
+                        out.cache_evictions)
+            REGISTRY.record_phase("gather", gather_us, busy)
+            payload = encode(out)
         else:
             payload = b""
+        t_bcast = now_us()
         block, rest = _frame(payload)
         dist.broadcast(block, src=0, group=self.group)
         length, head = _unframe(block)
@@ -359,4 +580,8 @@ class ControlPlane:
                                             dtype=torch.uint8))
             dist.broadcast(tail, src=0, group=self.group)
             head += tail.numpy().tobytes()
-        return decode(head)
+        if self.rank == 0:
+            REGISTRY.record_phase("broadcast", now_us() - t_bcast, busy)
+        response_list = decode(head)
+        self.apply_cache_verdicts(response_list)
+        return response_list

@@ -32,6 +32,12 @@ dtype, allocated once at the threshold and reused; an atomic group
 larger than the threshold gets its own. A lone tensor is reduced in
 place in its output.
 
+Each response records, per tensor, its timeline activities (the
+fusion-buffer copies and the collective, named for its transport:
+``NCCL_ALLREDUCE``, ``GLOO_BCAST``...), each collective call's time in
+the metrics' ``wire_us`` (host time on gloo; on NCCL two CUDA events on
+the lane's stream, read once completed) and each fused response's fill.
+
 CUDA ordering: everything runs on the lane's own stream, which first
 waits on the event each tensor's producer stream recorded at enqueue;
 inputs and outputs are ``record_stream``-ed to it, and the caller's
@@ -39,12 +45,14 @@ stream waits on the returned completion event before it reads a result.
 """
 
 import collections
+import contextlib
 
 import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.common import adasum
 from horovod_tpu_torch.common.message import ReduceOp, ResponseType
+from horovod_tpu_torch.common.metrics import REGISTRY, now_us
 
 _SCALED = (torch.float16, torch.bfloat16, torch.float32, torch.float64,
            torch.int32, torch.int64)
@@ -61,6 +69,12 @@ _BOOL_OP = {ReduceOp.SUM: dist.ReduceOp.MAX,
             ReduceOp.PRODUCT: dist.ReduceOp.MIN}
 _all_gather_flat = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
+# The collective's timeline activity, after the transport's prefix.
+_ACTIVITY = {ResponseType.ALLREDUCE: "ALLREDUCE",
+             ResponseType.ALLGATHER: "ALLGATHER",
+             ResponseType.BROADCAST: "BCAST",
+             ResponseType.ALLTOALL: "ALLTOALL",
+             ResponseType.REDUCESCATTER: "REDUCESCATTER"}
 
 
 class ResponseError(ValueError):
@@ -99,11 +113,13 @@ class DataPlane:
     ``launches`` counts the collectives issued, by backend; ``by_op`` by
     (backend, collective); ``bytes_moved`` the bytes the lane's copies,
     scales and collectives read and write (a collective in place on one
-    buffer reads and writes it, except in a set of one)."""
+    buffer reads and writes it, except in a set of one). ``timeline`` is
+    the lane's :class:`~timeline.Timeline`, set by its runtime."""
 
     def __init__(self, device, fusion_threshold):
         self.device = device
         self.fusion_threshold = fusion_threshold
+        self.timeline = None
         self.stream = None
         self.launches = collections.Counter()
         self.by_op = collections.Counter()
@@ -157,22 +173,54 @@ class DataPlane:
 
     def _run_response(self, response, entries, pset, pg):
         kind = response.response_type
+        if kind not in _ACTIVITY:
+            raise ValueError(f"unsupported response type {kind}")
         n, pos = pset.size(), pset.position
+        self._label = ("NCCL_" if response.device == "cuda" else "GLOO_") + \
+            _ACTIVITY[kind]
         if kind == ResponseType.ALLREDUCE:
             self._allreduce(entries, response.reduce_op, pg, n, pos, pset)
-        elif kind == ResponseType.ALLGATHER:
-            self._allgather(entries[0], response.tensor_sizes, pg, n, pos)
-        elif kind == ResponseType.BROADCAST:
-            e = entries[0]
-            self._collective(pg, "broadcast", dist.broadcast,
-                             _wire(e.output), src=response.root_rank)
-            e.result = e.output
-        elif kind == ResponseType.ALLTOALL:
-            self._alltoall(entries[0], response.splits, pg, pos)
-        elif kind == ResponseType.REDUCESCATTER:
-            self._reducescatter(entries[0], response.reduce_op, pg, n, pos)
-        else:
-            raise ValueError(f"unsupported response type {kind}")
+            return
+        e = entries[0]
+        with self._activity(entries, self._label):
+            if kind == ResponseType.ALLGATHER:
+                self._allgather(e, response.tensor_sizes, pg, n, pos)
+            elif kind == ResponseType.BROADCAST:
+                self._collective(pg, "broadcast", dist.broadcast,
+                                 _wire(e.output), src=response.root_rank)
+                e.result = e.output
+            elif kind == ResponseType.ALLTOALL:
+                self._alltoall(e, response.splits, pg, pos)
+            else:
+                self._reducescatter(e, response.reduce_op, pg, n, pos)
+
+    @contextlib.contextmanager
+    def _activity(self, entries, label):
+        """A timeline activity of each entry's tensor around the block."""
+        tl = self.timeline
+        if tl is None or not tl.enabled:
+            yield
+            return
+        for e in entries:
+            tl.activity_start(e.request.tensor_name, label)
+        yield
+        for e in entries:
+            tl.activity_end(e.request.tensor_name)
+
+    @contextlib.contextmanager
+    def _wire_span(self, pg):
+        """One collective call's time into the metrics' ``wire_us``."""
+        if dist.get_backend(pg) != "nccl":
+            t0 = now_us()
+            yield
+            REGISTRY.record(REGISTRY.wire_us, now_us() - t0)
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        REGISTRY.cuda_span(start, end)
 
     def _collective(self, pg, name, fn, *args, **kwargs):
         backend = dist.get_backend(pg)
@@ -184,7 +232,8 @@ class DataPlane:
         elif dist.get_world_size(pg) > 1:
             # In place on one rank NCCL and gloo move nothing.
             self.bytes_moved += 2 * tensors[0].nbytes
-        fn(*args, group=pg, async_op=True, **kwargs).wait()
+        with self._wire_span(pg):
+            fn(*args, group=pg, async_op=True, **kwargs).wait()
 
     def _copy(self, dst, src):
         self.bytes_moved += 2 * dst.nbytes
@@ -227,8 +276,9 @@ class DataPlane:
         def run(name, *ops):
             self.launches[backend] += 1
             self.by_op[(backend, name)] += 1
-            for w in dist.batch_isend_irecv(list(ops)):
-                w.wait()
+            with self._wire_span(pg):
+                for w in dist.batch_isend_irecv(list(ops)):
+                    w.wait()
 
         def send(t, peer):
             run("send", dist.P2POp(dist.isend, t, pset.members[peer], pg))
@@ -272,8 +322,9 @@ class DataPlane:
                 post *= e.prescale
             else:
                 self._scale(buf, e.prescale)
-            self._reduce_(buf, op, pg, n, pos, pset)
-            self._scale(buf, post)
+            with self._activity(entries, self._label):
+                self._reduce_(buf, op, pg, n, pos, pset)
+                self._scale(buf, post)
             e.result = e.output
             return
         sizes = [e.input.numel() for e in entries]
@@ -281,18 +332,22 @@ class DataPlane:
                                   entries[0].input.device)
         parts = buf.split(sizes)
         for e, part in zip(entries, parts):
-            self._copy(part, e.input.reshape(-1))
-            self._scale(part, e.prescale)
-        self._reduce_(buf, op, pg, n, pos, pset)
+            with self._activity([e], "MEMCPY_IN_FUSION_BUFFER"):
+                self._copy(part, e.input.reshape(-1))
+                self._scale(part, e.prescale)
+        REGISTRY.account_fusion(buf.nbytes, self.fusion_threshold)
         posts = {_post_factor(op, e.postscale, n) for e in entries}
         uniform = len(posts) == 1 and all(e.prescale == 1.0
                                           for e in entries)
-        if uniform:
-            self._scale(buf, posts.pop())
+        with self._activity(entries, self._label):
+            self._reduce_(buf, op, pg, n, pos, pset)
+            if uniform:
+                self._scale(buf, posts.pop())
         for e, part in zip(entries, parts):
-            if not uniform:
-                self._scale(part, _post_factor(op, e.postscale, n))
-            self._copy(e.output.view(-1), part)
+            with self._activity([e], "MEMCPY_OUT_FUSION_BUFFER"):
+                if not uniform:
+                    self._scale(part, _post_factor(op, e.postscale, n))
+                self._copy(e.output.view(-1), part)
             e.result = e.output
 
     # ---- the other collectives ----------------------------------------

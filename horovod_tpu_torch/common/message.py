@@ -13,6 +13,8 @@ own ranks over its control group.
 import dataclasses
 import pickle
 
+import torch
+
 
 class RequestType:
     ALLREDUCE = 0
@@ -61,8 +63,16 @@ class Request:
 
 @dataclasses.dataclass
 class RequestList:
+    """One rank's cycle: its new full requests, whether it wants to shut
+    down, and the response cache's bits (``csrc/message.h:131-138``):
+    ``cache_hits`` the cached positions of tensors it is ready to run,
+    ``cache_invalid`` cached positions whose name now comes with other
+    metadata (their full request is in ``requests`` too)."""
+
     requests: list = dataclasses.field(default_factory=list)
     shutdown: bool = False
+    cache_hits: list = dataclasses.field(default_factory=list)
+    cache_invalid: list = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -89,8 +99,38 @@ class Response:
 
 @dataclasses.dataclass
 class ResponseList:
+    """The coordinator's answer, the same on every rank: newly negotiated
+    responses, and the cache's verdicts (``csrc/message.h:175-180``):
+    positions ready on every member, ``cache_hit_group_sizes``
+    partitioning them into fused responses (``[3, 1]``: the first three
+    fuse, the fourth runs alone), and positions every rank evicts
+    first."""
+
     responses: list = dataclasses.field(default_factory=list)
     shutdown: bool = False
+    cache_hit_positions: list = dataclasses.field(default_factory=list)
+    cache_hit_group_sizes: list = dataclasses.field(default_factory=list)
+    cache_evictions: list = dataclasses.field(default_factory=list)
+
+
+def dtype_size(name):
+    """Bytes per element of the torch dtype called ``name``."""
+    return getattr(torch, name).itemsize
+
+
+def nbytes(dtype_name, shape):
+    n = 1
+    for d in shape:
+        n *= d
+    return n * dtype_size(dtype_name)
+
+
+def response_bytes(res):
+    """Payload bytes of every tensor of ``res`` (``ShapesTotalBytes``);
+    0 for a barrier, which carries no dtype."""
+    if not res.tensor_type:
+        return 0
+    return sum(nbytes(res.tensor_type, s) for s in res.tensor_shapes)
 
 
 def encode(msg):

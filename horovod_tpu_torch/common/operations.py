@@ -12,6 +12,11 @@ handles. Only this thread issues collectives, in the same order on
 every rank, so no rank waits on a peer in a collective the peer never
 runs; shutdown is negotiated like any request.
 
+Each cycle also feeds the instruments: the metrics registry
+(``metrics.py``: op counts and bytes per response, negotiation and queue
+latency, cycles), the event ring (``events.py``) and, when one is
+running, the timeline (``timeline.py``).
+
 A joined rank takes part in the collectives it never enqueued with
 zero-filled tensors. After a failed collective (a lost peer) every
 in-flight handle and every later enqueue raises
@@ -27,19 +32,19 @@ import traceback
 
 import torch
 
-from horovod_tpu_torch.common.controller import (
-    ControlPlane,
-    Controller,
-    nbytes,
-)
+from horovod_tpu_torch.common import events
+from horovod_tpu_torch.common.controller import ControlPlane, Controller
 from horovod_tpu_torch.common.data_plane import ResponseError
 from horovod_tpu_torch.common.exceptions import HorovodInternalError
 from horovod_tpu_torch.common.message import (
     Request,
-    RequestList,
     RequestType,
     ResponseType,
+    response_bytes,
 )
+from horovod_tpu_torch.common.metrics import REGISTRY, now_us, op_class
+from horovod_tpu_torch.common.response_cache import ResponseCache
+from horovod_tpu_torch.common.timeline import Timeline
 
 
 class SetGroups:
@@ -84,8 +89,13 @@ class Handle:
     def wait(self):
         """The result, once the lane has run the op (for a CUDA op: once
         its work is queued; the caller's stream then waits on
-        ``cuda_event``). Raises the op's error."""
+        ``cuda_event``). Raises the op's error. A wait that blocked is a
+        ``wait`` event."""
+        t0 = now_us()
         self._done.wait()
+        t1 = now_us()
+        if t1 > t0:
+            events.record("wait", c=t1 - t0)
         if self.error is not None:
             raise self.error
         return self.result
@@ -99,6 +109,7 @@ class TensorEntry:
     handle: Handle = None
     ready_event: object = None
     result: object = None
+    enqueue_us: int = 0
 
     @property
     def prescale(self):
@@ -137,6 +148,11 @@ class TensorQueue:
                 self._entries[key] = e
                 self._new.append(e.request)
 
+    def depth(self):
+        """Collectives enqueued and not yet run."""
+        with self._lock:
+            return len(self._entries)
+
     def pop_requests(self):
         with self._lock:
             out, self._new = self._new, []
@@ -162,10 +178,13 @@ class TensorQueue:
 class Runtime:
     """One rank's lane: queue, lane thread, controller (on rank 0) and
     data plane. ``sets`` maps a process set id to its :class:`SetGroups`;
-    ``make_groups(ranks)`` creates a new set's groups."""
+    ``make_groups(ranks)`` creates a new set's groups. ``cache_capacity``
+    sizes the response cache (0: off); ``stall_warning_s`` is the stall
+    check's threshold (None: off)."""
 
     def __init__(self, rank, size, control_group, data_plane, sets,
-                 fusion_threshold, cycle_time_ms, make_groups):
+                 fusion_threshold, cycle_time_ms, make_groups,
+                 cache_capacity=1024, stall_warning_s=60.0):
         self.rank = rank
         self.size = size
         self.data_plane = data_plane
@@ -173,22 +192,21 @@ class Runtime:
         self._sets_lock = threading.Lock()
         self._make_groups = make_groups
         self._next_set_id = max(sets) + 1
-        self.cycle_s = cycle_time_ms / 1e3
-        controller = Controller(size, fusion_threshold, self.members_of) \
+        self.fusion_threshold = fusion_threshold
+        self.cycle_time_ms = cycle_time_ms
+        self.cache = ResponseCache(cache_capacity)
+        controller = Controller(size, fusion_threshold, self.members_of,
+                                self.cache, stall_warning_s) \
             if rank == 0 else None
-        self.control = ControlPlane(control_group, rank, size, controller)
+        self.control = ControlPlane(control_group, rank, size, self.cache,
+                                    controller)
+        self.timeline = data_plane.timeline = Timeline()
         self.queue = TensorQueue()
         self.joined = False
         self.failure = None
         self._barrier_seq = {}
         self._group_seq = 0
         self._shutdown = threading.Event()
-        # Host seconds of the lane: negotiation (the control exchange)
-        # and execution (queuing the responses' work), by cycle.
-        # Responses carrying several tensors count as fused;
-        # largest_fused is the most bytes one fused outside a group.
-        self.stats = dict(cycles=0, responses=0, fused=0, largest_fused=0,
-                          negotiate_s=0.0, execute_s=0.0)
         self._thread = threading.Thread(target=self._loop,
                                         name="hvd-torch-lane", daemon=True)
 
@@ -250,10 +268,12 @@ class Runtime:
                 ready = torch.cuda.Event()
                 ready.record(torch.cuda.current_stream(input.device))
             entries.append(TensorEntry(request, input, output, Handle(),
-                                       ready))
+                                       ready, enqueue_us=now_us()))
         if any(r.request_type == RequestType.JOIN for r, _, _ in items):
             self.joined = True
         self.queue.add(entries)
+        for r, _, _ in items:
+            self.timeline.entry_queued(r.tensor_name)
         return [e.handle for e in entries]
 
     def barrier(self, process_set_id=0):
@@ -267,35 +287,38 @@ class Runtime:
 
     def _loop(self):
         error = HorovodInternalError("Horovod has been shut down")
+        tl = self.timeline
         try:
             self.data_plane.start_thread()
             while True:
-                t0 = time.perf_counter()
-                requests = RequestList(self.queue.pop_requests(),
-                                       self._shutdown.is_set())
-                responses = self.control.exchange(requests)
-                t1 = time.perf_counter()
-                st = self.stats
-                st["cycles"] += 1
-                # Counted before any handle completes: a caller that
-                # synchronized sees its response counted.
-                st["responses"] += len(responses.responses)
-                for r in responses.responses:
-                    if len(r.tensor_names) > 1:
-                        st["fused"] += 1
-                        if r.group_id < 0:
-                            st["largest_fused"] = max(
-                                st["largest_fused"],
-                                sum(nbytes(r.tensor_type, shape)
-                                    for shape in r.tensor_shapes))
+                t0 = now_us()
+                if tl.mark_cycles:
+                    tl.mark_cycle()
+                requests = self.queue.pop_requests()
+                for r in requests:
+                    tl.negotiate_start(r.tensor_name)
+                if requests:
+                    events.record("negotiate_begin", len(requests))
+                responses = self.control.exchange(requests,
+                                                  self._shutdown.is_set())
+                if requests or responses.responses:
+                    # Active cycles only: idle rounds would swamp it.
+                    REGISTRY.record(REGISTRY.negotiation_us, now_us() - t0)
+                    events.record("negotiate_end", len(responses.responses),
+                                  int(responses.shutdown))
                 for res in responses.responses:
+                    for name in res.tensor_names:
+                        tl.negotiate_end(name)
+                    t1 = now_us()
                     self._perform(res)
-                t2 = time.perf_counter()
-                st["negotiate_s"] += t1 - t0
-                st["execute_s"] += t2 - t1
+                    REGISTRY.record(REGISTRY.execute_us, now_us() - t1)
                 if responses.shutdown:
                     break
-                time.sleep(max(0.0, self.cycle_s - (t2 - t0)))
+                elapsed = now_us() - t0
+                budget = self.cycle_time_ms * 1e3
+                REGISTRY.account_cycle(elapsed, budget)
+                REGISTRY.drain_cuda_spans()
+                time.sleep(max(0.0, budget - elapsed) / 1e6)
         except Exception as exc:  # noqa: BLE001 — the lane's boundary
             traceback.print_exc(file=sys.stderr)
             self.failure = f"{type(exc).__name__}: {exc}"
@@ -309,17 +332,23 @@ class Runtime:
             self.joined = False
             for e in self.queue.take(0, res.tensor_names):
                 if e is not None:
+                    self.timeline.entry_done(e.request.tensor_name)
                     e.handle.complete(res.last_joined_rank)
             return
+        if res.response_type != ResponseType.ERROR:
+            events.record("response_launch", op_class(res.response_type),
+                          int(res.device == "cuda"), len(res.tensor_names),
+                          response_bytes(res))
+        pset = self.set_groups(res.process_set_id)
+        if res.response_type != ResponseType.ERROR and (
+                pset is None or pset.position is None):
+            return     # not a member of the set: nothing to run
         entries = self.queue.take(res.process_set_id, res.tensor_names)
         if res.response_type == ResponseType.ERROR:
-            for e in entries:
-                if e is not None:
-                    e.handle.fail(HorovodInternalError(res.error_message))
+            self._account(res, [e for e in entries if e is not None], False)
+            self._finish(entries, error=HorovodInternalError(
+                res.error_message))
             return
-        pset = self.set_groups(res.process_set_id)
-        if pset is None or pset.position is None:
-            return     # not a member of the set: nothing to run
         if None in entries:
             if not self.joined:
                 raise RuntimeError(
@@ -327,16 +356,48 @@ class Runtime:
                     "never enqueued")
             entries = [e if e is not None else self._zero_entry(res, i)
                        for i, e in enumerate(entries)]
+        start = now_us()
+        for e in entries:
+            if e.enqueue_us:
+                REGISTRY.record(REGISTRY.queue_us, start - e.enqueue_us)
         try:
             done = self.data_plane.execute(res, entries, pset)
         except ResponseError as exc:
-            for e in entries:
-                if e.handle is not None:
-                    e.handle.fail(HorovodInternalError(str(exc)))
+            self._account(res, entries, False)
+            self._finish(entries, error=HorovodInternalError(str(exc)))
             return
+        self._account(res, entries, True)
+        self._finish(entries, done=done)
+
+    def _finish(self, entries, done=None, error=None):
         for e in entries:
-            if e.handle is not None:
+            if e is None:
+                continue
+            self.timeline.entry_done(e.request.tensor_name)
+            if e.handle is None:
+                continue
+            if error is not None:
+                e.handle.fail(error)
+            else:
                 e.handle.complete(e.result, done)
+
+    @staticmethod
+    def _account(res, entries, ok):
+        """Counts and payload bytes of one response (``AccountResponse``):
+        on the card the negotiated shapes; on the CPU the inputs (results
+        for allgather and alltoall)."""
+        kind = res.response_type
+        if res.device == "cuda":
+            moved = response_bytes(res)
+        elif kind in (ResponseType.ALLREDUCE, ResponseType.BROADCAST,
+                      ResponseType.REDUCESCATTER):
+            moved = sum(e.input.nbytes for e in entries)
+        elif ok and kind in (ResponseType.ALLGATHER, ResponseType.ALLTOALL):
+            moved = sum(e.result.nbytes for e in entries)
+        else:
+            moved = 0
+        REGISTRY.account_response(kind, res.device, len(res.tensor_names),
+                                  moved, ok)
 
     def _zero_entry(self, res, i):
         """This joined rank's zero contribution to the response's i-th

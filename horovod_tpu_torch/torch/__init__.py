@@ -7,12 +7,15 @@ reducescatter, sync and async, in place and out of place; barrier and
 join; process sets; ``DistributedOptimizer``; the broadcast helpers and
 ``Compression``. It runs on the port's own controller over
 ``torch.distributed``: NCCL for CUDA tensors, gloo for CPU tensors
-(``common/``).
+(``common/``), with the reference's instruments: the timeline
+(``start_timeline``/``stop_timeline``), ``metrics``/``metrics_reset``,
+``events`` and ``debug_port``; and ``SyncBatchNorm``.
 
-The reference's names this port does not have yet raise
-``NotImplementedError`` naming their ROADMAP.md item: ``SyncBatchNorm``
-(L4), ``elastic`` (L5), ``start_timeline``/``stop_timeline``,
-``metrics``/``metrics_reset``, ``events`` and ``debug_port`` (L3).
+Of the reference's names only ``elastic`` is missing: it raises
+``NotImplementedError`` naming ROADMAP.md L5. Still to port behind the
+same names: autotune (L6), hierarchical allreduce (L7), the control
+tree and wire checksums (L8), the MPI controller (L9), the launcher
+(L10) and the JAX frontend's functional lane (L11).
 """
 
 from horovod_tpu_torch.common.exceptions import (  # noqa: F401
@@ -58,6 +61,8 @@ from horovod_tpu_torch.torch.mpi_ops import (  # noqa: F401
     broadcast_async_,
     cross_rank,
     cross_size,
+    debug_port,
+    events,
     grouped_allgather,
     grouped_allgather_async,
     grouped_allreduce,
@@ -71,34 +76,24 @@ from horovod_tpu_torch.torch.mpi_ops import (  # noqa: F401
     join,
     local_rank,
     local_size,
+    metrics,
+    metrics_reset,
     poll,
     rank,
     reducescatter,
     reducescatter_async,
     shutdown,
     size,
+    start_timeline,
+    stop_timeline,
     synchronize,
 )
 from horovod_tpu_torch.torch.optimizer import (  # noqa: F401
     DistributedOptimizer,
 )
-
-
-def _not_ported(name, item):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"hvd.{name} is not ported yet "
-                                  f"(ROADMAP.md {item})")
-    fn.__name__ = name
-    return fn
-
-
-SyncBatchNorm = _not_ported("SyncBatchNorm", "L4")
-start_timeline = _not_ported("start_timeline", "L3")
-stop_timeline = _not_ported("stop_timeline", "L3")
-metrics = _not_ported("metrics", "L3")
-metrics_reset = _not_ported("metrics_reset", "L3")
-events = _not_ported("events", "L3")
-debug_port = _not_ported("debug_port", "L3")
+from horovod_tpu_torch.torch.sync_batch_norm import (  # noqa: F401
+    SyncBatchNorm,
+)
 
 
 def __getattr__(name):

@@ -17,6 +17,10 @@ The result of a CUDA op is ready for the caller's current stream at
 ``synchronize``. Unnamed ops get ``<op>.noname.<n>`` names, counted per
 process in call order, so ranks that call the same ops in the same
 order agree on them.
+
+The lane's instruments are re-exported from ``common/basics.py``:
+``start_timeline``/``stop_timeline``, ``metrics``/``metrics_reset``,
+``events`` and ``debug_port``.
 """
 
 import operator
@@ -43,6 +47,12 @@ local_rank = basics.local_rank
 local_size = basics.local_size
 cross_rank = basics.cross_rank
 cross_size = basics.cross_size
+start_timeline = basics.start_timeline
+stop_timeline = basics.stop_timeline
+metrics = basics.metrics
+metrics_reset = basics.metrics_reset
+events = basics.events
+debug_port = basics.debug_port
 
 
 def _make_auto_namer():

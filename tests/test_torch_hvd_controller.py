@@ -11,16 +11,23 @@ from pathlib import Path
 import pytest
 import torch
 
-from horovod_tpu_torch.common.controller import Controller, _frame, _unframe
+from horovod_tpu_torch.common.controller import (
+    ControlPlane,
+    Controller,
+    _frame,
+    _unframe,
+)
 from horovod_tpu_torch.common.message import (
     ReduceOp,
     Request,
     RequestList,
     RequestType,
+    ResponseList,
     ResponseType,
     decode,
     encode,
 )
+from horovod_tpu_torch.common.response_cache import ResponseCache
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc" / "controller.cc"
 
@@ -33,7 +40,7 @@ def _req(rank, name, shape=(4,), dtype="float32", kind=AR, **kw):
 
 def _controller(size=2, threshold=64 << 20, sets=None):
     sets = {0: list(range(size)), **(sets or {})}
-    return Controller(size, threshold, sets.get)
+    return Controller(size, threshold, sets.get, ResponseCache(0))
 
 
 def _negotiate(ctl, per_rank):
@@ -286,3 +293,86 @@ def test_frame_round_trip(n_requests):
     length, head = _unframe(block)
     assert length == len(payload)
     assert decode(head + rest) == msg
+
+
+# ---- the response cache's bits -----------------------------------------
+
+
+def _cached_lane(size, threshold, names, shapes, dtype="float32"):
+    """A coordinator and its rank's control plane sharing one cache
+    that holds ``names`` (one full negotiation, as the first step)."""
+    cache = ResponseCache(16)
+    ctl = Controller(size, threshold, {0: list(range(size))}.get, cache)
+    plane = ControlPlane(None, 0, size, cache, ctl)
+    first = _negotiate(ctl, {r: [_req(r, n, s, dtype)
+                                 for n, s in zip(names, shapes)]
+                             for r in range(size)})
+    plane.apply_cache_verdicts(first)
+    return ctl, plane
+
+
+def _hits(ctl, plane, per_rank, joined=()):
+    """Each rank's requests through the cache, then the verdicts."""
+    evictions = []
+    for r in joined:
+        ctl.handle_request_list(RequestList([Request(r, RequestType.JOIN,
+                                                     "__join__")]), r)
+    for r, reqs in per_rank.items():
+        rl = plane.build_request_list(list(reqs), False)
+        ctl.handle_cache_bits(rl, r, evictions)
+        ctl.handle_request_list(rl, r)
+    out = ResponseList(cache_evictions=evictions)
+    ctl.collect_cache_hits(out)
+    out.responses = ctl.fuse_responses().responses
+    plane.apply_cache_verdicts(out)
+    return out
+
+
+def test_cached_hits_fuse_as_requests_do():
+    # 4-element f32 tensors: 16 bytes each; threshold 40 fits two.
+    names = [f"h.{i}" for i in range(5)]
+    ctl, plane = _cached_lane(2, 40, names, [(4,)] * 5)
+    out = _hits(ctl, plane, {r: [_req(r, n) for n in names]
+                             for r in range(2)})
+    assert out.cache_hit_group_sizes == [2, 2, 1]
+    assert _names(out) == [["h.0", "h.1"], ["h.2", "h.3"], ["h.4"]]
+    assert plane.cache.hits == 10
+
+
+def test_cached_bit_waits_for_every_member_or_a_join():
+    ctl, plane = _cached_lane(3, 64 << 20, ["w"], [(4,)])
+    out = _hits(ctl, plane, {0: [_req(0, "w")], 1: [_req(1, "w")]})
+    assert out.responses == [] and out.cache_hit_positions == []
+    out = _hits(ctl, plane, {}, joined=[2])
+    assert _names(out)[0] == ["w"]
+
+
+def test_changed_shape_evicts_and_renegotiates():
+    ctl, plane = _cached_lane(2, 64 << 20, ["m"], [(4,)])
+    out = _hits(ctl, plane, {r: [_req(r, "m", (6,))] for r in range(2)})
+    assert out.cache_evictions == [0]
+    assert [tuple(r.tensor_shapes[0]) for r in out.responses] == [(6,)]
+    assert plane.cache.get(0).tensor_shapes == [(6,)]
+
+
+def test_stall_check_names_missing_ranks_only(capsys):
+    """A tensor waiting past the threshold is reported with the ranks
+    that have not submitted it; once its last rank arrived (its response
+    is built later in the same cycle) it is not."""
+    import time
+
+    ctl = Controller(2, 64 << 20, {0: [0, 1]}.get, ResponseCache(0),
+                     stall_warning_s=0.001)
+    ctl.handle_request_list(RequestList([_req(0, "slow")]), 0)
+    time.sleep(0.01)
+    ctl._last_stall_check = 0
+    ctl.check_for_stalled_tensors()
+    err = capsys.readouterr().err
+    assert re.search(r"Stall detected: tensor slow has waited \d+s; "
+                     r"missing ranks: 1  \(one or more ranks did not "
+                     r"submit this collective\)", err), err
+    ctl.handle_request_list(RequestList([_req(1, "slow")]), 1)
+    ctl._last_stall_check = 0
+    ctl.check_for_stalled_tensors()
+    assert "Stall" not in capsys.readouterr().err
+    assert _names(ctl.fuse_responses()) == [["slow"]]

@@ -36,18 +36,23 @@ def hvd():
     hvd.shutdown()
 
 
+def _responses(hvd):
+    """CUDA responses run so far (the metrics registry)."""
+    return sum(c["responses"] for c in hvd.metrics()["device_ops"].values())
+
+
 @pytest.fixture
 def lane(hvd):
     from horovod_tpu_torch.common import basics
 
     rt = basics.lane()
     rt.data_plane.reset_counts()
-    before = rt.stats["responses"]
+    before = _responses(hvd)
     yield rt
     dp = rt.data_plane
     assert dp.launches["gloo"] == 0, dict(dp.launches)
-    assert dp.launches["nccl"] == rt.stats["responses"] - before, (
-        dict(dp.launches), rt.stats)
+    assert dp.launches["nccl"] == _responses(hvd) - before, (
+        dict(dp.launches), hvd.metrics()["device_ops"])
 
 
 def _input(dtype, shape, seed):

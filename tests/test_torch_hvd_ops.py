@@ -230,9 +230,14 @@ def _battery(rank, size, impl):
         out["last_joined_after_gather"] = hvd.join()
         hvd.barrier()
         if impl == "port":
-            from horovod_tpu_torch.common import basics
-
-            out["stats"] = dict(basics.lane().stats)
+            # Fused responses (the metrics registry), and the most bytes
+            # one fused allreduce carried (its response_launch event).
+            fused = [e["bytes"] for e in hvd.events()
+                     if e["type"] == "response_launch" and
+                     e["op_class"] == 0 and e["tensors"] > 1]
+            out["stats"] = dict(
+                fused=hvd.metrics()["fusion"]["fused_responses"],
+                largest_fused=max(fused, default=0))
         return out
     finally:
         hvd.shutdown()

@@ -42,6 +42,9 @@ def test_import_loads_no_jax_triton_or_reference_package():
         "import horovod_tpu_torch.parallel.train_step\n"
         "import horovod_tpu_torch.parallel.precision\n"
         "import horovod_tpu_torch.torch\n"
+        "import horovod_tpu_torch.telemetry.debug_server\n"
+        "import horovod_tpu_torch.common.response_cache\n"
+        "import horovod_tpu_torch.common.timeline\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'triton', 'ml_dtypes', 'horovod_tpu'))\n"
@@ -91,6 +94,9 @@ def test_import_builds_nothing():
         "import horovod_tpu_torch.serving.engine\n"
         "import horovod_tpu_torch.parallel.train_step\n"
         "import horovod_tpu_torch.torch\n"
+        "import horovod_tpu_torch.telemetry.debug_server\n"
+        "import horovod_tpu_torch.common.response_cache\n"
+        "import horovod_tpu_torch.common.timeline\n"
         "from horovod_tpu_torch.ops import _build\n"
         "assert _build._libs == {}, _build._libs\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
