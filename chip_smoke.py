@@ -8,8 +8,9 @@ compute capability >= 9.0::
 
 It builds the port's hand-written kernels from the checkout's sources
 and drives the port's serving and training paths at the full width of
-the flagship dense Llama and of the repo's sparse-MoE Llama, in phases;
-any failed phase exits non-zero before the result line.
+the flagship dense Llama and of the repo's sparse-MoE Llama, and BERT-
+Large's MLM training, in phases; any failed phase exits non-zero before
+the result line.
 
 1. Card, power limit, torch/CUDA versions; kernel build time.
 2. Each kernel against its plain PyTorch version at the main paths'
@@ -84,8 +85,31 @@ any failed phase exits non-zero before the result line.
    function on a ``[32, 256, 56, 56]`` activation, f32 and bf16, against
    ``nn.BatchNorm2d`` (forward, backward, running statistics, both
    times); a CUDA tensor on a lane opened with ``device="cpu"`` raises.
-12. A ``kernels`` JSON line (K1-K6; the lane adds no kernel), the card
-   line, and the result line ``{"ok": true, "device": {...}}``.
+12. K1, K2 and K3's bias variant (BERT's padding mask) against their
+   plain versions at BERT-Large's attention (B16 H16 T512 D64 bf16,
+   non-causal): a padding bias of seeded lengths in [128, 512] with one
+   sequence all padding (exact zeros there), a random bias N(0, 3^2);
+   f32 on the FMA route (B2 T128). Errors, kernel ms, the FMA kernels'
+   ms on the bf16 inputs, the plain versions' ms, SDPA with the bias as
+   its additive mask (forward, backward), and the bound of the pairs the
+   data needs; K3 the same bits on two launches.
+13. BERT-Large MLM training (``BertConfig.large()``: vocab 30522, d1024,
+   L24, H16, d_ff 4096, bf16 compute, f32 params, remat; ~335 M
+   params) at B16 x T512 with seeded padding lengths in [128, 512] and
+   15% of the real tokens masked: ``make_split_train_step(bert_mlm_loss,
+   fused_adam(1e-4))``, 2 warm-up steps, 5 timed (ms/step the median),
+   tok/s, MFU by ``bench.py:123 _mfu_row``'s formula, peak memory, the
+   f32 logits product's share, a profile; per step K1 launches 48 times
+   with the bias (forward and the remat recompute), K2 and K3 24, all on
+   wgmma; the loss must fall.
+14. ``bert_forward`` alone at the same batch: ms, K1 24 per call.
+15. BERT parity at BERT-Large widths, 2 layers, B4 x T128, lengths
+   128/77/1/0: f32 loss and gradients on the card (the FMA route)
+   against the CPU's plain path; bf16 on the card (wgmma) against bf16
+   on the CPU, each gradient leaf held to 2x a floor measured in the run.
+16. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
+   launches; the lane adds no kernel), the card line, and the result
+   line ``{"ok": true, "device": {...}}``.
 
 Weights are random (``torch.Generator`` seeds); nothing is downloaded.
 """
@@ -185,11 +209,33 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+# Device kernels by kind, from their names: the port's kernels first,
+# then cuBLAS/CUTLASS products, then PyTorch's elementwise and reduction
+# kernels, then copies.
+KERNEL_KINDS = (("K1-K3 flash", ("flash_",)),
+                ("K4 decode", ("decode_attention", "namespace)::scores_",
+                               "namespace)::pv_", "namespace)::reduce_")),
+                ("K5/K6 grouped", ("gmm_",)),
+                ("matmul", ("gemm", "nvjet", "xmma", "cutlass")),
+                ("elementwise", ("elementwise",)),
+                ("reduction", ("reduce", "norm", "softmax")),
+                ("index/scatter", ("index", "scatter", "gather")),
+                ("copy", ("Memcpy", "Memset", "copy")))
+
+
+def kernel_kind(name):
+    for kind, marks in KERNEL_KINDS:
+        if any(m in name for m in marks):
+            return kind
+    return "other"
+
+
 def device_profile(torch, label, fn, top=6):
     """Run ``fn`` under torch.profiler and print the wall time, the
-    device's busy time (sum of kernel durations), its idle share and the
-    kernels that took the most time. The profiler slows the host, so the
-    idle share read here is an upper bound."""
+    device's busy time (sum of kernel durations), its idle share, the
+    busy time by kind of kernel (:func:`kernel_kind`) and the kernels
+    that took the most time. The profiler slows the host, so the idle
+    share read here is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -208,12 +254,19 @@ def device_profile(torch, label, fn, top=6):
     if not busy_ms:
         log(f"  profile {label}: no device time recorded (not measured)")
         return None
+    by_kind = {}
+    for name, ms in by_kernel.items():
+        kind = kernel_kind(name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
     out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-               idle_share=1.0 - busy_ms / wall_ms,
+               idle_share=1.0 - busy_ms / wall_ms, by_kind=by_kind,
                top=[(name[:60], ms) for name, ms in sorted(
                    by_kernel.items(), key=lambda kv: -kv[1])[:top]])
     log(f"  profile {label}: wall {wall_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms, idle share {out['idle_share']:.3f}")
+    log("    by kind: " + ", ".join(
+        f"{kind} {ms:.2f} ms" for kind, ms in sorted(
+            by_kind.items(), key=lambda kv: -kv[1])))
     for name, ms in out["top"]:
         log(f"    {ms:9.3f} ms  {name}")
     return out
@@ -230,22 +283,20 @@ def wgmma_attrs(_build):
     import ctypes
 
     out, buf = {}, (ctypes.c_int * 4)()
-    for key, source, entry, args in (
-            ("K1 D128", "flash_fwd_wgmma", "flash_fwd_wgmma_attrs", (128,)),
-            ("K1 D64", "flash_fwd_wgmma", "flash_fwd_wgmma_attrs", (64,)),
-            ("K2 D128", "flash_bwd_wgmma", "flash_bwd_wgmma_attrs", (128,)),
-            ("K2 D64", "flash_bwd_wgmma", "flash_bwd_wgmma_attrs", (64,)),
-            ("K3 D128", "flash_bwd_dq_wgmma", "flash_bwd_dq_wgmma_attrs",
-             (128,)),
-            ("K3 D64", "flash_bwd_dq_wgmma", "flash_bwd_dq_wgmma_attrs",
-             (64,)),
+    flash = [(f"{k}{' bias' if bias else ''} D{d}", source,
+              f"{source}_attrs", (d, bias))
+             for k, source in (("K1", "flash_fwd_wgmma"),
+                               ("K2", "flash_bwd_wgmma"),
+                               ("K3", "flash_bwd_dq_wgmma"))
+             for d in (128, 64) for bias in (0, 1)]
+    for key, source, entry, args in flash + [
             ("K4 n_rep4 D128", "decode_attention_wgmma",
              "decode_attention_wgmma_attrs", (4, 128)),
             ("K4 n_rep2 D128", "decode_attention_wgmma",
              "decode_attention_wgmma_attrs", (2, 128)),
             ("K5 gmm", "grouped_mm_wgmma", "grouped_wgmma_attrs", (2,)),
             ("K6 dlhs", "grouped_mm_wgmma", "grouped_wgmma_attrs", (0,)),
-            ("K6 tgmm", "grouped_mm_wgmma", "grouped_wgmma_attrs", (1,))):
+            ("K6 tgmm", "grouped_mm_wgmma", "grouped_wgmma_attrs", (1,))]:
         fn = getattr(_build.load(source), entry)
         fn.argtypes = [ctypes.c_int] * len(args) + [
             ctypes.POINTER(ctypes.c_int)]
@@ -526,12 +577,19 @@ ROUTED = ("K1", "K2", "K3", "K4", "K5", "K6 dlhs", "K6 tgmm")
 def reset_counts(ctr):
     for fn in ctr.values():
         fn.launches = 0
+        if hasattr(fn, "bias_launches"):
+            fn.bias_launches = 0
         for route in getattr(fn, "launches_by_route", ()):
             fn.launches_by_route[route] = 0
 
 
 def counts(ctr):
     return {k: fn.launches for k, fn in ctr.items()}
+
+
+def bias_counts(ctr):
+    """K1-K3's launches of their bias variant."""
+    return {k: ctr[k].bias_launches for k in ("K1", "K2", "K3")}
 
 
 def check_wgmma_routes(ctr, path):
@@ -1173,23 +1231,79 @@ def run_moe_engine(torch, ctr, DecodeEngine, Request, params, cfg):
                           max_batch_1_launches=n1)
 
 
-def run_bf16_grad_check(torch, ctr, fa, llama, train_step, cfg):
-    """The MoE model at 2 layers and bf16 (B2 T256, remat "none"): one
-    grad call on the card, where K1, K2, K5 and K6 take the wgmma route,
-    against the same call in bf16 on the CPU, where every op takes its
-    plain version.
+def bf16_grad_agreement(torch, ctr, fa, value_and_grad, cpu_params, want,
+                        label):
+    """One bf16 grad call on the card, where the routed kernels take the
+    wgmma route, against the same call in bf16 on the CPU, where every op
+    takes its plain version. ``value_and_grad(params, device)`` returns
+    (loss, [gradient leaves]); ``want`` the launches the card call must
+    make.
 
-    bf16 gradients of this model are chaotic at the last bit: changing
-    only how K1's output rounds (its plain version fed f64 inputs, which
-    skips the bf16 rounding of p and so moves o by about one bf16 ulp,
-    as a correct kernel summing in another order may) moves each leaf by
-    several percent in norm, and the card changes the rounding of every
-    op (cuBLAS products, norms, K1, K5, K6). So each leaf is held, in
-    norm, to 2x its own floor (that K1-rounding change, measured here on
-    the CPU) plus 1e-2; the loss to 2e-3 relative. A wrong kernel (a
-    mask, a group boundary, a transposed tile) moves the gradients by a
-    large fraction of their norm."""
-    from horovod_tpu_torch.parallel._tree import tree_leaves, tree_map
+    bf16 gradients are chaotic at the last bit: changing only how K1's
+    output rounds (its plain version fed f64 inputs, which skips the bf16
+    rounding of p and so moves o by about one bf16 ulp, as a correct
+    kernel summing in another order may) moves each leaf by several
+    percent in norm, and the card changes the rounding of every op
+    (cuBLAS products, norms, K1-K6). So each leaf is held, in norm, to 2x
+    its own floor (that K1-rounding change, measured here on the CPU) plus
+    1e-2; the loss to 2e-3 relative. A wrong kernel (a mask, a bias, a
+    group boundary, a transposed tile) moves the gradients by a large
+    fraction of their norm."""
+    from horovod_tpu_torch.parallel._tree import tree_map
+
+    def norm_rel(got, want):
+        return [float((g - w).norm()) / max(float(w.norm()), 1e-30)
+                for g, w in zip(got, want)]
+
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = value_and_grad(cpu_params, "cpu")
+    cpu_s = time.perf_counter() - t0
+    plain_k1 = fa._flash_fwd_reference
+
+    def k1_unrounded_p(q, k, v, causal=True, kv_bias=None):
+        o, lse = plain_k1(q.double(), k.double(), v.double(), causal,
+                          kv_bias)
+        return o.to(q.dtype), lse.float()
+
+    fa._flash_fwd_reference = k1_unrounded_p
+    try:
+        _, f64_grads = value_and_grad(cpu_params, "cpu")
+    finally:
+        fa._flash_fwd_reference = plain_k1
+    floor = norm_rel(f64_grads, cpu_grads)
+    card_params = tree_map(lambda w: w.cuda(), cpu_params)
+    reset_counts(ctr)
+    loss, grads = value_and_grad(card_params, "cuda")
+    by_route = check_wgmma_routes(ctr, label)
+    launched = counts(ctr)
+    loss_err = abs(loss - cpu_loss) / abs(cpu_loss)
+    err = norm_rel(grads, cpu_grads)
+    ratio = max(e / (2 * f + 1e-2) for e, f in zip(err, floor))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    log(f"  {label}: card (wgmma) vs CPU (plain) loss {loss:.5f} vs "
+        f"{cpu_loss:.5f}, rel err {loss_err:.3e} (tol 2e-3); grads, "
+        f"norm-relative per leaf: card {[round(e, 4) for e in err]}, CPU "
+        f"floor (K1 without p's bf16 rounding) "
+        f"{[round(f, 4) for f in floor]}, worst leaf at {ratio:.3f} of its "
+        f"tolerance (2 x floor + 1e-2); launches {launched}, by route "
+        f"{by_route}; CPU grad call {cpu_s:.1f} s")
+    check(finite, f"{label}: non-finite bf16 gradient on the card")
+    check({k: launched[k] for k in want} == want,
+          f"{label}: launches {launched}, expected {want}")
+    check(loss_err <= 2e-3, f"{label}: card loss differs from CPU by "
+          f"{loss_err}")
+    check(ratio <= 1.0, f"{label}: card grads differ from CPU beyond 2 x "
+          f"the rounding floor + 1e-2: {err} vs floor {floor}")
+    return dict(loss_rel_err=loss_err, grad_norm_rel_err=err,
+                grad_floor=floor, worst_ratio=ratio, launches=launched,
+                launches_by_route=by_route, cpu_grad_call_s=cpu_s)
+
+
+def run_bf16_grad_check(torch, ctr, fa, llama, train_step, cfg):
+    """The MoE model at 2 layers and bf16 (B2 T256, remat "none") through
+    :func:`bf16_grad_agreement`: K1, K2, K5 and K6 on wgmma on the
+    card."""
+    from horovod_tpu_torch.parallel._tree import tree_leaves
 
     c16 = dataclasses.replace(cfg, n_layers=2, remat="none")
     cpu_params = llama.llama_init(c16, torch.Generator().manual_seed(8),
@@ -1204,52 +1318,10 @@ def run_bf16_grad_check(torch, ctr, fa, llama, train_step, cfg):
             batch, 1)
         return float(loss), [g.float().cpu() for g in tree_leaves(grads)]
 
-    def norm_rel(got, want):
-        return [float((g - w).norm()) / max(float(w.norm()), 1e-30)
-                for g, w in zip(got, want)]
-
-    t0 = time.perf_counter()
-    cpu_loss, cpu_grads = value_and_grad(cpu_params, "cpu")
-    cpu_s = time.perf_counter() - t0
-    plain_k1 = fa._flash_fwd_reference
-
-    def k1_unrounded_p(q, k, v, causal=True):
-        o, lse = plain_k1(q.double(), k.double(), v.double(), causal)
-        return o.to(q.dtype), lse.float()
-
-    fa._flash_fwd_reference = k1_unrounded_p
-    try:
-        _, f64_grads = value_and_grad(cpu_params, "cpu")
-    finally:
-        fa._flash_fwd_reference = plain_k1
-    floor = norm_rel(f64_grads, cpu_grads)
-    card_params = tree_map(lambda w: w.cuda(), cpu_params)
-    reset_counts(ctr)
-    loss, grads = value_and_grad(card_params, "cuda")
-    by_route = check_wgmma_routes(ctr, "bf16 MoE grad call")
-    launched = counts(ctr)
-    want = {"K1": 2, "K2": 2, "K5": 6, "K6 dlhs": 6, "K6 tgmm": 6}
-    loss_err = abs(loss - cpu_loss) / abs(cpu_loss)
-    err = norm_rel(grads, cpu_grads)
-    ratio = max(e / (2 * f + 1e-2) for e, f in zip(err, floor))
-    finite = all(bool(torch.isfinite(g).all()) for g in grads)
-    log(f"  bf16 MoE grad call (2 layers, B2 T256): card (wgmma) vs CPU "
-        f"(plain) loss {loss:.5f} vs {cpu_loss:.5f}, rel err {loss_err:.3e} "
-        f"(tol 2e-3); grads, norm-relative per leaf: card "
-        f"{[round(e, 4) for e in err]}, CPU floor (K1 without p's bf16 "
-        f"rounding) "
-        f"{[round(f, 4) for f in floor]}, worst leaf at {ratio:.3f} of its "
-        f"tolerance (2 x floor + 1e-2); launches {launched}, by route "
-        f"{by_route}; CPU grad call {cpu_s:.1f} s")
-    check(finite, "non-finite bf16 gradient on the card")
-    check({k: launched[k] for k in want} == want,
-          f"bf16 grad call launches {launched}, expected {want}")
-    check(loss_err <= 2e-3, f"bf16 card loss differs from CPU by {loss_err}")
-    check(ratio <= 1.0, f"bf16 card grads differ from CPU beyond 2 x the "
-          f"rounding floor + 1e-2: {err} vs floor {floor}")
-    return dict(loss_rel_err=loss_err, grad_norm_rel_err=err,
-                grad_floor=floor, worst_ratio=ratio, launches=launched,
-                launches_by_route=by_route, cpu_grad_call_s=cpu_s)
+    return bf16_grad_agreement(
+        torch, ctr, fa, value_and_grad, cpu_params,
+        {"K1": 2, "K2": 2, "K5": 6, "K6 dlhs": 6, "K6 tgmm": 6},
+        "bf16 MoE grad call (2 layers, B2 T256)")
 
 
 # ---- phase 11: the Horovod eager lane on NCCL ---------------------------
@@ -1741,6 +1813,371 @@ def run_lane(torch, llama, train_step, cfg, card):
                 timeline=timeline, debug_server=debug, sync_bn=sync_bn)
 
 
+# ---- phases 12-15: BERT-Large MLM (the kernels' bias variant) ----------
+
+MASK_ID = 103   # [MASK] in BERT's uncased WordPiece vocabulary
+
+
+def padding_lengths(torch, b, t, seed, empty=None):
+    """Seeded sequence lengths in [128, t] (t = 512: BERT-Large's
+    pretraining length), one sequence (``empty``) all padding."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lengths = torch.randint(min(128, t), t + 1, (b,), generator=g,
+                            device="cuda")
+    if empty is not None:
+        lengths[empty] = 0
+    return lengths
+
+
+def padding_bias(torch, lengths, t):
+    """BERT's kv bias: 0 on real keys, -1e30 on padding, f32 [B, T]."""
+    keys = torch.arange(t, device="cuda")
+    return torch.where(keys[None, :] < lengths[:, None], 0.0,
+                       -1e30).float()
+
+
+def bias_case(torch, fa, b, t, dtype, iters, attrs, kind, h=16, d=64):
+    """K1, K2 and K3 with a per-key bias against their plain versions,
+    non-causal: ``padding`` (seeded lengths in [128, t], the second
+    sequence all padding) or ``random`` (N(0, 3^2) on every key). Times:
+    each kernel, the FMA kernel on the same bf16 inputs (earlier), the
+    plain versions, and SDPA with the bias as its additive mask (forward;
+    backward alone on a saved forward), the yardstick only. The bound
+    counts the pairs this run's data needs: every query against the real
+    keys of its sequence."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(b * 1000 + t + 21)
+    q, k, v, do = (torch.randn((b, h, t, d), generator=g,
+                               device="cuda").to(dtype) for _ in range(4))
+    if kind == "padding":
+        lengths = padding_lengths(torch, b, t, 31, empty=1 % b)
+        bias = padding_bias(torch, lengths, t)
+        pairs = h * t * int(lengths.sum())
+    else:
+        bias = 3.0 * torch.randn((b, t), generator=g, device="cuda")
+        pairs = b * h * t * t
+    o, lse = fa._flash_fwd_cuda(q, k, v, False, bias)
+    o_ref, lse_ref = fa._flash_fwd_reference(q, k, v, False, bias)
+    got = fa._flash_bwd_cuda(q, k, v, o, lse, do, False, bias)
+    want = fa._flash_bwd_reference(q, k, v, o, lse, do, False, bias)
+    torch.cuda.synchronize()
+    err = float((o.float() - o_ref.float()).abs().max())
+    valid = lse_ref > -1e29
+    check(torch.equal(lse > -1e29, valid),
+          "K1 bias: rows without a valid key differ from the plain version")
+    lse_err = float((lse - lse_ref)[valid].abs().max())
+    rel_err = {}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        rel_err[name] = float((a.float() - w.float()).abs().max()) / max(
+            float(w.float().abs().max()), 1e-30)
+    empty_zero = kind != "padding" or all(
+        not x[1 % b].float().any() for x in (o,) + tuple(got))
+    delta = fa._delta(o, do)
+    route = fa.flash_fwd_route(dtype, d)
+    k1_ms = cuda_ms(torch, lambda: fa._flash_fwd_cuda(q, k, v, False, bias),
+                    iters)
+    k2_ms = cuda_ms(torch, lambda: fa._flash_bwd_dkv_cuda(
+        q, k, v, do, lse, delta, False, bias), iters)
+    k3_ms = cuda_ms(torch, lambda: fa._flash_bwd_dq_cuda(
+        q, k, v, do, lse, delta, False, bias), iters)
+    k3_same = same_bits(torch, lambda: fa._flash_bwd_dq_cuda(
+        q, k, v, do, lse, delta, False, bias))
+    # The same kernels without the bias on the same inputs: what the add
+    # costs.
+    nobias = dict(
+        K1=cuda_ms(torch, lambda: fa._flash_fwd_cuda(q, k, v, False), iters),
+        K2=cuda_ms(torch, lambda: fa._flash_bwd_dkv_cuda(
+            q, k, v, do, lse, delta, False), iters),
+        K3=cuda_ms(torch, lambda: fa._flash_bwd_dq_cuda(
+            q, k, v, do, lse, delta, False), iters))
+    earlier = {}
+    if route == "wgmma":
+        few = max(1, iters // 4)
+        earlier = dict(
+            K1=cuda_ms(torch, lambda: fa._flash_fwd_cuda(
+                q, k, v, False, bias, route="fma"), few),
+            K2=cuda_ms(torch, lambda: fa._flash_bwd_dkv_cuda(
+                q, k, v, do, lse, delta, False, bias, route="fma"), few),
+            K3=cuda_ms(torch, lambda: fa._flash_bwd_dq_cuda(
+                q, k, v, do, lse, delta, False, bias, route="fma"), few))
+    plain_fwd_ms = cuda_ms(torch, lambda: fa._flash_fwd_reference(
+        q, k, v, False, bias), max(1, iters // 4), warmup=1)
+    plain_bwd_ms = cuda_ms(torch, lambda: fa._flash_bwd_reference(
+        q, k, v, o, lse, do, False, bias), max(1, iters // 4), warmup=1)
+    mask = bias[:, None, None, :].to(dtype)
+    lib_fwd_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), iters)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+    lib_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), iters)
+    dname = str(dtype).replace("torch.", "")
+    reads = nbytes(q, k, v, bias)
+    bounds = dict(
+        K1=bound(reads + nbytes(o, lse), 4 * d * pairs, dname),
+        K2=bound(reads + nbytes(do, lse, delta, got[1], got[2]),
+                 8 * d * pairs, dname),
+        K3=bound(reads + nbytes(do, lse, delta, got[0]), 6 * d * pairs,
+                 dname))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    name = f"B{b} H{h} T{t} D{d} {dname} {kind} bias"
+    kms = {"K1": k1_ms, "K2": k2_ms, "K3": k3_ms}
+    log(f"  bias {name}: route {route}; K1 max_abs_err {err:.3e} (tol "
+        f"{tol:g}), lse_err {lse_err:.3e} (tol 1e-3); rel err dq "
+        f"{rel_err['dq']:.3e} dk {rel_err['dk']:.3e} dv {rel_err['dv']:.3e} "
+        f"(tol {tol:g}); the empty sequence all zeros: {empty_zero}; K3 same "
+        f"bits on two launches: {k3_same}")
+    for kname in ("K1", "K2", "K3"):
+        ear = f", earlier (fma) {earlier[kname]:.4f} ms" if earlier else ""
+        log(f"    {kname} {kms[kname]:.4f} ms (without the bias "
+            f"{nobias[kname]:.4f} ms){ear}; bound "
+            f"{bounds[kname][0]:.4f} ms ({bounds[kname][1]})")
+    log(f"    plain forward {plain_fwd_ms:.4f} ms, backward "
+        f"{plain_bwd_ms:.4f} ms; library (SDPA, additive mask) forward "
+        f"{lib_fwd_ms:.4f} ms, backward {lib_bwd_ms:.4f} ms, forward + "
+        f"backward {lib_fwd_ms + lib_bwd_ms:.4f} ms")
+    check(err <= tol, f"K1 {name}: output error {err} above {tol}")
+    check(lse_err <= 1e-3, f"K1 {name}: lse error {lse_err} above 1e-3")
+    for grad, e in rel_err.items():
+        check(e <= tol, f"K2/K3 {name}: {grad} error {e} above {tol}")
+    check(empty_zero, f"{name}: the all-padding sequence is not all zeros")
+    check(k3_same, f"K3 {name}: two launches gave different bits")
+
+    def one(kname, max_abs, extra, plain_ms, library_ms, key):
+        return dict(case=f"{kname} {name}", kernel_route=route,
+                    max_abs_err=max_abs, ms=kms[kname],
+                    no_bias_ms=nobias[kname],
+                    earlier_ms=earlier.get(kname), plain_ms=plain_ms,
+                    library_ms=library_ms, bound_ms=bounds[kname][0],
+                    bound_by=bounds[kname][1],
+                    kernel_attrs=attrs.get(f"{kname} bias D{key}")
+                    if route == "wgmma" else None, **extra)
+
+    key = 128 if d == 128 else 64
+    common = dict(library_fwd_bwd_ms=lib_fwd_ms + lib_bwd_ms)
+    return {
+        "K1": one("K1", err, dict(lse_max_abs_err=lse_err, **common),
+                  plain_fwd_ms, lib_fwd_ms, key),
+        "K2": one("K2", max(float((a.float() - w.float()).abs().max())
+                            for a, w in zip(got[1:], want[1:])),
+                  dict(rel_err={k: rel_err[k] for k in ("dk", "dv")},
+                       **common), plain_bwd_ms, lib_bwd_ms, key),
+        "K3": one("K3", float((got[0].float() - want[0].float()).abs()
+                              .max()),
+                  dict(rel_err={"dq": rel_err["dq"]}, same_bits=k3_same,
+                       **common), plain_bwd_ms, lib_bwd_ms, key)}
+
+
+def bert_batch(torch, cfg, batch, seq, seed):
+    """Random MLM data from a seed: tokens, padding lengths in [128, seq],
+    15% of the real tokens replaced by [MASK] and predicted."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    targets = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                            device="cuda", dtype=torch.int32)
+    lengths = padding_lengths(torch, batch, seq, seed + 1)
+    real = torch.arange(seq, device="cuda")[None, :] < lengths[:, None]
+    picked = (torch.rand((batch, seq), generator=g, device="cuda") < 0.15) \
+        & real
+    tokens = torch.where(picked, MASK_ID, targets)
+    return {"tokens": tokens, "targets": targets,
+            "mlm_mask": picked.float(), "attention_mask": real.int()}
+
+
+def bert_logits_case(torch, cfg, tokens, step_ms):
+    """The MLM head's f32 logits product at the step's shape, [tokens, d]
+    x [d, vocab] against the tied f32 embedding (TF32 off, as the smoke
+    sets it): forward and backward (dh and the embedding's gradient) and
+    their share of the train step."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    h = torch.randn((tokens, cfg.d_model), generator=g,
+                    device="cuda").requires_grad_(True)
+    w = (0.02 * torch.randn((cfg.vocab_size, cfg.d_model), generator=g,
+                            device="cuda")).requires_grad_(True)
+    out = h @ w.t()
+    gout = torch.randn_like(out)
+    fwd_ms = cuda_ms(torch, lambda: h.detach() @ w.detach().t(), 3)
+    bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, (h, w), gout, retain_graph=True), 3)
+    flops = 2 * tokens * cfg.d_model * cfg.vocab_size
+    share = (fwd_ms + bwd_ms) / step_ms
+    log(f"  MLM logits f32 [{tokens}, {cfg.d_model}] x [{cfg.d_model}, "
+        f"{cfg.vocab_size}]: forward {fwd_ms:.3f} ms "
+        f"({flops / fwd_ms / 1e9:.1f} TFLOP/s), backward {bwd_ms:.3f} ms; "
+        f"{share:.3f} of the train step's {step_ms:.1f} ms")
+    return dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, step_share=share,
+                fwd_tflops=flops / fwd_ms / 1e9)
+
+
+def run_bert_train(torch, ctr, bert, precision, train_step, cfg, batch, seq,
+                   warmup, steps, card):
+    """BERT-Large MLM: split step, fused Adam 1e-4, full remat (per step
+    K1 2L with the bias, K2 = K3 L), ``warmup`` steps then ``steps`` timed
+    one by one on one fixed batch."""
+    from horovod_tpu_torch.parallel._tree import tree_leaves
+
+    params = bert.bert_init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    n_params = sum(w.numel() for w in tree_leaves(params))
+    log(f"  BERT-Large: {n_params / 1e6:.1f} M params (f32), bf16 compute, "
+        f"remat={cfg.remat}")
+    data = bert_batch(torch, cfg, batch, seq, 40)
+    ts = train_step.make_split_train_step(
+        lambda p, d: bert.bert_mlm_loss(p, d, cfg),
+        precision.fused_adam(1e-4))
+    carry = ts.init(params)
+    del params
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        loss, carry = ts.step(carry, data)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    reset_counts(ctr)
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, carry = ts.step(carry, data)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launched, biased = counts(ctr), bias_counts(ctr)
+    check_wgmma_routes(ctr, "BERT train step")
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    L = cfg.n_layers
+    want = {"K1": 2 * L, "K2": L, "K3": L}
+    for k, n in want.items():
+        check(launched[k] == biased[k] == n * steps,
+              f"{k} launched {launched[k]} times ({biased[k]} with the "
+              f"bias) in {steps} steps, expected {n} per step, all biased")
+    check(all(launched[k] == 0 for k in ("K4", "K5", "K6 dlhs", "K6 tgmm")),
+          f"the BERT step launched a kernel off its path: {launched}")
+    check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    dt = float(np.median(step_s))
+    tok = batch * seq
+    flops_per_token = 6 * n_params + 12 * L * seq * cfg.d_model
+    mfu = flops_per_token * tok / dt / PEAK_FLOPS["bfloat16"]
+    log(f"  BERT-Large MLM train step B{batch} T{seq} remat={cfg.remat} "
+        f"fused_adam(1e-4): {dt * 1e3:.1f} ms/step (median of {steps}; "
+        f"{[round(s * 1e3, 1) for s in step_s]}), {tok / dt:.0f} tok/s, MFU "
+        f"{mfu:.4f} ((6N + 12 L T d) per token at 989 TFLOP/s, remat not "
+        f"credited), peak memory {peak / 2**30:.2f} GiB, first {warmup} "
+        f"steps {first_s:.2f} s; losses {[round(x, 4) for x in losses]}; "
+        f"launches {launched}, with the bias {biased} (per step: {want}); "
+        f"card {card}")
+    logits = bert_logits_case(torch, cfg, tok, dt * 1e3)
+    prof = device_profile(torch, f"BERT-Large train step B{batch} T{seq}",
+                          lambda: ts.step(carry, data), top=10)
+    return launched, dict(ms_per_step=dt * 1e3, step_ms=[
+        s * 1e3 for s in step_s], tok_s=tok / dt, mfu=mfu,
+        peak_mem_gib=peak / 2**30, first_steps_s=first_s, losses=losses,
+        n_params=n_params, bias_launches=biased, logits=logits,
+        profile=prof), carry[0], data
+
+
+def run_bert_forward(torch, ctr, bert, cfg, params, data, reps=5):
+    """``bert_forward`` alone (no grad) on the train batch: ms (median),
+    K1 once per layer with the bias."""
+    def fwd():
+        return bert.bert_forward(params, data["tokens"], cfg,
+                                 attention_mask=data["attention_mask"])
+
+    with torch.no_grad():
+        fwd()
+        torch.cuda.synchronize()
+        reset_counts(ctr)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            logits = fwd()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    launched, biased = counts(ctr), bias_counts(ctr)
+    check_wgmma_routes(ctr, "bert_forward")
+    L = cfg.n_layers
+    check(launched["K1"] == biased["K1"] == L * reps and
+          launched["K2"] == launched["K3"] == 0,
+          f"bert_forward launches {launched} (bias {biased}) in {reps} "
+          f"calls, expected K1 {L} per call, all biased")
+    b, t = data["tokens"].shape
+    check(tuple(logits.shape) == (b, t, cfg.vocab_size) and
+          logits.dtype == torch.float32 and
+          bool(torch.isfinite(logits).all()), "bert_forward logits")
+    ms = float(np.median(times)) * 1e3
+    log(f"  bert_forward B{b} T{t} (no grad): {ms:.2f} ms (median of "
+        f"{reps}), {b * t / ms * 1e3:.0f} tok/s; launches per call "
+        f"K1 {launched['K1'] // reps} (with the bias {biased['K1'] // reps})")
+    return launched, dict(ms=ms, tok_s=b * t / ms * 1e3,
+                          k1_per_call=launched["K1"] // reps)
+
+
+def run_bert_parity(torch, ctr, fa, bert, train_step, cfg):
+    """At BERT-Large widths, 2 layers, B4 x T128 with lengths {128, 77, 1,
+    0}: f32 on the card (K1-K3's bias kernels on the FMA route) against
+    the plain CPU path, loss to 1e-5 relative and each gradient leaf to
+    2e-4 of its max abs; then bf16 on the card (wgmma) against bf16 on the
+    CPU, each leaf held in norm to 2x its floor measured here
+    (:func:`bf16_grad_agreement`)."""
+    from horovod_tpu_torch.parallel._tree import tree_leaves, tree_map
+
+    c32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    cpu_params = bert.bert_init(c32, torch.Generator().manual_seed(3),
+                                device="cpu")
+    rng = np.random.default_rng(6)
+    b, t = 4, 128
+    targets = rng.integers(0, c32.vocab_size, (b, t)).astype(np.int32)
+    mask = (np.arange(t)[None, :] < np.array([128, 77, 1, 0])[:, None])
+    picked = (rng.random((b, t)) < 0.15) & mask
+    picked[:3, 0] = True
+    batch = {"tokens": np.where(picked, MASK_ID, targets).astype(np.int32),
+             "targets": targets, "mlm_mask": picked.astype(np.float32),
+             "attention_mask": mask.astype(np.int32)}
+
+    def value_and_grad(params, c, device):
+        loss, grads = train_step._value_and_grad(
+            lambda p, d: bert.bert_mlm_loss(p, d, c, device=device), params,
+            batch, 1)
+        return float(loss), [g.float().cpu() for g in tree_leaves(grads)]
+
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = value_and_grad(cpu_params, c32, "cpu")
+    cpu_s = time.perf_counter() - t0
+    card_params = tree_map(lambda w: w.cuda(), cpu_params)
+    reset_counts(ctr)
+    loss, grads = value_and_grad(card_params, c32, "cuda")
+    launched, biased = counts(ctr), bias_counts(ctr)
+    by_route = {k: dict(ctr[k].launches_by_route) for k in ("K1", "K2",
+                                                            "K3")}
+    loss_err = abs(loss - cpu_loss) / abs(cpu_loss)
+    grad_err = max(float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                    1e-30)
+                   for g, w in zip(grads, cpu_grads))
+    log(f"  f32 BERT parity (2 layers, B{b} T{t}, lengths 128/77/1/0): "
+        f"card vs CPU loss {loss:.6f} vs {cpu_loss:.6f}, rel err "
+        f"{loss_err:.3e} (tol 1e-5); grads {grad_err:.3e} (tol 2e-4 of each "
+        f"leaf's max abs); launches {launched}, with the bias {biased}, by "
+        f"route {by_route}; CPU grad call {cpu_s:.1f} s")
+    want = {"K1": 4, "K2": 2, "K3": 2}
+    check(all(launched[k] == biased[k] == n and
+              by_route[k]["fma"] == n for k, n in want.items()),
+          f"f32 BERT grad call launches {launched} (bias {biased}, routes "
+          f"{by_route}), expected {want} on fma, all biased")
+    check(loss_err <= 1e-5, f"card loss differs from CPU by {loss_err}")
+    check(grad_err <= 2e-4, f"card grads differ from CPU by {grad_err}")
+    c16 = dataclasses.replace(c32, dtype="bfloat16")
+    bf16 = bf16_grad_agreement(
+        torch, ctr, fa, lambda p, d: value_and_grad(p, c16, d), cpu_params,
+        {"K1": 4, "K2": 2, "K3": 2}, "bf16 BERT grad call (2 layers, "
+        f"B{b} T{t})")
+    return dict(loss_rel_err=loss_err, grad_rel_err=grad_err,
+                launches=launched, bias_launches=biased,
+                launches_by_route=by_route, cpu_grad_call_s=cpu_s,
+                bf16=bf16)
+
+
 def main():
     import torch
 
@@ -1748,6 +2185,7 @@ def main():
         raise SmokeFailure("torch.cuda.is_available() is false: this smoke "
                            "needs an NVIDIA card")
     try:
+        from horovod_tpu_torch.models import bert
         from horovod_tpu_torch.models import generate as gen
         from horovod_tpu_torch.models import llama
         from horovod_tpu_torch.models.llama import LlamaConfig, llama_init
@@ -1905,7 +2343,30 @@ def main():
     lane = run_lane(torch, llama, train_step, cfg, card)
     torch.cuda.empty_cache()
 
-    log("phase 12: results")
+    log("phase 12: the kernels' bias variant at BERT-Large's attention")
+    # B16 H16 T512 D64 non-causal (the train step's shape) with a padding
+    # bias and a random one; f32 on the FMA route (B2 T128).
+    bias_cases = [bias_case(torch, fa, 16, 512, bf16, 20, attrs, "padding"),
+                  bias_case(torch, fa, 16, 512, bf16, 20, attrs, "random"),
+                  bias_case(torch, fa, 2, 128, f32, 10, attrs, "padding")]
+
+    log("phase 13: BERT-Large MLM training at full width and depth")
+    bcfg = bert.BertConfig.large()
+    bert_train_launch, bert_train_stats, bert_params, bert_data = \
+        run_bert_train(torch, ctr, bert, precision, train_step, bcfg, 16,
+                       512, 2, 5, card)
+
+    log("phase 14: bert_forward at the train batch")
+    bert_fwd_launch, bert_fwd_stats = run_bert_forward(
+        torch, ctr, bert, bcfg, bert_params, bert_data)
+    del bert_params, bert_data
+    torch.cuda.empty_cache()
+
+    log("phase 15: BERT parity (f32 and bf16, 2 layers)")
+    bert_parity = run_bert_parity(torch, ctr, fa, bert, train_step, bcfg)
+    torch.cuda.empty_cache()
+
+    log("phase 16: results")
     log(json.dumps({"generate": gen_stats, "engine": eng_stats,
                     "train": train_stats, "train_parity": parity,
                     "moe_train": moe_train_stats,
@@ -1913,11 +2374,18 @@ def main():
                     "moe_engine": moe_eng_stats,
                     "moe_train_parity": moe_parity,
                     "moe_bf16_grad_check": bf16_check, "lane": lane,
-                    "card": card}))
+                    "bert_train": bert_train_stats,
+                    "bert_forward": bert_fwd_stats,
+                    "bert_parity": bert_parity, "card": card}))
     paths = {"llama_generate": gen_launch, "DecodeEngine": eng_launch,
              "train_step": train_launch, "moe_train_step": moe_train_launch,
              "moe_llama_generate": moe_gen_launch,
-             "moe_DecodeEngine": moe_eng_launch}
+             "moe_DecodeEngine": moe_eng_launch,
+             "bert_train_step": bert_train_launch,
+             "bert_forward": bert_fwd_launch}
+    bert_bias = {k: bert_train_stats["bias_launches"][k]
+                 + (bert_fwd_launch[k] if k == "K1" else 0)
+                 for k in ("K1", "K2", "K3")}
 
     def row(name, source, replaces, keys, cases, head=None):
         by_path = {p: sum(n[k] for k in keys) for p, n in paths.items()}
@@ -1926,9 +2394,16 @@ def main():
         # with earlier_ms the FMA kernel's time on the same inputs.
         extra = {k: head[k] for k in ("kernel_route", "earlier_ms")
                  if k in head}
+        bias = {}
+        if keys[0] in bert_bias:
+            # The bias variant: its launches (all on the BERT paths) and
+            # its case at BERT-Large's shape with a padding bias.
+            bias = dict(bias_launches=bert_bias[keys[0]],
+                        bias_case=bias_cases[0][keys[0]])
+            cases = cases + [c[keys[0]] for c in bias_cases]
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=sum(by_path.values()),
-                    launches_by_path=by_path,
+                    launches_by_path=by_path, **bias,
                     **{k: head[k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")}, **extra,

@@ -2,12 +2,13 @@
 //
 // K2 flash_bwd_dkv replaces horovod_tpu/ops/flash_attention.py:
 // _bwd_dkv_kernel; K3 flash_bwd_dq replaces _bwd_dq_kernel. Both are what
-// the TPU module's _flash_bwd_impl reaches (causal or not, no bias, no
-// offsets: the backward of every flash call in llama_loss).
+// the TPU module's _flash_bwd_impl reaches (causal or not, with or without
+// the per-key bias; no offsets: the backward of every flash call in
+// llama_loss and bert_mlm_loss).
 //
 // Given the forward's residuals (q, k, v, lse) and the output cotangent
 // do, with delta = rowsum(do * o) computed outside (f32), both recompute
-//   s  = q k^T * D^-1/2, masked to -1e30
+//   s  = q k^T * D^-1/2, masked to -1e30, + bias[b, key] (if any)
 //   p  = s > -1e30/2 ? exp(s - lse) : 0     (guarded on s, not on lse)
 //   dp = do v^T
 //   ds = p * (dp - delta) * D^-1/2
@@ -35,10 +36,14 @@
 // memory (tiles held in f32, padded against bank conflicts), far below
 // the tensor-core bound; an mma.sync / wgmma + TMA pipeline is later work.
 //
+// The bias variants (template flag HAS_BIAS: the same code without it)
+// hold the key tile's bias in shared memory: once for K2's pinned keys,
+// per kv tile for K3.
+//
 // Layout: q/do/dq [B, H, Tq, D]; k/v [B, Hkv, Tk, D]; dk/dv [B, H, Tk, D];
-// lse and delta [B, H, Tq] f32; all contiguous. One block of 256 threads
-// per (64-key tile, head, batch) for K2 and per (64-row q tile, head,
-// batch) for K3.
+// lse and delta [B, H, Tq] f32; bias [B, Tk] f32 or null; all contiguous.
+// One block of 256 threads per (64-key tile, head, batch) for K2 and per
+// (64-row q tile, head, batch) for K3.
 
 #include <stdint.h>
 
@@ -55,18 +60,32 @@ constexpr int BQ = 64;        // query rows per tile
 constexpr int BK = 64;        // keys per tile
 constexpr int THREADS = 256;  // 16 x 16 threads, each a 4 x 4 cell block
 
-template <int D>
+template <int D, bool HAS_BIAS>
 constexpr size_t dkv_smem_bytes() {
   // k, v, q, do tiles [64][D+1]; p, ds tiles [64][65]; lse, delta [64]
+  // (+ the key tile's bias [64])
   return sizeof(float) * (size_t)(2 * BK * (D + 1) + 2 * BQ * (D + 1) +
-                                  2 * BQ * (BK + 1) + 2 * BQ);
+                                  2 * BQ * (BK + 1) + 2 * BQ +
+                                  (HAS_BIAS ? BK : 0));
 }
 
-template <int D>
+template <int D, bool HAS_BIAS>
 constexpr size_t dq_smem_bytes() {
   // q, do, k, v tiles [64][D+1]; ds tile [64][65]; lse, delta [64]
+  // (+ the kv tile's bias [64])
   return sizeof(float) * (size_t)(2 * BQ * (D + 1) + 2 * BK * (D + 1) +
-                                  BQ * (BK + 1) + 2 * BQ);
+                                  BQ * (BK + 1) + 2 * BQ +
+                                  (HAS_BIAS ? BK : 0));
+}
+
+// The bias of keys [k0, k0 + 64) of batch b into a [64] tile, 0 past Tk
+// (those keys are masked anyway).
+template <bool HAS_BIAS>
+__device__ __forceinline__ void load_bias(float* dst, const float* bias,
+                                          int b, int k0, int Tk) {
+  if (HAS_BIAS && threadIdx.x < BK)
+    dst[threadIdx.x] =
+        k0 + threadIdx.x < Tk ? bias[(size_t)b * Tk + k0 + threadIdx.x] : 0.f;
 }
 
 // Copies rows [row0, row0 + 64) of a [rows, D] matrix into a [64][D+1]
@@ -120,20 +139,23 @@ __device__ __forceinline__ void scores(const float* qs, const float* dos,
   }
 }
 
-// p and ds of one cell, the TPU kernels' recipe (scale, then mask; p
-// guarded on s so a row with no valid key gives exact zeros).
+// p and ds of one cell, the TPU kernels' recipe (scale, then mask, then
+// the key's bias; p guarded on s so a row with no valid key gives exact
+// zeros).
 __device__ __forceinline__ void p_ds(float s, float dp, bool valid,
-                                     float lse, float delta, float scale,
-                                     float* p, float* ds) {
-  const float sv = valid ? s * scale : kNeg;
+                                     float kbias, float lse, float delta,
+                                     float scale, float* p, float* ds) {
+  const float sv = (valid ? s * scale : kNeg) + kbias;
   *p = sv > kNeg * 0.5f ? expf(sv - lse) : 0.f;
   *ds = *p * (dp - delta) * scale;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(THREADS)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const T* __restrict__ v,
+                         const float* __restrict__ bias,
+                         const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dk,
                          T* __restrict__ dv, int H, int Hkv, int Tq, int Tk,
@@ -150,6 +172,7 @@ __global__ void __launch_bounds__(THREADS)
   float* dss = ps + BQ * LDS;     // [BQ][LDS] ds in q's dtype
   float* lse_s = dss + BQ * LDS;  // [BQ]
   float* dl_s = lse_s + BQ;       // [BQ]
+  float* b_s = dl_s + BQ;         // [BK] the key tile's bias (HAS_BIAS)
 
   const int tid = threadIdx.x;
   const int k0 = blockIdx.x * BK;
@@ -164,6 +187,7 @@ __global__ void __launch_bounds__(THREADS)
 
   load_tile<T, D>(ks, k + (size_t)(b * Hkv + hk) * Tk * D, k0, Tk);
   load_tile<T, D>(vs, v + (size_t)(b * Hkv + hk) * Tk * D, k0, Tk);
+  load_bias<HAS_BIAS>(b_s, bias, b, k0, Tk);
 
   const int ty = tid / 16, tx = tid % 16;
   float dka[4][NJ], dva[4][NJ];  // key rows ty*4+i, columns tx+16*j
@@ -202,7 +226,8 @@ __global__ void __launch_bounds__(THREADS)
         const bool valid =
             qpos < Tq && kpos < Tk && !(causal && kpos > qpos);
         float p, ds;
-        p_ds(s[i][j], dp[i][j], valid, lse_s[r], dl_s[r], scale, &p, &ds);
+        p_ds(s[i][j], dp[i][j], valid, HAS_BIAS ? b_s[c] : 0.f, lse_s[r],
+             dl_s[r], scale, &p, &ds);
         ps[r * LDS + c] = round_to<T>(p);
         dss[r * LDS + c] = round_to<T>(ds);
       }
@@ -244,10 +269,12 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(THREADS)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const T* __restrict__ v,
+                        const float* __restrict__ bias,
+                        const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
                         int H, int Hkv, int Tq, int Tk, float scale,
@@ -263,6 +290,7 @@ __global__ void __launch_bounds__(THREADS)
   float* dss = vs + BK * LD;      // [BQ][LDS] ds in k's dtype
   float* lse_s = dss + BQ * LDS;  // [BQ]
   float* dl_s = lse_s + BQ;       // [BQ]
+  float* b_s = dl_s + BQ;         // [BK] the kv tile's bias (HAS_BIAS)
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ;
@@ -299,6 +327,7 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();  // the last tile's readers are done with ks/vs/dss
     load_tile<T, D>(ks, kp, k0, Tk);
     load_tile<T, D>(vs, vp, k0, Tk);
+    load_bias<HAS_BIAS>(b_s, bias, b, k0, Tk);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -312,7 +341,8 @@ __global__ void __launch_bounds__(THREADS)
         const bool valid =
             qpos < Tq && kpos < Tk && !(causal && kpos > qpos);
         float p, ds;
-        p_ds(s[i][j], dp[i][j], valid, lse_s[r], dl_s[r], scale, &p, &ds);
+        p_ds(s[i][j], dp[i][j], valid, HAS_BIAS ? b_s[c] : 0.f, lse_s[r],
+             dl_s[r], scale, &p, &ds);
         dss[r * LDS + c] = round_to<T>(ds);
       }
     __syncthreads();
@@ -341,64 +371,97 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, int B, int H, int Hkv, int Tq,
-                       int Tk, int causal, float scale, cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes<D>();
+template <typename T, int D, bool HAS_BIAS>
+cudaError_t launch_dkv_variant(const void* q, const void* k, const void* v,
+                               const void* bias, const void* dout,
+                               const void* lse, const void* delta, void* dk,
+                               void* dv, int B, int H, int Hkv, int Tq,
+                               int Tk, int causal, float scale,
+                               cudaStream_t stream) {
+  const size_t smem = dkv_smem_bytes<D, HAS_BIAS>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_bwd_dkv_kernel<T, D, HAS_BIAS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tk + BK - 1) / BK, H, B);
-  flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  flash_bwd_dkv_kernel<T, D, HAS_BIAS><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, Tq, Tk, scale,
-      causal);
+      static_cast<const T*>(v), static_cast<const float*>(bias),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), H, Hkv, Tq, Tk, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* bias, const void* dout, const void* lse,
+                       const void* delta, void* dk, void* dv, int B, int H,
+                       int Hkv, int Tq, int Tk, int causal, float scale,
+                       cudaStream_t stream) {
+  return bias ? launch_dkv_variant<T, D, true>(q, k, v, bias, dout, lse,
+                                               delta, dk, dv, B, H, Hkv, Tq,
+                                               Tk, causal, scale, stream)
+              : launch_dkv_variant<T, D, false>(q, k, v, bias, dout, lse,
+                                                delta, dk, dv, B, H, Hkv, Tq,
+                                                Tk, causal, scale, stream);
+}
+
+template <typename T, int D, bool HAS_BIAS>
+cudaError_t launch_dq_variant(const void* q, const void* k, const void* v,
+                              const void* bias, const void* dout,
+                              const void* lse, const void* delta, void* dq,
+                              int B, int H, int Hkv, int Tq, int Tk,
+                              int causal, float scale, cudaStream_t stream) {
+  const size_t smem = dq_smem_bytes<D, HAS_BIAS>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, D, HAS_BIAS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
+  flash_bwd_dq_kernel<T, D, HAS_BIAS><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(bias),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dq), H, Hkv, Tq, Tk,
+      scale, causal);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dq, int B, int H, int Hkv, int Tq, int Tk,
-                      int causal, float scale, cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), H, Hkv, Tq, Tk, scale, causal);
-  return cudaGetLastError();
+                      const void* bias, const void* dout, const void* lse,
+                      const void* delta, void* dq, int B, int H, int Hkv,
+                      int Tq, int Tk, int causal, float scale,
+                      cudaStream_t stream) {
+  return bias ? launch_dq_variant<T, D, true>(q, k, v, bias, dout, lse, delta,
+                                              dq, B, H, Hkv, Tq, Tk, causal,
+                                              scale, stream)
+              : launch_dq_variant<T, D, false>(q, k, v, bias, dout, lse,
+                                               delta, dq, B, H, Hkv, Tq, Tk,
+                                               causal, scale, stream);
 }
 
 }  // namespace
 
 // Both entries return the CUDA error code of the launch (0 on success).
 // D must be 16, 32, 64 or 128; is_bf16 selects bfloat16 over float32 for
-// q, k, v, do and the outputs (lse and delta are always f32).
+// q, k, v, do and the outputs (lse, delta and the [B, Tk] bias, null for
+// none, are always f32).
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
-                             const void* dout, const void* lse,
-                             const void* delta, void* dk, void* dv, int B,
-                             int H, int Hkv, int Tq, int Tk, int D,
-                             int causal, int is_bf16, float scale,
+                             const void* bias, const void* dout,
+                             const void* lse, const void* delta, void* dk,
+                             void* dv, int B, int H, int Hkv, int Tq, int Tk,
+                             int D, int causal, int is_bf16, float scale,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define HVD_DKV_CASE(DV)                                                     \
-  case DV:                                                                   \
-    return is_bf16 ? launch_dkv<__nv_bfloat16, DV>(q, k, v, dout, lse,       \
-                                                   delta, dk, dv, B, H, Hkv, \
-                                                   Tq, Tk, causal, scale, s) \
-                   : launch_dkv<float, DV>(q, k, v, dout, lse, delta, dk,    \
-                                           dv, B, H, Hkv, Tq, Tk, causal,    \
+#define HVD_DKV_CASE(DV)                                                      \
+  case DV:                                                                    \
+    return is_bf16 ? launch_dkv<__nv_bfloat16, DV>(q, k, v, bias, dout, lse,  \
+                                                   delta, dk, dv, B, H, Hkv,  \
+                                                   Tq, Tk, causal, scale, s)  \
+                   : launch_dkv<float, DV>(q, k, v, bias, dout, lse, delta,   \
+                                           dk, dv, B, H, Hkv, Tq, Tk, causal, \
                                            scale, s);
   switch (D) {
     HVD_DKV_CASE(16)
@@ -412,18 +475,20 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
 }
 
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
-                            const void* dout, const void* lse,
-                            const void* delta, void* dq, int B, int H,
-                            int Hkv, int Tq, int Tk, int D, int causal,
-                            int is_bf16, float scale, void* stream) {
+                            const void* bias, const void* dout,
+                            const void* lse, const void* delta, void* dq,
+                            int B, int H, int Hkv, int Tq, int Tk, int D,
+                            int causal, int is_bf16, float scale,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define HVD_DQ_CASE(DV)                                                      \
-  case DV:                                                                   \
-    return is_bf16 ? launch_dq<__nv_bfloat16, DV>(q, k, v, dout, lse, delta, \
-                                                  dq, B, H, Hkv, Tq, Tk,     \
-                                                  causal, scale, s)          \
-                   : launch_dq<float, DV>(q, k, v, dout, lse, delta, dq, B,  \
-                                          H, Hkv, Tq, Tk, causal, scale, s);
+#define HVD_DQ_CASE(DV)                                                       \
+  case DV:                                                                    \
+    return is_bf16 ? launch_dq<__nv_bfloat16, DV>(q, k, v, bias, dout, lse,   \
+                                                  delta, dq, B, H, Hkv, Tq,   \
+                                                  Tk, causal, scale, s)       \
+                   : launch_dq<float, DV>(q, k, v, bias, dout, lse, delta,    \
+                                          dq, B, H, Hkv, Tq, Tk, causal,      \
+                                          scale, s);
   switch (D) {
     HVD_DQ_CASE(16)
     HVD_DQ_CASE(32)

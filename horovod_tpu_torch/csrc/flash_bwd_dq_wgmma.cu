@@ -11,7 +11,9 @@
 //   ds = p (dp - delta) D^-1/2
 //   dq += bf16(ds) k
 // with f32 products and accumulators. GQA is native (query head h reads
-// kv head h / n_rep); any T is taken, causal or not.
+// kv head h / n_rep); any T is taken, causal or not. With a per-key bias
+// (the TPU kernel's has_bias) s gets bias[b, key] added after the mask, on
+// every tile, before p.
 //
 // What bounds it on an H100: at the train shape (B4 H16 Hkv4 T2048 D128
 // causal) its three products are 6 D flop per causal pair, 103 GFLOP,
@@ -38,10 +40,14 @@
 // written once, by the one thread that summed it, so two launches give
 // the same bits. Tensor maps are 3-D over [B*H(kv), T, D], so rows past T
 // are zero-filled per head, and head dims below 64 are padded to 64 by
-// the same fill.
+// the same fill. The bias variant (template flag HAS_BIAS; without it the
+// kernel is the same code, with the same registers and shared memory)
+// stages each kv tile's 64 bias floats in its ring stage by one bulk copy
+// on the stage's barrier.
 //
 // Layout: q/do/dq [B, H, Tq, D], k/v [B, Hkv, Tk, D] bf16; lse and delta
-// f32 [B*H, Tp], Tp = Tq rounded up to 64 (the caller pads); all
+// f32 [B*H, Tp], Tp = Tq rounded up to 64 (the caller pads); bias f32
+// [B, Tkp], Tkp = Tk rounded up to 128 (K1's padded bias), or null; all
 // contiguous; D in {16, 32, 64, 128}.
 
 #include <stdint.h>
@@ -62,24 +68,27 @@ constexpr int CH = 64 * 64 * 2;           // [64 rows][64 cols] bf16 box
 
 // Shared memory of a block for padded head dim DP: Q as [warpgroup][NC
 // chunks], then dO the same way, then the ring (K chunks, then V chunks,
-// a stage), then lse[128] and delta[128], then the barriers.
-template <int DP>
+// then with a bias the tile's bias row padded to 1024 bytes: a stage),
+// then lse[128] and delta[128], then the barriers.
+template <int DP, bool HAS_BIAS>
 struct Layout {
   static constexpr int NC = DP / 64;
   static constexpr int DO = 2 * NC * CH;
   static constexpr int RING = 4 * NC * CH;
-  static constexpr int STAGE = 2 * NC * CH;
+  static constexpr int BIAS = 2 * NC * CH;        // a stage's bias row
+  static constexpr int STAGE = BIAS + (HAS_BIAS ? 1024 : 0);
+  static constexpr int TX = BIAS + (HAS_BIAS ? BK * 4 : 0);  // bytes a stage
   static constexpr int RES = RING + STAGES * STAGE;
   static constexpr int BARS = RES + 2 * BQ * 4;  // q_full, full, empty
   static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8 + 1024;
 };
 
-template <int DP>
+template <int DP, bool HAS_BIAS>
 __device__ __forceinline__ void consume(
     uint8_t* smem, uint64_t* q_full, uint64_t* full, uint64_t* empty,
     __nv_bfloat16* __restrict__ dq, int bh, int q0, int n_tiles, int Tq,
     int Tk, int D, float scale, int causal) {
-  using L = Layout<DP>;
+  using L = Layout<DP, HAS_BIAS>;
   constexpr int NC = L::NC;
 
   // This thread's fragment rows (queries) row_a and row_a + 8 of its
@@ -122,6 +131,7 @@ __device__ __forceinline__ void consume(
     }
     const uint8_t* ks = smem + L::RING + s * L::STAGE;
     const uint8_t* vs = ks + NC * CH;
+    const float* bias_s = reinterpret_cast<const float*>(ks + L::BIAS);
 
     // S = Q K^T and dP = dO V^T over the head dim, 16 at a time.
     fence_regs(sc);
@@ -145,7 +155,8 @@ __device__ __forceinline__ void consume(
     fence_regs(sc);
 
     // p: scale, then mask (only a tile past Tk or on the diagonal holds
-    // masked pairs), then exp against the row's lse.
+    // masked pairs), then the bias on every tile, then exp against the
+    // row's lse.
     const bool masked = k0 + BK > Tk || (causal && k0 + BK - 1 > qw);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -155,6 +166,7 @@ __device__ __forceinline__ void consume(
         const int kpos = k0 + 8 * (i / 4) + col + (i & 1);
         if (kpos >= Tk || (causal && kpos > qw + row_a + 8 * r)) x = kNeg;
       }
+      if constexpr (HAS_BIAS) x += bias_s[8 * (i / 4) + col + (i & 1)];
       sc[i] = x > kNeg * 0.5f ? __expf(x - lse_r[r]) : 0.f;
     }
     wgmma_wait<0>();
@@ -203,18 +215,19 @@ __device__ __forceinline__ void consume(
   }
 }
 
-template <int DP>
+template <int DP, bool HAS_BIAS>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                               const __grid_constant__ CUtensorMap kmap,
                               const __grid_constant__ CUtensorMap vmap,
                               const __grid_constant__ CUtensorMap dmap,
+                              const float* __restrict__ bias,
                               const float* __restrict__ lse,
                               const float* __restrict__ delta,
                               __nv_bfloat16* __restrict__ dq, int H, int Hkv,
                               int Tq, int Tk, int D, float scale,
                               int causal) {
-  using L = Layout<DP>;
+  using L = Layout<DP, HAS_BIAS>;
   constexpr int NC = L::NC;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -267,26 +280,32 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int s = t % STAGES;
         if (t >= STAGES) mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
         uint8_t* st = smem + L::RING + s * L::STAGE;
-        mbar_expect_tx(&full[s], L::STAGE);
+        mbar_expect_tx(&full[s], L::TX);
         for (int c = 0; c < NC; ++c) {
           tma_load_3d(st + c * CH, &kmap, &full[s], 64 * c, t * BK, bkh);
           tma_load_3d(st + (NC + c) * CH, &vmap, &full[s], 64 * c, t * BK,
                       bkh);
         }
+        if constexpr (HAS_BIAS) {
+          const int tkp = (Tk + 127) / 128 * 128;
+          bulk_load(st + L::BIAS, bias + (size_t)b * tkp + t * BK, BK * 4,
+                    &full[s]);
+        }
       }
     }
   } else {
     setmaxnreg_inc<232>();
-    consume<DP>(smem, q_full, full, empty, dq, bh, q0, n_tiles, Tq, Tk, D,
-                scale, causal);
+    consume<DP, HAS_BIAS>(smem, q_full, full, empty, dq, bh, q0, n_tiles, Tq,
+                          Tk, D, scale, causal);
   }
 }
 
-template <int DP>
+template <int DP, bool HAS_BIAS>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   void* dq, int B, int H, int Hkv, int Tq, int Tk, int D,
-                   int causal, float scale, cudaStream_t stream) {
+                   const void* bias, const void* dout, const void* lse,
+                   const void* delta, void* dq, int B, int H, int Hkv, int Tq,
+                   int Tk, int D, int causal, float scale,
+                   cudaStream_t stream) {
   CUtensorMap qm, km, vm, dm;
   const uint64_t qdims[3] = {(uint64_t)D, (uint64_t)Tq, (uint64_t)B * H};
   const uint64_t kdims[3] = {(uint64_t)D, (uint64_t)Tk, (uint64_t)B * Hkv};
@@ -296,14 +315,15 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       !make_tensor_map(&vm, v, 3, kdims, box) ||
       !make_tensor_map(&dm, dout, 3, qdims, box))
     return cudaErrorInvalidValue;
-  const int smem = Layout<DP>::BYTES;
+  const int smem = Layout<DP, HAS_BIAS>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_wgmma_kernel<DP>,
+      flash_bwd_dq_wgmma_kernel<DP, HAS_BIAS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_wgmma_kernel<DP><<<grid, THREADS, smem, stream>>>(
-      qm, km, vm, dm, static_cast<const float*>(lse),
+  flash_bwd_dq_wgmma_kernel<DP, HAS_BIAS><<<grid, THREADS, smem, stream>>>(
+      qm, km, vm, dm, static_cast<const float*>(bias),
+      static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), H,
       Hkv, Tq, Tk, D, scale, causal);
   return cudaGetLastError();
@@ -312,39 +332,48 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // Same arguments as csrc/flash_bwd.cu's flash_bwd_dq, but lse and delta
-// are [B*H, Tp] (padded to a multiple of 64 queries); only bf16
-// (is_bf16 = 1) and D in {16, 32, 64, 128} are taken. Returns the CUDA
-// error code of the launch (0 on success; cudaErrorInvalidValue for
-// another dtype or D, or a tensor map the driver refuses).
+// are [B*H, Tp] (padded to a multiple of 64 queries) and a non-null bias
+// is [B, Tkp] (padded to a multiple of 128 keys); only bf16 (is_bf16 = 1)
+// and D in {16, 32, 64, 128} are taken. Returns the CUDA error code of the
+// launch (0 on success; cudaErrorInvalidValue for another dtype or D, or
+// a tensor map cuTensorMapEncodeTiled refuses).
 extern "C" int flash_bwd_dq_wgmma(const void* q, const void* k,
-                                  const void* v, const void* dout,
-                                  const void* lse, const void* delta,
-                                  void* dq, int B, int H, int Hkv, int Tq,
-                                  int Tk, int D, int causal, int is_bf16,
-                                  float scale, void* stream) {
+                                  const void* v, const void* bias,
+                                  const void* dout, const void* lse,
+                                  const void* delta, void* dq, int B, int H,
+                                  int Hkv, int Tq, int Tk, int D, int causal,
+                                  int is_bf16, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16) return (int)cudaErrorInvalidValue;
-  if (D == 16 || D == 32 || D == 64)
-    return launch<64>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Tq, Tk, D,
-                      causal, scale, s);
-  if (D == 128)
-    return launch<128>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Tq, Tk, D,
-                       causal, scale, s);
+#define HVD_DQ_LAUNCH(DP)                                                  \
+  return bias ? launch<DP, true>(q, k, v, bias, dout, lse, delta, dq, B, H, \
+                                 Hkv, Tq, Tk, D, causal, scale, s)         \
+              : launch<DP, false>(q, k, v, bias, dout, lse, delta, dq, B,  \
+                                  H, Hkv, Tq, Tk, D, causal, scale, s);
+  if (D == 16 || D == 32 || D == 64) HVD_DQ_LAUNCH(64)
+  if (D == 128) HVD_DQ_LAUNCH(128)
+#undef HVD_DQ_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
-// The compiled kernel for head dim D: out = {registers per thread, local
-// (spill) bytes per thread, static shared bytes, dynamic shared bytes}.
-extern "C" int flash_bwd_dq_wgmma_attrs(int D, int* out) {
+template <int DP, bool HAS_BIAS>
+int attrs(int* out) {
   cudaFuncAttributes a;
-  const bool wide = D == 128;
   cudaError_t err =
-      wide ? cudaFuncGetAttributes(&a, flash_bwd_dq_wgmma_kernel<128>)
-           : cudaFuncGetAttributes(&a, flash_bwd_dq_wgmma_kernel<64>);
+      cudaFuncGetAttributes(&a, flash_bwd_dq_wgmma_kernel<DP, HAS_BIAS>);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[2] = (int)a.sharedSizeBytes;
-  out[3] = wide ? Layout<128>::BYTES : Layout<64>::BYTES;
+  out[3] = Layout<DP, HAS_BIAS>::BYTES;
   return 0;
+}
+
+// The compiled kernel for head dim D, with or without the bias: out =
+// {registers per thread, local (spill) bytes per thread, static shared
+// bytes, dynamic shared bytes}.
+extern "C" int flash_bwd_dq_wgmma_attrs(int D, int has_bias, int* out) {
+  if (D == 128)
+    return has_bias ? attrs<128, true>(out) : attrs<128, false>(out);
+  return has_bias ? attrs<64, true>(out) : attrs<64, false>(out);
 }

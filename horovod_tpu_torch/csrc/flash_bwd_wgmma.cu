@@ -14,7 +14,9 @@
 // with f32 products and accumulators. dk and dv come out PER QUERY HEAD
 // [B, H, Tk, D] in bf16; the caller sums each kv head's n_rep query heads
 // in f32, as the TPU module does outside its kernel. GQA is native (query
-// head h reads kv head h / n_rep); any T is taken, causal or not.
+// head h reads kv head h / n_rep); any T is taken, causal or not. With a
+// per-key bias (the TPU kernel's has_bias) s gets bias[b, key] added after
+// the mask, on every tile, before p.
 //
 // What bounds it on an H100: at the train shape (B4 H16 Hkv4 T2048 D128
 // causal) its four products are 8 D flop per causal pair, 137 GFLOP,
@@ -37,12 +39,17 @@
 // Only tiles on the diagonal or past T are masked; a q tile that lies
 // wholly before a warpgroup's keys is skipped by it. Tensor maps are 3-D
 // over [B*H(kv), T, D], so rows past T are zero-filled per head, and
-// head dims below 64 are padded to 64 by the same fill.
+// head dims below 64 are padded to 64 by the same fill. The bias variant
+// (template flag HAS_BIAS; without it the kernel is the same code, with
+// the same registers and shared memory): a thread's fragment rows are two
+// fixed keys for the whole loop, so it holds their two bias values in
+// registers, read once.
 //
 // Layout: q/do [B, H, Tq, D], k/v [B, Hkv, Tk, D] bf16, dk/dv
 // [B, H, Tk, D] bf16; lse and delta f32 [B*H, Tp], Tp = Tq rounded up to
 // 64 (the caller pads, so each tile's 256 bytes are one aligned bulk
-// copy); all contiguous; D in {16, 32, 64, 128}.
+// copy); bias f32 [B, Tkp], Tkp = Tk rounded up to 128 (K1's padded
+// bias), or null; all contiguous; D in {16, 32, 64, 128}.
 
 #include <stdint.h>
 
@@ -74,12 +81,12 @@ struct Layout {
   static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8 + 1024;
 };
 
-template <int DP>
+template <int DP, bool HAS_BIAS>
 __device__ __forceinline__ void consume(
     uint8_t* smem, uint64_t* kv_full, uint64_t* full, uint64_t* empty,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int bh,
-    int k0, int iq_begin, int n_q, int Tq, int Tk, int D, float scale,
-    int causal) {
+    const float* __restrict__ bias_row, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int bh, int k0, int iq_begin, int n_q,
+    int Tq, int Tk, int D, float scale, int causal) {
   using L = Layout<DP>;
   constexpr int NC = L::NC;
 
@@ -91,6 +98,15 @@ __device__ __forceinline__ void consume(
   const int key0 = k0 + 64 * w;
   const uint8_t* ks = smem + w * NC * CH;
   const uint8_t* vs = smem + L::V + w * NC * CH;
+  // The bias of this thread's two keys (0 past Tk, where s is masked).
+  float kb[2] = {0.f, 0.f};
+  if constexpr (HAS_BIAS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + row_a + 8 * r;
+      kb[r] = key < Tk ? bias_row[key] : 0.f;
+    }
+  }
 
   float dva[DP / 2], dka[DP / 2], sc[32], dp[32];
 #pragma unroll
@@ -142,7 +158,8 @@ __device__ __forceinline__ void consume(
     fence_regs(sc);
 
     // p: scale, then mask (only a tile past T or on the diagonal holds
-    // masked pairs), then exp against the column's lse.
+    // masked pairs), then the bias on every tile, then exp against the
+    // column's lse.
     const bool masked = q0 + BQ > Tq || key0 + 64 > Tk ||
                         (causal && key0 + 63 > q0);
 #pragma unroll
@@ -153,6 +170,7 @@ __device__ __forceinline__ void consume(
         const int qpos = q0 + qc, kpos = key0 + row_a + 8 * ((i >> 1) & 1);
         if (qpos >= Tq || kpos >= Tk || (causal && kpos > qpos)) x = kNeg;
       }
+      if constexpr (HAS_BIAS) x += kb[(i >> 1) & 1];
       sc[i] = x > kNeg * 0.5f ? __expf(x - lse_s[qc]) : 0.f;
     }
     wgmma_wait<0>();
@@ -212,12 +230,13 @@ __device__ __forceinline__ void consume(
   }
 }
 
-template <int DP>
+template <int DP, bool HAS_BIAS>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                const __grid_constant__ CUtensorMap kmap,
                                const __grid_constant__ CUtensorMap vmap,
                                const __grid_constant__ CUtensorMap dmap,
+                               const float* __restrict__ bias,
                                const float* __restrict__ lse,
                                const float* __restrict__ delta,
                                __nv_bfloat16* __restrict__ dk,
@@ -282,16 +301,19 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   } else {
     setmaxnreg_inc<232>();
-    consume<DP>(smem, kv_full, full, empty, dk, dv, bh, k0, iq_begin, n_q,
-                Tq, Tk, D, scale, causal);
+    const float* bias_row =
+        HAS_BIAS ? bias + (size_t)b * ((Tk + 127) / 128 * 128) : nullptr;
+    consume<DP, HAS_BIAS>(smem, kv_full, full, empty, bias_row, dk, dv, bh,
+                          k0, iq_begin, n_q, Tq, Tk, D, scale, causal);
   }
 }
 
-template <int DP>
+template <int DP, bool HAS_BIAS>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   void* dk, void* dv, int B, int H, int Hkv, int Tq, int Tk,
-                   int D, int causal, float scale, cudaStream_t stream) {
+                   const void* bias, const void* dout, const void* lse,
+                   const void* delta, void* dk, void* dv, int B, int H,
+                   int Hkv, int Tq, int Tk, int D, int causal, float scale,
+                   cudaStream_t stream) {
   CUtensorMap qm, km, vm, dm;
   const uint64_t qdims[3] = {(uint64_t)D, (uint64_t)Tq, (uint64_t)B * H};
   const uint64_t kdims[3] = {(uint64_t)D, (uint64_t)Tk, (uint64_t)B * Hkv};
@@ -303,12 +325,13 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   const int smem = Layout<DP>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_wgmma_kernel<DP>,
+      flash_bwd_dkv_wgmma_kernel<DP, HAS_BIAS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tk + BK - 1) / BK, H, B);
-  flash_bwd_dkv_wgmma_kernel<DP><<<grid, THREADS, smem, stream>>>(
-      qm, km, vm, dm, static_cast<const float*>(lse),
+  flash_bwd_dkv_wgmma_kernel<DP, HAS_BIAS><<<grid, THREADS, smem, stream>>>(
+      qm, km, vm, dm, static_cast<const float*>(bias),
+      static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), H, Hkv, Tq, Tk, D, scale, causal);
   return cudaGetLastError();
@@ -317,39 +340,50 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // Same arguments as csrc/flash_bwd.cu's flash_bwd_dkv, but lse and delta
-// are [B*H, Tp] (padded to a multiple of 64 queries); only bf16
-// (is_bf16 = 1) and D in {16, 32, 64, 128} are taken. Returns the CUDA
-// error code of the launch (0 on success; cudaErrorInvalidValue for
-// another dtype or D, or a tensor map the driver refuses).
+// are [B*H, Tp] (padded to a multiple of 64 queries) and a non-null bias
+// is [B, Tkp] (padded to a multiple of 128 keys); only bf16 (is_bf16 = 1)
+// and D in {16, 32, 64, 128} are taken. Returns the CUDA error code of the
+// launch (0 on success; cudaErrorInvalidValue for another dtype or D, or
+// a tensor map cuTensorMapEncodeTiled refuses).
 extern "C" int flash_bwd_dkv_wgmma(const void* q, const void* k,
-                                   const void* v, const void* dout,
-                                   const void* lse, const void* delta,
-                                   void* dk, void* dv, int B, int H, int Hkv,
-                                   int Tq, int Tk, int D, int causal,
-                                   int is_bf16, float scale, void* stream) {
+                                   const void* v, const void* bias,
+                                   const void* dout, const void* lse,
+                                   const void* delta, void* dk, void* dv,
+                                   int B, int H, int Hkv, int Tq, int Tk,
+                                   int D, int causal, int is_bf16,
+                                   float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16) return (int)cudaErrorInvalidValue;
-  if (D == 16 || D == 32 || D == 64)
-    return launch<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Tq, Tk,
-                      D, causal, scale, s);
-  if (D == 128)
-    return launch<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Tq, Tk,
-                       D, causal, scale, s);
+#define HVD_DKV_LAUNCH(DP)                                                \
+  return bias ? launch<DP, true>(q, k, v, bias, dout, lse, delta, dk, dv, \
+                                 B, H, Hkv, Tq, Tk, D, causal, scale, s)  \
+              : launch<DP, false>(q, k, v, bias, dout, lse, delta, dk,    \
+                                  dv, B, H, Hkv, Tq, Tk, D, causal,       \
+                                  scale, s);
+  if (D == 16 || D == 32 || D == 64) HVD_DKV_LAUNCH(64)
+  if (D == 128) HVD_DKV_LAUNCH(128)
+#undef HVD_DKV_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
-// The compiled kernel for head dim D: out = {registers per thread, local
-// (spill) bytes per thread, static shared bytes, dynamic shared bytes}.
-extern "C" int flash_bwd_wgmma_attrs(int D, int* out) {
+template <int DP, bool HAS_BIAS>
+int attrs(int* out) {
   cudaFuncAttributes a;
-  const bool wide = D == 128;
   cudaError_t err =
-      wide ? cudaFuncGetAttributes(&a, flash_bwd_dkv_wgmma_kernel<128>)
-           : cudaFuncGetAttributes(&a, flash_bwd_dkv_wgmma_kernel<64>);
+      cudaFuncGetAttributes(&a, flash_bwd_dkv_wgmma_kernel<DP, HAS_BIAS>);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[2] = (int)a.sharedSizeBytes;
-  out[3] = wide ? Layout<128>::BYTES : Layout<64>::BYTES;
+  out[3] = Layout<DP>::BYTES;
   return 0;
+}
+
+// The compiled kernel for head dim D, with or without the bias: out =
+// {registers per thread, local (spill) bytes per thread, static shared
+// bytes, dynamic shared bytes}.
+extern "C" int flash_bwd_wgmma_attrs(int D, int has_bias, int* out) {
+  if (D == 128)
+    return has_bias ? attrs<128, true>(out) : attrs<128, false>(out);
+  return has_bias ? attrs<64, true>(out) : attrs<64, false>(out);
 }

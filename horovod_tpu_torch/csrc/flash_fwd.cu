@@ -1,11 +1,11 @@
 // K1: flash-attention forward for Hopper (sm_90a).
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_fwd_kernel, the Pallas
-// TPU kernel that _flash_fwd_impl reaches (causal, no bias, no
-// offsets: the prefill path of llama_generate and DecodeEngine).
+// TPU kernel that _flash_fwd_impl reaches (causal or not, with or
+// without the per-key bias; no offsets).
 //
 // Computes, per (batch, query head), online-softmax attention
-//   o = softmax(q k^T * D^-1/2 + causal mask) v,  lse = m + log(l)
+//   o = softmax(q k^T * D^-1/2 + causal mask + bias) v,  lse = m + log(l)
 // with GQA done natively (kv head = h / n_rep; k and v are never
 // repeated in memory) and the TPU kernel's numeric recipe: f32 scores,
 // running max m starting at -1e30, p cast UN-normalised to v's dtype
@@ -29,8 +29,13 @@
 // and this kernel's bf16 instantiation is kept as that kernel's
 // yardstick (taken only when asked for by name).
 //
-// Layout: q/o [B, H, T, D], k/v [B, Hkv, Tk, D], lse [B, H, T] f32, all
-// contiguous. One block of 256 threads per (64-row q tile, head, batch).
+// The bias variant (template flag HAS_BIAS: the same code without it)
+// adds bias[b, key] to every score after the mask, from a 64-float tile
+// loaded into shared memory with each kv tile.
+//
+// Layout: q/o [B, H, T, D], k/v [B, Hkv, Tk, D], lse [B, H, T] f32, bias
+// [B, Tk] f32 or null, all contiguous. One block of 256 threads per
+// (64-row q tile, head, batch).
 
 #include <stdint.h>
 
@@ -47,19 +52,21 @@ constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per kv tile
 constexpr int THREADS = 256;  // 16 x 16 threads, each a 4-row tile
 
-template <int D>
+template <int D, bool HAS_BIAS>
 constexpr size_t smem_bytes() {
   // q, k, v tiles [64][D+1] + score tile [64][65] + m, l, corr [64]
-  return sizeof(float) *
-         (size_t)(BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1) + 3 * BQ);
+  // (+ the kv tile's bias [64])
+  return sizeof(float) * (size_t)(BQ * (D + 1) + 2 * BK * (D + 1) +
+                                  BQ * (BK + 1) + 3 * BQ +
+                                  (HAS_BIAS ? BK : 0));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int H, int Hkv, int Tq, int Tk,
-                     float scale, int causal) {
+                     const T* __restrict__ v, const float* __restrict__ bias,
+                     T* __restrict__ o, float* __restrict__ lse, int H,
+                     int Hkv, int Tq, int Tk, float scale, int causal) {
   constexpr int LD = D + 1;     // padded rows: no shared-memory bank clash
   constexpr int LDS = BK + 1;
   constexpr int NJ = D / 16;    // output columns per thread
@@ -71,6 +78,7 @@ __global__ void __launch_bounds__(THREADS)
   float* m_s = ss + BQ * LDS;   // [BQ] running max
   float* l_s = m_s + BQ;        // [BQ] running sum
   float* c_s = l_s + BQ;        // [BQ] this tile's rescale exp(m_old-m_new)
+  float* b_s = c_s + BQ;        // [BK] this kv tile's bias (HAS_BIAS)
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ;
@@ -112,10 +120,12 @@ __global__ void __launch_bounds__(THREADS)
       ks[r * LD + d] = in ? to_f(kp[(size_t)(k0 + r) * D + d]) : 0.f;
       vs[r * LD + d] = in ? to_f(vp[(size_t)(k0 + r) * D + d]) : 0.f;
     }
+    if (HAS_BIAS && tid < BK)
+      b_s[tid] = k0 + tid < Tk ? bias[(size_t)b * Tk + k0 + tid] : 0.f;
     __syncthreads();
 
-    // s = q k^T * scale, masked to -1e30 (scale first, then mask, as
-    // the TPU kernel does).
+    // s = q k^T * scale, masked to -1e30, plus the bias (scale first, then
+    // mask, then bias, as the TPU kernel does).
     float sc[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -140,6 +150,7 @@ __global__ void __launch_bounds__(THREADS)
         const int kpos = k0 + c;
         float s = sc[i][j] * scale;
         if (kpos >= Tk || (causal && kpos > q0 + r)) s = kNeg;
+        if constexpr (HAS_BIAS) s += b_s[c];
         ss[r * LDS + c] = s;
       }
     __syncthreads();
@@ -206,39 +217,53 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int B, int H, int Hkv, int Tq, int Tk,
-                   int causal, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
+template <typename T, int D, bool HAS_BIAS>
+cudaError_t launch_variant(const void* q, const void* k, const void* v,
+                           const void* bias, void* o, void* lse, int B, int H,
+                           int Hkv, int Tq, int Tk, int causal, float scale,
+                           cudaStream_t stream) {
+  const size_t smem = smem_bytes<D, HAS_BIAS>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<T, D, HAS_BIAS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, D, HAS_BIAS><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      H, Hkv, Tq, Tk, scale, causal);
+      static_cast<const T*>(v), static_cast<const float*>(bias),
+      static_cast<T*>(o), static_cast<float*>(lse), H, Hkv, Tq, Tk, scale,
+      causal);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* bias, void* o, void* lse, int B, int H,
+                   int Hkv, int Tq, int Tk, int causal, float scale,
+                   cudaStream_t stream) {
+  return bias ? launch_variant<T, D, true>(q, k, v, bias, o, lse, B, H, Hkv,
+                                           Tq, Tk, causal, scale, stream)
+              : launch_variant<T, D, false>(q, k, v, bias, o, lse, B, H, Hkv,
+                                            Tq, Tk, causal, scale, stream);
 }
 
 }  // namespace
 
 // Returns the CUDA error code of the launch (0 on success). D must be
 // 16, 32, 64 or 128; is_bf16 selects bfloat16 over float32 for q, k, v
-// and o.
+// and o; bias is the [B, Tk] f32 per-key bias, or null for none.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
-                         void* o, void* lse, int B, int H, int Hkv, int Tq,
-                         int Tk, int D, int causal, int is_bf16, float scale,
-                         void* stream) {
+                         const void* bias, void* o, void* lse, int B, int H,
+                         int Hkv, int Tq, int Tk, int D, int causal,
+                         int is_bf16, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define HVD_FLASH_CASE(DV)                                                  \
-  case DV:                                                                  \
-    return is_bf16 ? launch<__nv_bfloat16, DV>(q, k, v, o, lse, B, H, Hkv,  \
-                                                Tq, Tk, causal, scale, s)   \
-                   : launch<float, DV>(q, k, v, o, lse, B, H, Hkv, Tq, Tk,  \
-                                       causal, scale, s);
+#define HVD_FLASH_CASE(DV)                                                   \
+  case DV:                                                                   \
+    return is_bf16 ? launch<__nv_bfloat16, DV>(q, k, v, bias, o, lse, B, H,  \
+                                                Hkv, Tq, Tk, causal, scale,  \
+                                                s)                           \
+                   : launch<float, DV>(q, k, v, bias, o, lse, B, H, Hkv, Tq, \
+                                       Tk, causal, scale, s);
   switch (D) {
     HVD_FLASH_CASE(16)
     HVD_FLASH_CASE(32)

@@ -8,7 +8,9 @@
 // p = exp(s - m) summed un-rounded into l but cast UN-normalised to bf16
 // for the PV product, f32 accumulation, o = acc / max(l, 1e-30),
 // lse = m + log(l), exact zeros for a row whose max never left -1e30.
-// GQA is native (kv head = h / n_rep); any T is taken.
+// GQA is native (kv head = h / n_rep); any T is taken. With a per-key
+// bias (the TPU kernel's has_bias: BERT's padding mask) every score gets
+// bias[b, key] added after the mask and before the max, on every tile.
 //
 // What bounds it on an H100: at the train shape (B4 H16 Hkv4 T2048 D128)
 // the causal products are 69 GFLOP, 0.07 ms at 989 TFLOP/s, against
@@ -30,10 +32,16 @@
 // row); p is rounded to bf16 into wgmma's register A fragment and
 // O += P V reads V MN-major (the transpose bit). Only diagonal and ragged
 // tiles are masked; tiles past the causal limit are skipped whole, and
-// the heaviest (last) q tiles are scheduled first.
+// the heaviest (last) q tiles are scheduled first. The bias variant
+// (template flag HAS_BIAS; without it the kernel is the same code, with
+// the same registers and shared memory) stages each kv tile's 128 bias
+// floats in its ring stage by one bulk copy on the stage's barrier, and
+// every consumer thread reads its 32 keys' values from there.
 //
 // Layout: q/o [B, H, T, D], k/v [B, Hkv, Tk, D] bf16, lse [B, H, T] f32,
-// all contiguous; D in {16, 32, 64, 128}.
+// bias f32 [B, Tkp], Tkp = Tk rounded up to 128 (the caller pads, so each
+// tile's 512 bytes are one aligned bulk copy), or null; all contiguous;
+// D in {16, 32, 64, 128}.
 
 #include <stdint.h>
 
@@ -51,25 +59,28 @@ constexpr int THREADS = CONSUMERS + 128;  // and a producer warpgroup
 constexpr int CHUNK = 128 * 64 * 2;      // [128 rows][64 cols] bf16 box
 
 // Shared memory of a block for padded head dim DP: Q as DP/64 chunks of
-// [128 rows][64 cols], then two stages of K chunks and V chunks, then the
+// [128 rows][64 cols], then two stages of K chunks and V chunks (and,
+// with a bias, the tile's bias row padded to 1024 bytes), then the
 // barriers. Tiles are 1024-byte aligned (the base is aligned at run time).
-template <int DP>
+template <int DP, bool HAS_BIAS>
 struct Layout {
   static constexpr int NC = DP / 64;
   static constexpr int KV = NC * CHUNK;          // first stage
-  static constexpr int STAGE = 2 * NC * CHUNK;   // K chunks, then V chunks
+  static constexpr int BIAS = 2 * NC * CHUNK;    // a stage's bias row
+  static constexpr int STAGE = BIAS + (HAS_BIAS ? 1024 : 0);
+  static constexpr int TX = BIAS + (HAS_BIAS ? BKV * 4 : 0);  // bytes a stage
   static constexpr int BARS = KV + 2 * STAGE;    // q_full, full[2], empty[2]
   static constexpr int BYTES = BARS + 5 * 8 + 1024;
 };
 
 // Consumer warpgroup w = threadIdx.x / 128 of a block: query rows
 // q0 + 64 w .. + 63, through the block's n_tiles kv tiles.
-template <int DP>
+template <int DP, bool HAS_BIAS>
 __device__ __forceinline__ void consume(
     uint8_t* smem, uint64_t* q_full, uint64_t* full, uint64_t* empty,
     __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int bh, int q0,
     int n_tiles, int Tq, int Tk, int D, float scale, int causal) {
-  using L = Layout<DP>;
+  using L = Layout<DP, HAS_BIAS>;
   constexpr int NC = L::NC;
 
   // This thread's rows in the fragment: row_a and row_a + 8 of the block.
@@ -92,6 +103,7 @@ __device__ __forceinline__ void consume(
     mbar_wait(&full[s], (t >> 1) & 1);
     const uint8_t* ks = smem + L::KV + s * L::STAGE;
     const uint8_t* vs = ks + NC * CHUNK;
+    const float* bias_s = reinterpret_cast<const float*>(ks + L::BIAS);
 
     // S = Q K^T over the head dim, 16 at a time.
     fence_regs(sc);
@@ -107,7 +119,8 @@ __device__ __forceinline__ void consume(
     fence_regs(sc);
 
     // Scale, then mask: only a tile that reaches past Tk or past this
-    // warpgroup's first row (the diagonal) holds masked keys.
+    // warpgroup's first row (the diagonal) holds masked keys. The bias
+    // goes on every tile, after the mask.
     const int k0 = t * BKV;
     const bool masked =
         k0 + BKV > Tk || (causal && k0 + BKV - 1 > q0 + 64 * w);
@@ -120,6 +133,7 @@ __device__ __forceinline__ void consume(
         const int kpos = k0 + 8 * (i / 4) + col + (i & 1);
         if (kpos >= Tk || (causal && kpos > q0 + row_a + 8 * r)) x = kNeg;
       }
+      if constexpr (HAS_BIAS) x += bias_s[8 * (i / 4) + col + (i & 1)];
       sc[i] = x;
       mx[r] = fmaxf(mx[r], x);
     }
@@ -190,15 +204,16 @@ __device__ __forceinline__ void consume(
   }
 }
 
-template <int DP>
+template <int DP, bool HAS_BIAS>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
                            const __grid_constant__ CUtensorMap vmap,
+                           const float* __restrict__ bias,
                            __nv_bfloat16* __restrict__ o,
                            float* __restrict__ lse, int H, int Hkv, int Tq,
                            int Tk, int D, float scale, int causal) {
-  using L = Layout<DP>;
+  using L = Layout<DP, HAS_BIAS>;
   constexpr int NC = L::NC;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -238,25 +253,31 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int s = t & 1;
         if (t >= 2) mbar_wait(&empty[s], ((t >> 1) - 1) & 1);
         uint8_t* st = smem + L::KV + s * L::STAGE;
-        mbar_expect_tx(&full[s], 2 * NC * CHUNK);
+        mbar_expect_tx(&full[s], L::TX);
         for (int c = 0; c < NC; ++c) {
           tma_load_3d(st + c * CHUNK, &kmap, &full[s], 64 * c, t * BKV, bkh);
           tma_load_3d(st + (NC + c) * CHUNK, &vmap, &full[s], 64 * c,
                       t * BKV, bkh);
         }
+        if constexpr (HAS_BIAS) {
+          const int tkp = (Tk + BKV - 1) / BKV * BKV;
+          bulk_load(st + L::BIAS, bias + (size_t)b * tkp + t * BKV, BKV * 4,
+                    &full[s]);
+        }
       }
     }
   } else {
     setmaxnreg_inc<232>();
-    consume<DP>(smem, q_full, full, empty, o, lse, bh, q0, n_tiles, Tq, Tk,
-                D, scale, causal);
+    consume<DP, HAS_BIAS>(smem, q_full, full, empty, o, lse, bh, q0, n_tiles,
+                          Tq, Tk, D, scale, causal);
   }
 }
 
-template <int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int B, int H, int Hkv, int Tq, int Tk, int D,
-                   int causal, float scale, cudaStream_t stream) {
+template <int DP, bool HAS_BIAS>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* bias, void* o, void* lse, int B, int H,
+                   int Hkv, int Tq, int Tk, int D, int causal, float scale,
+                   cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   const uint64_t qdims[3] = {(uint64_t)D, (uint64_t)Tq, (uint64_t)B * H};
   const uint64_t kdims[3] = {(uint64_t)D, (uint64_t)Tk, (uint64_t)B * Hkv};
@@ -265,49 +286,62 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       !make_tensor_map(&km, k, 3, kdims, box) ||
       !make_tensor_map(&vm, v, 3, kdims, box))
     return cudaErrorInvalidValue;
-  const int smem = Layout<DP>::BYTES;
+  const int smem = Layout<DP, HAS_BIAS>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_wgmma_kernel<DP, HAS_BIAS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_fwd_wgmma_kernel<DP><<<grid, THREADS, smem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), H,
-      Hkv, Tq, Tk, D, scale, causal);
+  flash_fwd_wgmma_kernel<DP, HAS_BIAS><<<grid, THREADS, smem, stream>>>(
+      qm, km, vm, static_cast<const float*>(bias),
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), H, Hkv, Tq,
+      Tk, D, scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Same arguments as csrc/flash_fwd.cu's flash_fwd; only bf16 (is_bf16 = 1)
-// and D in {16, 32, 64, 128} are taken. Returns the CUDA error code of the
+// Same arguments as csrc/flash_fwd.cu's flash_fwd, but a non-null bias is
+// [B, Tkp] (padded to a multiple of 128 keys); only bf16 (is_bf16 = 1) and
+// D in {16, 32, 64, 128} are taken. Returns the CUDA error code of the
 // launch (0 on success; cudaErrorInvalidValue for another dtype or D, or
-// a tensor map the driver refuses).
+// a tensor map cuTensorMapEncodeTiled refuses).
 extern "C" int flash_fwd_wgmma(const void* q, const void* k, const void* v,
-                               void* o, void* lse, int B, int H, int Hkv,
-                               int Tq, int Tk, int D, int causal, int is_bf16,
-                               float scale, void* stream) {
+                               const void* bias, void* o, void* lse, int B,
+                               int H, int Hkv, int Tq, int Tk, int D,
+                               int causal, int is_bf16, float scale,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16) return (int)cudaErrorInvalidValue;
-  if (D == 16 || D == 32 || D == 64)
-    return launch<64>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, D, causal, scale, s);
-  if (D == 128)
-    return launch<128>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, D, causal, scale,
-                       s);
+#define HVD_FWD_LAUNCH(DP)                                                  \
+  return bias ? launch<DP, true>(q, k, v, bias, o, lse, B, H, Hkv, Tq, Tk, \
+                                 D, causal, scale, s)                       \
+              : launch<DP, false>(q, k, v, bias, o, lse, B, H, Hkv, Tq, Tk, \
+                                  D, causal, scale, s);
+  if (D == 16 || D == 32 || D == 64) HVD_FWD_LAUNCH(64)
+  if (D == 128) HVD_FWD_LAUNCH(128)
+#undef HVD_FWD_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
-// The compiled kernel for head dim D: out = {registers per thread, local
-// (spill) bytes per thread, static shared bytes, dynamic shared bytes}.
-extern "C" int flash_fwd_wgmma_attrs(int D, int* out) {
+template <int DP, bool HAS_BIAS>
+int attrs(int* out) {
   cudaFuncAttributes a;
-  const bool wide = D == 128;
-  cudaError_t err = wide ? cudaFuncGetAttributes(&a, flash_fwd_wgmma_kernel<128>)
-                         : cudaFuncGetAttributes(&a, flash_fwd_wgmma_kernel<64>);
+  cudaError_t err =
+      cudaFuncGetAttributes(&a, flash_fwd_wgmma_kernel<DP, HAS_BIAS>);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[2] = (int)a.sharedSizeBytes;
-  out[3] = wide ? Layout<128>::BYTES : Layout<64>::BYTES;
+  out[3] = Layout<DP, HAS_BIAS>::BYTES;
   return 0;
+}
+
+// The compiled kernel for head dim D, with or without the bias: out =
+// {registers per thread, local (spill) bytes per thread, static shared
+// bytes, dynamic shared bytes}.
+extern "C" int flash_fwd_wgmma_attrs(int D, int has_bias, int* out) {
+  if (D == 128)
+    return has_bias ? attrs<128, true>(out) : attrs<128, false>(out);
+  return has_bias ? attrs<64, true>(out) : attrs<64, false>(out);
 }

@@ -1,3 +1,3 @@
-"""Models of the port: the dense Llama family (``llama``), its JAX
-parameter converter (``convert``) and KV-cached decoding
-(``generate``)."""
+"""Models of the port: the dense and MoE Llama family (``llama``), the
+BERT encoder (``bert``), the JAX parameter converter (``convert``) and
+KV-cached decoding (``generate``)."""

@@ -11,9 +11,15 @@ the tensor cores (``csrc/flash_fwd_wgmma.cu``), f32 on FMA
 bf16 on ``csrc/flash_bwd_dq_wgmma.cu``, f32 on ``csrc/flash_bwd.cu``),
 launched together by :func:`_flash_bwd_cuda`. :func:`_flash_fwd_reference` and
 :func:`_flash_bwd_reference` are their plain PyTorch versions, used for
-tensors on the CPU and as the kernels' yardstick on the card. The
-per-key bias and the ring-step offsets (with their lse cotangent) are
-not ported yet (ROADMAP.md, queue B, K1b).
+tensors on the CPU and as the kernels' yardstick on the card.
+
+Each kernel also takes the TPU kernels' ``has_bias`` variant: an
+optional per-key f32 bias ``kv_bias`` [B, Tk] (BERT's padding mask),
+added to every score after the causal mask and before the softmax. It is
+a constant: its cotangent is zero and never computed. The kernels branch
+on it at compile time, so a call without it runs the same code as
+before. The ring-step offsets (with their lse cotangent) are not ported
+yet (ROADMAP.md, queue B, K1b, with A8).
 
 The forward is the custom op ``hvd_torch::flash_fwd`` returning
 ``(o, lse)``, its backward registered with it. Being one dispatcher op,
@@ -30,6 +36,7 @@ reads kv head h // n_rep, and k/v are never repeated).
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -41,18 +48,20 @@ _HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _flash_fwd_reference(q, k, v, causal=True):
+def _flash_fwd_reference(q, k, v, causal=True, kv_bias=None):
     """Plain version of K1: the same function with one global softmax
     max (the TPU kernel's result when a single kv block covers T).
-    f32 scores, p cast un-normalised to v's dtype, f32-accumulated PV,
-    divided by l at the end; rows with no valid key give exactly 0.
+    f32 scores, causal mask, then ``kv_bias`` [B, Tk] (f32, if given)
+    added per key; p cast un-normalised to v's dtype, f32-accumulated PV,
+    divided by l at the end; rows with no valid key (max still at or
+    below -1e30/2) give exactly 0.
     Returns (o [B, H, T, D] in q's dtype, lse [B, H, T, 1] f32)."""
     h, d = q.shape[1], q.shape[3]
     n_rep = h // k.shape[1]
     kf = k.repeat_interleave(n_rep, dim=1).float()
     vr = v.repeat_interleave(n_rep, dim=1)
     s = torch.matmul(q.float(), kf.transpose(-1, -2)) * (d ** -0.5)
-    s = _causal_mask(s, causal)
+    s = _add_bias(_causal_mask(s, causal), kv_bias)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
@@ -70,6 +79,13 @@ def _causal_mask(s, causal):
     return torch.where(mask, s, torch.full_like(s, _NEG))
 
 
+def _add_bias(s, kv_bias):
+    """s [B, H, Tq, Tk] plus the per-key bias [B, Tk] (f32), if any."""
+    if kv_bias is None:
+        return s
+    return s + kv_bias.float()[:, None, None, :]
+
+
 def _delta(o, do):
     """rowsum(do * o) in f32 [B, H, T, 1]: the backward's softmax term,
     plain PyTorch on every device (the TPU module computes it outside
@@ -77,9 +93,10 @@ def _delta(o, do):
     return (do.float() * o.float()).sum(-1, keepdim=True)
 
 
-def _flash_bwd_reference(q, k, v, o, lse, do, causal=True):
+def _flash_bwd_reference(q, k, v, o, lse, do, causal=True, kv_bias=None):
     """Plain version of K2 and K3 together, with the TPU kernels'
-    recipe: p = where(s > -1e30/2, exp(s - lse), 0); dv = p^T do with p
+    recipe: s masked, then ``kv_bias`` added (if given);
+    p = where(s > -1e30/2, exp(s - lse), 0); dv = p^T do with p
     cast to do's dtype; dp = do v^T; ds = p (dp - delta) scale;
     dk = ds^T q and dq = ds k with ds cast to q's / k's dtype; f32
     accumulation throughout. Returns (dq [B, H, T, D] in q's dtype,
@@ -92,6 +109,7 @@ def _flash_bwd_reference(q, k, v, o, lse, do, causal=True):
     vr = v.repeat_interleave(n_rep, dim=1)
     s = _causal_mask(torch.matmul(q.float(), kr.float().transpose(-1, -2))
                      * scale, causal)
+    s = _add_bias(s, kv_bias)
     p = torch.where(s > _NEG / 2, torch.exp(s - lse), torch.zeros_like(s))
     dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
     dp = torch.matmul(do.float(), vr.float().transpose(-1, -2))
@@ -139,11 +157,42 @@ def _check_kernel_inputs(name, q, k, v, *more):
         raise ValueError(f"{name} takes contiguous tensors")
 
 
+def _check_bias(name, kv_bias, q, k):
+    """A kernel's per-key bias: None, or contiguous f32 [B, Tk] on q's
+    device."""
+    if kv_bias is None:
+        return
+    want = (q.shape[0], k.shape[2])
+    if kv_bias.dtype != torch.float32 or tuple(kv_bias.shape) != want \
+            or not kv_bias.is_contiguous() or kv_bias.device != q.device:
+        raise ValueError(f"{name} takes kv_bias as contiguous f32 {want} on "
+                         f"{q.device}, got {kv_bias.dtype} "
+                         f"{tuple(kv_bias.shape)} on {kv_bias.device}")
+
+
+def _pad_bias(kv_bias, route="wgmma"):
+    """The bias as the route's kernel reads it: as given for FMA; for
+    wgmma [B, Tk] -> [B, Tkp], Tkp = Tk rounded up to 128 with zeros (the
+    wgmma kernels copy each kv tile's bias whole: K1's 512 bytes, K3's
+    256; the padded keys are masked in the kernels). None stays None."""
+    if kv_bias is None or route != "wgmma" or kv_bias.shape[1] % 128 == 0:
+        return kv_bias
+    return torch.nn.functional.pad(kv_bias, (0, -kv_bias.shape[1] % 128))
+
+
+def _count(wrapper, route, kv_bias):
+    """One launch of ``wrapper`` along ``route``, with or without the
+    bias."""
+    wrapper.launches += 1
+    wrapper.launches_by_route[route] += 1
+    wrapper.bias_launches += kv_bias is not None
+
+
 @functools.cache
 def _bind(source, name, n_ptrs):
     """The ctypes entry ``name`` of csrc/<source>.cu: ``n_ptrs``
-    pointers, then B, H, Hkv, Tq, Tk, D, causal, is_bf16, the scale and
-    the stream (bound once)."""
+    pointers (q, k, v, the bias or null, then the rest), then B, H, Hkv,
+    Tq, Tk, D, causal, is_bf16, the scale and the stream (bound once)."""
     fn = getattr(_build.load(source), name)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p]
@@ -152,10 +201,11 @@ def _bind(source, name, n_ptrs):
 
 
 def _launch(label, fn, tensors, q, k, causal):
+    """Launch ``fn`` on ``tensors`` (None passes a null pointer)."""
     b, h, t, d = q.shape
     with torch.cuda.device(q.device):
-        err = fn(*(x.data_ptr() for x in tensors), b, h, k.shape[1], t,
-                 k.shape[2], d, int(bool(causal)),
+        err = fn(*(None if x is None else x.data_ptr() for x in tensors),
+                 b, h, k.shape[1], t, k.shape[2], d, int(bool(causal)),
                  int(q.dtype == torch.bfloat16), d ** -0.5,
                  torch.cuda.current_stream().cuda_stream)
     if err:
@@ -190,12 +240,13 @@ _FWD_ENTRY = {"wgmma": ("flash_fwd_wgmma", "flash_fwd_wgmma"),
               "fma": ("flash_fwd", "flash_fwd")}
 
 
-def _flash_fwd_cuda(q, k, v, causal=True, route=None):
+def _flash_fwd_cuda(q, k, v, causal=True, kv_bias=None, route=None):
     """Launch K1 on the current stream, by :func:`flash_fwd_route` unless
     ``route`` names one ("fma" also takes bfloat16: the earlier kernel,
-    kept as the wgmma kernel's yardstick). Same contract as
-    :func:`_flash_fwd_reference`."""
+    kept as the wgmma kernel's yardstick); with ``kv_bias`` its bias
+    variant. Same contract as :func:`_flash_fwd_reference`."""
     _check_kernel_inputs("K1", q, k, v)
+    _check_bias("K1", kv_bias, q, k)
     route = pick_route("K1", q.dtype, flash_fwd_route(q.dtype, q.shape[3]),
                        route)
     b, h, t, _ = q.shape
@@ -203,15 +254,18 @@ def _flash_fwd_cuda(q, k, v, causal=True, route=None):
     lse = torch.empty((b, h, t, 1), dtype=torch.float32, device=q.device)
     if t == 0:
         return o, lse
-    _launch(f"K1 flash_fwd ({route})", _bind(*_FWD_ENTRY[route], 5),
-            (q, k, v, o, lse), q, k, causal)
-    _flash_fwd_cuda.launches += 1
-    _flash_fwd_cuda.launches_by_route[route] += 1
+    bias = _pad_bias(kv_bias, route)
+    _launch(f"K1 flash_fwd ({route})", _bind(*_FWD_ENTRY[route], 6),
+            (q, k, v, bias, o, lse), q, k, causal)
+    _count(_flash_fwd_cuda, route, kv_bias)
     return o, lse
 
 
+# launches: every K1 launch; launches_by_route: by kernel; bias_launches:
+# those of the bias variant.
 _flash_fwd_cuda.launches = 0
 _flash_fwd_cuda.launches_by_route = {"wgmma": 0, "fma": 0}
+_flash_fwd_cuda.bias_launches = 0
 
 
 def _check_residuals(q, lse, delta):
@@ -245,28 +299,31 @@ def _residuals(route, q, lse, delta, padded):
     return padded or (_pad_queries(lse, t), _pad_queries(delta, t))
 
 
-def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True, route=None,
-                        padded=None):
+def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True,
+                        kv_bias=None, route=None, padded=None):
     """Launch K2 along :func:`flash_bwd_route` unless ``route`` names one
     ("fma" also takes bfloat16): per-query-head (dk, dv) [B, H, Tk, D] in
-    k's dtype. ``padded``: lse and delta already padded for wgmma."""
+    k's dtype; with ``kv_bias`` its bias variant. ``padded``: lse and
+    delta already padded for wgmma."""
     _check_kernel_inputs("K2", q, k, v, do)
     _check_residuals(q, lse, delta)
+    _check_bias("K2", kv_bias, q, k)
     route = pick_route("K2", q.dtype, flash_bwd_route(q.dtype, q.shape[3]),
                        route)
     b, h, t, d = q.shape
     dk = torch.empty((b, h, k.shape[2], d), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     lse, delta = _residuals(route, q, lse, delta, padded)
-    _launch(f"K2 flash_bwd_dkv ({route})", _bind(*_DKV_ENTRY[route], 8),
-            (q, k, v, do, lse, delta, dk, dv), q, k, causal)
-    _flash_bwd_dkv_cuda.launches += 1
-    _flash_bwd_dkv_cuda.launches_by_route[route] += 1
+    bias = _pad_bias(kv_bias, route)
+    _launch(f"K2 flash_bwd_dkv ({route})", _bind(*_DKV_ENTRY[route], 9),
+            (q, k, v, bias, do, lse, delta, dk, dv), q, k, causal)
+    _count(_flash_bwd_dkv_cuda, route, kv_bias)
     return dk, dv
 
 
 _flash_bwd_dkv_cuda.launches = 0
 _flash_bwd_dkv_cuda.launches_by_route = {"wgmma": 0, "fma": 0}
+_flash_bwd_dkv_cuda.bias_launches = 0
 
 
 # The ctypes entry of each K3 route: (source, function).
@@ -274,29 +331,32 @@ _DQ_ENTRY = {"wgmma": ("flash_bwd_dq_wgmma", "flash_bwd_dq_wgmma"),
              "fma": ("flash_bwd", "flash_bwd_dq")}
 
 
-def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=True, route=None,
-                       padded=None):
+def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=True, kv_bias=None,
+                       route=None, padded=None):
     """Launch K3 along :func:`flash_bwd_route` unless ``route`` names one
-    ("fma" also takes bfloat16): dq [B, H, T, D] in q's dtype.
-    ``padded``: lse and delta already padded for wgmma."""
+    ("fma" also takes bfloat16): dq [B, H, T, D] in q's dtype; with
+    ``kv_bias`` its bias variant. ``padded``: lse and delta already padded
+    for wgmma."""
     _check_kernel_inputs("K3", q, k, v, do)
     _check_residuals(q, lse, delta)
+    _check_bias("K3", kv_bias, q, k)
     route = pick_route("K3", q.dtype,
                        flash_bwd_route(q.dtype, q.shape[3], "K3"), route)
     dq = torch.empty_like(q)
     lse, delta = _residuals(route, q, lse, delta, padded)
-    _launch(f"K3 flash_bwd_dq ({route})", _bind(*_DQ_ENTRY[route], 7),
-            (q, k, v, do, lse, delta, dq), q, k, causal)
-    _flash_bwd_dq_cuda.launches += 1
-    _flash_bwd_dq_cuda.launches_by_route[route] += 1
+    bias = _pad_bias(kv_bias, route)
+    _launch(f"K3 flash_bwd_dq ({route})", _bind(*_DQ_ENTRY[route], 8),
+            (q, k, v, bias, do, lse, delta, dq), q, k, causal)
+    _count(_flash_bwd_dq_cuda, route, kv_bias)
     return dq
 
 
 _flash_bwd_dq_cuda.launches = 0
 _flash_bwd_dq_cuda.launches_by_route = {"wgmma": 0, "fma": 0}
+_flash_bwd_dq_cuda.bias_launches = 0
 
 
-def _flash_bwd_cuda(q, k, v, o, lse, do, causal=True):
+def _flash_bwd_cuda(q, k, v, o, lse, do, causal=True, kv_bias=None):
     """K2 then K3 on the current stream, along their dtype's route, the
     wgmma route's padded lse and delta made once for both. Same contract
     as :func:`_flash_bwd_reference`."""
@@ -305,62 +365,74 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal=True):
     if flash_bwd_route(q.dtype, q.shape[3]) == "wgmma":
         t = q.shape[2]
         padded = _pad_queries(lse, t), _pad_queries(delta, t)
-    dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal,
+    dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, kv_bias,
                                  padded=padded)
-    dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, padded=padded)
+    dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, kv_bias,
+                            padded=padded)
     return dq, dk, dv
 
 
-def _flash_fwd_impl(q, k, v, causal=True):
+def _flash_fwd_impl(q, k, v, causal=True, kv_bias=None):
     """(o, lse) in the kernel layout: K1 for CUDA tensors, the plain
     version for CPU tensors."""
     return kernel_or_plain("flash attention", q, _flash_fwd_cuda,
-                           _flash_fwd_reference, k, v, causal)
+                           _flash_fwd_reference, k, v, causal, kv_bias)
 
 
-def _flash_bwd_impl(q, k, v, o, lse, do, causal=True):
+def _flash_bwd_impl(q, k, v, o, lse, do, causal=True, kv_bias=None):
     """(dq, dk, dv) with dk/dv at k's Hkv heads: K2 + K3 for CUDA
     tensors, the plain version for CPU tensors, then the n_rep sum."""
     dq, dk, dv = kernel_or_plain("flash attention", q, _flash_bwd_cuda,
                                  _flash_bwd_reference, k, v, o, lse, do,
-                                 causal)
+                                 causal, kv_bias)
     return (dq,) + _sum_kv_heads(dk, dv, k.shape[1])
 
 
 @torch.library.custom_op("hvd_torch::flash_fwd", mutates_args=())
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+              causal: bool, kv_bias: Optional[torch.Tensor] = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) = flash attention in the kernel layout, through
-    :func:`_flash_fwd_impl`. lse is a residual, not differentiable."""
-    return _flash_fwd_impl(q, k, v, causal)
+    :func:`_flash_fwd_impl`; ``kv_bias`` is the optional per-key f32 bias
+    [B, Tk], a constant. lse is a residual, not differentiable."""
+    return _flash_fwd_impl(q, k, v, causal, kv_bias)
 
 
 def _flash_setup(ctx, inputs, output):
-    q, k, v, causal = inputs
+    q, k, v, causal, kv_bias = inputs
     o, lse = output
     ctx.mark_non_differentiable(lse)
     ctx.causal = causal
-    # Residuals (q, k, v, o, lse), k/v unrepeated (the TPU _flash_fwd).
-    ctx.save_for_backward(q, k, v, o, lse)
+    # Residuals (q, k, v, bias, o, lse), k/v unrepeated (the TPU
+    # _flash_biased_fwd; the bias is None without one).
+    ctx.save_for_backward(q, k, v, kv_bias, o, lse)
 
 
 def _flash_backward(ctx, do, _dlse):
-    q, k, v, o, lse = ctx.saved_tensors
+    q, k, v, kv_bias, o, lse = ctx.saved_tensors
     dq, dk, dv = _flash_bwd_impl(q, k, v, o, lse, do.contiguous(),
-                                 ctx.causal)
-    return dq, dk, dv, None
+                                 ctx.causal, kv_bias)
+    # The bias is a constant (a padding mask): no cotangent.
+    return dq, dk, dv, None, None
 
 
 torch.library.register_autograd("hvd_torch::flash_fwd", _flash_backward,
                                 setup_context=_flash_setup)
 
 
-def flash_attention(q, k, v, causal=True):
+def flash_attention(q, k, v, causal=True, kv_bias=None):
     """Flash attention in the framework layout: q [B, T, H, D], k/v
     [B, T, Hkv, D] (GQA-native). Returns [B, T, H, D] in q's dtype;
-    differentiable through K2/K3."""
+    differentiable through K2/K3.
+
+    ``kv_bias`` is an optional [B, Tk] additive per-key bias, taken in
+    f32 and as a constant (detached, zero cotangent), as the JAX
+    ``flash_attention(..., kv_bias=)``: a padding mask passes 0 for real
+    keys and -1e30 for padding."""
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).contiguous()
     vt = v.transpose(1, 2).contiguous()
-    o, _lse = flash_fwd(qt, kt, vt, causal)
+    if kv_bias is not None:
+        kv_bias = kv_bias.detach().to(torch.float32).contiguous()
+    o, _lse = flash_fwd(qt, kt, vt, causal, kv_bias)
     return o.transpose(1, 2)

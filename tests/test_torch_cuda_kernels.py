@@ -15,6 +15,8 @@ wrappers pick from the dtype), f32 on the FMA kernels: each route is held
 to the same tolerance. K3, K4 and K5's split-K path give the same bits on
 every launch (fixed-order sums, no atomics). The MoE router breaks exact
 ties as ``lax.top_k`` does, lower expert index first, on the card too.
+K1-K3's bias variant is held to the same tolerances on both routes, with
+exact zeros for a sequence that is all padding.
 """
 
 import pytest
@@ -583,3 +585,107 @@ def test_moe_route_breaks_exact_ties_like_lax_top_k(e):
         assert torch.equal(idx.cpu().long(), want)
         assert torch.equal(idx[:5].cpu().long(),
                            torch.arange(k).expand(5, k))
+
+
+# The bias variant of K1-K3 (BERT's padding mask) on both routes against
+# the plain versions: a padding bias with the last sequence all padding (o
+# and every gradient exactly 0 there), and a random bias N(0, 3^2) on every
+# key, which catches a kernel that adds the bias on masked tiles only.
+# Shapes: BERT-Large's attention (H16 T512 D64, non-causal, batch cut),
+# ragged T around the tiles, causal, GQA, each head dim.
+BIAS_SHAPES = [(3, 16, 16, 512, 64, False), (3, 4, 2, 77, 64, False),
+               (2, 4, 2, 200, 128, True), (3, 8, 4, 129, 32, False),
+               (3, 2, 1, 37, 16, True)]
+
+
+def _bias(kind, b, t, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if kind == "random":
+        return 3.0 * torch.randn((b, t), generator=g, device="cuda")
+    lengths = torch.tensor([t, max(1, t // 3)][:b - 1] + [0], device="cuda")
+    keys = torch.arange(t, device="cuda")
+    return torch.where(keys[None, :] < lengths[:, None], 0.0,
+                       -1e30).float()
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.bfloat16, "fma"),
+                                         (torch.float32, "fma")])
+@pytest.mark.parametrize("kind", ["padding", "random"])
+@pytest.mark.parametrize("b,h,hkv,t,d,causal", BIAS_SHAPES)
+def test_flash_bias_matches_plain(b, h, hkv, t, d, causal, kind, dtype,
+                                  route):
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    q = _rand((b, h, t, d), dtype, 40)
+    k = _rand((b, hkv, t, d), dtype, 41)
+    v = _rand((b, hkv, t, d), dtype, 42)
+    do = _rand((b, h, t, d), dtype, 43)
+    bias = _bias(kind, b, t, 44)
+    before = [(fn.bias_launches, fn.launches_by_route[route])
+              for fn in (fa._flash_fwd_cuda, fa._flash_bwd_dkv_cuda,
+                         fa._flash_bwd_dq_cuda)]
+    o, lse = fa._flash_fwd_cuda(q, k, v, causal, bias, route=route)
+    o_ref, lse_ref = fa._flash_fwd_reference(q, k, v, causal, bias)
+    delta = fa._delta(o, do)
+    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, bias,
+                                    route=route)
+    dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, bias,
+                               route=route)
+    want = fa._flash_bwd_reference(q, k, v, o, lse, do, causal, bias)
+    torch.cuda.synchronize()
+    assert [(fn.bias_launches, fn.launches_by_route[route])
+            for fn in (fa._flash_fwd_cuda, fa._flash_bwd_dkv_cuda,
+                       fa._flash_bwd_dq_cuda)] == [
+        (n + 1, r + 1) for n, r in before]
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=0, atol=tol)
+    valid = lse_ref > -1e29
+    assert torch.equal(lse > -1e29, valid)
+    torch.testing.assert_close(lse[valid], lse_ref[valid], rtol=0,
+                               atol=1e-3)
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        err = float((g.float() - w.float()).abs().max()
+                    / w.float().abs().max())
+        assert err <= tol, f"{name}: relative error {err}"
+    if kind == "padding":
+        for name, x in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
+            assert not x[-1].float().any(), f"{name} of the empty sequence"
+    again = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, bias,
+                                  route=route)
+    torch.cuda.synchronize()
+    assert torch.equal(dq.view(torch.int16), again.view(torch.int16)) \
+        if dtype == torch.bfloat16 else torch.equal(dq, again)
+
+
+def test_flash_bias_through_the_op_and_autograd():
+    """The public flash_attention with a bias on the card: the op takes
+    the bias kernels forward and backward (one launch each) and gives the
+    bias no gradient."""
+    b, t = 2, 130
+    q = _rand((b, t, 4, 64), torch.bfloat16, 45).requires_grad_(True)
+    k = _rand((b, t, 2, 64), torch.bfloat16, 46).requires_grad_(True)
+    v = _rand((b, t, 2, 64), torch.bfloat16, 47).requires_grad_(True)
+    bias = _bias("padding", b, t, 48).requires_grad_(True)
+    before = [fn.bias_launches for fn in (
+        fa._flash_fwd_cuda, fa._flash_bwd_dkv_cuda, fa._flash_bwd_dq_cuda)]
+    out = fa.flash_attention(q, k, v, causal=False, kv_bias=bias)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert [fn.bias_launches for fn in (
+        fa._flash_fwd_cuda, fa._flash_bwd_dkv_cuda,
+        fa._flash_bwd_dq_cuda)] == [n + 1 for n in before]
+    assert bias.grad is None
+    assert all(torch.isfinite(x.grad.float()).all() for x in (q, k, v))
+
+
+@pytest.mark.parametrize("d", [48, 256])
+def test_flash_bias_on_a_head_dim_no_kernel_takes_raises(d):
+    q = _rand((1, 2, 64, d), torch.bfloat16, 49)
+    bias = torch.zeros((1, 64), device="cuda")
+    lse = torch.zeros((1, 2, 64, 1), device="cuda")
+    with pytest.raises(ValueError, match="K1 takes head_dim"):
+        fa._flash_fwd_cuda(q, q, q, False, bias)
+    with pytest.raises(ValueError, match="K2 takes head_dim"):
+        fa._flash_bwd_dkv_cuda(q, q, q, q, lse, lse, False, bias)
+    with pytest.raises(ValueError, match="K3 takes head_dim"):
+        fa._flash_bwd_dq_cuda(q, q, q, q, lse, lse, False, bias)

@@ -36,6 +36,7 @@ def test_import_loads_no_jax_triton_or_reference_package():
         "before = set(sys.modules)\n"
         "import horovod_tpu_torch\n"
         "import horovod_tpu_torch.models.generate\n"
+        "import horovod_tpu_torch.models.bert\n"
         "import horovod_tpu_torch.ops.grouped_moe\n"
         "import horovod_tpu_torch.models.convert\n"
         "import horovod_tpu_torch.serving.engine\n"
@@ -90,6 +91,7 @@ def test_import_builds_nothing():
         "    raise AssertionError('a build started at import')\n"
         "subprocess.Popen = refuse\n"
         "import horovod_tpu_torch.models.generate\n"
+        "import horovod_tpu_torch.models.bert\n"
         "import horovod_tpu_torch.ops.grouped_moe\n"
         "import horovod_tpu_torch.serving.engine\n"
         "import horovod_tpu_torch.parallel.train_step\n"
@@ -106,6 +108,12 @@ def test_import_builds_nothing():
 
 
 def _entry_points():
+    from horovod_tpu_torch.models.bert import (
+        BertConfig,
+        bert_forward,
+        bert_init,
+        bert_mlm_loss,
+    )
     from horovod_tpu_torch.models.convert import (
         from_jax_opt_state,
         from_jax_params,
@@ -131,6 +139,10 @@ def _entry_points():
     prompt = np.zeros((1, 4), np.int32)
     cache = torch.zeros((cfg.n_layers, 1, cfg.n_kv_heads, 8,
                          cfg.head_dim))
+    bcfg = BertConfig.tiny(dtype="float32")
+    bparams = bert_init(bcfg, torch.Generator().manual_seed(0),
+                        device="cpu")
+    mlm = np.ones((1, 4), np.float32)
     return {
         "llama_init": lambda: llama_init(cfg, torch.Generator()),
         "from_jax_params": lambda: from_jax_params(
@@ -147,6 +159,11 @@ def _entry_points():
         "from_jax_opt_state": lambda: from_jax_opt_state(FusedAdamState(
             count=np.zeros((), np.int32), mu={}, nu={})),
         "hvd.init": hvd.init,
+        "bert_init": lambda: bert_init(bcfg, torch.Generator()),
+        "bert_forward": lambda: bert_forward(bparams, prompt, bcfg),
+        "bert_mlm_loss": lambda: bert_mlm_loss(
+            bparams, {"tokens": prompt, "targets": prompt, "mlm_mask": mlm},
+            bcfg),
     }
 
 
@@ -154,7 +171,9 @@ def _entry_points():
                                   "llama_generate", "llama_prefill",
                                   "llama_decode_step", "DecodeEngine",
                                   "llama_forward", "llama_loss",
-                                  "from_jax_opt_state", "hvd.init"])
+                                  "from_jax_opt_state", "hvd.init",
+                                  "bert_init", "bert_forward",
+                                  "bert_mlm_loss"])
 def test_entry_point_without_device_raises_without_cuda(name,
                                                         monkeypatch):
     calls = _entry_points()

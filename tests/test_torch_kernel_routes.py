@@ -346,3 +346,120 @@ def test_k2_and_k3_share_padded_residuals():
     assert not pl[:, 70:].any() and not pd[:, 70:].any()
     assert fa._residuals("wgmma", q, lse, delta, (pl, pd)) == (pl, pd)
     assert fa._residuals("fma", q, lse, delta, (pl, pd)) == (lse, delta)
+
+
+# The bias variant of K1-K3, decided on the host: each wrapper passes the
+# bias (or a null pointer) in the slot after v, pads it to 128 keys for
+# the wgmma kernels only, and counts bias launches apart. The launch
+# itself is recorded instead of made (no card here);
+# tests/test_torch_cuda_kernels.py runs it.
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """Record each K1-K3 launch as (entry, pointer count, tensors)."""
+    launches = []
+    monkeypatch.setattr(fa, "_check_kernel_inputs", lambda *a: None)
+    monkeypatch.setattr(fa, "_bind", lambda source, name, n: (name, n))
+    monkeypatch.setattr(fa, "_launch", lambda label, fn, tensors, *a:
+                        launches.append((fn[0], fn[1], tensors)))
+    for fn in (fa._flash_fwd_cuda, fa._flash_bwd_dkv_cuda,
+               fa._flash_bwd_dq_cuda):
+        monkeypatch.setattr(fn, "launches", 0)
+        monkeypatch.setattr(fn, "bias_launches", 0)
+        monkeypatch.setattr(fn, "launches_by_route", {"wgmma": 0, "fma": 0})
+    return launches
+
+
+def _bias_inputs(d=64, t=512, dtype=torch.bfloat16):
+    q = torch.zeros(2, 4, t, d, dtype=dtype)
+    kv = torch.zeros(2, 4, t, d, dtype=dtype)
+    res = torch.zeros(2, 4, t, 1)
+    return q, kv, res
+
+
+def _call_all(q, kv, res, kv_bias, route=None):
+    fa._flash_fwd_cuda(q, kv, kv, False, kv_bias, route=route)
+    fa._flash_bwd_dkv_cuda(q, kv, kv, q, res, res, False, kv_bias,
+                           route=route)
+    fa._flash_bwd_dq_cuda(q, kv, kv, q, res, res, False, kv_bias,
+                          route=route)
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "fma")])
+def test_null_bias_keeps_the_old_launches(recorded, dtype, route):
+    """Without a bias each wrapper makes its one launch, with a null
+    pointer in the bias slot, and no bias launch is counted."""
+    q, kv, res = _bias_inputs(dtype=dtype)
+    _call_all(q, kv, res, None)
+    assert [(name, n) for name, n, _ in recorded] == [
+        fa._FWD_ENTRY[route][1:] + (6,), fa._DKV_ENTRY[route][1:] + (9,),
+        fa._DQ_ENTRY[route][1:] + (8,)]
+    assert all(tensors[3] is None for _, _, tensors in recorded)
+    for fn in (fa._flash_fwd_cuda, fa._flash_bwd_dkv_cuda,
+               fa._flash_bwd_dq_cuda):
+        assert (fn.launches, fn.bias_launches) == (1, 0)
+        assert fn.launches_by_route[route] == 1
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "fma"),
+                                         (torch.bfloat16, "fma")])
+@pytest.mark.parametrize("t", [512, 77])
+def test_bias_rides_in_the_slot_after_v(recorded, dtype, route, t):
+    """The bias goes to every kernel: as given to the FMA kernels; padded
+    with zeros to a multiple of 128 keys for wgmma (no copy when T is
+    one already)."""
+    q, kv, res = _bias_inputs(t=t, dtype=dtype)
+    bias = torch.randn(2, t)
+    _call_all(q, kv, res, bias, route=route)
+    for _, _, tensors in recorded:
+        got = tensors[3]
+        if route == "fma" or t % 128 == 0:
+            assert got is bias
+        else:
+            assert got.shape == (2, 128) and torch.equal(got[:, :t], bias)
+            assert not got[:, t:].any()
+    for fn in (fa._flash_fwd_cuda, fa._flash_bwd_dkv_cuda,
+               fa._flash_bwd_dq_cuda):
+        assert (fn.launches, fn.bias_launches) == (1, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [48, 256])
+def test_bias_on_a_head_dim_no_kernel_takes_raises(recorded, dtype, d):
+    q, kv, res = _bias_inputs(d=d, t=64, dtype=dtype)
+    bias = torch.zeros(2, 64)
+    with pytest.raises(ValueError, match="K1 takes head_dim"):
+        fa._flash_fwd_cuda(q, kv, kv, False, bias)
+    with pytest.raises(ValueError, match="K2 takes head_dim"):
+        fa._flash_bwd_dkv_cuda(q, kv, kv, q, res, res, False, bias)
+    with pytest.raises(ValueError, match="K3 takes head_dim"):
+        fa._flash_bwd_dq_cuda(q, kv, kv, q, res, res, False, bias)
+    assert recorded == []
+
+
+@pytest.mark.parametrize("bad,match", [
+    (lambda b: b.double(), "f32"), (lambda b: b[:, :-1], r"\(2, 64\)"),
+    (lambda b: b.t().contiguous().t(), "contiguous"),
+    (lambda b: b[:1], r"\(2, 64\)")])
+def test_bias_must_be_contiguous_f32_b_by_tk(recorded, bad, match):
+    q, kv, res = _bias_inputs(t=64)
+    bias = bad(torch.zeros(2, 64))
+    with pytest.raises(ValueError, match=match):
+        fa._flash_fwd_cuda(q, kv, kv, False, bias)
+    with pytest.raises(ValueError, match=match):
+        fa._flash_bwd_dq_cuda(q, kv, kv, q, res, res, False, bias)
+    assert recorded == []
+
+
+def test_pad_bias_rounds_keys_up_to_128_for_wgmma_only():
+    assert fa._pad_bias(None) is None
+    b = torch.randn(3, 256)
+    assert fa._pad_bias(b) is b
+    ragged = torch.ones(3, 129)
+    p = fa._pad_bias(ragged)
+    assert p.shape == (3, 256) and p[:, :129].eq(1).all()
+    assert not p[:, 129:].any()
+    assert fa._pad_bias(ragged, "fma") is ragged
