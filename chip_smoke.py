@@ -107,9 +107,26 @@ the result line.
    128/77/1/0: f32 loss and gradients on the card (the FMA route)
    against the CPU's plain path; bf16 on the card (wgmma) against bf16
    on the CPU, each gradient leaf held to 2x a floor measured in the run.
-16. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
-   launches; the lane adds no kernel), the card line, and the result
-   line ``{"ok": true, "device": {...}}``.
+16. K1, K2 and K3's offsets variant (one ring-attention step) against
+   their plain versions at the chunks of a seq=4 ring over the flagship's
+   attention at B1 x T16384 (H16 Hkv4 D128 bf16, chunks of 4096): past
+   (12288, 0), diagonal, wholly future (0, 12288: o, dq, dk, dv exactly 0
+   and a finite lse <= -1e29), misaligned (4096 + 37, 4096), Tq 4096 /
+   Tk 2048, a random lse cotangent; f32 on the FMA route (B2 T256).
+   Errors, kernel, FMA-kernel and plain ms, SDPA with the chunk's boolean
+   mask (forward, backward; it returns no lse), the bound of the pairs
+   the mask leaves.
+17. The seq=4 ring replayed on one card at B1 x T16384: each rank's 4
+   steps through the port's ring step loop (``ring_flash_steps``, the
+   rotation supplied from the pre-split K/V chunks), forward and
+   backward, 4 offsets launches each of K1, K2 and K3 a rank, all on
+   wgmma, ms per rank; the joined o, dq, dk, dv against one-card K1-K3
+   over the whole sequence (2x a floor measured in the run + 1e-2).
+   Multi-rank ring and Ulysses on NCCL are not run: one card.
+18. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
+   launches, and K1-K3's offsets rows with phase 17's launches; the lane
+   adds no kernel), the card line, and the result line
+   ``{"ok": true, "device": {...}}``.
 
 Weights are random (``torch.Generator`` seeds); nothing is downloaded.
 """
@@ -207,6 +224,12 @@ def ptxas_summary(text):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def norm_rel(got, want):
+    """|got - want| / |want| in norm, in f32."""
+    return float((got.float() - want.float()).norm()) / max(
+        float(want.float().norm()), 1e-30)
 
 
 # Device kernels by kind, from their names: the port's kernels first,
@@ -579,6 +602,7 @@ def reset_counts(ctr):
         fn.launches = 0
         if hasattr(fn, "bias_launches"):
             fn.bias_launches = 0
+            fn.offsets_launches = 0
         for route in getattr(fn, "launches_by_route", ()):
             fn.launches_by_route[route] = 0
 
@@ -590,6 +614,11 @@ def counts(ctr):
 def bias_counts(ctr):
     """K1-K3's launches of their bias variant."""
     return {k: ctr[k].bias_launches for k in ("K1", "K2", "K3")}
+
+
+def offsets_counts(ctr):
+    """K1-K3's launches of their offsets variant (ring steps)."""
+    return {k: ctr[k].offsets_launches for k in ("K1", "K2", "K3")}
 
 
 def check_wgmma_routes(ctr, path):
@@ -1251,18 +1280,17 @@ def bf16_grad_agreement(torch, ctr, fa, value_and_grad, cpu_params, want,
     fraction of their norm."""
     from horovod_tpu_torch.parallel._tree import tree_map
 
-    def norm_rel(got, want):
-        return [float((g - w).norm()) / max(float(w.norm()), 1e-30)
-                for g, w in zip(got, want)]
+    def norm_rels(got, want):
+        return [norm_rel(g, w) for g, w in zip(got, want)]
 
     t0 = time.perf_counter()
     cpu_loss, cpu_grads = value_and_grad(cpu_params, "cpu")
     cpu_s = time.perf_counter() - t0
     plain_k1 = fa._flash_fwd_reference
 
-    def k1_unrounded_p(q, k, v, causal=True, kv_bias=None):
+    def k1_unrounded_p(q, k, v, causal=True, kv_bias=None, offsets=None):
         o, lse = plain_k1(q.double(), k.double(), v.double(), causal,
-                          kv_bias)
+                          kv_bias, offsets)
         return o.to(q.dtype), lse.float()
 
     fa._flash_fwd_reference = k1_unrounded_p
@@ -1270,14 +1298,14 @@ def bf16_grad_agreement(torch, ctr, fa, value_and_grad, cpu_params, want,
         _, f64_grads = value_and_grad(cpu_params, "cpu")
     finally:
         fa._flash_fwd_reference = plain_k1
-    floor = norm_rel(f64_grads, cpu_grads)
+    floor = norm_rels(f64_grads, cpu_grads)
     card_params = tree_map(lambda w: w.cuda(), cpu_params)
     reset_counts(ctr)
     loss, grads = value_and_grad(card_params, "cuda")
     by_route = check_wgmma_routes(ctr, label)
     launched = counts(ctr)
     loss_err = abs(loss - cpu_loss) / abs(cpu_loss)
-    err = norm_rel(grads, cpu_grads)
+    err = norm_rels(grads, cpu_grads)
     ratio = max(e / (2 * f + 1e-2) for e, f in zip(err, floor))
     finite = all(bool(torch.isfinite(g).all()) for g in grads)
     log(f"  {label}: card (wgmma) vs CPU (plain) loss {loss:.5f} vs "
@@ -2178,6 +2206,255 @@ def run_bert_parity(torch, ctr, fa, bert, train_step, cfg):
                 bf16=bf16)
 
 
+# ---- phases 16-17: sequence parallelism (the kernels' offsets variant) ---
+
+
+def visible_pairs(b, h, tq, tk, q_offset, kv_offset, causal=True):
+    """The (query, key) pairs a chunk's causal mask leaves: key j is
+    visible to query i iff kv_offset + j <= q_offset + i."""
+    if not causal:
+        return b * h * tq * tk
+    rows = np.clip(q_offset - kv_offset + np.arange(tq) + 1, 0, tk)
+    return b * h * int(rows.sum())
+
+
+def offsets_case(torch, fa, label, b, tq, tk, q_offset, kv_offset, dtype,
+                 iters, with_dlse=False, h=16, hkv=4, d=128):
+    """K1, K2 and K3 with chunk offsets (one ring step) against their
+    plain versions on the same inputs, causal; with ``with_dlse`` a
+    random lse cotangent folded into delta. A wholly future chunk must
+    give o, dq, dk, dv exactly 0 and a finite lse at or below -1e29.
+    Times: each kernel, the FMA kernel on the same bf16 inputs (earlier),
+    the plain versions, and SDPA with the chunk's boolean mask (forward;
+    backward alone on a saved forward; SDPA returns no lse), the
+    yardstick only. The bound counts the pairs the mask leaves."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(tq + 7 * tk + q_offset)
+    q, do = (torch.randn((b, h, tq, d), generator=g, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((b, hkv, tk, d), generator=g,
+                        device="cuda").to(dtype) for _ in range(2))
+    dlse = torch.randn((b, h, tq, 1), generator=g, device="cuda") \
+        if with_dlse else None
+    offs = (q_offset, kv_offset)
+    o, lse = fa._flash_fwd_cuda(q, k, v, True, None, offs)
+    o_ref, lse_ref = fa._flash_fwd_reference(q, k, v, True, None, offs)
+    got = fa._flash_bwd_cuda(q, k, v, o, lse, do, True, None, offs, dlse)
+    want = fa._flash_bwd_reference(q, k, v, o, lse, do, True, None, offs,
+                                   dlse)
+    torch.cuda.synchronize()
+
+    def rel(a, w):
+        return float((a.float() - w.float()).abs().max()) / max(
+            float(w.float().abs().max()), 1e-30)
+
+    errs = {"o": rel(o, o_ref)}
+    errs.update({n: rel(a, w) for n, a, w in zip(("dq", "dk", "dv"), got,
+                                                 want)})
+    valid = lse_ref > -1e29
+    check(bool(torch.isfinite(lse).all()), f"{label}: non-finite lse")
+    check(torch.equal(lse > -1e29, valid),
+          f"{label}: rows without a visible key differ from the plain "
+          "version")
+    lse_err = float((lse - lse_ref)[valid].abs().max()) if valid.any() \
+        else 0.0
+    future = kv_offset > q_offset + tq - 1
+    if future:
+        check(not o.float().any() and not any(x.float().any() for x in got)
+              and bool((lse <= -1e29).all()),
+              f"{label}: a wholly future chunk must give exact zeros and "
+              "lse <= -1e29")
+        errs = {n: float((x.float() - w.float()).abs().max())
+                for n, x, w in zip(("o", "dq", "dk", "dv"), (o,) + got,
+                                   (o_ref,) + want)}
+    delta = fa._delta(o, do, dlse)
+    route = fa.flash_fwd_route(dtype, d)
+    kms = dict(
+        K1=cuda_ms(torch, lambda: fa._flash_fwd_cuda(q, k, v, True, None,
+                                                     offs), iters),
+        K2=cuda_ms(torch, lambda: fa._flash_bwd_dkv_cuda(
+            q, k, v, do, lse, delta, True, None, offs), iters),
+        K3=cuda_ms(torch, lambda: fa._flash_bwd_dq_cuda(
+            q, k, v, do, lse, delta, True, None, offs), iters))
+    earlier = {}
+    if route == "wgmma":
+        few = max(1, iters // 4)
+        earlier = dict(
+            K1=cuda_ms(torch, lambda: fa._flash_fwd_cuda(
+                q, k, v, True, None, offs, route="fma"), few),
+            K2=cuda_ms(torch, lambda: fa._flash_bwd_dkv_cuda(
+                q, k, v, do, lse, delta, True, None, offs, route="fma"),
+                few),
+            K3=cuda_ms(torch, lambda: fa._flash_bwd_dq_cuda(
+                q, k, v, do, lse, delta, True, None, offs, route="fma"),
+                few))
+    plain_fwd_ms = cuda_ms(torch, lambda: fa._flash_fwd_reference(
+        q, k, v, True, None, offs), 2, warmup=1)
+    plain_bwd_ms = cuda_ms(torch, lambda: fa._flash_bwd_reference(
+        q, k, v, o, lse, do, True, None, offs, dlse), 2, warmup=1)
+    mask = (kv_offset + torch.arange(tk, device="cuda"))[None, :] <= (
+        q_offset + torch.arange(tq, device="cuda"))[:, None]
+    lib_fwd_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True), iters)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                         enable_gqa=True)
+    lib_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), iters)
+    pairs = visible_pairs(b, h, tq, tk, q_offset, kv_offset)
+    dname = str(dtype).replace("torch.", "")
+    reads = nbytes(q, k, v)
+    bwd_reads = reads + nbytes(do, lse, delta)
+    bounds = dict(K1=bound(reads + nbytes(o, lse), 4 * d * pairs, dname),
+                  K2=bound(bwd_reads + nbytes(got[1], got[2]),
+                           8 * d * pairs, dname),
+                  K3=bound(bwd_reads + nbytes(got[0]), 6 * d * pairs, dname))
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    lse_tol = 1e-4 if dtype == torch.float32 else 1e-3
+    name = (f"{label}: B{b} H{h} Hkv{hkv} Tq{tq} Tk{tk} D{d} {dname} "
+            f"offsets ({q_offset}, {kv_offset})"
+            f"{' dlse' if with_dlse else ''}")
+    log(f"  {name}: route {route}; error of the reference's max: "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (tol {tol:g}{', exact 0 here' if future else ''}); lse_err "
+        f"{lse_err:.3e} (tol {lse_tol:g}); {pairs} visible pairs")
+    for kname in ("K1", "K2", "K3"):
+        ear = f", earlier (fma) {earlier[kname]:.4f} ms" if earlier else ""
+        log(f"    {kname} {kms[kname]:.4f} ms{ear}; bound "
+            f"{bounds[kname][0]:.4f} ms ({bounds[kname][1]})")
+    log(f"    plain forward {plain_fwd_ms:.4f} ms, backward "
+        f"{plain_bwd_ms:.4f} ms; library (SDPA, boolean mask; it gives no "
+        f"lse) forward {lib_fwd_ms:.4f} ms, backward {lib_bwd_ms:.4f} ms")
+    for n, e in errs.items():
+        check(e <= (0.0 if future else tol),
+              f"{name}: {n} error {e} above {tol}")
+    check(lse_err <= lse_tol, f"{name}: lse error {lse_err}")
+
+    def one(kname, err, plain_ms, library_ms):
+        return dict(case=f"{kname} {name}", kernel_route=route,
+                    max_abs_err=err, ms=kms[kname],
+                    earlier_ms=earlier.get(kname), plain_ms=plain_ms,
+                    library_ms=library_ms, library_note="SDPA: no lse",
+                    bound_ms=bounds[kname][0], bound_by=bounds[kname][1],
+                    visible_pairs=pairs)
+
+    def max_abs(a, w):
+        return float((a.float() - w.float()).abs().max())
+
+    return {"K1": one("K1", max_abs(o, o_ref), plain_fwd_ms, lib_fwd_ms),
+            "K2": one("K2", max(max_abs(got[1], want[1]),
+                                max_abs(got[2], want[2])), plain_bwd_ms,
+                      lib_bwd_ms),
+            "K3": one("K3", max_abs(got[0], want[0]), plain_bwd_ms,
+                      lib_bwd_ms)}
+
+
+def run_ring_replay(torch, ctr, fa, ring_flash_steps, n=4, b=1, t=16384,
+                    h=16, hkv=4, d=128, iters=3):
+    """A seq=n ring replayed on one card: for each rank, its n steps
+    through ``ring_flash_steps`` (the port's ring step loop; the rotation
+    hands it the pre-split K/V chunks a ring would pass it) forward and
+    backward, its launches counted (n offsets K1, n K2 and n K3, all on
+    wgmma) and timed. The ranks' o, dq, dk and dv, joined, are held
+    against the one-card K1-K3 over the whole sequence in norm: 2x the
+    floor between the one-card wgmma and FMA kernels (two correct
+    kernels rounding in other places), plus 1e-2, as phase 15 does."""
+    g = torch.Generator(device="cuda").manual_seed(161)
+    bf16 = torch.bfloat16
+    q, do = (torch.randn((b, h, t, d), generator=g, device="cuda").to(bf16)
+             for _ in range(2))
+    k, v = (torch.randn((b, hkv, t, d), generator=g, device="cuda").to(bf16)
+            for _ in range(2))
+    tc = t // n
+    chunks = [[x.contiguous() for x in y.split(tc, 2)] for y in (q, k, v,
+                                                                 do)]
+
+    def rank_run(idx):
+        qi = chunks[0][idx].detach().requires_grad_(True)
+        kv = [x.detach().requires_grad_(True) for x in chunks[1] + chunks[2]]
+        at = [idx]
+
+        def rotate(kt, vt):
+            at[0] = (at[0] - 1) % n
+            return kv[at[0]], kv[n + at[0]]
+
+        o, _ = ring_flash_steps(qi, kv[idx], kv[n + idx], idx, n, rotate)
+        o = o.to(bf16)
+        grads = torch.autograd.grad(o, [qi] + kv, chunks[3][idx])
+        return o.detach(), grads
+
+    parts, per_rank = [], []
+    for idx in range(n):
+        reset_counts(ctr)
+        o, grads = rank_run(idx)
+        torch.cuda.synchronize()
+        launched = offsets_counts(ctr)
+        by_route = check_wgmma_routes(ctr, f"ring rank {idx}")
+        check(launched == {"K1": n, "K2": n, "K3": n}
+              and counts(ctr)["K1"] == n,
+              f"ring rank {idx}: offsets launches {launched}, expected "
+              f"{n} each")
+        parts.append((o, grads))
+        per_rank.append(dict(rank=idx, launches=launched,
+                             launches_by_route=by_route))
+    for idx in range(n):
+        per_rank[idx]["ms"] = cuda_ms(torch, lambda: rank_run(idx), iters,
+                                      warmup=1)
+    # Where a rank's time goes: its kernels, the merge's elementwise
+    # passes, the host between them (the busiest rank and the lightest).
+    profiles = {idx: device_profile(torch, f"ring rank {idx} forward + "
+                                    "backward", lambda: rank_run(idx))
+                for idx in (n - 1, 0)}
+    o_ring = torch.cat([p[0] for p in parts], 2)
+    dq_ring = torch.cat([p[1][0] for p in parts], 2)
+    dk_ring = torch.cat([sum(p[1][1 + j].float() for p in parts)
+                         for j in range(n)], 2)
+    dv_ring = torch.cat([sum(p[1][1 + n + j].float() for p in parts)
+                         for j in range(n)], 2)
+
+    def one_card(route):
+        o, lse = fa._flash_fwd_cuda(q, k, v, True, route=route)
+        delta = fa._delta(o, do)
+        dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True,
+                                        route=route)
+        dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, True,
+                                   route=route)
+        return (o, dq) + fa._sum_kv_heads(dk, dv, hkv)
+
+    want = one_card("wgmma")
+    floor = [norm_rel(a, w) for a, w in zip(one_card("fma"), want)]
+    err = [norm_rel(a, w) for a, w in zip(
+        (o_ring, dq_ring, dk_ring, dv_ring), want)]
+    whole_ms = cuda_ms(torch, lambda: one_card("wgmma"), iters, warmup=1)
+    names = ("o", "dq", "dk", "dv")
+    log(f"  seq={n} ring replayed at B{b} T{t} H{h} Hkv{hkv} D{d} bf16 "
+        f"(chunks of {tc}): norm-relative error against one-card K1-K3 "
+        + ", ".join(f"{nm} {e:.3e}" for nm, e in zip(names, err))
+        + "; floor (one-card FMA vs wgmma) "
+        + ", ".join(f"{nm} {f:.3e}" for nm, f in zip(names, floor))
+        + " (tol 2 x floor + 1e-2)")
+    for r in per_rank:
+        log(f"    rank {r['rank']}: {r['ms']:.3f} ms forward + backward "
+            f"over its {n} steps; offsets launches {r['launches']}, by "
+            f"route K1 {r['launches_by_route']['K1']}")
+    log(f"    one card, whole sequence, K1 + K2 + K3 (and the delta, "
+        f"the n_rep sum): {whole_ms:.3f} ms")
+    for nm, e, f in zip(names, err, floor):
+        check(e <= 2 * f + 1e-2, f"ring replay: {nm} error {e} above 2 x "
+              f"floor {f} + 1e-2")
+    log("  multi-rank ring and Ulysses on NCCL: not run (this machine has "
+        "one card, and NCCL refuses two ranks on one device); their "
+        "multi-rank numerics are held on the CPU over gloo "
+        "(tests/test_torch_seq_parallel.py)")
+    return dict(shape=f"B{b} T{t} H{h} Hkv{hkv} D{d} bf16 seq={n}",
+                norm_rel_err=dict(zip(names, err)),
+                floor=dict(zip(names, floor)), per_rank=per_rank,
+                profiles=profiles, one_card_ms=whole_ms,
+                launches={k: sum(r["launches"][k] for r in per_rank)
+                          for k in ("K1", "K2", "K3")})
+
+
 def main():
     import torch
 
@@ -2194,6 +2471,9 @@ def main():
         from horovod_tpu_torch.ops import flash_attention as fa
         from horovod_tpu_torch.ops import grouped_moe as gm
         from horovod_tpu_torch.parallel import precision, train_step
+        from horovod_tpu_torch.parallel.ring_attention import (
+            ring_flash_steps,
+        )
         from horovod_tpu_torch.serving.engine import DecodeEngine
         from horovod_tpu_torch.serving.scheduler import (
             Request,
@@ -2366,7 +2646,28 @@ def main():
     bert_parity = run_bert_parity(torch, ctr, fa, bert, train_step, bcfg)
     torch.cuda.empty_cache()
 
-    log("phase 16: results")
+    log("phase 16: the kernels' offsets variant at a seq=4 ring's chunks "
+        "(the flagship's attention, B1 x T16384)")
+    # H16 Hkv4 D128 bf16, chunks of 4096: the chunks one rank meets (past,
+    # diagonal, wholly future), a chunk starting inside a q tile, Tq !=
+    # Tk, a random lse cotangent; f32 on the FMA route (B2 T256).
+    c = 4096
+    offsets_cases = [
+        offsets_case(torch, fa, "past", 1, c, c, 3 * c, 0, bf16, 10),
+        offsets_case(torch, fa, "diagonal", 1, c, c, c, c, bf16, 10),
+        offsets_case(torch, fa, "future", 1, c, c, 0, 3 * c, bf16, 10),
+        offsets_case(torch, fa, "misaligned", 1, c, c, c + 37, c, bf16, 10),
+        offsets_case(torch, fa, "Tq != Tk", 1, c, c // 2, c, c, bf16, 10),
+        offsets_case(torch, fa, "dlse", 1, c, c, c, c, bf16, 10,
+                     with_dlse=True),
+        offsets_case(torch, fa, "f32", 2, 256, 256, 256 + 37, 256, f32, 10,
+                     with_dlse=True)]
+
+    log("phase 17: a seq=4 ring replayed on one card (B1 x T16384)")
+    ring = run_ring_replay(torch, ctr, fa, ring_flash_steps)
+    torch.cuda.empty_cache()
+
+    log("phase 18: results")
     log(json.dumps({"generate": gen_stats, "engine": eng_stats,
                     "train": train_stats, "train_parity": parity,
                     "moe_train": moe_train_stats,
@@ -2376,7 +2677,8 @@ def main():
                     "moe_bf16_grad_check": bf16_check, "lane": lane,
                     "bert_train": bert_train_stats,
                     "bert_forward": bert_fwd_stats,
-                    "bert_parity": bert_parity, "card": card}))
+                    "bert_parity": bert_parity, "ring_replay": ring,
+                    "card": card}))
     paths = {"llama_generate": gen_launch, "DecodeEngine": eng_launch,
              "train_step": train_launch, "moe_train_step": moe_train_launch,
              "moe_llama_generate": moe_gen_launch,
@@ -2439,6 +2741,23 @@ def main():
             "horovod_tpu/ops/grouped_moe.py:151", ["K6 dlhs", "K6 tgmm"],
             k6, head=k6_head),
     ]
+    # The offsets variant (the Pallas offsets grid at :281): its launches
+    # are phase 17's ring replay; its headline the past chunk (a full
+    # 4096 x 4096 step, the work most ring steps do).
+    for key, source in (("K1", "flash_fwd_wgmma.cu"),
+                        ("K2", "flash_bwd_wgmma.cu"),
+                        ("K3", "flash_bwd_dq_wgmma.cu")):
+        head = offsets_cases[0][key]
+        kernels.append(dict(
+            name=f"{key} offsets", route="cuda",
+            source=f"horovod_tpu_torch/csrc/{source}",
+            replaces="horovod_tpu/ops/flash_attention.py:281",
+            launches=ring["launches"][key],
+            **{k: head[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_note", "kernel_route",
+                "earlier_ms")},
+            cases=[case[key] for case in offsets_cases]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

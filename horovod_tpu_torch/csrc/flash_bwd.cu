@@ -3,8 +3,10 @@
 // K2 flash_bwd_dkv replaces horovod_tpu/ops/flash_attention.py:
 // _bwd_dkv_kernel; K3 flash_bwd_dq replaces _bwd_dq_kernel. Both are what
 // the TPU module's _flash_bwd_impl reaches (causal or not, with or without
-// the per-key bias; no offsets: the backward of every flash call in
-// llama_loss and bert_mlm_loss).
+// the per-key bias, with or without a ring step's chunk offsets: the
+// causal tests then compare global positions through shift = q_offset -
+// kv_offset, common.cuh, and the step's lse cotangent arrives folded into
+// delta by the caller).
 //
 // Given the forward's residuals (q, k, v, lse) and the output cotangent
 // do, with delta = rowsum(do * o) computed outside (f32), both recompute
@@ -31,10 +33,11 @@
 // in shared memory and streams the other side once; the causal skip is
 // the loop's bounds (K2 starts at the first q tile whose last row reaches
 // the key tile, the TPU kernel's pl.when at :166; K3 stops at the causal
-// limit, as K1 does). Any T is taken: ragged q rows and kv columns are
-// masked in the kernel. The products run on plain FMA in f32 from shared
-// memory (tiles held in f32, padded against bank conflicts), far below
-// the tensor-core bound; an mma.sync / wgmma + TMA pipeline is later work.
+// limit, as K1 does; an empty loop, a wholly future chunk, writes
+// zeros). Any T is taken: ragged q rows and kv columns are masked in the
+// kernel. The products run on plain FMA in f32 from shared memory (tiles
+// held in f32, padded against bank conflicts), far below the tensor-core
+// bound; bf16 runs on the wgmma kernels.
 //
 // The bias variants (template flag HAS_BIAS: the same code without it)
 // hold the key tile's bias in shared memory: once for K2's pinned keys,
@@ -51,6 +54,7 @@
 
 namespace {
 
+using hvd_torch::causal_kv_end;
 using hvd_torch::from_f;
 using hvd_torch::kNeg;
 using hvd_torch::round_to;
@@ -159,7 +163,7 @@ __global__ void __launch_bounds__(THREADS)
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dk,
                          T* __restrict__ dv, int H, int Hkv, int Tq, int Tk,
-                         float scale, int causal) {
+                         float scale, int causal, int shift) {
   constexpr int LD = D + 1;
   constexpr int LDS = BK + 1;
   constexpr int NJ = D / 16;  // dk/dv columns per thread
@@ -200,8 +204,8 @@ __global__ void __launch_bounds__(THREADS)
     }
 
   // Causal skip as the loop's start: the first q tile whose last row
-  // reaches this key tile's first key.
-  const int iq_begin = causal ? k0 / BQ : 0;
+  // reaches this key tile's first key (query k0 - shift).
+  const int iq_begin = causal ? max(0, k0 - shift) / BQ : 0;
   const int n_q_tiles = (Tq + BQ - 1) / BQ;
   for (int iq = iq_begin; iq < n_q_tiles; ++iq) {
     const int q0 = iq * BQ;
@@ -224,7 +228,7 @@ __global__ void __launch_bounds__(THREADS)
         const int r = ty * 4 + i, c = tx + 16 * j;
         const int qpos = q0 + r, kpos = k0 + c;
         const bool valid =
-            qpos < Tq && kpos < Tk && !(causal && kpos > qpos);
+            qpos < Tq && kpos < Tk && !(causal && kpos > qpos + shift);
         float p, ds;
         p_ds(s[i][j], dp[i][j], valid, HAS_BIAS ? b_s[c] : 0.f, lse_s[r],
              dl_s[r], scale, &p, &ds);
@@ -278,7 +282,7 @@ __global__ void __launch_bounds__(THREADS)
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
                         int H, int Hkv, int Tq, int Tk, float scale,
-                        int causal) {
+                        int causal, int shift) {
   constexpr int LD = D + 1;
   constexpr int LDS = BK + 1;
   constexpr int NJ = D / 16;  // dq columns per thread
@@ -319,7 +323,7 @@ __global__ void __launch_bounds__(THREADS)
   // Causal whole-tile skip, as in K1: tiles past this q tile's last row
   // hold no valid key for any of its rows.
   const int q_last = min(q0 + BQ, Tq) - 1;
-  const int kv_end = causal ? min(Tk, q_last + 1) : Tk;
+  const int kv_end = causal ? causal_kv_end(q_last, shift, Tk) : Tk;
   const int n_tiles = (kv_end + BK - 1) / BK;
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -339,7 +343,7 @@ __global__ void __launch_bounds__(THREADS)
         const int r = ty * 4 + i, c = tx + 16 * j;
         const int qpos = q0 + r, kpos = k0 + c;
         const bool valid =
-            qpos < Tq && kpos < Tk && !(causal && kpos > qpos);
+            qpos < Tq && kpos < Tk && !(causal && kpos > qpos + shift);
         float p, ds;
         p_ds(s[i][j], dp[i][j], valid, HAS_BIAS ? b_s[c] : 0.f, lse_s[r],
              dl_s[r], scale, &p, &ds);
@@ -376,7 +380,7 @@ cudaError_t launch_dkv_variant(const void* q, const void* k, const void* v,
                                const void* bias, const void* dout,
                                const void* lse, const void* delta, void* dk,
                                void* dv, int B, int H, int Hkv, int Tq,
-                               int Tk, int causal, float scale,
+                               int Tk, int causal, int shift, float scale,
                                cudaStream_t stream) {
   const size_t smem = dkv_smem_bytes<D, HAS_BIAS>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -389,7 +393,7 @@ cudaError_t launch_dkv_variant(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<const float*>(bias),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dk),
-      static_cast<T*>(dv), H, Hkv, Tq, Tk, scale, causal);
+      static_cast<T*>(dv), H, Hkv, Tq, Tk, scale, causal, shift);
   return cudaGetLastError();
 }
 
@@ -397,14 +401,16 @@ template <typename T, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* bias, const void* dout, const void* lse,
                        const void* delta, void* dk, void* dv, int B, int H,
-                       int Hkv, int Tq, int Tk, int causal, float scale,
-                       cudaStream_t stream) {
+                       int Hkv, int Tq, int Tk, int causal, int shift,
+                       float scale, cudaStream_t stream) {
   return bias ? launch_dkv_variant<T, D, true>(q, k, v, bias, dout, lse,
                                                delta, dk, dv, B, H, Hkv, Tq,
-                                               Tk, causal, scale, stream)
+                                               Tk, causal, shift, scale,
+                                               stream)
               : launch_dkv_variant<T, D, false>(q, k, v, bias, dout, lse,
                                                 delta, dk, dv, B, H, Hkv, Tq,
-                                                Tk, causal, scale, stream);
+                                                Tk, causal, shift, scale,
+                                                stream);
 }
 
 template <typename T, int D, bool HAS_BIAS>
@@ -412,7 +418,8 @@ cudaError_t launch_dq_variant(const void* q, const void* k, const void* v,
                               const void* bias, const void* dout,
                               const void* lse, const void* delta, void* dq,
                               int B, int H, int Hkv, int Tq, int Tk,
-                              int causal, float scale, cudaStream_t stream) {
+                              int causal, int shift, float scale,
+                              cudaStream_t stream) {
   const size_t smem = dq_smem_bytes<D, HAS_BIAS>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, D, HAS_BIAS>,
@@ -424,7 +431,7 @@ cudaError_t launch_dq_variant(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<const float*>(bias),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dq), H, Hkv, Tq, Tk,
-      scale, causal);
+      scale, causal, shift);
   return cudaGetLastError();
 }
 
@@ -432,14 +439,14 @@ template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* bias, const void* dout, const void* lse,
                       const void* delta, void* dq, int B, int H, int Hkv,
-                      int Tq, int Tk, int causal, float scale,
+                      int Tq, int Tk, int causal, int shift, float scale,
                       cudaStream_t stream) {
   return bias ? launch_dq_variant<T, D, true>(q, k, v, bias, dout, lse, delta,
                                               dq, B, H, Hkv, Tq, Tk, causal,
-                                              scale, stream)
+                                              shift, scale, stream)
               : launch_dq_variant<T, D, false>(q, k, v, bias, dout, lse,
                                                delta, dq, B, H, Hkv, Tq, Tk,
-                                               causal, scale, stream);
+                                               causal, shift, scale, stream);
 }
 
 }  // namespace
@@ -447,22 +454,26 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 // Both entries return the CUDA error code of the launch (0 on success).
 // D must be 16, 32, 64 or 128; is_bf16 selects bfloat16 over float32 for
 // q, k, v, do and the outputs (lse, delta and the [B, Tk] bias, null for
-// none, are always f32).
+// none, are always f32); q_offset and kv_offset are the global positions
+// of the first query and the first key for the causal mask (0 outside a
+// ring step).
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* bias, const void* dout,
                              const void* lse, const void* delta, void* dk,
                              void* dv, int B, int H, int Hkv, int Tq, int Tk,
-                             int D, int causal, int is_bf16, float scale,
-                             void* stream) {
+                             int D, int causal, int q_offset, int kv_offset,
+                             int is_bf16, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int shift = q_offset - kv_offset;
 #define HVD_DKV_CASE(DV)                                                      \
   case DV:                                                                    \
     return is_bf16 ? launch_dkv<__nv_bfloat16, DV>(q, k, v, bias, dout, lse,  \
                                                    delta, dk, dv, B, H, Hkv,  \
-                                                   Tq, Tk, causal, scale, s)  \
+                                                   Tq, Tk, causal, shift,     \
+                                                   scale, s)                  \
                    : launch_dkv<float, DV>(q, k, v, bias, dout, lse, delta,   \
                                            dk, dv, B, H, Hkv, Tq, Tk, causal, \
-                                           scale, s);
+                                           shift, scale, s);
   switch (D) {
     HVD_DKV_CASE(16)
     HVD_DKV_CASE(32)
@@ -478,17 +489,19 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* bias, const void* dout,
                             const void* lse, const void* delta, void* dq,
                             int B, int H, int Hkv, int Tq, int Tk, int D,
-                            int causal, int is_bf16, float scale,
-                            void* stream) {
+                            int causal, int q_offset, int kv_offset,
+                            int is_bf16, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int shift = q_offset - kv_offset;
 #define HVD_DQ_CASE(DV)                                                       \
   case DV:                                                                    \
     return is_bf16 ? launch_dq<__nv_bfloat16, DV>(q, k, v, bias, dout, lse,   \
                                                   delta, dq, B, H, Hkv, Tq,   \
-                                                  Tk, causal, scale, s)       \
+                                                  Tk, causal, shift, scale,   \
+                                                  s)                          \
                    : launch_dq<float, DV>(q, k, v, bias, dout, lse, delta,    \
                                           dq, B, H, Hkv, Tq, Tk, causal,      \
-                                          scale, s);
+                                          shift, scale, s);
   switch (D) {
     HVD_DQ_CASE(16)
     HVD_DQ_CASE(32)

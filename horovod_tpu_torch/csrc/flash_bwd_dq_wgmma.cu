@@ -13,7 +13,10 @@
 // with f32 products and accumulators. GQA is native (query head h reads
 // kv head h / n_rep); any T is taken, causal or not. With a per-key bias
 // (the TPU kernel's has_bias) s gets bias[b, key] added after the mask, on
-// every tile, before p.
+// every tile, before p. With chunk offsets (has_offsets: a ring step) the
+// causal tests compare global positions through shift = q_offset -
+// kv_offset (common.cuh); the lse cotangent of a ring step reaches the
+// kernel folded into delta by the caller.
 //
 // What bounds it on an H100: at the train shape (B4 H16 Hkv4 T2048 D128
 // causal) its three products are 6 D flop per causal pair, 103 GFLOP,
@@ -36,14 +39,16 @@
 // thread at D128). Only tiles on the diagonal or past T are masked; the
 // kv loop stops at the causal limit of the block's last row, a
 // warpgroup skips the tiles wholly after its own rows, and the heaviest
-// (last) q tiles are launched first. No atomics: each dq element is
-// written once, by the one thread that summed it, so two launches give
-// the same bits. Tensor maps are 3-D over [B*H(kv), T, D], so rows past T
-// are zero-filled per head, and head dims below 64 are padded to 64 by
-// the same fill. The bias variant (template flag HAS_BIAS; without it the
-// kernel is the same code, with the same registers and shared memory)
-// stages each kv tile's 64 bias floats in its ring stage by one bulk copy
-// on the stage's barrier.
+// (last) q tiles are launched first (under offsets too: each block still
+// takes its own q tile once). Under offsets the diagonal moves by shift;
+// a wholly future chunk leaves the kv loop empty and dq = 0 is written.
+// No atomics: each dq element is written once, by the one thread that
+// summed it, so two launches give the same bits. Tensor maps are 3-D
+// over [B*H(kv), T, D], so rows past T are zero-filled per head, and head
+// dims below 64 are padded to 64 by the same fill. The bias variant
+// (template flag HAS_BIAS; without it the kernel is the same code, with
+// the same registers and shared memory) stages each kv tile's 64 bias
+// floats in its ring stage by one bulk copy on the stage's barrier.
 //
 // Layout: q/do/dq [B, H, Tq, D], k/v [B, Hkv, Tk, D] bf16; lse and delta
 // f32 [B*H, Tp], Tp = Tq rounded up to 64 (the caller pads); bias f32
@@ -87,7 +92,7 @@ template <int DP, bool HAS_BIAS>
 __device__ __forceinline__ void consume(
     uint8_t* smem, uint64_t* q_full, uint64_t* full, uint64_t* empty,
     __nv_bfloat16* __restrict__ dq, int bh, int q0, int n_tiles, int Tq,
-    int Tk, int D, float scale, int causal) {
+    int Tk, int D, float scale, int causal, int shift) {
   using L = Layout<DP, HAS_BIAS>;
   constexpr int NC = L::NC;
 
@@ -125,7 +130,8 @@ __device__ __forceinline__ void consume(
     const int s = t % STAGES;
     mbar_wait(&full[s], (t / STAGES) & 1);
     const int k0 = t * BK;
-    if (!live || (causal && k0 > qw + 63)) {  // every key after every row
+    // Every key after every row:
+    if (!live || (causal && k0 > qw + 63 + shift)) {
       if (tw % 32 == 0) mbar_arrive(&empty[s]);
       continue;
     }
@@ -157,14 +163,15 @@ __device__ __forceinline__ void consume(
     // p: scale, then mask (only a tile past Tk or on the diagonal holds
     // masked pairs), then the bias on every tile, then exp against the
     // row's lse.
-    const bool masked = k0 + BK > Tk || (causal && k0 + BK - 1 > qw);
+    const bool masked = k0 + BK > Tk || (causal && k0 + BK - 1 > qw + shift);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int r = (i >> 1) & 1;
       float x = sc[i] * scale;
       if (masked) {
         const int kpos = k0 + 8 * (i / 4) + col + (i & 1);
-        if (kpos >= Tk || (causal && kpos > qw + row_a + 8 * r)) x = kNeg;
+        if (kpos >= Tk || (causal && kpos > qw + row_a + 8 * r + shift))
+          x = kNeg;
       }
       if constexpr (HAS_BIAS) x += bias_s[8 * (i / 4) + col + (i & 1)];
       sc[i] = x > kNeg * 0.5f ? __expf(x - lse_r[r]) : 0.f;
@@ -225,8 +232,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                               const float* __restrict__ lse,
                               const float* __restrict__ delta,
                               __nv_bfloat16* __restrict__ dq, int H, int Hkv,
-                              int Tq, int Tk, int D, float scale,
-                              int causal) {
+                              int Tq, int Tk, int D, float scale, int causal,
+                              int shift) {
   using L = Layout<DP, HAS_BIAS>;
   constexpr int NC = L::NC;
   extern __shared__ uint8_t smem_raw[];
@@ -242,7 +249,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int bkh = b * Hkv + h / (H / Hkv);
   // The causal limit of the block's last row ends the kv loop.
   const int q_last = min(q0 + BQ, Tq) - 1;
-  const int kv_end = causal ? min(Tk, q_last + 1) : Tk;
+  const int kv_end = causal ? causal_kv_end(q_last, shift, Tk) : Tk;
   const int n_tiles = (kv_end + BK - 1) / BK;
   const int tp = (Tq + 63) / 64 * 64;
   const int n_live = q0 + 64 < Tq ? 2 : 1;  // warpgroups with a row < Tq
@@ -296,7 +303,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   } else {
     setmaxnreg_inc<232>();
     consume<DP, HAS_BIAS>(smem, q_full, full, empty, dq, bh, q0, n_tiles, Tq,
-                          Tk, D, scale, causal);
+                          Tk, D, scale, causal, shift);
   }
 }
 
@@ -304,7 +311,7 @@ template <int DP, bool HAS_BIAS>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bias, const void* dout, const void* lse,
                    const void* delta, void* dq, int B, int H, int Hkv, int Tq,
-                   int Tk, int D, int causal, float scale,
+                   int Tk, int D, int causal, int shift, float scale,
                    cudaStream_t stream) {
   CUtensorMap qm, km, vm, dm;
   const uint64_t qdims[3] = {(uint64_t)D, (uint64_t)Tq, (uint64_t)B * H};
@@ -325,31 +332,34 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       qm, km, vm, dm, static_cast<const float*>(bias),
       static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), H,
-      Hkv, Tq, Tk, D, scale, causal);
+      Hkv, Tq, Tk, D, scale, causal, shift);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Same arguments as csrc/flash_bwd.cu's flash_bwd_dq, but lse and delta
-// are [B*H, Tp] (padded to a multiple of 64 queries) and a non-null bias
-// is [B, Tkp] (padded to a multiple of 128 keys); only bf16 (is_bf16 = 1)
-// and D in {16, 32, 64, 128} are taken. Returns the CUDA error code of the
-// launch (0 on success; cudaErrorInvalidValue for another dtype or D, or
-// a tensor map cuTensorMapEncodeTiled refuses).
+// Same arguments as csrc/flash_bwd.cu's flash_bwd_dq (offsets included),
+// but lse and delta are [B*H, Tp] (padded to a multiple of 64 queries) and
+// a non-null bias is [B, Tkp] (padded to a multiple of 128 keys); only
+// bf16 (is_bf16 = 1) and D in {16, 32, 64, 128} are taken. Returns the
+// CUDA error code of the launch (0 on success; cudaErrorInvalidValue for
+// another dtype or D, or a tensor map cuTensorMapEncodeTiled refuses).
 extern "C" int flash_bwd_dq_wgmma(const void* q, const void* k,
                                   const void* v, const void* bias,
                                   const void* dout, const void* lse,
                                   const void* delta, void* dq, int B, int H,
                                   int Hkv, int Tq, int Tk, int D, int causal,
-                                  int is_bf16, float scale, void* stream) {
+                                  int q_offset, int kv_offset, int is_bf16,
+                                  float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16) return (int)cudaErrorInvalidValue;
+  const int shift = q_offset - kv_offset;
 #define HVD_DQ_LAUNCH(DP)                                                  \
   return bias ? launch<DP, true>(q, k, v, bias, dout, lse, delta, dq, B, H, \
-                                 Hkv, Tq, Tk, D, causal, scale, s)         \
+                                 Hkv, Tq, Tk, D, causal, shift, scale, s)  \
               : launch<DP, false>(q, k, v, bias, dout, lse, delta, dq, B,  \
-                                  H, Hkv, Tq, Tk, D, causal, scale, s);
+                                  H, Hkv, Tq, Tk, D, causal, shift, scale, \
+                                  s);
   if (D == 16 || D == 32 || D == 64) HVD_DQ_LAUNCH(64)
   if (D == 128) HVD_DQ_LAUNCH(128)
 #undef HVD_DQ_LAUNCH

@@ -16,7 +16,10 @@
 // in f32, as the TPU module does outside its kernel. GQA is native (query
 // head h reads kv head h / n_rep); any T is taken, causal or not. With a
 // per-key bias (the TPU kernel's has_bias) s gets bias[b, key] added after
-// the mask, on every tile, before p.
+// the mask, on every tile, before p. With chunk offsets (has_offsets: a
+// ring step) the causal tests compare global positions through shift =
+// q_offset - kv_offset (common.cuh); the lse cotangent of a ring step
+// reaches the kernel folded into delta by the caller.
 //
 // What bounds it on an H100: at the train shape (B4 H16 Hkv4 T2048 D128
 // causal) its four products are 8 D flop per causal pair, 137 GFLOP,
@@ -37,7 +40,10 @@
 // dK += dS^T Q, which read dO and Q MN-major (the transpose bit); dK and
 // dV stay in registers for the whole loop (2 x 64 f32 a thread at D128).
 // Only tiles on the diagonal or past T are masked; a q tile that lies
-// wholly before a warpgroup's keys is skipped by it. Tensor maps are 3-D
+// wholly before a warpgroup's keys is skipped by it. Under offsets the
+// diagonal moves by shift and may cut a tile anywhere (a chunk starting
+// mid-tile); when no q tile reaches the block's keys (a wholly future
+// chunk) the loop is empty and dk = dv = 0 are written. Tensor maps are 3-D
 // over [B*H(kv), T, D], so rows past T are zero-filled per head, and
 // head dims below 64 are padded to 64 by the same fill. The bias variant
 // (template flag HAS_BIAS; without it the kernel is the same code, with
@@ -86,7 +92,7 @@ __device__ __forceinline__ void consume(
     uint8_t* smem, uint64_t* kv_full, uint64_t* full, uint64_t* empty,
     const float* __restrict__ bias_row, __nv_bfloat16* __restrict__ dk,
     __nv_bfloat16* __restrict__ dv, int bh, int k0, int iq_begin, int n_q,
-    int Tq, int Tk, int D, float scale, int causal) {
+    int Tq, int Tk, int D, float scale, int causal, int shift) {
   using L = Layout<DP>;
   constexpr int NC = L::NC;
 
@@ -127,7 +133,8 @@ __device__ __forceinline__ void consume(
     const int s = t % STAGES;
     mbar_wait(&full[s], (t / STAGES) & 1);
     const int q0 = (iq_begin + t) * BQ;
-    if (causal && q0 + BQ - 1 < key0) {  // every query before every key
+    // Every query before every key:
+    if (causal && q0 + BQ - 1 + shift < key0) {
       if (tw % 32 == 0) mbar_arrive(&empty[s]);
       continue;
     }
@@ -161,14 +168,15 @@ __device__ __forceinline__ void consume(
     // masked pairs), then the bias on every tile, then exp against the
     // column's lse.
     const bool masked = q0 + BQ > Tq || key0 + 64 > Tk ||
-                        (causal && key0 + 63 > q0);
+                        (causal && key0 + 63 > q0 + shift);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int qc = 8 * (i / 4) + col + (i & 1);
       float x = sc[i] * scale;
       if (masked) {
         const int qpos = q0 + qc, kpos = key0 + row_a + 8 * ((i >> 1) & 1);
-        if (qpos >= Tq || kpos >= Tk || (causal && kpos > qpos)) x = kNeg;
+        if (qpos >= Tq || kpos >= Tk || (causal && kpos > qpos + shift))
+          x = kNeg;
       }
       if constexpr (HAS_BIAS) x += kb[(i >> 1) & 1];
       sc[i] = x > kNeg * 0.5f ? __expf(x - lse_s[qc]) : 0.f;
@@ -242,7 +250,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                                __nv_bfloat16* __restrict__ dk,
                                __nv_bfloat16* __restrict__ dv, int H,
                                int Hkv, int Tq, int Tk, int D, float scale,
-                               int causal) {
+                               int causal, int shift) {
   using L = Layout<DP>;
   constexpr int NC = L::NC;
   extern __shared__ uint8_t smem_raw[];
@@ -256,8 +264,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int bh = b * H + h;
   const int bkh = b * Hkv + h / (H / Hkv);
   // Causal skip as the loop's start: the first q tile whose last row
-  // reaches this block's first key.
-  const int iq_begin = causal ? k0 / BQ : 0;
+  // reaches this block's first key (global positions: query k0 - shift).
+  const int iq_begin = causal ? max(0, k0 - shift) / BQ : 0;
   const int n_q = max(0, (Tq + BQ - 1) / BQ - iq_begin);
   const int tp = (Tq + BQ - 1) / BQ * BQ;
 
@@ -304,7 +312,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     const float* bias_row =
         HAS_BIAS ? bias + (size_t)b * ((Tk + 127) / 128 * 128) : nullptr;
     consume<DP, HAS_BIAS>(smem, kv_full, full, empty, bias_row, dk, dv, bh,
-                          k0, iq_begin, n_q, Tq, Tk, D, scale, causal);
+                          k0, iq_begin, n_q, Tq, Tk, D, scale, causal,
+                          shift);
   }
 }
 
@@ -312,8 +321,8 @@ template <int DP, bool HAS_BIAS>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bias, const void* dout, const void* lse,
                    const void* delta, void* dk, void* dv, int B, int H,
-                   int Hkv, int Tq, int Tk, int D, int causal, float scale,
-                   cudaStream_t stream) {
+                   int Hkv, int Tq, int Tk, int D, int causal, int shift,
+                   float scale, cudaStream_t stream) {
   CUtensorMap qm, km, vm, dm;
   const uint64_t qdims[3] = {(uint64_t)D, (uint64_t)Tq, (uint64_t)B * H};
   const uint64_t kdims[3] = {(uint64_t)D, (uint64_t)Tk, (uint64_t)B * Hkv};
@@ -333,33 +342,37 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       qm, km, vm, dm, static_cast<const float*>(bias),
       static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, Hkv, Tq, Tk, D, scale, causal);
+      static_cast<__nv_bfloat16*>(dv), H, Hkv, Tq, Tk, D, scale, causal,
+      shift);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Same arguments as csrc/flash_bwd.cu's flash_bwd_dkv, but lse and delta
-// are [B*H, Tp] (padded to a multiple of 64 queries) and a non-null bias
-// is [B, Tkp] (padded to a multiple of 128 keys); only bf16 (is_bf16 = 1)
-// and D in {16, 32, 64, 128} are taken. Returns the CUDA error code of the
-// launch (0 on success; cudaErrorInvalidValue for another dtype or D, or
-// a tensor map cuTensorMapEncodeTiled refuses).
+// Same arguments as csrc/flash_bwd.cu's flash_bwd_dkv (offsets included),
+// but lse and delta are [B*H, Tp] (padded to a multiple of 64 queries) and
+// a non-null bias is [B, Tkp] (padded to a multiple of 128 keys); only
+// bf16 (is_bf16 = 1) and D in {16, 32, 64, 128} are taken. Returns the
+// CUDA error code of the launch (0 on success; cudaErrorInvalidValue for
+// another dtype or D, or a tensor map cuTensorMapEncodeTiled refuses).
 extern "C" int flash_bwd_dkv_wgmma(const void* q, const void* k,
                                    const void* v, const void* bias,
                                    const void* dout, const void* lse,
                                    const void* delta, void* dk, void* dv,
                                    int B, int H, int Hkv, int Tq, int Tk,
-                                   int D, int causal, int is_bf16,
-                                   float scale, void* stream) {
+                                   int D, int causal, int q_offset,
+                                   int kv_offset, int is_bf16, float scale,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16) return (int)cudaErrorInvalidValue;
+  const int shift = q_offset - kv_offset;
 #define HVD_DKV_LAUNCH(DP)                                                \
   return bias ? launch<DP, true>(q, k, v, bias, dout, lse, delta, dk, dv, \
-                                 B, H, Hkv, Tq, Tk, D, causal, scale, s)  \
+                                 B, H, Hkv, Tq, Tk, D, causal, shift,     \
+                                 scale, s)                                \
               : launch<DP, false>(q, k, v, bias, dout, lse, delta, dk,    \
                                   dv, B, H, Hkv, Tq, Tk, D, causal,       \
-                                  scale, s);
+                                  shift, scale, s);
   if (D == 16 || D == 32 || D == 64) HVD_DKV_LAUNCH(64)
   if (D == 128) HVD_DKV_LAUNCH(128)
 #undef HVD_DKV_LAUNCH

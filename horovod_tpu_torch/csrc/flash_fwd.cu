@@ -2,7 +2,9 @@
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_fwd_kernel, the Pallas
 // TPU kernel that _flash_fwd_impl reaches (causal or not, with or
-// without the per-key bias; no offsets).
+// without the per-key bias, with or without the ring step's chunk
+// offsets: the causal tests then compare global positions through
+// shift = q_offset - kv_offset, common.cuh).
 //
 // Computes, per (batch, query head), online-softmax attention
 //   o = softmax(q k^T * D^-1/2 + causal mask + bias) v,  lse = m + log(l)
@@ -21,13 +23,14 @@
 // What this design does about it: it reads q once per block and each
 // k/v tile once per query tile (no [T, T] score tensor ever reaches
 // device memory), and stops the kv loop at the causal limit, which is
-// the TPU kernel's whole-block skip. Any T is taken: the ragged last
-// q and kv tiles are masked in the kernel (the TPU code instead picked
-// a block size dividing T). The products run on plain FMA in f32 from
-// shared memory. This is K1's f32 route; bf16 runs on the tensor cores
-// in csrc/flash_fwd_wgmma.cu (ops/flash_attention.py flash_fwd_route),
-// and this kernel's bf16 instantiation is kept as that kernel's
-// yardstick (taken only when asked for by name).
+// the TPU kernel's whole-block skip (a wholly future chunk has no tile:
+// every row is written as one with no valid key). Any T is taken: the
+// ragged last q and kv tiles are masked in the kernel (the TPU code
+// instead picked a block size dividing T). The products run on plain
+// FMA in f32 from shared memory. This is K1's f32 route; bf16 runs on the
+// tensor cores in csrc/flash_fwd_wgmma.cu (ops/flash_attention.py
+// flash_fwd_route), and this kernel's bf16 instantiation is kept as that
+// kernel's yardstick (taken only when asked for by name).
 //
 // The bias variant (template flag HAS_BIAS: the same code without it)
 // adds bias[b, key] to every score after the mask, from a 64-float tile
@@ -43,6 +46,7 @@
 
 namespace {
 
+using hvd_torch::causal_kv_end;
 using hvd_torch::from_f;
 using hvd_torch::kNeg;
 using hvd_torch::round_to;
@@ -66,7 +70,8 @@ __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
                      T* __restrict__ o, float* __restrict__ lse, int H,
-                     int Hkv, int Tq, int Tk, float scale, int causal) {
+                     int Hkv, int Tq, int Tk, float scale, int causal,
+                     int shift) {
   constexpr int LD = D + 1;     // padded rows: no shared-memory bank clash
   constexpr int LDS = BK + 1;
   constexpr int NJ = D / 16;    // output columns per thread
@@ -108,7 +113,7 @@ __global__ void __launch_bounds__(THREADS)
   // Causal whole-tile skip: tiles past this q tile's last row hold no
   // valid key for any of its rows.
   const int q_last = min(q0 + BQ, Tq) - 1;
-  const int kv_end = causal ? min(Tk, q_last + 1) : Tk;
+  const int kv_end = causal ? causal_kv_end(q_last, shift, Tk) : Tk;
   const int n_tiles = (kv_end + BK - 1) / BK;
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -149,7 +154,7 @@ __global__ void __launch_bounds__(THREADS)
         const int r = ty * 4 + i, c = tx + 16 * j;
         const int kpos = k0 + c;
         float s = sc[i][j] * scale;
-        if (kpos >= Tk || (causal && kpos > q0 + r)) s = kNeg;
+        if (kpos >= Tk || (causal && kpos > q0 + r + shift)) s = kNeg;
         if constexpr (HAS_BIAS) s += b_s[c];
         ss[r * LDS + c] = s;
       }
@@ -220,8 +225,8 @@ __global__ void __launch_bounds__(THREADS)
 template <typename T, int D, bool HAS_BIAS>
 cudaError_t launch_variant(const void* q, const void* k, const void* v,
                            const void* bias, void* o, void* lse, int B, int H,
-                           int Hkv, int Tq, int Tk, int causal, float scale,
-                           cudaStream_t stream) {
+                           int Hkv, int Tq, int Tk, int causal, int shift,
+                           float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<D, HAS_BIAS>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D, HAS_BIAS>,
@@ -232,38 +237,44 @@ cudaError_t launch_variant(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
       static_cast<T*>(o), static_cast<float*>(lse), H, Hkv, Tq, Tk, scale,
-      causal);
+      causal, shift);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bias, void* o, void* lse, int B, int H,
-                   int Hkv, int Tq, int Tk, int causal, float scale,
-                   cudaStream_t stream) {
+                   int Hkv, int Tq, int Tk, int causal, int shift,
+                   float scale, cudaStream_t stream) {
   return bias ? launch_variant<T, D, true>(q, k, v, bias, o, lse, B, H, Hkv,
-                                           Tq, Tk, causal, scale, stream)
+                                           Tq, Tk, causal, shift, scale,
+                                           stream)
               : launch_variant<T, D, false>(q, k, v, bias, o, lse, B, H, Hkv,
-                                            Tq, Tk, causal, scale, stream);
+                                            Tq, Tk, causal, shift, scale,
+                                            stream);
 }
 
 }  // namespace
 
 // Returns the CUDA error code of the launch (0 on success). D must be
 // 16, 32, 64 or 128; is_bf16 selects bfloat16 over float32 for q, k, v
-// and o; bias is the [B, Tk] f32 per-key bias, or null for none.
+// and o; bias is the [B, Tk] f32 per-key bias, or null for none;
+// q_offset and kv_offset are the global positions of the first query and
+// the first key for the causal mask (both 0 outside a ring step).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* bias, void* o, void* lse, int B, int H,
                          int Hkv, int Tq, int Tk, int D, int causal,
-                         int is_bf16, float scale, void* stream) {
+                         int q_offset, int kv_offset, int is_bf16,
+                         float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int shift = q_offset - kv_offset;
 #define HVD_FLASH_CASE(DV)                                                   \
   case DV:                                                                   \
     return is_bf16 ? launch<__nv_bfloat16, DV>(q, k, v, bias, o, lse, B, H,  \
-                                                Hkv, Tq, Tk, causal, scale,  \
-                                                s)                           \
+                                                Hkv, Tq, Tk, causal, shift,  \
+                                                scale, s)                    \
                    : launch<float, DV>(q, k, v, bias, o, lse, B, H, Hkv, Tq, \
-                                       Tk, causal, scale, s);
+                                       Tk, causal, shift, scale, s);
   switch (D) {
     HVD_FLASH_CASE(16)
     HVD_FLASH_CASE(32)

@@ -11,6 +11,10 @@
 // GQA is native (kv head = h / n_rep); any T is taken. With a per-key
 // bias (the TPU kernel's has_bias: BERT's padding mask) every score gets
 // bias[b, key] added after the mask and before the max, on every tile.
+// With chunk offsets (the TPU kernel's has_offsets: one ring-attention
+// step, queries from global position q_offset, keys from kv_offset) the
+// causal tests compare global positions, through shift = q_offset -
+// kv_offset (common.cuh); offsets (0, 0) are the plain kernel.
 //
 // What bounds it on an H100: at the train shape (B4 H16 Hkv4 T2048 D128)
 // the causal products are 69 GFLOP, 0.07 ms at 989 TFLOP/s, against
@@ -32,11 +36,16 @@
 // row); p is rounded to bf16 into wgmma's register A fragment and
 // O += P V reads V MN-major (the transpose bit). Only diagonal and ragged
 // tiles are masked; tiles past the causal limit are skipped whole, and
-// the heaviest (last) q tiles are scheduled first. The bias variant
-// (template flag HAS_BIAS; without it the kernel is the same code, with
-// the same registers and shared memory) stages each kv tile's 128 bias
-// floats in its ring stage by one bulk copy on the stage's barrier, and
-// every consumer thread reads its 32 keys' values from there.
+// the heaviest (last) q tiles are scheduled first. Under offsets a chunk
+// may start mid-tile, so "masked" is any tile reaching past a
+// warpgroup's first row in global positions, and a wholly future chunk
+// has no tile at all: the loop is empty and every row is written as a
+// row with no valid key (o = 0, lse = -1e30 + log(1e-30), finite). The
+// bias variant (template flag HAS_BIAS; without it the kernel is the
+// same code, with the same registers and shared memory) stages each kv
+// tile's 128 bias floats in its ring stage by one bulk copy on the
+// stage's barrier, and every consumer thread reads its 32 keys' values
+// from there.
 //
 // Layout: q/o [B, H, T, D], k/v [B, Hkv, Tk, D] bf16, lse [B, H, T] f32,
 // bias f32 [B, Tkp], Tkp = Tk rounded up to 128 (the caller pads, so each
@@ -79,7 +88,7 @@ template <int DP, bool HAS_BIAS>
 __device__ __forceinline__ void consume(
     uint8_t* smem, uint64_t* q_full, uint64_t* full, uint64_t* empty,
     __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int bh, int q0,
-    int n_tiles, int Tq, int Tk, int D, float scale, int causal) {
+    int n_tiles, int Tq, int Tk, int D, float scale, int causal, int shift) {
   using L = Layout<DP, HAS_BIAS>;
   constexpr int NC = L::NC;
 
@@ -119,11 +128,11 @@ __device__ __forceinline__ void consume(
     fence_regs(sc);
 
     // Scale, then mask: only a tile that reaches past Tk or past this
-    // warpgroup's first row (the diagonal) holds masked keys. The bias
-    // goes on every tile, after the mask.
+    // warpgroup's first row (the diagonal, moved by the offsets) holds
+    // masked keys. The bias goes on every tile, after the mask.
     const int k0 = t * BKV;
     const bool masked =
-        k0 + BKV > Tk || (causal && k0 + BKV - 1 > q0 + 64 * w);
+        k0 + BKV > Tk || (causal && k0 + BKV - 1 > q0 + 64 * w + shift);
     float mx[2] = {kNeg, kNeg};
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
@@ -131,7 +140,8 @@ __device__ __forceinline__ void consume(
       float x = sc[i] * scale;
       if (masked) {
         const int kpos = k0 + 8 * (i / 4) + col + (i & 1);
-        if (kpos >= Tk || (causal && kpos > q0 + row_a + 8 * r)) x = kNeg;
+        if (kpos >= Tk || (causal && kpos > q0 + row_a + 8 * r + shift))
+          x = kNeg;
       }
       if constexpr (HAS_BIAS) x += bias_s[8 * (i / 4) + col + (i & 1)];
       sc[i] = x;
@@ -212,7 +222,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                            const float* __restrict__ bias,
                            __nv_bfloat16* __restrict__ o,
                            float* __restrict__ lse, int H, int Hkv, int Tq,
-                           int Tk, int D, float scale, int causal) {
+                           int Tk, int D, float scale, int causal,
+                           int shift) {
   using L = Layout<DP, HAS_BIAS>;
   constexpr int NC = L::NC;
   extern __shared__ uint8_t smem_raw[];
@@ -228,7 +239,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   // Causal whole-tile skip: tiles past the block's last row hold no valid
   // key for any of its rows.
   const int q_last = min(q0 + BQ, Tq) - 1;
-  const int kv_end = causal ? min(Tk, q_last + 1) : Tk;
+  const int kv_end = causal ? causal_kv_end(q_last, shift, Tk) : Tk;
   const int n_tiles = (kv_end + BKV - 1) / BKV;
 
   if (threadIdx.x == 0) {
@@ -269,15 +280,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   } else {
     setmaxnreg_inc<232>();
     consume<DP, HAS_BIAS>(smem, q_full, full, empty, o, lse, bh, q0, n_tiles,
-                          Tq, Tk, D, scale, causal);
+                          Tq, Tk, D, scale, causal, shift);
   }
 }
 
 template <int DP, bool HAS_BIAS>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bias, void* o, void* lse, int B, int H,
-                   int Hkv, int Tq, int Tk, int D, int causal, float scale,
-                   cudaStream_t stream) {
+                   int Hkv, int Tq, int Tk, int D, int causal, int shift,
+                   float scale, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   const uint64_t qdims[3] = {(uint64_t)D, (uint64_t)Tq, (uint64_t)B * H};
   const uint64_t kdims[3] = {(uint64_t)D, (uint64_t)Tk, (uint64_t)B * Hkv};
@@ -295,29 +306,30 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   flash_fwd_wgmma_kernel<DP, HAS_BIAS><<<grid, THREADS, smem, stream>>>(
       qm, km, vm, static_cast<const float*>(bias),
       static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), H, Hkv, Tq,
-      Tk, D, scale, causal);
+      Tk, D, scale, causal, shift);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Same arguments as csrc/flash_fwd.cu's flash_fwd, but a non-null bias is
-// [B, Tkp] (padded to a multiple of 128 keys); only bf16 (is_bf16 = 1) and
-// D in {16, 32, 64, 128} are taken. Returns the CUDA error code of the
-// launch (0 on success; cudaErrorInvalidValue for another dtype or D, or
-// a tensor map cuTensorMapEncodeTiled refuses).
+// Same arguments as csrc/flash_fwd.cu's flash_fwd (offsets included), but
+// a non-null bias is [B, Tkp] (padded to a multiple of 128 keys); only
+// bf16 (is_bf16 = 1) and D in {16, 32, 64, 128} are taken. Returns the
+// CUDA error code of the launch (0 on success; cudaErrorInvalidValue for
+// another dtype or D, or a tensor map cuTensorMapEncodeTiled refuses).
 extern "C" int flash_fwd_wgmma(const void* q, const void* k, const void* v,
                                const void* bias, void* o, void* lse, int B,
                                int H, int Hkv, int Tq, int Tk, int D,
-                               int causal, int is_bf16, float scale,
-                               void* stream) {
+                               int causal, int q_offset, int kv_offset,
+                               int is_bf16, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16) return (int)cudaErrorInvalidValue;
+  const int shift = q_offset - kv_offset;
 #define HVD_FWD_LAUNCH(DP)                                                  \
   return bias ? launch<DP, true>(q, k, v, bias, o, lse, B, H, Hkv, Tq, Tk, \
-                                 D, causal, scale, s)                       \
+                                 D, causal, shift, scale, s)                \
               : launch<DP, false>(q, k, v, bias, o, lse, B, H, Hkv, Tq, Tk, \
-                                  D, causal, scale, s);
+                                  D, causal, shift, scale, s);
   if (D == 16 || D == 32 || D == 64) HVD_FWD_LAUNCH(64)
   if (D == 128) HVD_FWD_LAUNCH(128)
 #undef HVD_FWD_LAUNCH

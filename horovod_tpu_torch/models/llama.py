@@ -9,21 +9,27 @@ functions on tensors, with the same numeric recipe as the JAX ones.
 Ported here: ``LlamaConfig``, ``llama_init`` (dense and MoE trees),
 ``_rmsnorm``, ``_rope``, ``moe_route``, ``_ffn`` (dense SwiGLU, or the
 dropless grouped MoE dispatch of ``ops/grouped_moe.py``), and the
-training forward: ``llama_forward`` and ``llama_loss`` (single device;
-the JAX ``lax.scan`` over layers is a Python loop over the unbound
-layer slices) with the remat modes ``none``, ``full``, ``attn``,
-``attn+gate``, ``attn+moe`` and ``moe``. Mesh, pipeline and sequence
-parallelism and the GShard MoE dispatch (A8, A10), and the other remat
-modes (A1) are not ported yet and raise.
+training forward: ``llama_forward`` and ``llama_loss`` (the JAX
+``lax.scan`` over layers is a Python loop over the unbound layer slices)
+with the remat modes ``none``, ``full``, ``attn``, ``attn+gate``,
+``attn+moe`` and ``moe``, on one device or, for dense configs, under a
+``data`` x ``seq`` mesh (``parallel/mesh.py``): each rank runs its
+shard of the batch, attention over the ``seq`` axis is ring or Ulysses
+(``seq_parallel``), rope positions and the loss's mean are global, and
+the replicated parameters' gradients are summed over the mesh (the
+reduction JAX's GSPMD inserts). Tensor, fsdp and expert parallelism and
+the GShard MoE dispatch (A8), pipelines (A10), and the other remat modes
+(A1) are not ported yet and raise.
 
 Remat is PyTorch's selective activation checkpointing, which decides per
 dispatcher op. The JAX save-names map onto ops: ``flash_o``/``flash_lse``
 are the outputs of the flash op ``hvd_torch::flash_fwd`` (K1), and
 ``ffn_gate`` is the pre-silu gate, produced by the named matmul op
 ``hvd_torch::named_matmul``; the MoE names are the outputs of the
-grouped-MoE ops (``ops/grouped_moe.py``). JAX's ``attn_out`` names the
-attention output only on its non-Pallas fallback; here attention always
-goes through the flash op, whose saved ``o`` is that output.
+grouped-MoE ops (``ops/grouped_moe.py``). On the sequence-parallel path
+each ring step's chunk op ``hvd_torch::flash_chunk`` gives
+``flash_o``/``flash_lse`` and the attention output is named ``attn_out``
+by ``hvd_torch::checkpoint_name``, as JAX names it there.
 """
 
 import dataclasses
@@ -40,6 +46,10 @@ from torch.utils.checkpoint import (
 from horovod_tpu_torch._device import on_device, resolve_device
 from horovod_tpu_torch.ops import grouped_moe
 from horovod_tpu_torch.ops.flash_attention import flash_attention
+from horovod_tpu_torch.parallel._tree import tree_leaves, tree_unflatten
+from horovod_tpu_torch.parallel.ops import psum, replicate
+from horovod_tpu_torch.parallel.ring_attention import ring_self_attention
+from horovod_tpu_torch.parallel.ulysses import ulysses_self_attention
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -218,6 +228,18 @@ torch.library.register_autograd("hvd_torch::named_matmul",
                                 setup_context=_named_matmul_setup)
 
 
+@torch.library.custom_op("hvd_torch::checkpoint_name", mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` under a save-name (JAX's ``checkpoint_name``): a copy made
+    by one dispatcher op, so a remat policy can keep it."""
+    return x.clone()
+
+
+torch.library.register_autograd(
+    "hvd_torch::checkpoint_name", lambda ctx, g: (g, None),
+    setup_context=lambda ctx, inputs, output: None)
+
+
 def moe_route(h, router_w, n_experts_per_token):
     """The one router, shared by the grouped dispatch and cached decode:
     f32 logits product, softmax, top-K (descending, as ``lax.top_k``),
@@ -272,14 +294,30 @@ def _ffn(h, lp, c):
     return y, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
-def _attention(q, k, v):
-    """Single-device causal attention on the flash op (K1 forward,
-    K2/K3 backward). q [B, T, H, D], k/v [B, T, Hkv, D]."""
+def _attention(q, k, v, mesh=None, seq_axis="seq", seq_parallel="ring"):
+    """Causal attention of q [B, T, H, D], k/v [B, T, Hkv, D]: with a
+    mesh whose ``seq_axis`` is larger than 1, this rank's sequence shard
+    through ring attention (the chunk op per step) or, for
+    ``seq_parallel="ulysses"``, Ulysses, the output named ``attn_out``;
+    otherwise the flash op (K1 forward, K2/K3 backward)."""
+    if mesh is not None and seq_axis and mesh.shape.get(seq_axis, 1) > 1:
+        if seq_parallel == "ulysses":
+            out = ulysses_self_attention(q, k, v, mesh, causal=True,
+                                         seq_axis=seq_axis)
+        elif seq_parallel in ("ring", None):
+            out = ring_self_attention(q, k, v, mesh, causal=True,
+                                      seq_axis=seq_axis)
+        else:
+            raise ValueError(f"unknown seq_parallel {seq_parallel!r}: "
+                             "expected 'ring' or 'ulysses'")
+        return checkpoint_name(out, "attn_out")
     return flash_attention(q, k, v, causal=True)
 
 
-_FLASH_OP = torch.ops.hvd_torch.flash_fwd.default
+_FLASH_OPS = (torch.ops.hvd_torch.flash_fwd.default,
+              torch.ops.hvd_torch.flash_chunk.default)
 _NAMED_OP = torch.ops.hvd_torch.named_matmul.default
+_NAME_OP = torch.ops.hvd_torch.checkpoint_name.default
 _GMM_OP = torch.ops.hvd_torch.gmm.default
 _Y_SLOTS_OP = torch.ops.hvd_torch.gmm_unpermute.default
 _X_SORTED_OP = torch.ops.hvd_torch.dispatch_gather.default
@@ -288,10 +326,11 @@ _X_SORTED_OP = torch.ops.hvd_torch.dispatch_gather.default
 # _build_layer_body), by name.
 _MOE_EXTRA_SAVE = ("moe_x_sorted", "moe_gate_act", "moe_up_act")
 _REMAT_SAVES = {
-    "attn": ("flash_o", "flash_lse"),
-    "attn+gate": ("flash_o", "flash_lse", "ffn_gate"),
-    "attn+moe": ("flash_o", "flash_lse", "moe_y_slots"),
-    "moe": ("flash_o", "flash_lse", "moe_y_slots", *_MOE_EXTRA_SAVE),
+    "attn": ("attn_out", "flash_o", "flash_lse"),
+    "attn+gate": ("attn_out", "flash_o", "flash_lse", "ffn_gate"),
+    "attn+moe": ("attn_out", "flash_o", "flash_lse", "moe_y_slots"),
+    "moe": ("attn_out", "flash_o", "flash_lse", "moe_y_slots",
+            *_MOE_EXTRA_SAVE),
 }
 _REMAT_QUEUED = {"dots": "A1", "attn+ffn": "A1", "attn+gate+qkv": "A1"}
 
@@ -300,10 +339,12 @@ def _save_only_these_names(names):
     """A selective-checkpoint policy saving the ops that produce
     ``names`` and recomputing everything else in the backward."""
     def policy(ctx, op, *args, **kwargs):
-        if op is _FLASH_OP:
+        if op in _FLASH_OPS:
             saved = "flash_o" in names
         elif op is _NAMED_OP:
             saved = args[2] in names
+        elif op is _NAME_OP:
+            saved = args[1] in names
         elif op is _GMM_OP:
             saved = args[3] in names
         elif op is _Y_SLOTS_OP:
@@ -318,19 +359,25 @@ def _save_only_these_names(names):
     return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
-def _build_layer_body(c):
+def _build_layer_body(c, mesh=None, seq_axis="seq"):
     """One decoder layer ``(x, lp) -> (x, aux)``, wrapped in the
-    configured remat mode. Under ``full`` the backward re-runs the whole
-    layer, K1 included; under the save-set modes it re-runs all but the
-    saved ops, so K1 runs once per layer per grad call. On an MoE layer
-    the backward needs ``y_slots`` (the router's combine gradient), so
-    ``full``, ``attn`` and ``attn+gate`` re-run all three grouped
-    products (K5), ``attn+moe`` the gate and up products, ``moe`` none."""
+    configured remat mode; under ``mesh`` on this rank's shard (rope at
+    global positions, attention by :func:`_attention`). Under ``full``
+    the backward re-runs the whole layer, K1 included; under the
+    save-set modes it re-runs all but the saved ops, so K1 runs once per
+    layer per grad call. On an MoE layer the backward needs ``y_slots``
+    (the router's combine gradient), so ``full``, ``attn`` and
+    ``attn+gate`` re-run all three grouped products (K5), ``attn+moe``
+    the gate and up products, ``moe`` none."""
     dt = c.compute_dtype
 
     def layer(x, lp):
         bb, tt = x.shape[0], x.shape[1]
-        positions = torch.arange(tt, device=x.device).expand(bb, tt)
+        # Global positions: this rank's sequence shard starts at
+        # seq index x T_local.
+        start = mesh.axis_index(seq_axis) * tt if mesh and seq_axis else 0
+        positions = torch.arange(start, start + tt,
+                                 device=x.device).expand(bb, tt)
         h = _rmsnorm(x, lp["attn_norm"].to(dt), c.norm_eps)
         q = (h @ lp["wq"].to(dt)).reshape(bb, tt, c.n_heads, c.head_dim)
         kk = (h @ lp["wk"].to(dt)).reshape(bb, tt, c.n_kv_heads,
@@ -339,7 +386,7 @@ def _build_layer_body(c):
                                            c.head_dim)
         q = _rope(q, positions, c.rope_theta)
         kk = _rope(kk, positions, c.rope_theta)
-        attn = _attention(q, kk, vv)
+        attn = _attention(q, kk, vv, mesh, seq_axis, c.seq_parallel)
         x = x + attn.reshape(bb, tt, -1) @ lp["wo"].to(dt)
         h = _rmsnorm(x, lp["mlp_norm"].to(dt), c.norm_eps)
         ff, aux = _ffn(h, lp, c)
@@ -415,18 +462,31 @@ class _F32Logits(torch.autograd.Function):
         return dh, dw.to(w.dtype)
 
 
-def llama_forward(params, tokens, config, return_aux=False, device=None):
+def llama_forward(params, tokens, config, return_aux=False, device=None,
+                  mesh=None, seq_axis="seq"):
     """tokens [B, T] int -> logits [B, T, vocab] (float32).
 
     With ``return_aux`` the MoE load-balancing loss (the mean over
     layers; 0 for dense configs) is returned alongside the logits. ``device``
-    follows the entry-point rule (``None`` means cuda); the params must
-    lie there."""
+    follows the entry-point rule (``None`` means cuda, or the mesh's
+    device); the params must lie there. Under ``mesh`` (a
+    ``parallel.mesh.Mesh``) ``tokens`` is this rank's (data, seq) shard
+    (``mesh.shard``) and the logits are its shard; the params are the
+    same on every rank, and their gradients are summed over the mesh."""
     c = config
+    if mesh is not None:
+        if c.n_experts > 0:
+            raise NotImplementedError(
+                "an MoE config under a mesh (moe_impl 'auto' means the "
+                "GShard dispatch there) is not ported yet (ROADMAP.md A8)")
+        device = mesh.device if device is None else device
     _, a = on_device(params, device, tokens=tokens)
+    if mesh is not None:
+        params = tree_unflatten(params, replicate(tree_leaves(params),
+                                                  mesh.group))
     dt = c.compute_dtype
     x = params["embed"].to(dt)[a["tokens"].long()]
-    body = _build_layer_body(c)
+    body = _build_layer_body(c, mesh, seq_axis)
     aux = []
     for lp in _unbind_layers(params["layers"]):
         x, aux_layer = body(x, lp)
@@ -446,17 +506,30 @@ def _token_nll(logits, targets):
     return lse - picked
 
 
-def llama_loss(params, batch, config, device=None):
+def llama_loss(params, batch, config, device=None, mesh=None,
+               seq_axis="seq"):
     """Causal LM loss (+ the weighted MoE aux loss for expert configs).
     batch = {"tokens": [B, T], "targets": [B, T], "mask": [B, T] or
     absent}: the mean token NLL, or the masked mean
-    sum(nll * mask) / max(sum(mask), 1)."""
+    sum(nll * mask) / max(sum(mask), 1). Under ``mesh`` the batch is
+    this rank's shard and the loss is the global one, the same on every
+    rank: the sum over the mesh of each shard's sum(nll * mask) over the
+    global token count."""
     logits, aux = llama_forward(params, batch["tokens"], config,
-                                return_aux=True, device=device)
+                                return_aux=True, device=device, mesh=mesh,
+                                seq_axis=seq_axis)
     nll = _token_nll(logits, torch.as_tensor(batch["targets"],
                                              device=logits.device))
     mask = batch.get("mask")
-    if mask is None:
+    if mesh is not None:
+        if mask is None:
+            total, count = nll.sum(), float(nll.numel() * mesh.size)
+        else:
+            mask = torch.as_tensor(mask, device=logits.device).float()
+            total = (nll * mask).sum()
+            count = torch.clamp(psum(mask.sum(), mesh.group), min=1.0)
+        loss = psum(total, mesh.group) / count
+    elif mask is None:
         loss = nll.mean()
     else:
         mask = torch.as_tensor(mask, device=logits.device).float()

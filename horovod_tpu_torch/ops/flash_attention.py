@@ -18,13 +18,19 @@ optional per-key f32 bias ``kv_bias`` [B, Tk] (BERT's padding mask),
 added to every score after the causal mask and before the softmax. It is
 a constant: its cotangent is zero and never computed. The kernels branch
 on it at compile time, so a call without it runs the same code as
-before. The ring-step offsets (with their lse cotangent) are not ported
-yet (ROADMAP.md, queue B, K1b, with A8).
+before. And each takes the TPU kernels' ``has_offsets`` variant: the
+global positions ``(q_offset, kv_offset)`` of the first query and key of
+a chunk, for the causal mask of one ring-attention step
+(:func:`flash_attention_chunk`, whose lse is differentiable: its
+cotangent folds into the backward's delta). Offsets (0, 0) are the plain
+kernels.
 
 The forward is the custom op ``hvd_torch::flash_fwd`` returning
-``(o, lse)``, its backward registered with it. Being one dispatcher op,
-a selective-checkpoint policy can save its outputs by op (the TPU
-module's ``flash_o``/``flash_lse`` names): a ctypes launch inside an
+``(o, lse)``, its backward registered with it; a ring step's is
+``hvd_torch::flash_chunk``, the same with the offsets and an lse
+cotangent. Being one dispatcher op, each can have its outputs saved by
+a selective-checkpoint policy (the TPU module's ``flash_o``/``flash_lse``
+names): a ctypes launch inside an
 ``autograd.Function`` would be invisible to the policy, and remat would
 quietly re-run K1 in the backward (models/llama.py).
 
@@ -48,20 +54,22 @@ _HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _flash_fwd_reference(q, k, v, causal=True, kv_bias=None):
+def _flash_fwd_reference(q, k, v, causal=True, kv_bias=None, offsets=None):
     """Plain version of K1: the same function with one global softmax
     max (the TPU kernel's result when a single kv block covers T).
-    f32 scores, causal mask, then ``kv_bias`` [B, Tk] (f32, if given)
-    added per key; p cast un-normalised to v's dtype, f32-accumulated PV,
-    divided by l at the end; rows with no valid key (max still at or
-    below -1e30/2) give exactly 0.
-    Returns (o [B, H, T, D] in q's dtype, lse [B, H, T, 1] f32)."""
+    f32 scores, causal mask (at global positions ``offsets`` =
+    (q_offset, kv_offset) if given), then ``kv_bias`` [B, Tk] (f32, if
+    given) added per key; p cast un-normalised to v's dtype,
+    f32-accumulated PV, divided by l at the end; rows with no valid key
+    (max still at or below -1e30/2) give exactly 0 and a finite lse
+    at or below -1e30 (as the kernels: their loop never raised the max).
+    Returns (o [B, H, Tq, D] in q's dtype, lse [B, H, Tq, 1] f32)."""
     h, d = q.shape[1], q.shape[3]
     n_rep = h // k.shape[1]
     kf = k.repeat_interleave(n_rep, dim=1).float()
     vr = v.repeat_interleave(n_rep, dim=1)
     s = torch.matmul(q.float(), kf.transpose(-1, -2)) * (d ** -0.5)
-    s = _add_bias(_causal_mask(s, causal), kv_bias)
+    s = _add_bias(_causal_mask(s, causal, offsets), kv_bias)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
@@ -70,12 +78,18 @@ def _flash_fwd_reference(q, k, v, causal=True, kv_bias=None):
     return o.to(q.dtype), m + torch.log(l)
 
 
-def _causal_mask(s, causal):
-    """s [.., Tq, Tk] with the keys after each query row set to -1e30."""
+def _causal_mask(s, causal, offsets=None):
+    """s [.., Tq, Tk] with the keys after each query row set to -1e30:
+    key j is visible to query i iff kv_offset + j <= q_offset + i, the
+    ``offsets`` = (q_offset, kv_offset) being the global positions of a
+    chunk's first query and key ((0, 0) if None)."""
     if not causal:
         return s
+    q_offset, kv_offset = offsets or (0, 0)
     tq, tk = s.shape[-2], s.shape[-1]
-    mask = torch.ones(tq, tk, dtype=torch.bool, device=s.device).tril()
+    qpos = q_offset + torch.arange(tq, device=s.device)
+    kpos = kv_offset + torch.arange(tk, device=s.device)
+    mask = kpos[None, :] <= qpos[:, None]
     return torch.where(mask, s, torch.full_like(s, _NEG))
 
 
@@ -86,18 +100,22 @@ def _add_bias(s, kv_bias):
     return s + kv_bias.float()[:, None, None, :]
 
 
-def _delta(o, do):
-    """rowsum(do * o) in f32 [B, H, T, 1]: the backward's softmax term,
-    plain PyTorch on every device (the TPU module computes it outside
-    Pallas too)."""
-    return (do.float() * o.float()).sum(-1, keepdim=True)
+def _delta(o, do, dlse=None):
+    """rowsum(do * o) - dlse in f32 [B, H, T, 1]: the backward's softmax
+    term, plain PyTorch on every device (the TPU module computes it
+    outside Pallas too). An lse cotangent ``dlse`` (a ring step's; None
+    is zero) folds in here: ds = p (dp - delta + dlse)."""
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    return delta if dlse is None else delta - dlse.float()
 
 
-def _flash_bwd_reference(q, k, v, o, lse, do, causal=True, kv_bias=None):
+def _flash_bwd_reference(q, k, v, o, lse, do, causal=True, kv_bias=None,
+                         offsets=None, dlse=None):
     """Plain version of K2 and K3 together, with the TPU kernels'
-    recipe: s masked, then ``kv_bias`` added (if given);
-    p = where(s > -1e30/2, exp(s - lse), 0); dv = p^T do with p
-    cast to do's dtype; dp = do v^T; ds = p (dp - delta) scale;
+    recipe: s masked (at global positions ``offsets``, if given), then
+    ``kv_bias`` added (if given); p = where(s > -1e30/2, exp(s - lse),
+    0); dv = p^T do with p cast to do's dtype; dp = do v^T;
+    ds = p (dp - delta) scale, delta = rowsum(do o) - dlse;
     dk = ds^T q and dq = ds k with ds cast to q's / k's dtype; f32
     accumulation throughout. Returns (dq [B, H, T, D] in q's dtype,
     dk, dv [B, H, Tk, D] PER QUERY HEAD in k's / v's dtype) — the
@@ -108,12 +126,12 @@ def _flash_bwd_reference(q, k, v, o, lse, do, causal=True, kv_bias=None):
     kr = k.repeat_interleave(n_rep, dim=1)
     vr = v.repeat_interleave(n_rep, dim=1)
     s = _causal_mask(torch.matmul(q.float(), kr.float().transpose(-1, -2))
-                     * scale, causal)
+                     * scale, causal, offsets)
     s = _add_bias(s, kv_bias)
     p = torch.where(s > _NEG / 2, torch.exp(s - lse), torch.zeros_like(s))
     dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
     dp = torch.matmul(do.float(), vr.float().transpose(-1, -2))
-    ds = p * (dp - _delta(o, do)) * scale
+    ds = p * (dp - _delta(o, do, dlse)) * scale
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
     dq = torch.matmul(ds.to(k.dtype).float(), kr.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -180,32 +198,37 @@ def _pad_bias(kv_bias, route="wgmma"):
     return torch.nn.functional.pad(kv_bias, (0, -kv_bias.shape[1] % 128))
 
 
-def _count(wrapper, route, kv_bias):
+def _count(wrapper, route, kv_bias, offsets=None):
     """One launch of ``wrapper`` along ``route``, with or without the
-    bias."""
+    bias, with or without the offsets."""
     wrapper.launches += 1
     wrapper.launches_by_route[route] += 1
     wrapper.bias_launches += kv_bias is not None
+    wrapper.offsets_launches += offsets is not None
 
 
 @functools.cache
 def _bind(source, name, n_ptrs):
     """The ctypes entry ``name`` of csrc/<source>.cu: ``n_ptrs``
     pointers (q, k, v, the bias or null, then the rest), then B, H, Hkv,
-    Tq, Tk, D, causal, is_bf16, the scale and the stream (bound once)."""
+    Tq, Tk, D, causal, q_offset, kv_offset, is_bf16, the scale and the
+    stream (bound once)."""
     fn = getattr(_build.load(source), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 10 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(label, fn, tensors, q, k, causal):
-    """Launch ``fn`` on ``tensors`` (None passes a null pointer)."""
+def _launch(label, fn, tensors, q, k, causal, offsets=None):
+    """Launch ``fn`` on ``tensors`` (None passes a null pointer) with the
+    chunk ``offsets`` ((0, 0) if None)."""
     b, h, t, d = q.shape
+    q_offset, kv_offset = offsets or (0, 0)
     with torch.cuda.device(q.device):
         err = fn(*(None if x is None else x.data_ptr() for x in tensors),
                  b, h, k.shape[1], t, k.shape[2], d, int(bool(causal)),
+                 int(q_offset), int(kv_offset),
                  int(q.dtype == torch.bfloat16), d ** -0.5,
                  torch.cuda.current_stream().cuda_stream)
     if err:
@@ -240,11 +263,13 @@ _FWD_ENTRY = {"wgmma": ("flash_fwd_wgmma", "flash_fwd_wgmma"),
               "fma": ("flash_fwd", "flash_fwd")}
 
 
-def _flash_fwd_cuda(q, k, v, causal=True, kv_bias=None, route=None):
+def _flash_fwd_cuda(q, k, v, causal=True, kv_bias=None, offsets=None,
+                    route=None):
     """Launch K1 on the current stream, by :func:`flash_fwd_route` unless
     ``route`` names one ("fma" also takes bfloat16: the earlier kernel,
     kept as the wgmma kernel's yardstick); with ``kv_bias`` its bias
-    variant. Same contract as :func:`_flash_fwd_reference`."""
+    variant, with ``offsets`` (q_offset, kv_offset) its offsets variant.
+    Same contract as :func:`_flash_fwd_reference`."""
     _check_kernel_inputs("K1", q, k, v)
     _check_bias("K1", kv_bias, q, k)
     route = pick_route("K1", q.dtype, flash_fwd_route(q.dtype, q.shape[3]),
@@ -256,16 +281,17 @@ def _flash_fwd_cuda(q, k, v, causal=True, kv_bias=None, route=None):
         return o, lse
     bias = _pad_bias(kv_bias, route)
     _launch(f"K1 flash_fwd ({route})", _bind(*_FWD_ENTRY[route], 6),
-            (q, k, v, bias, o, lse), q, k, causal)
-    _count(_flash_fwd_cuda, route, kv_bias)
+            (q, k, v, bias, o, lse), q, k, causal, offsets)
+    _count(_flash_fwd_cuda, route, kv_bias, offsets)
     return o, lse
 
 
-# launches: every K1 launch; launches_by_route: by kernel; bias_launches:
-# those of the bias variant.
+# launches: every K1 launch; launches_by_route: by kernel; bias_launches
+# and offsets_launches: those of the bias and of the offsets variant.
 _flash_fwd_cuda.launches = 0
 _flash_fwd_cuda.launches_by_route = {"wgmma": 0, "fma": 0}
 _flash_fwd_cuda.bias_launches = 0
+_flash_fwd_cuda.offsets_launches = 0
 
 
 def _check_residuals(q, lse, delta):
@@ -300,11 +326,12 @@ def _residuals(route, q, lse, delta, padded):
 
 
 def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True,
-                        kv_bias=None, route=None, padded=None):
+                        kv_bias=None, offsets=None, route=None, padded=None):
     """Launch K2 along :func:`flash_bwd_route` unless ``route`` names one
     ("fma" also takes bfloat16): per-query-head (dk, dv) [B, H, Tk, D] in
-    k's dtype; with ``kv_bias`` its bias variant. ``padded``: lse and
-    delta already padded for wgmma."""
+    k's dtype; with ``kv_bias`` its bias variant, with ``offsets`` its
+    offsets variant. ``padded``: lse and delta already padded for
+    wgmma."""
     _check_kernel_inputs("K2", q, k, v, do)
     _check_residuals(q, lse, delta)
     _check_bias("K2", kv_bias, q, k)
@@ -316,14 +343,15 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True,
     lse, delta = _residuals(route, q, lse, delta, padded)
     bias = _pad_bias(kv_bias, route)
     _launch(f"K2 flash_bwd_dkv ({route})", _bind(*_DKV_ENTRY[route], 9),
-            (q, k, v, bias, do, lse, delta, dk, dv), q, k, causal)
-    _count(_flash_bwd_dkv_cuda, route, kv_bias)
+            (q, k, v, bias, do, lse, delta, dk, dv), q, k, causal, offsets)
+    _count(_flash_bwd_dkv_cuda, route, kv_bias, offsets)
     return dk, dv
 
 
 _flash_bwd_dkv_cuda.launches = 0
 _flash_bwd_dkv_cuda.launches_by_route = {"wgmma": 0, "fma": 0}
 _flash_bwd_dkv_cuda.bias_launches = 0
+_flash_bwd_dkv_cuda.offsets_launches = 0
 
 
 # The ctypes entry of each K3 route: (source, function).
@@ -332,11 +360,11 @@ _DQ_ENTRY = {"wgmma": ("flash_bwd_dq_wgmma", "flash_bwd_dq_wgmma"),
 
 
 def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=True, kv_bias=None,
-                       route=None, padded=None):
+                       offsets=None, route=None, padded=None):
     """Launch K3 along :func:`flash_bwd_route` unless ``route`` names one
     ("fma" also takes bfloat16): dq [B, H, T, D] in q's dtype; with
-    ``kv_bias`` its bias variant. ``padded``: lse and delta already padded
-    for wgmma."""
+    ``kv_bias`` its bias variant, with ``offsets`` its offsets variant.
+    ``padded``: lse and delta already padded for wgmma."""
     _check_kernel_inputs("K3", q, k, v, do)
     _check_residuals(q, lse, delta)
     _check_bias("K3", kv_bias, q, k)
@@ -346,45 +374,50 @@ def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=True, kv_bias=None,
     lse, delta = _residuals(route, q, lse, delta, padded)
     bias = _pad_bias(kv_bias, route)
     _launch(f"K3 flash_bwd_dq ({route})", _bind(*_DQ_ENTRY[route], 8),
-            (q, k, v, bias, do, lse, delta, dq), q, k, causal)
-    _count(_flash_bwd_dq_cuda, route, kv_bias)
+            (q, k, v, bias, do, lse, delta, dq), q, k, causal, offsets)
+    _count(_flash_bwd_dq_cuda, route, kv_bias, offsets)
     return dq
 
 
 _flash_bwd_dq_cuda.launches = 0
 _flash_bwd_dq_cuda.launches_by_route = {"wgmma": 0, "fma": 0}
 _flash_bwd_dq_cuda.bias_launches = 0
+_flash_bwd_dq_cuda.offsets_launches = 0
 
 
-def _flash_bwd_cuda(q, k, v, o, lse, do, causal=True, kv_bias=None):
+def _flash_bwd_cuda(q, k, v, o, lse, do, causal=True, kv_bias=None,
+                    offsets=None, dlse=None):
     """K2 then K3 on the current stream, along their dtype's route, the
-    wgmma route's padded lse and delta made once for both. Same contract
-    as :func:`_flash_bwd_reference`."""
-    delta = _delta(o, do)
+    lse cotangent ``dlse`` folded into delta before the wgmma route's
+    padded lse and delta are made, once for both. Same contract as
+    :func:`_flash_bwd_reference`."""
+    delta = _delta(o, do, dlse)
     padded = None
     if flash_bwd_route(q.dtype, q.shape[3]) == "wgmma":
         t = q.shape[2]
         padded = _pad_queries(lse, t), _pad_queries(delta, t)
     dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, kv_bias,
-                                 padded=padded)
+                                 offsets, padded=padded)
     dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, kv_bias,
-                            padded=padded)
+                            offsets, padded=padded)
     return dq, dk, dv
 
 
-def _flash_fwd_impl(q, k, v, causal=True, kv_bias=None):
+def _flash_fwd_impl(q, k, v, causal=True, kv_bias=None, offsets=None):
     """(o, lse) in the kernel layout: K1 for CUDA tensors, the plain
     version for CPU tensors."""
     return kernel_or_plain("flash attention", q, _flash_fwd_cuda,
-                           _flash_fwd_reference, k, v, causal, kv_bias)
+                           _flash_fwd_reference, k, v, causal, kv_bias,
+                           offsets)
 
 
-def _flash_bwd_impl(q, k, v, o, lse, do, causal=True, kv_bias=None):
+def _flash_bwd_impl(q, k, v, o, lse, do, causal=True, kv_bias=None,
+                    offsets=None, dlse=None):
     """(dq, dk, dv) with dk/dv at k's Hkv heads: K2 + K3 for CUDA
     tensors, the plain version for CPU tensors, then the n_rep sum."""
     dq, dk, dv = kernel_or_plain("flash attention", q, _flash_bwd_cuda,
                                  _flash_bwd_reference, k, v, o, lse, do,
-                                 causal, kv_bias)
+                                 causal, kv_bias, offsets, dlse)
     return (dq,) + _sum_kv_heads(dk, dv, k.shape[1])
 
 
@@ -418,6 +451,51 @@ def _flash_backward(ctx, do, _dlse):
 
 torch.library.register_autograd("hvd_torch::flash_fwd", _flash_backward,
                                 setup_context=_flash_setup)
+
+
+@torch.library.custom_op("hvd_torch::flash_chunk", mutates_args=())
+def flash_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                q_offset: int, kv_offset: int, causal: bool
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) of one ring step in the kernel layout, through
+    :func:`_flash_fwd_impl` with the chunk's offsets; both outputs are
+    differentiable."""
+    return _flash_fwd_impl(q, k, v, causal, None, (q_offset, kv_offset))
+
+
+def _chunk_setup(ctx, inputs, output):
+    q, k, v, q_offset, kv_offset, causal = inputs
+    o, lse = output
+    ctx.offsets = (q_offset, kv_offset)
+    ctx.causal = causal
+    # Residuals (q, k, v, o, lse), k/v unrepeated (the TPU
+    # _flash_offsets_fwd).
+    ctx.save_for_backward(q, k, v, o, lse)
+
+
+def _chunk_backward(ctx, do, dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = _flash_bwd_impl(q, k, v, o, lse, do.contiguous(),
+                                 ctx.causal, None, ctx.offsets, dlse)
+    return dq, dk, dv, None, None, None
+
+
+torch.library.register_autograd("hvd_torch::flash_chunk", _chunk_backward,
+                                setup_context=_chunk_setup)
+
+
+def flash_attention_chunk(q, k, v, q_offset, kv_offset, causal=True):
+    """One ring-attention step: attention of the local queries against
+    ONE K/V chunk, in the kernel layout (q [B, H, Tq, D], k/v
+    [B, Hkv, Tk, D], Tq and Tk free), with ``q_offset`` and ``kv_offset``
+    the global positions of the chunk's first query and key for the
+    causal mask. Returns ``(o, lse)`` (o in q's dtype, lse f32
+    [B, H, Tq, 1]) ready for logsumexp merging; both are differentiable
+    (the lse cotangent folds into the backward's delta). A row with no
+    visible key (a wholly future chunk) gives o = 0 and a finite lse at
+    or below -1e30, so the merge weighs it out without a NaN."""
+    return flash_chunk(q.contiguous(), k.contiguous(), v.contiguous(),
+                       int(q_offset), int(kv_offset), bool(causal))
 
 
 def flash_attention(q, k, v, causal=True, kv_bias=None):

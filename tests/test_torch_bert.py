@@ -147,9 +147,9 @@ def test_mlm_loss_and_grads_match_jax(remat, k1_calls, monkeypatch):
     calls = []
     plain = port_fa._flash_fwd_reference
 
-    def counted(q, k, v, causal, kv_bias=None):
+    def counted(q, k, v, causal, kv_bias=None, offsets=None):
         calls.append((causal, kv_bias is not None))
-        return plain(q, k, v, causal, kv_bias)
+        return plain(q, k, v, causal, kv_bias, offsets)
 
     monkeypatch.setattr(port_fa, "_flash_fwd_reference", counted)
     loss, grads = _value_and_grad(

@@ -689,3 +689,123 @@ def test_flash_bias_on_a_head_dim_no_kernel_takes_raises(d):
         fa._flash_bwd_dkv_cuda(q, q, q, q, lse, lse, False, bias)
     with pytest.raises(ValueError, match="K3 takes head_dim"):
         fa._flash_bwd_dq_cuda(q, q, q, q, lse, lse, False, bias)
+
+
+# The offsets variant of K1-K3 (one ring-attention step) on both routes
+# against the plain versions with the same offsets and a random lse
+# cotangent folded into delta: the chunks a ring meets (past, diagonal,
+# wholly future: o, dq, dk, dv exactly 0 and a finite lse at or below
+# -1e29), offsets that cut tiles anywhere (zero-valid rows inside a tile
+# that is not skipped), Tq != Tk, ragged T, each head dim.
+OFFSET_SHAPES = [  # b, h, hkv, tq, tk, d, q_offset, kv_offset
+    (1, 4, 2, 256, 256, 128, 768, 0), (1, 4, 2, 256, 256, 128, 256, 256),
+    (1, 4, 2, 256, 256, 128, 0, 768), (2, 4, 2, 200, 200, 64, 237, 200),
+    (1, 4, 1, 256, 128, 128, 256, 64), (1, 2, 2, 77, 300, 16, 100, 37),
+    (1, 4, 2, 130, 130, 32, 0, 5)]
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.bfloat16, "fma"),
+                                         (torch.float32, "fma")])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,hkv,tq,tk,d,q_off,kv_off", OFFSET_SHAPES)
+def test_flash_offsets_match_plain(b, h, hkv, tq, tk, d, q_off, kv_off,
+                                   causal, dtype, route):
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    offsets = (q_off, kv_off)
+    q = _rand((b, h, tq, d), dtype, 60)
+    k = _rand((b, hkv, tk, d), dtype, 61)
+    v = _rand((b, hkv, tk, d), dtype, 62)
+    do = _rand((b, h, tq, d), dtype, 63)
+    dlse = _rand((b, h, tq, 1), torch.float32, 64)
+    wrappers = (fa._flash_fwd_cuda, fa._flash_bwd_dkv_cuda,
+                fa._flash_bwd_dq_cuda)
+    before = [(fn.offsets_launches, fn.launches_by_route[route])
+              for fn in wrappers]
+    o, lse = fa._flash_fwd_cuda(q, k, v, causal, None, offsets, route=route)
+    o_ref, lse_ref = fa._flash_fwd_reference(q, k, v, causal, None, offsets)
+    delta = fa._delta(o, do, dlse)
+    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, None,
+                                    offsets, route=route)
+    dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, None,
+                               offsets, route=route)
+    want = fa._flash_bwd_reference(q, k, v, o, lse, do, causal, None,
+                                   offsets, dlse)
+    torch.cuda.synchronize()
+    assert [(fn.offsets_launches, fn.launches_by_route[route])
+            for fn in wrappers] == [(n + 1, r + 1) for n, r in before]
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=0, atol=tol)
+    assert torch.isfinite(lse).all()
+    valid = lse_ref > -1e29
+    assert torch.equal(lse > -1e29, valid)
+    torch.testing.assert_close(lse[valid], lse_ref[valid], rtol=0,
+                               atol=1e-3)
+    future = causal and kv_off > q_off + tq - 1
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        if future:
+            assert not g.float().any() and not w.float().any(), name
+            continue
+        err = float((g.float() - w.float()).abs().max()
+                    / w.float().abs().max())
+        assert err <= tol, f"{name}: relative error {err}"
+    if future:
+        assert not o.float().any() and (lse <= -1e29).all()
+
+
+def test_flash_chunk_op_and_ring_replay_on_wgmma():
+    """``flash_attention_chunk`` on bf16 CUDA tensors launches the offsets
+    kernels on wgmma only (K1 forward, K2 and K3 backward, one each a
+    step), and a seq=4 ring replayed through ``ring_flash_steps`` on one
+    card matches the one-shot K1-K3 over the whole sequence."""
+    from horovod_tpu_torch.parallel.ring_attention import ring_flash_steps
+
+    n, b, h, hkv, t, d = 4, 1, 4, 2, 512, 128
+    q = _rand((b, h, t, d), torch.bfloat16, 70)
+    k = _rand((b, hkv, t, d), torch.bfloat16, 71)
+    v = _rand((b, hkv, t, d), torch.bfloat16, 72)
+    do = _rand((b, h, t, d), torch.bfloat16, 73)
+    wrappers = (fa._flash_fwd_cuda, fa._flash_bwd_dkv_cuda,
+                fa._flash_bwd_dq_cuda)
+    before = [(fn.offsets_launches, dict(fn.launches_by_route))
+              for fn in wrappers]
+    tc = t // n
+    ks, vs = k.split(tc, 2), v.split(tc, 2)
+    parts, grads = [], []
+    for idx in range(n):
+        qi = q[:, :, idx * tc:(idx + 1) * tc].detach().requires_grad_(True)
+        kv = [x.detach().requires_grad_(True) for x in ks + vs]
+        at = [idx]
+
+        def rotate(kt, vt, at=at, kv=kv):
+            at[0] = (at[0] - 1) % n
+            return kv[at[0]], kv[n + at[0]]
+
+        o, _ = ring_flash_steps(qi, kv[idx], kv[n + idx], idx, n, rotate)
+        o = o.to(torch.bfloat16)
+        g = torch.autograd.grad(o, [qi] + kv,
+                                do[:, :, idx * tc:(idx + 1) * tc])
+        parts.append(o.detach())
+        grads.append(g)
+    torch.cuda.synchronize()
+    after = [(fn.offsets_launches, fn.launches_by_route)
+             for fn in wrappers]
+    for (n0, r0), (n1, r1) in zip(before, after):
+        assert n1 - n0 == n * n
+        assert r1["wgmma"] - r0["wgmma"] == n * n and r1["fma"] == r0["fma"]
+    o_full, lse_full = fa._flash_fwd_cuda(q, k, v, True)
+    dq_full, dk_full, dv_full = fa._flash_bwd_cuda(q, k, v, o_full,
+                                                   lse_full, do, True)
+    dk_full, dv_full = fa._sum_kv_heads(dk_full, dv_full, hkv)
+    o_ring = torch.cat(parts, 2)
+    dq_ring = torch.cat([g[0] for g in grads], 2)
+    dk_ring = torch.cat([sum(g[1 + j].float() for g in grads)
+                         for j in range(n)], 2)
+    dv_ring = torch.cat([sum(g[1 + n + j].float() for g in grads)
+                         for j in range(n)], 2)
+    for name, got, want in (("o", o_ring, o_full), ("dq", dq_ring, dq_full),
+                            ("dk", dk_ring, dk_full),
+                            ("dv", dv_ring, dv_full)):
+        err = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        assert err <= 3e-2, f"{name}: relative error {err}"

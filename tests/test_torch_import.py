@@ -42,6 +42,8 @@ def test_import_loads_no_jax_triton_or_reference_package():
         "import horovod_tpu_torch.serving.engine\n"
         "import horovod_tpu_torch.parallel.train_step\n"
         "import horovod_tpu_torch.parallel.precision\n"
+        "import horovod_tpu_torch.parallel.ring_attention\n"
+        "import horovod_tpu_torch.parallel.ulysses\n"
         "import horovod_tpu_torch.torch\n"
         "import horovod_tpu_torch.telemetry.debug_server\n"
         "import horovod_tpu_torch.common.response_cache\n"
@@ -95,6 +97,8 @@ def test_import_builds_nothing():
         "import horovod_tpu_torch.ops.grouped_moe\n"
         "import horovod_tpu_torch.serving.engine\n"
         "import horovod_tpu_torch.parallel.train_step\n"
+        "import horovod_tpu_torch.parallel.ring_attention\n"
+        "import horovod_tpu_torch.parallel.ulysses\n"
         "import horovod_tpu_torch.torch\n"
         "import horovod_tpu_torch.telemetry.debug_server\n"
         "import horovod_tpu_torch.common.response_cache\n"
@@ -129,6 +133,7 @@ def _entry_points():
         llama_init,
         llama_loss,
     )
+    from horovod_tpu_torch.parallel.mesh import create_mesh
     from horovod_tpu_torch.parallel.precision import FusedAdamState
     from horovod_tpu_torch.serving.engine import DecodeEngine
     import horovod_tpu_torch.torch as hvd
@@ -164,6 +169,7 @@ def _entry_points():
         "bert_mlm_loss": lambda: bert_mlm_loss(
             bparams, {"tokens": prompt, "targets": prompt, "mlm_mask": mlm},
             bcfg),
+        "create_mesh": lambda: create_mesh(seq=1),
     }
 
 
@@ -173,7 +179,7 @@ def _entry_points():
                                   "llama_forward", "llama_loss",
                                   "from_jax_opt_state", "hvd.init",
                                   "bert_init", "bert_forward",
-                                  "bert_mlm_loss"])
+                                  "bert_mlm_loss", "create_mesh"])
 def test_entry_point_without_device_raises_without_cuda(name,
                                                         monkeypatch):
     calls = _entry_points()

@@ -463,3 +463,68 @@ def test_pad_bias_rounds_keys_up_to_128_for_wgmma_only():
     assert p.shape == (3, 256) and p[:, :129].eq(1).all()
     assert not p[:, 129:].any()
     assert fa._pad_bias(ragged, "fma") is ragged
+
+
+# The offsets variant of K1-K3 (a ring step), decided on the host: each
+# wrapper passes (q_offset, kv_offset) to its launch ((0, 0) without them:
+# the plain kernels), counts its offsets launches apart, and the
+# backward folds the lse cotangent into delta before the wgmma route's
+# padded copy is made. tests/test_torch_cuda_kernels.py runs the kernels.
+
+
+@pytest.fixture
+def recorded_offsets(monkeypatch):
+    """Record each K1-K3 launch as (entry, tensors, offsets)."""
+    launches = []
+    monkeypatch.setattr(fa, "_check_kernel_inputs", lambda *a: None)
+    monkeypatch.setattr(fa, "_bind", lambda source, name, n: (name, n))
+    monkeypatch.setattr(
+        fa, "_launch", lambda label, fn, tensors, q, k, causal, offsets=None:
+        launches.append((fn[0], tensors, offsets)))
+    for fn in (fa._flash_fwd_cuda, fa._flash_bwd_dkv_cuda,
+               fa._flash_bwd_dq_cuda):
+        monkeypatch.setattr(fn, "launches", 0)
+        monkeypatch.setattr(fn, "bias_launches", 0)
+        monkeypatch.setattr(fn, "offsets_launches", 0)
+        monkeypatch.setattr(fn, "launches_by_route", {"wgmma": 0, "fma": 0})
+    return launches
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "fma")])
+def test_offsets_reach_every_launch(recorded_offsets, dtype, route):
+    q, kv, res = _bias_inputs(t=256, dtype=dtype)
+    fa._flash_fwd_cuda(q, kv, kv, True, None, (4096 + 37, 4096))
+    fa._flash_bwd_dkv_cuda(q, kv, kv, q, res, res, True, None, (0, 12288))
+    fa._flash_bwd_dq_cuda(q, kv, kv, q, res, res, True, None, (12288, 0))
+    fa._flash_fwd_cuda(q, kv, kv, True)
+    assert [(name, offsets) for name, _, offsets in recorded_offsets] == [
+        (fa._FWD_ENTRY[route][1], (4133, 4096)),
+        (fa._DKV_ENTRY[route][1], (0, 12288)),
+        (fa._DQ_ENTRY[route][1], (12288, 0)),
+        (fa._FWD_ENTRY[route][1], None)]
+    assert fa._flash_fwd_cuda.launches_by_route[route] == 2
+    assert (fa._flash_fwd_cuda.offsets_launches,
+            fa._flash_bwd_dkv_cuda.offsets_launches,
+            fa._flash_bwd_dq_cuda.offsets_launches) == (1, 1, 1)
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "fma")])
+def test_dlse_folds_into_delta_before_padding(recorded_offsets, dtype,
+                                              route):
+    """K2 and K3 read delta = rowsum(do * o) - dlse, padded to 64 queries
+    for wgmma after the fold (the padded tail stays 0)."""
+    g = torch.Generator().manual_seed(3)
+    q, o, do = (torch.randn(1, 2, 70, 16, generator=g).to(dtype)
+                for _ in range(3))
+    kv = torch.randn(1, 2, 70, 16, generator=g).to(dtype)
+    lse = torch.randn(1, 2, 70, 1, generator=g)
+    dlse = torch.randn(1, 2, 70, 1, generator=g)
+    fa._flash_bwd_cuda(q, kv, kv, o, lse, do, True, None, (64, 0), dlse)
+    want = (do.float() * o.float()).sum(-1, keepdim=True) - dlse
+    if route == "wgmma":
+        want = fa._pad_queries(want, 70)
+    for name, tensors, offsets in recorded_offsets:
+        assert offsets == (64, 0), name
+        assert torch.equal(tensors[6], want), name
