@@ -9,8 +9,8 @@ compute capability >= 9.0::
 It builds the port's hand-written kernels from the checkout's sources
 and drives the port's serving and training paths at the full width of
 the flagship dense Llama and of the repo's sparse-MoE Llama, and BERT-
-Large's MLM training, in phases; any failed phase exits non-zero before
-the result line.
+Large's MLM training (also under elastic recovery), in phases; any
+failed phase exits non-zero before the result line.
 
 1. Card, power limit, torch/CUDA versions; kernel build time.
 2. Each kernel against its plain PyTorch version at the main paths'
@@ -123,7 +123,30 @@ the result line.
    wgmma, ms per rank; the joined o, dq, dk, dv against one-card K1-K3
    over the whole sequence (2x a floor measured in the run + 1e-2).
    Multi-rank ring and Ulysses on NCCL are not run: one card.
-18. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
+18. Elastic training on NCCL at world size 1, BERT-Large at full width
+   (phase 13's config and seeded padding batch): (a) the reference's
+   torch elastic API, an ``nn.Module`` over ``bert_init``'s params
+   trained by ``hvd.DistributedOptimizer(Adam(1e-4))`` under
+   ``@hvd.elastic.run`` with ``hvd.elastic.TorchState(model, optimizer,
+   step=0)``, 6 steps with a commit every 2, each step's gradients one
+   ``grouped_allreduce_async_`` Average on the card (at world size 1
+   the optimizer registers no hooks); (b) the port's split step
+   (``fused_adam(1e-4)``) under ``TreeState(carry=...)``, 4 steps, one
+   commit. The training function raises ``HorovodInternalError`` once
+   with the state a step past step 2's commit: in (a) at step 4, after
+   the backward (the gradient group in flight); in (b) after step 3's
+   update (``fused_adam`` writes the carry in place). The state restores
+   step 2's commit (bit for bit, on the card, in its dtypes),
+   ``reset()`` shuts the lane down and re-inits it at epoch 1 with a new
+   NCCL group, the post-reset hooks run, and steps 3.. replay. Each
+   run's params and Adam moments within 1e-3 (norm-relative) of a
+   fault-free run from the same seed (bit-identity printed), replayed
+   losses within 1e-3; K1-K3 launch 23 grad calls' worth, all biased
+   and on wgmma. ms per commit (device to host of the state) beside the
+   bound at the pinned copy rate measured here, per restore, per reset
+   (shutdown, init, NCCL communicator init), and the replayed ms/step
+   beside phase 13's. A peer lost on NCCL needs more than one card.
+19. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
    launches, and K1-K3's offsets rows with phase 17's launches; the lane
    adds no kernel), the card line, and the result line
    ``{"ok": true, "device": {...}}``.
@@ -2455,6 +2478,388 @@ def run_ring_replay(torch, ctr, fa, ring_flash_steps, n=4, b=1, t=16384,
                           for k in ("K1", "K2", "K3")})
 
 
+# ---- phase 18: elastic training on NCCL (world size 1) -----------------
+
+
+def copy_rates(torch, nbytes=1 << 30, iters=8):
+    """The host link's pinned copy rates, device to host and host to
+    device, in bytes/s: the fastest of ``iters`` copies of 1 GiB each
+    way (CUDA events around each), the rate a bound may assume."""
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+    def best_ms(dst, src):
+        times = []
+        for _ in range(iters):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return min(times)
+
+    d2h, h2d = best_ms(host, dev), best_ms(dev, host)
+    del dev, host
+    return nbytes / d2h * 1e3, nbytes / h2d * 1e3
+
+
+def host_copy(torch, tensors):
+    return [t.detach().to("cpu", copy=True) for t in tensors]
+
+
+def leaf_agreement(torch, got, want):
+    """(largest norm-relative difference, bit-identical) over the leaves."""
+    worst, same = 0.0, True
+    for g, w in zip(got, want):
+        worst = max(worst, norm_rel(g, w))
+        same = same and torch.equal(g, w)
+    return worst, same
+
+
+def timed_state(base, sync, torch_cuda):
+    """``base`` (an elastic state class) with its commit() and restore()
+    timed, and the reset between a restore and the state's on_reset
+    (run_fn calls reset() there; the post-reset hooks included), in
+    ``.times``."""
+
+    class Timed(base):
+        def _timed(self, key, fn):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            self.times.setdefault(key, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            self.t_last = time.perf_counter()
+
+        def commit(self):
+            self._timed("commit", super().commit)
+            # Fresh page-locked blocks so far (the pinned-memory cache's
+            # misses) and the ms spent creating them, where torch says.
+            stats = getattr(torch_cuda, "host_memory_stats", None)
+            stats = stats() if stats else {}
+            self.times.setdefault("host_allocs", []).append(
+                (stats.get("num_host_alloc"),
+                 stats.get("host_alloc_time.total", 0) / 1e3))
+
+        def restore(self):
+            self._timed("restore", super().restore)
+
+        def on_reset(self):
+            self.times.setdefault("reset", []).append(
+                (time.perf_counter() - self.t_last) * 1e3)
+            super().on_reset()
+
+    Timed.times = None
+    return Timed
+
+
+def run_elastic(torch, ctr, bert, precision, train_step, cfg, batch, seq,
+                card, step13_ms):
+    """Elastic BERT-Large MLM on the lane at world size 1 (NCCL): (a) the
+    reference's torch elastic API (an nn.Module over ``bert_init``'s
+    params, ``hvd.DistributedOptimizer(Adam(1e-4))`` under
+    ``@hvd.elastic.run`` with ``TorchState``; 6 steps, a commit every 2,
+    each step's gradients one ``grouped_allreduce_async_`` Average on the
+    card) and (b) the port's split step under ``TreeState`` (4 steps, one
+    commit). A step past step 2's commit ((a) at step 4, after the
+    backward with the group in flight; (b) after step 3's in-place
+    update), the training function raises ``HorovodInternalError`` once:
+    the state rolls back to step 2's commit, ``reset()`` re-inits the
+    lane at epoch 1 (a new NCCL group) and steps 3.. replay. Each run is
+    held against a fault-free run from the same seed."""
+    import torch.distributed as dist
+
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.parallel._tree import tree_leaves, tree_unflatten
+
+    dev, sync = "cuda", torch.cuda.synchronize
+    TimedTorchState = timed_state(hvd.elastic.TorchState, sync, torch.cuda)
+    TimedTreeState = timed_state(hvd.elastic.TreeState, sync, torch.cuda)
+    data = bert_batch(torch, cfg, batch, seq, 40)
+
+    def phase_us():
+        """The lane's control-phase sums so far (hvd.metrics())."""
+        return {k: v["sum_us"]
+                for k, v in hvd.metrics()["control_phase"].items()}
+
+    def init_params():
+        return bert.bert_init(cfg, torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+
+    class MLM(torch.nn.Module):
+        """Phase glue: bert_init's params as a module whose forward is
+        bert_mlm_loss."""
+
+        def __init__(self, params):
+            super().__init__()
+            self.like = params
+            self.flat = torch.nn.ParameterList(
+                torch.nn.Parameter(t) for t in tree_leaves(params))
+
+        def forward(self, batch):
+            return bert.bert_mlm_loss(
+                tree_unflatten(self.like, list(self.flat)), batch, cfg,
+                device=dev)
+
+    hvd.init(device=dev)
+    try:
+        group0 = basics.lane().set_groups(0).groups
+        reset_counts(ctr)
+
+        def torch_run(fault, steps=6):
+            model = MLM(init_params())
+            opt = hvd.DistributedOptimizer(
+                torch.optim.Adam(model.parameters(), lr=1e-4))
+            state = TimedTorchState(model, opt, step=0)
+            state.times = {}
+            losses, step_ms, seen = {}, {}, {}
+            epoch0 = basics.epoch()
+
+            @hvd.elastic.run
+            def train(state):
+                if basics.epoch() > epoch0 and "restored" not in seen:
+                    # Back from the fault: the tensors equal the commit's
+                    # bit for bit, on the card (Adam's step counts stay
+                    # on the host), in their dtypes.
+                    saved = state._saved
+                    live = [(p, saved["model"][k])
+                            for k, p in model.state_dict().items()] + [
+                        (v, saved["optimizer"]["state"][i][key])
+                        for i, st in opt.state_dict()["state"].items()
+                        for key, v in st.items()]
+                    seen["restored"] = all(
+                        (v.device.type == dev or v.dim() == 0) and
+                        v.dtype == w.dtype and torch.equal(v.cpu(), w)
+                        for v, w in live)
+                while state.step < steps:
+                    t0 = time.perf_counter()
+                    opt.zero_grad()
+                    loss = model(data)
+                    loss.backward()
+                    handles = hvd.grouped_allreduce_async_(
+                        [p.grad for p in model.parameters()], op=hvd.Average)
+                    if fault and state.step == 3 and "raised" not in seen:
+                        seen["raised"] = sum(not h.poll() for h in handles)
+                        seen["group"] = basics.lane().set_groups(0).groups
+                        # Step 3 has moved the params past the commit.
+                        seen["moved"] = any(
+                            not torch.equal(p.detach().cpu(),
+                                            state._saved["model"][k])
+                            for k, p in model.state_dict().items())
+                        raise hvd.HorovodInternalError(
+                            "injected after the backward, the gradient "
+                            "group in flight")
+                    for h in handles:
+                        h.synchronize()
+                    opt.step()
+                    losses[state.step + 1] = float(loss.detach())
+                    step_ms.setdefault(state.step + 1, []).append(
+                        (time.perf_counter() - t0) * 1e3)
+                    state.step += 1
+                    if state.step % 2 == 0:
+                        state.commit()
+                        if state.step == 2 and "committed" not in seen:
+                            seen["committed"] = all(
+                                torch.equal(p.detach().cpu(),
+                                            state._saved["model"][k])
+                                for k, p in model.state_dict().items())
+
+            train(state)
+            sync()
+            leaves = host_copy(torch, list(model.parameters()) + [
+                v for st in opt.state.values() for k, v in sorted(st.items())
+                if k in ("exp_avg", "exp_avg_sq")])
+            return dict(leaves=leaves, losses=losses, step_ms=step_ms,
+                        seen=seen, times=state.times, epoch=basics.epoch())
+
+        def tree_run(fault, steps=4):
+            ts = train_step.make_split_train_step(
+                lambda p, d: bert.bert_mlm_loss(p, d, cfg, device=dev),
+                precision.fused_adam(1e-4))
+            state = TimedTreeState(carry=ts.init(init_params()), step=0)
+            state.times = {}
+            losses, step_ms, seen = {}, {}, {}
+            epoch0 = basics.epoch()
+
+            @hvd.elastic.run
+            def train(state):
+                if basics.epoch() > epoch0 and "restored" not in seen:
+                    seen["restored"] = all(
+                        t.device.type == dev and t.dtype == s.dtype and
+                        torch.equal(t.cpu(), s) for t, s in zip(
+                            tree_leaves(state.carry[0]) +
+                            tree_leaves(state.carry[1].mu) +
+                            tree_leaves(state.carry[1].nu),
+                            tree_leaves(state._saved["carry"][0]) +
+                            tree_leaves(state._saved["carry"][1].mu) +
+                            tree_leaves(state._saved["carry"][1].nu)))
+                while state.step < steps:
+                    t0 = time.perf_counter()
+                    loss, carry = ts.step(state.carry, data)
+                    if fault and state.step == 2 and "raised" not in seen:
+                        # fused_adam has written the carry in place,
+                        # past the commit.
+                        seen["raised"] = True
+                        seen["moved"] = any(
+                            not torch.equal(t.cpu(), s) for t, s in zip(
+                                tree_leaves(state.carry[0]),
+                                tree_leaves(state._saved["carry"][0])))
+                        raise hvd.HorovodInternalError(
+                            "injected after the step")
+                    losses[state.step + 1] = float(loss)
+                    step_ms.setdefault(state.step + 1, []).append(
+                        (time.perf_counter() - t0) * 1e3)
+                    state.carry = carry
+                    state.step += 1
+                    if state.step == 2:
+                        state.commit()
+                        seen.setdefault("committed", all(
+                            torch.equal(t.cpu(), s) for t, s in zip(
+                                tree_leaves(state.carry[0]),
+                                tree_leaves(state._saved["carry"][0]))))
+
+            train(state)
+            sync()
+            params, opt = state.carry
+            leaves = host_copy(torch, tree_leaves(params) +
+                               tree_leaves(opt.mu) + tree_leaves(opt.nu))
+            return dict(leaves=leaves, losses=losses, step_ms=step_ms,
+                        seen=seen, times=state.times, epoch=basics.epoch())
+
+        out = {}
+        for name, fn, replayed in (("torch_state", torch_run, (3, 4, 5, 6)),
+                                   ("tree_state", tree_run, (3, 4))):
+            clean = fn(False)
+            epoch0, before = basics.epoch(), phase_us()
+            faulted = fn(True)
+            after = phase_us()
+            check(faulted["epoch"] == epoch0 + 1,
+                  f"{name}: epoch {faulted['epoch']} after the fault, "
+                  f"expected {epoch0 + 1}")
+            check(faulted["seen"].get("restored"),
+                  f"{name}: restore() did not give back the committed "
+                  "tensors bit for bit on the card in their dtypes")
+            check(faulted["seen"]["committed"],
+                  f"{name}: step 2's commit does not hold the live params")
+            check(faulted["seen"]["moved"],
+                  f"{name}: the params had not moved past the commit at "
+                  "the fault, so restore() was not tested")
+            worst, same = leaf_agreement(torch, faulted["leaves"],
+                                         clean["leaves"])
+            check(worst <= 1e-3, f"{name}: params/moments {worst:.3e} from "
+                  "the fault-free run (bound 1e-3, norm-relative)")
+            loss_err = max(abs(faulted["losses"][s] - clean["losses"][s]) /
+                           abs(clean["losses"][s]) for s in replayed)
+            check(loss_err <= 1e-3, f"{name}: replayed losses "
+                  f"{faulted['losses']} vs {clean['losses']}")
+            replay_ms = [faulted["step_ms"][s][-1] for s in replayed]
+            t = faulted["times"]
+            out[name] = dict(
+                epoch=faulted["epoch"], max_norm_rel=worst,
+                bit_identical=same, loss_rel_err=loss_err,
+                losses=faulted["losses"], clean_losses=clean["losses"],
+                commit_ms=t["commit"], host_allocs=t["host_allocs"],
+                restore_ms=t["restore"],
+                reset_ms=t["reset"], replay_ms=replay_ms,
+                seen={k: v for k, v in faulted["seen"].items()
+                      if k != "group"},
+                # The one reset's shutdown, init and NCCL communicator.
+                reset_split={k: (after.get(k, 0) - before.get(k, 0)) / 1e3
+                             for k in ("shutdown", "rendezvous",
+                                       "nccl_init")})
+            if name == "torch_state":
+                group = faulted["seen"]["group"]["cuda"]
+                now = basics.lane().set_groups(0).groups["cuda"]
+                # (Group names restart with torch.distributed's world.)
+                check(now is not group,
+                      "the lane's group was not re-created by reset()")
+            # The params and the Adam moments a commit copies.
+            out[name]["state_bytes"] = sum(nbytes(x)
+                                           for x in clean["leaves"])
+            del clean, faulted
+        check(group0 is not basics.lane().set_groups(0).groups,
+              "the lane kept its first epoch's groups")
+        launched, biased = counts(ctr), bias_counts(ctr)
+        check_wgmma_routes(ctr, "elastic BERT")
+        # Per grad call K1 2L (the forward and the remat recompute), K2 =
+        # K3 L: (a) 6 + 8 calls (steps 3 and 4 ran before the fault, the
+        # faulted one its backward), (b) 4 + 5.
+        L = cfg.n_layers
+        for k, n in {"K1": 2 * L, "K2": L, "K3": L}.items():
+            check(launched[k] == biased[k] == n * 23,
+                  f"elastic BERT: {k} launched {launched[k]} times "
+                  f"({biased[k]} with the bias), expected {n * 23}")
+        check(all(launched[k] == 0 for k in ("K4", "K5", "K6 dlhs",
+                                              "K6 tgmm")),
+              f"elastic BERT launched a kernel off its path: {launched}")
+        out["epoch"] = basics.epoch()
+        out["backend"] = dist.get_backend(
+            basics.lane().set_groups(0).groups["cuda"])
+        # The split step's ms with the lane's thread cycling beside it,
+        # then (below) with the lane closed: the host-bound step shares
+        # the interpreter with the lane's negotiation.
+        lane_open = split_step_ms(torch, bert, precision, train_step, cfg,
+                                  data, dev, sync)
+    finally:
+        hvd.shutdown()
+    lane_closed = split_step_ms(torch, bert, precision, train_step, cfg,
+                                data, dev, sync)
+    out["split_step_ms"] = dict(lane_open=lane_open, lane_closed=lane_closed)
+    log(f"  the split step alone, 3 steps after one: lane open "
+        f"{[round(x, 1) for x in lane_open]} ms, lane closed "
+        f"{[round(x, 1) for x in lane_closed]} ms")
+    d2h, h2d = copy_rates(torch)
+    for name in ("torch_state", "tree_state"):
+        r = out[name]
+        gb = r["state_bytes"] / 1e9
+        r.update(d2h_bytes_per_s=d2h, h2d_bytes_per_s=h2d,
+                 commit_bound_ms=r["state_bytes"] / d2h * 1e3,
+                 restore_bound_ms=r["state_bytes"] / h2d * 1e3)
+        split = r["reset_split"]
+        log(f"  {name}: epoch {r['epoch']} after the fault; final params "
+            f"and moments {r['max_norm_rel']:.3e} from the fault-free run "
+            f"(norm-relative, bound 1e-3; bit-identical: "
+            f"{r['bit_identical']}); replayed losses within "
+            f"{r['loss_rel_err']:.2e}; commit of {gb:.3f} GB "
+            f"{[round(x, 1) for x in r['commit_ms']]} ms (pinned blocks "
+            f"created so far, and their ms: {r['host_allocs']}; bound "
+            f"{r['commit_bound_ms']:.1f} ms at the pinned device-to-host "
+            f"rate {d2h / 1e9:.2f} GB/s); restore "
+            f"{[round(x, 1) for x in r['restore_ms']]} ms (bound "
+            f"{r['restore_bound_ms']:.1f} ms at {h2d / 1e9:.2f} GB/s "
+            f"host-to-device); reset {[round(x, 1) for x in r['reset_ms']]}"
+            f" ms (shutdown {split['shutdown']:.1f}; init "
+            f"{split['rendezvous']:.1f}, of it the NCCL communicator "
+            f"{split['nccl_init']:.1f}); replayed "
+            f"steps {[round(x, 1) for x in r['replay_ms']]} ms/step "
+            f"(phase 13: {step13_ms:.1f}); card {card}")
+    out["launches"], out["bias_launches"] = launched, biased
+    return launched, out
+
+
+def split_step_ms(torch, bert, precision, train_step, cfg, data, dev, sync,
+                  steps=3):
+    """ms of ``steps`` split steps after a first, on a fresh carry."""
+    ts = train_step.make_split_train_step(
+        lambda p, d: bert.bert_mlm_loss(p, d, cfg, device=dev),
+        precision.fused_adam(1e-4))
+    carry = ts.init(bert.bert_init(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+    out = []
+    for i in range(steps + 1):
+        sync()
+        t0 = time.perf_counter()
+        loss, carry = ts.step(carry, data)
+        float(loss)
+        if i:
+            out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
 def main():
     import torch
 
@@ -2667,7 +3072,14 @@ def main():
     ring = run_ring_replay(torch, ctr, fa, ring_flash_steps)
     torch.cuda.empty_cache()
 
-    log("phase 18: results")
+    log("phase 18: elastic training on NCCL (world size 1), BERT-Large "
+        "at full width")
+    elastic_launch, elastic = run_elastic(
+        torch, ctr, bert, precision, train_step, bcfg, 16, 512, card,
+        bert_train_stats["ms_per_step"])
+    torch.cuda.empty_cache()
+
+    log("phase 19: results")
     log(json.dumps({"generate": gen_stats, "engine": eng_stats,
                     "train": train_stats, "train_parity": parity,
                     "moe_train": moe_train_stats,
@@ -2678,16 +3090,17 @@ def main():
                     "bert_train": bert_train_stats,
                     "bert_forward": bert_fwd_stats,
                     "bert_parity": bert_parity, "ring_replay": ring,
-                    "card": card}))
+                    "elastic": elastic, "card": card}))
     paths = {"llama_generate": gen_launch, "DecodeEngine": eng_launch,
              "train_step": train_launch, "moe_train_step": moe_train_launch,
              "moe_llama_generate": moe_gen_launch,
              "moe_DecodeEngine": moe_eng_launch,
              "bert_train_step": bert_train_launch,
-             "bert_forward": bert_fwd_launch}
+             "bert_forward": bert_fwd_launch,
+             "elastic_bert_train": elastic_launch}
     bert_bias = {k: bert_train_stats["bias_launches"][k]
                  + (bert_fwd_launch[k] if k == "K1" else 0)
-                 for k in ("K1", "K2", "K3")}
+                 + elastic["bias_launches"][k] for k in ("K1", "K2", "K3")}
 
     def row(name, source, replaces, keys, cases, head=None):
         by_path = {p: sum(n[k] for k in keys) for p, n in paths.items()}

@@ -24,8 +24,9 @@ stderr of a tensor some rank has not submitted within
 ``HOROVOD_STALL_CHECK_TIME`` (``CheckForStalledTensors:947``), and
 counts which rank completed each tensor last (the straggler table).
 
-Still to port (ROADMAP.md): re-forming after a lost peer (L5), the
-autotuned knobs the response list carries (L6), the hierarchical split
+A lost peer ends the lane (``operations.py``); re-forming the world is
+``basics.reinit``'s, with a new controller. Still to port (ROADMAP.md):
+the autotuned knobs the response list carries (L6), the hierarchical split
 (L7), the control tree and wire checksums (L8), the MPI controller (L9).
 """
 

@@ -15,7 +15,11 @@ steady clock in microseconds. The lane records these types:
 - ``phase`` (phase, dur_us, and ``phase_name``): a control phase;
 - ``step_begin`` (step) and ``step_end`` (step, dur_us): step marks;
 - ``wait`` (dur_us): a caller blocked in ``synchronize``, stamped at
-  its end.
+  its end;
+- ``fault`` (kind, certain, epoch, fault_rank): a collective failed on a
+  lost peer; ``inject`` (action, op_index): ``HOROVOD_FAULT_INJECT``
+  fired; ``reinit_begin`` (size, epoch), ``reinit_end`` (rc, size,
+  epoch) and ``epoch`` (epoch, old_epoch): an in-place re-formation.
 
 :func:`peek` reads without consuming; :func:`drain` consumes what was
 recorded since the last drain. Both see at most the newest 8192.
@@ -37,10 +41,19 @@ SPECS = {
     "step_begin": ("", "", "step", ""),
     "step_end": ("", "", "step", "dur_us"),
     "wait": ("", "", "dur_us", ""),
+    "fault": ("kind", "certain", "epoch", "fault_rank"),
+    "epoch": ("", "", "epoch", "old_epoch"),
+    "reinit_begin": ("size", "", "epoch", ""),
+    "reinit_end": ("rc", "size", "epoch", ""),
+    "inject": ("action", "", "op_index", ""),
 }
-# The reference's control-phase order (csrc/metrics.h ControlPhase); the
-# lane records the first three.
-CONTROL_PHASES = ("rendezvous", "gather", "broadcast")
+# The reference's control-phase order (csrc/metrics.h ControlPhase), then
+# the port's own: the lane's teardown (``shutdown()``, or the old lane's
+# within ``reinit``) and the NCCL communicator's creation within
+# ``rendezvous``. The lane records all but ``probe_sweep`` and
+# ``parole_freeze`` (no sweep; the door is ROADMAP.md L5b).
+CONTROL_PHASES = ("rendezvous", "gather", "broadcast", "probe_sweep",
+                  "reinit", "parole_freeze", "shutdown", "nccl_init")
 
 
 class EventRing:

@@ -4,8 +4,10 @@ The port's own copy of ``horovod_tpu/common/exceptions.py``, with the
 same classes and fields, so that code written against the reference
 catches the port's errors unchanged. The port raises
 :class:`HorovodInternalError` for a failed collective (a mismatch across
-ranks, a lost peer, a shutdown mid-flight); the subclasses are kept for
-the elastic port (ROADMAP.md L5), which raises them.
+ranks, a shutdown mid-flight) and its subclass
+:class:`HorovodPeerFailureError` for a lost peer, naming it;
+:class:`HorovodWireCorruptionError` waits for the wire's CRC
+(ROADMAP.md L8).
 """
 
 

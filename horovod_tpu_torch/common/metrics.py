@@ -8,14 +8,21 @@ tensors, on NCCL), each ``{op class: {responses, tensors, bytes}}``
 with the classes that moved; the histograms ``negotiation_us`` (one
 active cycle's control exchange), ``queue_us`` (a tensor's enqueue to
 the start of its response's execution) and ``wire_us`` (one collective
-call); ``control_phase`` (the coordinator's gather and broadcast, and
-the init's rendezvous); ``fusion``; ``cycle``; ``cache``; ``straggler``
-(which rank completed a tensor last, on the coordinator); ``errors``;
-``knobs`` (``fusion_threshold_bytes``, ``cycle_time_ms``).
+call); ``control_phase`` (the coordinator's gather and broadcast, the
+init's rendezvous, a re-formation's reinit, and the port's own
+``shutdown`` and ``nccl_init``: the lane's teardown and the NCCL
+communicator's creation); ``fusion``; ``cycle``; ``cache``; ``straggler``
+(which rank completed a tensor last, on the coordinator); ``elastic``
+(``epoch``, ``faults_detected``, ``faults_recovered``,
+``ranks_blacklisted``, ``ranks_rejoined``, the ``detect_us`` histogram
+of a fault's detection, and the port's ``resets`` (re-formations and
+elastic re-inits) and ``last_fault`` record); ``errors``; ``knobs``
+(``fusion_threshold_bytes``, ``cycle_time_ms``).
 
 Left out, with what they wait for: ``wire`` (the host ring's transport
 bytes, syscalls and overlap ledger: the port has no host ring, ROADMAP.md
-L8), ``elastic`` (L5), and the wire and ring knobs (L8).
+L8), the ``elastic`` section's wire counters ``heals``, ``retries`` and
+``crc_errors`` (L8), and the wire and ring knobs (L8).
 
 ``wire_us`` of a CPU collective is the host time of the gloo call. Of a
 CUDA collective it is the time between two CUDA events the lane records
@@ -112,6 +119,7 @@ class Metrics:
         # the card: queuing its work). Not in the reference's snapshot;
         # chip_smoke.py reads it.
         self.execute_us = LatencyHistogram()
+        self.fault_detect_us = LatencyHistogram()
         self.reset()
 
     def reset(self):
@@ -120,8 +128,11 @@ class Metrics:
                         for dev in ("cpu", "cuda")}
             for h in (self.negotiation_us, self.queue_us, self.wire_us,
                       self.straggler_skew_us, self.execute_us,
+                      self.fault_detect_us,
                       *self.control_phase_us.values()):
                 h.reset()
+            self.faults_detected = self.faults_recovered = 0
+            self.ranks_blacklisted = self.resets = 0
             self.cycles = self.cycle_stalls = self.cycle_overrun_us = 0
             self.fused_responses = 0
             self.fusion_fill_bytes = self.fusion_capacity_bytes = 0
@@ -166,6 +177,21 @@ class Metrics:
             self.straggler_counts[rank] += 1
             self.straggler_skew_us.record(skew_us)
 
+    def record_fault(self, detect_us):
+        """A collective failed on a lost peer."""
+        with self._lock:
+            self.faults_detected += 1
+            self.fault_detect_us.record(detect_us)
+
+    def record_reset(self, recovered_ranks=0):
+        """The lane re-formed (``reinit``) or re-initialized at a new
+        epoch; ``recovered_ranks`` the dead ranks it left out."""
+        with self._lock:
+            self.resets += 1
+            if recovered_ranks:
+                self.faults_recovered += 1
+                self.ranks_blacklisted += recovered_ranks
+
     def record_phase(self, phase, dur_us, emit_event=True):
         """One control-phase duration, and its ``phase`` event unless the
         cycle was idle (``RecordControlPhase``)."""
@@ -191,7 +217,8 @@ class Metrics:
     # ---- the snapshot --------------------------------------------------
 
     def snapshot(self, initialized=False, rank=-1, size=0,
-                 fusion_threshold_bytes=0, cycle_time_ms=0.0, cache=None):
+                 fusion_threshold_bytes=0, cycle_time_ms=0.0, cache=None,
+                 epoch=0, last_fault=None):
         """The reference's snapshot dict, less the omitted sections;
         ratios rounded to the reference's six decimals."""
         self.drain_cuda_spans()
@@ -227,6 +254,13 @@ class Metrics:
             out["straggler"] = {
                 "last_rank_counts": list(self.straggler_counts),
                 "skew_us": self.straggler_skew_us.json()}
+            out["elastic"] = {
+                "epoch": epoch, "faults_detected": self.faults_detected,
+                "faults_recovered": self.faults_recovered,
+                "ranks_blacklisted": self.ranks_blacklisted,
+                "ranks_rejoined": 0, "resets": self.resets,
+                "last_fault": last_fault,
+                "detect_us": self.fault_detect_us.json()}
             out["errors"] = self.errors
             out["knobs"] = {"fusion_threshold_bytes": fusion_threshold_bytes,
                             "cycle_time_ms": float(cycle_time_ms)}

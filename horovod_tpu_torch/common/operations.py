@@ -18,24 +18,50 @@ latency, cycles), the event ring (``events.py``) and, when one is
 running, the timeline (``timeline.py``).
 
 A joined rank takes part in the collectives it never enqueued with
-zero-filled tensors. After a failed collective (a lost peer) every
-in-flight handle and every later enqueue raises
-:class:`HorovodInternalError`; a mismatch across ranks fails only the
-tensors concerned.
+zero-filled tensors. A mismatch across ranks fails only the tensors
+concerned.
+
+A failed collective (a lost peer) ends the lane, and every rank names
+the same dead set (the core's probe sweep, ``csrc/operations.cc``, has
+no counterpart on ``torch.distributed``; the port checks in on the
+rendezvous store instead, :meth:`Runtime._agree`): the rank that fails
+posts ``fault`` and ``alive/<rank>`` under its epoch's prefix; every
+rank's watcher thread polls ``fault`` every 0.1 s and checks in, so a
+rank a gloo ring never gives an EOF raises as promptly as the dead
+rank's neighbours; rank 0 freezes the ranks that checked in within 3 s
+of its own (``CHECKIN_S``), or as soon as all did, and every rank reads
+the frozen list. The
+fault record (:attr:`Runtime.fault`, the reference's ``last_fault()``
+dict) is written before any handle wakes; then every in-flight handle
+and every later enqueue raises :class:`HorovodPeerFailureError` naming
+the dead ranks. A store that cannot be reached means its host, rank 0,
+is gone: the record then names rank 0, not certain. A failure that
+leaves no rank dead raises :class:`HorovodInternalError`.
+
+``HOROVOD_FAULT_INJECT="<rank>:<op>[:<action>[:<param>]]"`` arms the
+chaos trigger (:func:`parse_fault_spec`, the reference's strict
+grammar): at the top of the ``op``-th executed response (JOIN and ERROR
+not counted, as ``MaybeInjectFault``) rank ``rank`` runs ``kill``
+(SIGKILL) or ``delay:<ms>`` (a straggler sleep). One-shot per epoch.
 """
 
 import dataclasses
+import datetime
+import os
+import signal
 import sys
 import threading
 import time
-import traceback
 
 import torch
 
 from horovod_tpu_torch.common import events
 from horovod_tpu_torch.common.controller import ControlPlane, Controller
 from horovod_tpu_torch.common.data_plane import ResponseError
-from horovod_tpu_torch.common.exceptions import HorovodInternalError
+from horovod_tpu_torch.common.exceptions import (
+    HorovodInternalError,
+    HorovodPeerFailureError,
+)
 from horovod_tpu_torch.common.message import (
     Request,
     RequestType,
@@ -45,6 +71,85 @@ from horovod_tpu_torch.common.message import (
 from horovod_tpu_torch.common.metrics import REGISTRY, now_us, op_class
 from horovod_tpu_torch.common.response_cache import ResponseCache
 from horovod_tpu_torch.common.timeline import Timeline
+
+
+_WIRE_ACTIONS = ("stop", "reset", "flip")
+_MAX_WIRE_CHANNELS = 8                # csrc/wire.h kMaxWireChannels
+_FLIP_SKIP_SHIFT, _FLIP_CHAN_SHIFT = 20, 44
+_INT64 = 1 << 63
+
+
+def _strtoll(text):
+    """``strtoll(text, &end, 10)`` consuming all of ``text``; None if
+    it does not (leading whitespace and one sign allowed)."""
+    body = text.lstrip(" \t\n\v\f\r")
+    digits = body[1:] if body[:1] in "+-" else body
+    if not body or not digits or not digits.isascii() \
+            or not digits.isdigit():
+        return None
+    v = int(body)
+    return v if -_INT64 <= v < _INT64 else None
+
+
+def parse_fault_spec(spec):
+    """``HOROVOD_FAULT_INJECT``'s grammar, as ``ParseFaultSpec``
+    (``csrc/operations.cc:268``): ``(rank, op, action, param)`` with
+    action ``"kill"`` or ``"delay"``; None for a malformed spec, which
+    stays disarmed. ``stop``, ``reset`` and ``flip`` parse as in the
+    reference and raise ``ValueError``: they act on the reference's
+    socket wire (its deadline and CRC framing, ROADMAP.md L8)."""
+    parts = spec.split(":")
+    if not 2 <= len(parts) <= 6:
+        return None
+    rank, op = _strtoll(parts[0]), _strtoll(parts[1])
+    if rank is None or rank < 0 or op is None or op < 0:
+        return None
+    action, param = "kill", 0
+    has_param = len(parts) >= 4
+    if len(parts) >= 5 and parts[2] != "flip":
+        return None
+    if len(parts) >= 3:
+        action = parts[2]
+        value = _strtoll(parts[3]) if has_param else None
+        if action == "kill":
+            if has_param:
+                return None
+        elif action in ("stop", "delay"):
+            if value is None or value <= 0:
+                return None
+            param = value
+        elif action == "reset":
+            if has_param and (value is None or not
+                              0 <= value < _MAX_WIRE_CHANNELS):
+                return None
+        elif action == "flip":
+            if value is None or value >= 1 << _FLIP_SKIP_SHIFT:
+                return None
+            if len(parts) >= 5:
+                skip = _strtoll(parts[4])
+                if value < 0 or skip is None or not 0 <= skip < 1 << (
+                        _FLIP_CHAN_SHIFT - _FLIP_SKIP_SHIFT):
+                    return None
+                if len(parts) == 6:
+                    chan = _strtoll(parts[5])
+                    if chan is None or not 0 <= chan < _MAX_WIRE_CHANNELS:
+                        return None
+        else:
+            return None
+    if action in _WIRE_ACTIONS:
+        raise ValueError(
+            f"HOROVOD_FAULT_INJECT={spec!r}: the {action!r} action acts on "
+            "the reference's socket wire (deadline, CRC framing), which the "
+            "port does not have yet (ROADMAP.md L8); kill and delay:<ms> "
+            "are ported")
+    return rank, op, action, param
+
+
+# The watcher's poll of the store, and how long rank 0 waits for the
+# survivors to check in: a live rank's watcher is at most one poll (and
+# a store round trip) late, so the window only ever delays a real death.
+POLL_S = 0.1
+CHECKIN_S = 3.0
 
 
 class SetGroups:
@@ -79,6 +184,8 @@ class Handle:
         self._done.set()
 
     def fail(self, error):
+        if self._done.is_set():
+            return
         self.error = error
         self._done.set()
 
@@ -180,11 +287,15 @@ class Runtime:
     data plane. ``sets`` maps a process set id to its :class:`SetGroups`;
     ``make_groups(ranks)`` creates a new set's groups. ``cache_capacity``
     sizes the response cache (0: off); ``stall_warning_s`` is the stall
-    check's threshold (None: off)."""
+    check's threshold (None: off). ``epoch`` is the membership epoch;
+    ``store`` the fault check-in's store (its prefix is the epoch's;
+    None in a world of one); ``fault_inject`` a parsed
+    :func:`parse_fault_spec` or None."""
 
     def __init__(self, rank, size, control_group, data_plane, sets,
                  fusion_threshold, cycle_time_ms, make_groups,
-                 cache_capacity=1024, stall_warning_s=60.0):
+                 cache_capacity=1024, stall_warning_s=60.0, epoch=0,
+                 store=None, fault_inject=None):
         self.rank = rank
         self.size = size
         self.data_plane = data_plane
@@ -204,14 +315,29 @@ class Runtime:
         self.queue = TensorQueue()
         self.joined = False
         self.failure = None
+        self.epoch = epoch
+        self.fault = None           # the fault record, once agreed
+        self.fault_inject = fault_inject
+        self._store = store if size > 1 else None
+        self._error = None          # what every handle then raises
+        self._fault_lock = threading.Lock()
+        self._op_counter = 0        # executed responses, for the trigger
+        self._executing = []        # the entries of the running response
+        self._op_start_us = now_us()
         self._barrier_seq = {}
         self._group_seq = 0
         self._shutdown = threading.Event()
+        self._stopped = threading.Event()
         self._thread = threading.Thread(target=self._loop,
                                         name="hvd-torch-lane", daemon=True)
+        self._watcher = threading.Thread(
+            target=self._watch, name="hvd-torch-fault-watch",
+            daemon=True) if self._store is not None else None
 
     def start(self):
         self._thread.start()
+        if self._watcher is not None:
+            self._watcher.start()
 
     # ---- process sets --------------------------------------------------
 
@@ -257,9 +383,7 @@ class Runtime:
         """Queue ``(request, input, output)`` items all or none (a group
         half queued would wait forever for its other members)."""
         if self.failure is not None:
-            raise HorovodInternalError(
-                f"cannot enqueue {items[0][0].tensor_name}: collective "
-                f"runtime failed ({self.failure})")
+            raise self._later_error(items[0][0].tensor_name)
         entries = []
         for request, input, output in items:
             ready = None
@@ -290,8 +414,8 @@ class Runtime:
         tl = self.timeline
         try:
             self.data_plane.start_thread()
-            while True:
-                t0 = now_us()
+            while self._error is None:
+                t0 = self._op_start_us = now_us()
                 if tl.mark_cycles:
                     tl.mark_cycle()
                 requests = self.queue.pop_requests()
@@ -307,12 +431,17 @@ class Runtime:
                     events.record("negotiate_end", len(responses.responses),
                                   int(responses.shutdown))
                 for res in responses.responses:
+                    if self._error is not None:
+                        break
                     for name in res.tensor_names:
                         tl.negotiate_end(name)
-                    t1 = now_us()
+                    t1 = self._op_start_us = now_us()
                     self._perform(res)
                     REGISTRY.record(REGISTRY.execute_us, now_us() - t1)
                 if responses.shutdown:
+                    # Every rank ends in this cycle: rank 0 may close the
+                    # store at any moment now.
+                    self._stopped.set()
                     break
                 elapsed = now_us() - t0
                 budget = self.cycle_time_ms * 1e3
@@ -320,12 +449,117 @@ class Runtime:
                 REGISTRY.drain_cuda_spans()
                 time.sleep(max(0.0, budget - elapsed) / 1e6)
         except Exception as exc:  # noqa: BLE001 — the lane's boundary
-            traceback.print_exc(file=sys.stderr)
-            self.failure = f"{type(exc).__name__}: {exc}"
-            error = HorovodInternalError(
-                f"collective runtime failed: {self.failure}")
+            print(f"hvd-torch lane: collective failed: "
+                  f"{type(exc).__name__}: {exc}", file=sys.stderr)
+            error = self.fail(f"{type(exc).__name__}: {exc}")
         finally:
+            if self._error is not None:
+                error = self._error
             self.queue.close(error)
+
+    # ---- faults ----------------------------------------------------------
+
+    def _watch(self):
+        """Check in as soon as any rank reports a failed collective, so
+        that a rank a gloo ring gives no EOF raises too; a store that
+        stops answering means rank 0, its host, is gone."""
+        while not self._stopped.wait(POLL_S):
+            try:
+                seen = self._store.check(["fault"])
+            except Exception as exc:  # noqa: BLE001 — the store's host died
+                if self._stopped.wait(0.5):
+                    return       # a negotiated shutdown, not a fault
+                self.fail(f"rendezvous store unreachable: {exc}")
+                return
+            if seen:
+                self.fail("a peer reported a failed collective")
+                return
+
+    def _agree(self):
+        """The dead ranks every rank names, and whether the list is
+        agreed (``certain``): the store's check-in (module docstring)."""
+        st = self._store
+        if st is None:
+            return [], True
+        try:
+            st.set("fault", str(self.rank))
+            st.set(f"alive/{self.rank}", "1")
+            if self.rank == 0:
+                deadline = time.monotonic() + CHECKIN_S
+                while True:
+                    alive = [r for r in range(self.size)
+                             if st.check([f"alive/{r}"])]
+                    if len(alive) == self.size or \
+                            time.monotonic() >= deadline:
+                        break
+                    time.sleep(0.02)
+                st.set("frozen", ",".join(map(str, alive)))
+            else:
+                st.wait(["frozen"],
+                        datetime.timedelta(seconds=CHECKIN_S + 60))
+            alive = {int(r) for r in st.get("frozen").decode().split(",")
+                     if r}
+        except Exception:  # noqa: BLE001 — rank 0's store went with it
+            return ([0] if self.rank != 0 else []), False
+        return [r for r in range(self.size) if r not in alive], True
+
+    def fail(self, reason):
+        """End the lane on a failed collective: agree on the dead ranks,
+        write the fault record, then fail every handle. Idempotent; any
+        thread; returns the error the handles get."""
+        with self._fault_lock:
+            if self._error is not None:
+                return self._error
+            self._stopped.set()
+            dead, certain = self._agree()
+            detect_ms = (now_us() - self._op_start_us) // 1000
+            self.failure = reason
+            if dead:
+                self.fault = dict(epoch=self.epoch, ranks=dead,
+                                  certain=certain, reason=reason,
+                                  detect_ms=int(detect_ms), recovered=False,
+                                  kind="peer")
+                REGISTRY.record_fault(detect_ms * 1000)
+                events.record("fault", 0, int(certain), self.epoch, dead[0])
+                self._error = self._peer_error(
+                    f"collective runtime failed: rank(s) {dead} lost at "
+                    f"epoch {self.epoch} ({reason}); detected in "
+                    f"{detect_ms} ms")
+            else:
+                self._error = HorovodInternalError(
+                    f"collective runtime failed: {reason}")
+        self.queue.close(self._error)
+        for e in list(self._executing):
+            if e.handle is not None:
+                e.handle.fail(self._error)
+        return self._error
+
+    def _peer_error(self, message):
+        f = self.fault
+        return HorovodPeerFailureError(message, f["ranks"], f["epoch"],
+                                       f["detect_ms"])
+
+    def _later_error(self, name):
+        msg = (f"cannot enqueue {name}: collective runtime failed "
+               f"({self.failure})")
+        return self._peer_error(msg) if self.fault is not None else \
+            HorovodInternalError(msg)
+
+    def _maybe_inject(self):
+        """``MaybeInjectFault``: count this executed response; run the
+        armed action at the top of the chosen one."""
+        idx, self._op_counter = self._op_counter, self._op_counter + 1
+        spec = self.fault_inject
+        if spec is None or spec[0] != self.rank or spec[1] != idx:
+            return
+        _, _, action, param = spec
+        events.record("inject", 0 if action == "kill" else 4, 0, idx)
+        if action == "kill":
+            print(f"HOROVOD_FAULT_INJECT: rank {self.rank} dying at "
+                  f"collective {idx}", file=sys.stderr, flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
+        self.fault_inject = None
+        time.sleep(param / 1e3)
 
     def _perform(self, res):
         if res.response_type == ResponseType.JOIN:
@@ -336,6 +570,7 @@ class Runtime:
                     e.handle.complete(res.last_joined_rank)
             return
         if res.response_type != ResponseType.ERROR:
+            self._maybe_inject()
             events.record("response_launch", op_class(res.response_type),
                           int(res.device == "cuda"), len(res.tensor_names),
                           response_bytes(res))
@@ -360,12 +595,16 @@ class Runtime:
         for e in entries:
             if e.enqueue_us:
                 REGISTRY.record(REGISTRY.queue_us, start - e.enqueue_us)
+        # Out of the queue now: a failure mid-collective fails them here.
+        self._executing = entries
         try:
             done = self.data_plane.execute(res, entries, pset)
         except ResponseError as exc:
+            self._executing = []
             self._account(res, entries, False)
             self._finish(entries, error=HorovodInternalError(str(exc)))
             return
+        self._executing = []
         self._account(res, entries, True)
         self._finish(entries, done=done)
 
@@ -423,6 +662,19 @@ class Runtime:
         """Negotiate shutdown (it completes once every rank asked) and
         wait for the lane thread; True if it ended."""
         self._shutdown.set()
-        if self._thread.is_alive():
-            self._thread.join(timeout)
+        deadline = None if timeout is None else time.monotonic() + timeout
+        # A lane that fails meanwhile may sit in a collective a lost peer
+        # never finishes: stop waiting for it then.
+        while self._thread.is_alive() and self._error is None and (
+                deadline is None or time.monotonic() < deadline):
+            self._thread.join(0.1)
         return not self._thread.is_alive()
+
+    def stop(self):
+        """Stop the watcher and refuse every later op, whatever state
+        the lane is in (its thread may still sit in a collective that a
+        lost peer never finishes: it is left to end on its own)."""
+        self._stopped.set()
+        if self._error is None:
+            self._error = HorovodInternalError("Horovod has been shut down")
+        self.queue.close(self._error)

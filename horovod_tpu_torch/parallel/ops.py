@@ -20,6 +20,10 @@ transpose as its backward:
   group; its backward is the inverse shift. One
   ``dist.batch_isend_irecv`` per call, so gloo never deadlocks on the
   order of sends and receives.
+
+A ``None`` group is a mesh axis of size 1 (``Mesh.axis_group``): each op
+is then the identity, as JAX's collectives over a size-1 axis are.
+``None`` never stands for the default group here.
 """
 
 import torch
@@ -40,6 +44,8 @@ class _Psum(torch.autograd.Function):
 
 def psum(x, group):
     """Sum of ``x`` over ``group``, replicated on every member."""
+    if group is None:
+        return x
     return _Psum.apply(x, group)
 
 
@@ -63,6 +69,8 @@ class _Replicate(torch.autograd.Function):
 def replicate(xs, group):
     """The tensors ``xs`` unchanged; in the backward each gradient is
     summed over ``group``."""
+    if group is None:
+        return tuple(xs)
     return _Replicate.apply(group, *xs)
 
 
@@ -91,6 +99,8 @@ def all_to_all(x, group, split_axis, concat_axis):
     """JAX's tiled ``all_to_all``: ``x`` cut into ``group``-size chunks
     along ``split_axis``, chunk j sent to member j, the chunks received
     joined along ``concat_axis`` in member order."""
+    if group is None:
+        return x
     if x.shape[split_axis] % dist.get_world_size(group):
         raise ValueError(f"all_to_all: dim {split_axis} ({x.shape}) does "
                          "not divide over the group")
@@ -128,4 +138,6 @@ def ppermute_ring(xs, group, shift=1):
     """The tensors ``xs`` of member i sent to member i + ``shift`` of
     ``group`` (mod its size); returns those received from member
     i - ``shift``."""
+    if group is None:
+        return tuple(xs)
     return _Ppermute.apply(group, shift, *xs)

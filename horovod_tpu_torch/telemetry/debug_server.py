@@ -6,8 +6,9 @@ read back with ``hvd.debug_port()`` or the ``X-Hvdtpu-Debug-Port``
 header), on loopback unless ``HOROVOD_DEBUG_HOST`` widens it, from a
 daemon thread of stdlib ``http.server``, and serves:
 
-- ``/healthz``: initialized, rank, size, loop state, uptime, the bound
-  port, the lane's queue depth, its cycles and the straggler skew;
+- ``/healthz``: initialized, rank, size, the membership epoch, loop
+  state, the last fault record, uptime, the bound port, the lane's
+  queue depth, its cycles and the straggler skew;
 - ``/metrics``: the Prometheus text of a fresh snapshot
   (``exporters._flatten_prom``);
 - ``/events?n=``: the newest n events of the ring (default 256);
@@ -15,8 +16,8 @@ daemon thread of stdlib ``http.server``, and serves:
   port serves requests on the lane (ROADMAP.md A6, A12);
 - ``/stacks``: every Python thread's stack (``faulthandler``).
 
-The reference's elastic, serving and fleet fields and ``/fleet`` wait
-for L5, A6 and A12.
+The reference's serving and fleet fields and ``/fleet`` wait for A6
+and A12; its ``pending_rejoiners`` for the parole door (L5b).
 """
 
 import faulthandler
@@ -43,7 +44,9 @@ def _healthz():
         "initialized": snap["initialized"],
         "rank": snap["rank"],
         "size": snap["size"] if rt is not None else -1,
+        "epoch": basics.epoch(),
         "loop_failed": basics.loop_failed(),
+        "last_fault": basics.last_fault(),
         "uptime_s": round(time.monotonic() - _start_time, 3),
         "debug_port": debug_port(),
         "queue_depth": rt.queue.depth() if rt is not None else 0,

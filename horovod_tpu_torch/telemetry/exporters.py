@@ -2,9 +2,10 @@
 
 The port's own copy of ``horovod_tpu/telemetry/exporters.py``
 ``_flatten_prom``, over the sections the port's snapshot has
-(``common/metrics.py``): the same ``hvdtpu_*`` names and labels. The
-reference's scraper and its ``wire``, ``elastic`` and serving samples
-are not ported (ROADMAP.md L5, L8, A6).
+(``common/metrics.py``): the same ``hvdtpu_*`` names and labels, the
+elastic fault lifecycle included (less the wire's ``heals``,
+``retries`` and ``crc_errors``). The reference's scraper and its
+``wire`` and serving samples are not ported (ROADMAP.md L8, A6).
 """
 
 
@@ -42,6 +43,16 @@ def _flatten_prom(snap, rank):
                      f'{fus.get(field, 0)}')
     lines.append(f'hvdtpu_fusion_fill_ratio{{{label}}} '
                  f'{fus.get("fill_ratio", 0.0)}')
+    el = snap.get("elastic", {})
+    for field in ("faults_detected", "faults_recovered",
+                  "ranks_blacklisted", "ranks_rejoined", "resets"):
+        lines.append(f'hvdtpu_elastic_{field}_total{{{label}}} '
+                     f'{el.get(field, 0)}')
+    lines.append(f'hvdtpu_elastic_epoch{{{label}}} {el.get("epoch", 0)}')
+    det = el.get("detect_us", {})
+    for field in ("count", "p50_us", "p99_us", "max_us"):
+        lines.append(f'hvdtpu_elastic_detect_{field}{{{label}}} '
+                     f'{det.get(field, 0)}')
     for r, n in enumerate(
             snap.get("straggler", {}).get("last_rank_counts", [])):
         lines.append(

@@ -11,11 +11,13 @@ join; process sets; ``DistributedOptimizer``; the broadcast helpers and
 (``start_timeline``/``stop_timeline``), ``metrics``/``metrics_reset``,
 ``events`` and ``debug_port``; and ``SyncBatchNorm``.
 
-Of the reference's names only ``elastic`` is missing: it raises
-``NotImplementedError`` naming ROADMAP.md L5. Still to port behind the
-same names: autotune (L6), hierarchical allreduce (L7), the control
-tree and wire checksums (L8), the MPI controller (L9), the launcher
-(L10) and the JAX frontend's functional lane (L11).
+``hvd.elastic`` is elastic training (``torch/elastic.py``: ``run``,
+``TorchState``, ``TreeState``, ``ObjectState``, ``init``, ``reset``,
+``survivors``), and ``init`` takes the elastic driver's assignment when
+one runs the job (``HOROVOD_RDZV_ADDR``). Still to port behind the same
+names: the parole door (L5b), autotune (L6), hierarchical allreduce
+(L7), the control tree and wire checksums (L8), the MPI controller (L9),
+the launcher (L10) and the JAX frontend's functional lane (L11).
 """
 
 from horovod_tpu_torch.common.exceptions import (  # noqa: F401
@@ -94,10 +96,4 @@ from horovod_tpu_torch.torch.optimizer import (  # noqa: F401
 from horovod_tpu_torch.torch.sync_batch_norm import (  # noqa: F401
     SyncBatchNorm,
 )
-
-
-def __getattr__(name):
-    if name == "elastic":
-        raise NotImplementedError("hvd.elastic is not ported yet "
-                                  "(ROADMAP.md L5)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+from horovod_tpu_torch.torch import elastic  # noqa: E402,F401

@@ -15,8 +15,8 @@ caller's current stream at the call) has reached the call, as upstream
 Horovod does, so the caller does not write it until ``synchronize``.
 The result of a CUDA op is ready for the caller's current stream at
 ``synchronize``. Unnamed ops get ``<op>.noname.<n>`` names, counted per
-process in call order, so ranks that call the same ops in the same
-order agree on them.
+process in call order from the last elastic reset, so ranks that call
+the same ops in the same order agree on them.
 
 The lane's instruments are re-exported from ``common/basics.py``:
 ``start_timeline``/``stop_timeline``, ``metrics``/``metrics_reset``,
@@ -29,6 +29,7 @@ import threading
 import torch
 
 from horovod_tpu_torch.common import basics
+from horovod_tpu_torch.common import elastic as _elastic
 from horovod_tpu_torch.common.message import ReduceOp, Request, RequestType
 
 Average = ReduceOp.AVERAGE
@@ -38,7 +39,9 @@ Max = ReduceOp.MAX
 Product = ReduceOp.PRODUCT
 Adasum = ReduceOp.ADASUM
 
-init = basics.init
+# Under the elastic driver (HOROVOD_RDZV_ADDR) init takes its epoch's
+# rank assignment first.
+init = _elastic.init
 shutdown = basics.shutdown
 is_initialized = basics.is_initialized
 rank = basics.rank
@@ -57,7 +60,9 @@ debug_port = basics.debug_port
 
 def _make_auto_namer():
     """``auto_name(kind)``: ``<kind>.noname.<n>`` from a per-process
-    counter (``horovod_tpu/common/auto_name.py``)."""
+    counter (``horovod_tpu/common/auto_name.py``) that restarts at 0 on
+    every elastic reset, so that a survivor's names match a respawned
+    peer's."""
     lock = threading.Lock()
     counters = {}
 
@@ -67,6 +72,11 @@ def _make_auto_namer():
             counters[kind] = n + 1
         return f"{kind}.noname.{n}"
 
+    def _reset():
+        with lock:
+            counters.clear()
+
+    _elastic.register_post_reset_hook(_reset)
     return auto_name
 
 

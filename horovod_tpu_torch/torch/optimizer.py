@@ -11,15 +11,19 @@ back and runs the wrapped optimizer. The class is a runtime subclass of
 the wrapped optimizer's class, so ``isinstance`` checks and schedulers
 keep working. Hooks are registered only when ``size() > 1``.
 
-The reference's elastic drain hook (``_drain_on_reset``, registered
-with ``common/elastic.py``) waits for the elastic port (ROADMAP.md L5).
+Elastic recovery: handles the hooks enqueued before a failed collective
+are stale after a reset; the optimizer registers ``_drain_on_reset``
+with ``common/elastic.py`` (by weak reference), so the next step starts
+clean.
 """
 
 import contextlib
+import weakref
 
 import torch
 
 from horovod_tpu_torch.common import basics
+from horovod_tpu_torch.common import elastic as _elastic
 from horovod_tpu_torch.torch import mpi_ops
 from horovod_tpu_torch.torch.compression import Compression
 
@@ -148,5 +152,16 @@ def DistributedOptimizer(optimizer, named_parameters=None,
                dict(_DistributedOptimizer.__dict__))
     if named_parameters is not None:
         named_parameters = list(named_parameters)
-    return cls(optimizer.param_groups, named_parameters, compression,
-               backward_passes_per_step, op, process_set_id)
+    opt = cls(optimizer.param_groups, named_parameters, compression,
+              backward_passes_per_step, op, process_set_id)
+
+    def _drain_on_reset():
+        live = ref()
+        if live is not None:
+            live._drain_inflight()
+
+    # The hook leaves the registry with the optimizer.
+    ref = weakref.ref(opt, lambda _r: _elastic.unregister_post_reset_hook(
+        _drain_on_reset))
+    _elastic.register_post_reset_hook(_drain_on_reset)
+    return opt

@@ -413,7 +413,9 @@ def test_lost_peer_fails_in_flight_and_later_ops():
             if p.is_alive():
                 p.terminate()
     assert procs[0].exitcode == 0 and procs[1].exitcode == 3
-    assert out["in_flight"].startswith("HorovodInternalError: "), out
+    # The typed subclass of HorovodInternalError, naming the lost rank.
+    assert out["in_flight"].startswith("HorovodPeerFailureError: "), out
     assert "collective runtime failed" in out["in_flight"], out
+    assert "rank(s) [1] lost" in out["in_flight"], out
     assert out["later"].startswith(
-        "HorovodInternalError: cannot enqueue later"), out
+        "HorovodPeerFailureError: cannot enqueue later"), out

@@ -9,7 +9,8 @@ broadcast, an allgather, an alltoall and a reducescatter under a
 timeline, between two step marks. Then:
 
 - ``metrics()`` has the reference's sections less those
-  ``common/metrics.py`` omits (``wire``, ``elastic``, the wire knobs),
+  ``common/metrics.py`` omits (``wire``, the elastic section's wire
+  counters, the wire knobs),
   with the same fields; the op counts and bytes per class, ``cache`` and
   ``fusion.fused_responses`` equal the reference's;
   ``metrics_reset()`` zeroes the counters;
@@ -39,7 +40,10 @@ from tests.test_torch_hvd_cache import open_lane, run_both
 from tests.test_torch_hvd_ops import _compare, _keep
 
 REPO = Path(__file__).resolve().parent.parent
-OMITTED = {"wire", "elastic"}
+OMITTED = {"wire"}
+# The elastic section less the wire's counters (L8), plus the port's own.
+ELASTIC_WIRE = {"heals", "retries", "crc_errors"}
+ELASTIC_PORT = {"resets", "last_fault"}
 
 
 def _x(shape, seed, rank):
@@ -132,7 +136,11 @@ def test_metrics_key_set_is_the_references(lanes):
         assert set(got) == set(want) - OMITTED
         fields = _fields(want)
         fields["knobs"] = ["cycle_time_ms", "fusion_threshold_bytes"]
+        fields["elastic"] = sorted(set(fields["elastic"]) - ELASTIC_WIRE
+                                   | ELASTIC_PORT)
         assert _fields(got) == {k: fields[k] for k in got}
+        assert got["elastic"]["epoch"] == want["elastic"]["epoch"] == 0
+        assert got["elastic"]["last_fault"] is None
         assert set(want["knobs"]) >= set(got["knobs"])
         assert got["initialized"] and got["rank"] == rank
         assert got["knobs"] == {"fusion_threshold_bytes": 64 << 20,
@@ -242,6 +250,10 @@ def test_debug_port_answers(lanes):
         health = json.loads(http["/healthz"][1])
         assert health["initialized"] and health["rank"] == rank
         assert health["debug_port"] == out["debug_port"]
+        # The reference's elastic fields.
+        assert health["epoch"] == 0 and health["last_fault"] is None
         assert "hvdtpu_op_bytes_total" in http["/metrics"][1]
+        assert f'hvdtpu_elastic_epoch{{rank="{rank}"}} 0' in \
+            http["/metrics"][1]
         assert len(json.loads(http["/events?n=4"][1])) == 4
         assert json.loads(http["/requests"][1]) == []

@@ -48,6 +48,10 @@ def test_import_loads_no_jax_triton_or_reference_package():
         "import horovod_tpu_torch.telemetry.debug_server\n"
         "import horovod_tpu_torch.common.response_cache\n"
         "import horovod_tpu_torch.common.timeline\n"
+        "import horovod_tpu_torch.torch.elastic\n"
+        "import horovod_tpu_torch.checkpoint\n"
+        "import horovod_tpu_torch.runner.elastic.rendezvous\n"
+        "import horovod_tpu_torch.runner.elastic.worker\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'triton', 'ml_dtypes', 'horovod_tpu'))\n"
@@ -103,6 +107,10 @@ def test_import_builds_nothing():
         "import horovod_tpu_torch.telemetry.debug_server\n"
         "import horovod_tpu_torch.common.response_cache\n"
         "import horovod_tpu_torch.common.timeline\n"
+        "import horovod_tpu_torch.torch.elastic\n"
+        "import horovod_tpu_torch.checkpoint\n"
+        "import horovod_tpu_torch.runner.elastic.rendezvous\n"
+        "import horovod_tpu_torch.runner.elastic.worker\n"
         "from horovod_tpu_torch.ops import _build\n"
         "assert _build._libs == {}, _build._libs\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))

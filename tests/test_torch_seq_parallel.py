@@ -141,6 +141,58 @@ def test_ring_and_ulysses_match_jax(size, interpret):
             and "ring_attention" in r["indivisible"]
 
 
+# ---- a seq axis of size 1 under a data axis of 2 -----------------------
+
+
+def _seq1_battery(rank, size):
+    """Each rank's batch shard through both self-attention entries on a
+    data=2 x seq=1 mesh: a size-1 axis is the identity, so no rank sees
+    another's heads. Output and the gradients of sum(out^2)."""
+    from horovod_tpu_torch.parallel import mesh as mesh_mod
+    from horovod_tpu_torch.parallel.ring_attention import (
+        ring_self_attention,
+    )
+    from horovod_tpu_torch.parallel.ulysses import ulysses_self_attention
+
+    mesh = mesh_mod.create_mesh(data=2, seq=1, device="cpu")
+    out = {}
+    for name, fn in (("ulysses", ulysses_self_attention),
+                     ("ring", ring_self_attention)):
+        args = [mesh.shard(torch.from_numpy(a)).clone().requires_grad_(True)
+                for a in _qkv(3, 4, 2)]
+        o = fn(*args, mesh, causal=True)
+        grads = torch.autograd.grad((o ** 2).sum(), args)
+        out[name] = [t.detach().numpy() for t in (o, *grads)]
+    return out
+
+
+def test_seq_axis_of_one_is_the_identity():
+    """data=2 x seq=1, each rank its own q/k/v (causal, H4 Hkv2): Ulysses
+    and the ring, joined over the batch, equal JAX's
+    ``ulysses_self_attention`` on ``create_mesh(data=2, seq=1)``."""
+    from horovod_tpu import parallel
+
+    per_rank = run_ranks(_seq1_battery, 2, timeout=240)
+    jmesh = parallel.create_mesh(data=2, seq=1, devices=jax.devices()[:2])
+
+    def loss(*a):
+        o = parallel.ulysses_self_attention(*a, mesh=jmesh, causal=True)
+        return (o ** 2).sum(), o
+
+    (_, o), grads = jax.jit(jax.value_and_grad(loss, (0, 1, 2),
+                                               has_aux=True))(
+        *(jnp.asarray(a) for a in _qkv(3, 4, 2)))
+    want = [np.asarray(t) for t in (o, *grads)]
+    for name in ("ulysses", "ring"):
+        got = [np.concatenate([r[name][i] for r in per_rank], axis=0)
+               for i in range(4)]
+        np.testing.assert_allclose(got[0], want[0], **VALUE_TOL,
+                                   err_msg=name)
+        for g, w, what in zip(got[1:], want[1:], "qkv"):
+            np.testing.assert_allclose(g, w, **GRAD_TOL,
+                                       err_msg=f"{name} d{what}")
+
+
 # ---- the dense Llama under a data x seq mesh ----------------------------
 
 LT = 32          # global sequence length of the Llama batch
