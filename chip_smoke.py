@@ -9,8 +9,9 @@ compute capability >= 9.0::
 It builds the port's hand-written kernels from the checkout's sources
 and drives the port's serving and training paths at the full width of
 the flagship dense Llama and of the repo's sparse-MoE Llama, and BERT-
-Large's MLM training (also under elastic recovery), in phases; any
-failed phase exits non-zero before the result line.
+Large's MLM training (also under elastic recovery), and the Horovod lane
+(its autotuner and parole door too), in phases; any failed phase exits
+non-zero before the result line.
 
 1. Card, power limit, torch/CUDA versions; kernel build time.
 2. Each kernel against its plain PyTorch version at the main paths'
@@ -146,7 +147,23 @@ failed phase exits non-zero before the result line.
    bound at the pinned copy rate measured here, per restore, per reset
    (shutdown, init, NCCL communicator init), and the replayed ms/step
    beside phase 13's. A peer lost on NCCL needs more than one card.
-19. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
+19. The lane's autotuner and the parole door on NCCL at world size 1,
+   no kernel launched (asserted): (a) ``HOROVOD_AUTOTUNE=1`` over the
+   flagship's grouped bf16 gradient set (phase 11's leaf shapes, random
+   values) until the tuner converges (3 warm-up windows + 20 scored, at
+   most 60 s): every log row well formed, the last the converged point,
+   equal to ``hvd.metrics()["knobs"]``; ms per set (median of 10) at the
+   converged knobs and at the default ones (64 MiB, 1 ms, no tuner)
+   beside phase 11's bound, and the host ms per active cycle at each;
+   (b) ``HOROVOD_REJOIN_PORT``: rank 0's door and its TCP store at size
+   1, ``/healthz``'s ``pending_rejoiners`` 0, the commit poll's us,
+   BERT-Large ``TreeState`` commits (phase 18's carry) with the door and
+   without, an injected ``HorovodInternalError`` whose reset reads the
+   door (``parole_freeze``); (c) ``hvd.elastic.shrink(set())``: the
+   world re-formed at the next epoch with a new NCCL group, its ms
+   beside phase 18's resets. A grown world (1 -> 2) on NCCL needs a
+   second card.
+20. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
    launches, and K1-K3's offsets rows with phase 17's launches; the lane
    adds no kernel), the card line, and the result line
    ``{"ok": true, "device": {...}}``.
@@ -2860,6 +2877,302 @@ def split_step_ms(torch, bert, precision, train_step, cfg, data, dev, sync,
     return out
 
 
+# ---- phase 19: the lane's autotuner and the parole door --------------
+
+
+def timed_sets(torch, fn, sets=12, warmup=2):
+    """``sets`` runs of a gradient set: the ms of each after ``warmup``,
+    and the lane's host ms per active cycle (negotiation) over them."""
+    from horovod_tpu_torch.common.metrics import REGISTRY
+
+    for _ in range(warmup):
+        fn()
+    neg0 = (REGISTRY.negotiation_us.sum, REGISTRY.negotiation_us.count)
+    times = []
+    for _ in range(sets - warmup):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    cycles = REGISTRY.negotiation_us.count - neg0[1]
+    host = (REGISTRY.negotiation_us.sum - neg0[0]) / 1e3 / max(cycles, 1)
+    return times, host
+
+
+def check_autotune_log(path, knobs, steps):
+    """Every row of the tuner's CSV well formed, ``steps`` scored rows
+    and the converged point last, equal to ``knobs``."""
+    from horovod_tpu_torch.common import parameter_manager as pmod
+
+    with open(path) as f:
+        lines = f.read().splitlines(keepends=True)
+    check(lines and lines[0] == pmod.HEADER,
+          f"autotune log header {lines[:1]}")
+    rows = [line.rstrip("\n").split(",") for line in lines[1:]]
+    for r in rows:
+        check(len(r) == 7 and int(r[0]) in pmod.FUSION_VALUES and
+              float(r[1]) in pmod.CYCLE_VALUES and
+              r[1] == f"{float(r[1]):.3f}" and
+              r[2:6] == ["0", "0", "0", "1"] and
+              r[6] == str(int(r[6])) and int(r[6]) >= 0,
+              f"autotune log row {r}")
+    check(len(rows) == steps + 1,
+          f"autotune log: {len(rows)} rows for {steps} scored windows")
+    last = (int(rows[-1][0]), float(rows[-1][1]))
+    check(last == (knobs["fusion_threshold_bytes"], knobs["cycle_time_ms"]),
+          f"autotune: the log's last row {rows[-1]} is not the live knobs "
+          f"{knobs}")
+    return rows
+
+
+def lane_autotune(torch, hvd, llama, cfg, card, bound_ms, cap_s=60.0):
+    """(a) ``HOROVOD_AUTOTUNE=1`` over the flagship's bf16 gradient sets
+    (phase 11's grouped set: the gradient leaves' shapes, random values)
+    until the tuner converged (3 warm-up windows + 20 scored), at most
+    ``cap_s``; then ms per set at the converged knobs and at the default
+    ones (64 MiB, 1 ms, no tuner)."""
+    import tempfile
+
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.parallel._tree import tree_leaves
+
+    params = llama.llama_init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    grads = [torch.randn(p.shape, generator=gen, device="cuda",
+                         dtype=torch.float32).to(p.dtype)
+             for p in tree_leaves(params)]
+    del params
+    gbytes = sum(g.nbytes for g in grads)
+    fn = lane_set_fns(torch, hvd, grads)["grouped_allreduce_"]
+    tmp = tempfile.mkdtemp(prefix="hvd_autotune_")
+    log_path = os.path.join(tmp, "autotune.csv")
+    os.environ.update(HOROVOD_AUTOTUNE="1", HOROVOD_AUTOTUNE_LOG=log_path)
+    hvd.init()
+    try:
+        pm = basics.lane().param_manager
+        check(pm is not None and not pm.done,
+              "HOROVOD_AUTOTUNE=1 built no tuner on rank 0")
+        t0, sets = time.perf_counter(), 0
+        while not pm.done:
+            waited = time.perf_counter() - t0
+            check(waited < cap_s, f"autotune did not converge in {cap_s} s: "
+                  f"{pm._opt.num_samples} of {pm.max_samples} windows scored "
+                  f"after {sets} gradient sets")
+            fn()
+            sets += 1
+        tune_s = time.perf_counter() - t0
+        fn()            # a cycle past the converging one
+        knobs = hvd.metrics()["knobs"]
+        rows = check_autotune_log(log_path, knobs, pm.max_samples)
+        moves = [e for e in hvd.events() if e["type"] == "knob_adopt"]
+        tuned_ms, tuned_host = timed_sets(torch, fn)
+    finally:
+        hvd.shutdown()
+        for k in ("HOROVOD_AUTOTUNE", "HOROVOD_AUTOTUNE_LOG"):
+            del os.environ[k]
+    hvd.init()
+    try:
+        default = hvd.metrics()["knobs"]
+        check(basics.lane().param_manager is None and default == {
+            "fusion_threshold_bytes": 64 << 20, "cycle_time_ms": 1.0},
+            f"the lane without HOROVOD_AUTOTUNE: knobs {default}")
+        default_ms, default_host = timed_sets(torch, fn)
+    finally:
+        hvd.shutdown()
+    del grads
+    torch.cuda.empty_cache()
+    out = dict(
+        converged=knobs, sets_to_converge=sets, tune_s=tune_s,
+        log_rows=[[int(r[0]), float(r[1]), int(r[6])] for r in rows],
+        knob_adopt_events=len(moves), grad_bytes=gbytes,
+        converged_ms=float(np.median(tuned_ms)), converged_times_ms=tuned_ms,
+        converged_host_ms_per_cycle=tuned_host,
+        default_ms=float(np.median(default_ms)), default_times_ms=default_ms,
+        default_host_ms_per_cycle=default_host, bound_ms=bound_ms)
+    log(f"  autotune: converged after {sets} grouped gradient sets "
+        f"({gbytes / 1e9:.3f} GB bf16 each) in {tune_s:.2f} s, "
+        f"{len(rows) - 1} windows scored, {len(moves)} knob_adopt events; "
+        f"converged point fusion {knobs['fusion_threshold_bytes']} bytes, "
+        f"cycle {knobs['cycle_time_ms']} ms (the log's last row, "
+        f"{rows[-1][6]} B/s mean score; hvd.metrics()['knobs'] equal); "
+        f"ms per gradient set (median of {len(tuned_ms)}): converged "
+        f"{out['converged_ms']:.3f} (spread {min(tuned_ms):.3f}-"
+        f"{max(tuned_ms):.3f}; host {tuned_host:.3f} ms per active cycle), "
+        f"default 64 MiB / 1 ms {out['default_ms']:.3f} (spread "
+        f"{min(default_ms):.3f}-{max(default_ms):.3f}; host "
+        f"{default_host:.3f} ms per active cycle); phase 11's bound of the "
+        f"bytes moved {bound_ms:.3f} ms; card {card}")
+    return out
+
+
+def lane_door(torch, hvd, bert, precision, train_step, bcfg, card,
+              reset18_ms):
+    """(b) The parole door at world size 1 on NCCL: rank 0's door and its
+    TCP store, ``/healthz``'s ``pending_rejoiners``, the commit-time poll
+    (local at size 1), BERT-Large commits (phase 18's ``TreeState`` over
+    the split step's carry) with the door and without, an injected
+    ``HorovodInternalError`` whose reset reads the door (``parole_freeze``);
+    (c) ``shrink(set())``: a voluntary re-formation at the next epoch."""
+    import socket
+    import urllib.request
+
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.common import elastic as hvd_elastic
+    from horovod_tpu_torch.parallel._tree import tree_leaves
+
+    dev, sync = "cuda", torch.cuda.synchronize
+    TimedTreeState = timed_state(hvd.elastic.TreeState, sync, torch.cuda)
+    ts = train_step.make_split_train_step(
+        lambda p, d: bert.bert_mlm_loss(p, d, bcfg, device=dev),
+        precision.fused_adam(1e-4))
+    carry = ts.init(bert.bert_init(
+        bcfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+    state_bytes = sum(t.nbytes for t in tree_leaves(carry[0]) +
+                      tree_leaves(carry[1].mu) + tree_leaves(carry[1].nu))
+
+    def phases():
+        return {k: v["sum_us"] / 1e3
+                for k, v in hvd.metrics()["control_phase"].items()}
+
+    def poll_us(n=1000):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            hvd_elastic._poll_rejoiners()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    def commits(n=3):
+        state = TimedTreeState(carry=carry, step=0)
+        state.times = {}
+        for _ in range(n):
+            state.commit()
+        return state, state.times["commit"]
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    # The door, and the TCP store rank 0 hosts beside it, on free ports.
+    door_port = free_port()
+    os.environ.update(HOROVOD_REJOIN_PORT=str(door_port),
+                      HOROVOD_CONTROLLER_PORT=str(free_port()),
+                      HOROVOD_DEBUG_PORT="0")
+    out = {}
+    hvd.init()
+    try:
+        check(hvd_elastic._door is not None and basics._store is not None,
+              "HOROVOD_REJOIN_PORT at world size 1: no door, or no TCP "
+              "store for a joiner to reach")
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{hvd.debug_port()}/healthz",
+                timeout=30) as r:
+            health = json.loads(r.read().decode())
+        check(health["pending_rejoiners"] == 0,
+              f"/healthz pending_rejoiners {health.get('pending_rejoiners')}")
+        out["poll_us_door"] = poll_us()
+        state, times = commits()
+        out["commit_ms_door"] = list(times)
+        before, epoch0, seen = phases(), basics.epoch(), {}
+
+        @hvd.elastic.run
+        def train(state):
+            leaf = tree_leaves(state.carry[0])[0]
+            if "raised" in seen:
+                seen["restored"] = torch.equal(
+                    leaf.cpu(), tree_leaves(state._saved["carry"][0])[0])
+                return
+            state.commit()
+            leaf.add_(1)       # past the commit
+            seen["raised"] = True
+            raise hvd.HorovodInternalError("injected after the commit")
+
+        train(state)
+        after = phases()
+        check(seen.get("restored") and basics.epoch() == epoch0 + 1,
+              f"door lane: restore {seen}, epoch {basics.epoch()}")
+        freeze = hvd.metrics()["control_phase"].get("parole_freeze")
+        check(freeze is not None and freeze["count"] >= 1,
+              "the reset read no parole_freeze")
+        out.update(parole_freeze_ms=(after["parole_freeze"] -
+                                     before.get("parole_freeze", 0)),
+                   fault_reset_ms=state.times["reset"],
+                   fault_reset_split={k: after.get(k, 0) - before.get(k, 0)
+                                      for k in ("shutdown", "rendezvous",
+                                                "nccl_init")})
+        # (c) shrink(set()): the same world, re-formed at the next epoch.
+        group0 = basics.lane().set_groups(0).groups["cuda"]
+        epoch1, before = basics.epoch(), phases()
+        sync()
+        t0 = time.perf_counter()
+        kept = hvd.elastic.shrink(set())
+        sync()
+        out["shrink_ms"] = (time.perf_counter() - t0) * 1e3
+        after = phases()
+        group1 = basics.lane().set_groups(0).groups["cuda"]
+        x = hvd.allreduce(torch.ones(1024, device=dev), name="after.shrink",
+                          op=hvd.Sum)
+        check(kept and basics.epoch() == epoch1 + 1 and group1 is not group0
+              and hvd.size() == 1 and torch.equal(x, torch.ones_like(x)),
+              f"shrink(set()): kept {kept}, epoch {basics.epoch()}, new "
+              f"group {group1 is not group0}")
+        out["shrink_split"] = {k: after.get(k, 0) - before.get(k, 0)
+                               for k in ("reinit", "shutdown", "rendezvous",
+                                         "nccl_init")}
+        out["epoch"] = basics.epoch()
+    finally:
+        hvd.shutdown()
+        for k in ("HOROVOD_REJOIN_PORT", "HOROVOD_CONTROLLER_PORT",
+                  "HOROVOD_DEBUG_PORT"):
+            del os.environ[k]
+    hvd.init()
+    try:
+        out["poll_us_no_door"] = poll_us()
+        _, out["commit_ms_no_door"] = commits()
+    finally:
+        hvd.shutdown()
+    del carry, state
+    torch.cuda.empty_cache()
+    out.update(state_bytes=state_bytes, reset18_ms=reset18_ms)
+    log(f"  door at world size 1: rank 0 hosts a TCP store and the door on "
+        f"port {door_port}; /healthz pending_rejoiners 0; the commit poll "
+        f"{out['poll_us_door']:.2f} us a call with the door (local at size "
+        f"1, no collective), {out['poll_us_no_door']:.2f} us without; "
+        f"BERT-Large TreeState commits of {state_bytes / 1e9:.3f} GB "
+        f"{[round(x, 1) for x in out['commit_ms_door']]} ms with the door, "
+        f"{[round(x, 1) for x in out['commit_ms_no_door']]} ms without; an "
+        f"injected HorovodInternalError: restored, reset "
+        f"{[round(x, 1) for x in out['fault_reset_ms']]} ms (parole_freeze "
+        f"{out['parole_freeze_ms']:.3f} ms, shutdown "
+        f"{out['fault_reset_split']['shutdown']:.1f}, init "
+        f"{out['fault_reset_split']['rendezvous']:.1f} of it the NCCL "
+        f"communicator {out['fault_reset_split']['nccl_init']:.1f}); "
+        f"shrink(set()) {out['shrink_ms']:.1f} ms to epoch {out['epoch']} "
+        f"with a new NCCL group (reinit "
+        f"{out['shrink_split']['reinit']:.1f}: shutdown "
+        f"{out['shrink_split']['shutdown']:.1f}, NCCL communicator "
+        f"{out['shrink_split']['nccl_init']:.1f}) beside phase 18's resets "
+        f"{[round(x, 1) for x in reset18_ms]} ms; card {card}")
+    log("  a grown world (1 -> 2) on NCCL is not run: it needs a second "
+        "card (NCCL refuses two ranks on one device); the CPU tests grow "
+        "worlds of 1, 2 and 3 on gloo")
+    return out
+
+
+def run_lane_tuning(torch, ctr, llama, bert, precision, train_step, cfg,
+                    bcfg, card, bound_ms, reset18_ms):
+    import horovod_tpu_torch.torch as hvd
+
+    reset_counts(ctr)
+    out = dict(autotune=lane_autotune(torch, hvd, llama, cfg, card,
+                                      bound_ms),
+               door=lane_door(torch, hvd, bert, precision, train_step, bcfg,
+                              card, reset18_ms))
+    launched = counts(ctr)
+    check(not any(launched.values()),
+          f"phase 19 launched a kernel: {launched}")
+    return out
+
+
 def main():
     import torch
 
@@ -3079,7 +3392,15 @@ def main():
         bert_train_stats["ms_per_step"])
     torch.cuda.empty_cache()
 
-    log("phase 19: results")
+    log("phase 19: the lane's autotuner and the parole door on NCCL "
+        "(world size 1)")
+    tuning = run_lane_tuning(
+        torch, ctr, llama, bert, precision, train_step, cfg, bcfg, card,
+        lane["cache_on"]["grouped_allreduce_"]["bound_ms"],
+        elastic["torch_state"]["reset_ms"] + elastic["tree_state"]["reset_ms"])
+    torch.cuda.empty_cache()
+
+    log("phase 20: results")
     log(json.dumps({"generate": gen_stats, "engine": eng_stats,
                     "train": train_stats, "train_parity": parity,
                     "moe_train": moe_train_stats,
@@ -3090,7 +3411,8 @@ def main():
                     "bert_train": bert_train_stats,
                     "bert_forward": bert_fwd_stats,
                     "bert_parity": bert_parity, "ring_replay": ring,
-                    "elastic": elastic, "card": card}))
+                    "elastic": elastic, "lane_tuning": tuning,
+                    "card": card}))
     paths = {"llama_generate": gen_launch, "DecodeEngine": eng_launch,
              "train_step": train_launch, "moe_train_step": moe_train_launch,
              "moe_llama_generate": moe_gen_launch,

@@ -13,8 +13,13 @@ knobs ``HOROVOD_FUSION_THRESHOLD`` (bytes, default 64 MiB),
 ``HOROVOD_STALL_CHECK_TIME`` (s, default 60) and
 ``HOROVOD_STALL_CHECK_DISABLE``, ``HOROVOD_TIMELINE`` (a path: rank 0
 writes the timeline from init on) and ``HOROVOD_TIMELINE_MARK_CYCLES``,
-and ``HOROVOD_DEBUG_PORT`` (rank r serves ``telemetry/debug_server.py``
-on that port + r; 0 binds an ephemeral port).
+``HOROVOD_DEBUG_PORT`` (rank r serves ``telemetry/debug_server.py``
+on that port + r; 0 binds an ephemeral port), and the autotuner's
+``HOROVOD_AUTOTUNE`` (1: rank 0 tunes the fusion threshold and the cycle
+time), ``HOROVOD_AUTOTUNE_LOG``, ``_STEPS``, ``_WINDOW_BYTES`` and
+``_WINDOW_CYCLES`` (``parameter_manager.py``), read by
+:func:`_init_autotune` at every init and re-formation, so that a world
+that grew or shrank tunes again from the start with a fresh log.
 
 The lane's instruments are read here: :func:`metrics` (the registry's
 snapshot), :func:`metrics_reset`, :func:`events` and
@@ -29,7 +34,11 @@ rendezvous is one ``TCPStore`` at the controller address, kept for the
 process's life (rank 0 hosts it; a second bind of the port would
 fail), each membership epoch under its own ``PrefixStore``
 (``hvd/epoch<e>``), as torchelastic does; a world of one needs no
-rendezvous and takes an in-process store. The device rule is the
+rendezvous and takes an in-process store, unless the parole door is on
+(``HOROVOD_REJOIN_PORT``, ``elastic.py``): then rank 0 hosts the store
+at size 1 too, so that a joiner can reach the grown world's. A joiner
+opens with ``init(epoch=E)`` straight into the survivors' epoch prefix.
+The device rule is the
 port's (``_device.py``): with no ``device`` and no CUDA, ``init``
 raises; after ``init(device="cpu")`` a CUDA tensor raises, and a CUDA
 tensor never travels over gloo or through host memory, nor a CPU
@@ -37,7 +46,8 @@ tensor over NCCL.
 
 The core's epoch and fault surface (``horovod_tpu/common/basics.py:635``
 to ``:700``): :func:`epoch`, :func:`last_fault`, :func:`reinit` (the
-world re-formed in place over surviving ranks, no process restart),
+world re-formed in place over surviving ranks and joiner slots, no
+process restart),
 :func:`set_fault_inject` and :func:`set_fault_inject_spec`.
 :func:`shutdown` and :func:`reinit` tear the lane down whatever state it
 is in: a failed lane skips the negotiation, and its NCCL communicators
@@ -67,6 +77,7 @@ from horovod_tpu_torch.common.operations import (
     SetGroups,
     parse_fault_spec,
 )
+from horovod_tpu_torch.common.parameter_manager import ParameterManager
 
 _TIMEOUT = datetime.timedelta(seconds=600)
 
@@ -180,7 +191,7 @@ def _open(layout, card, epoch, fault_inject):
             "torch.distributed is already initialized: hvd.init() opens "
             "its own process groups")
     t0 = now_us()
-    if size == 1:
+    if size == 1 and not _door_enabled():
         store, fault_store = dist.HashStore(), None
     else:
         base = _base_store(rank, size)
@@ -209,6 +220,28 @@ def _mark_cycles():
     return _env_int("HOROVOD_TIMELINE_MARK_CYCLES", 0) != 0
 
 
+def _door_enabled():
+    """Whether the parole door may grow this world (``elastic.py``): a
+    rejoin port is set and no elastic driver runs the job."""
+    return bool(os.environ.get("HOROVOD_REJOIN_PORT")) and \
+        not os.environ.get("HOROVOD_RDZV_ADDR")
+
+
+def _init_autotune(rank, fusion_bytes, cycle_ms):
+    """The autotuner's one construction site, for init and every
+    re-formation (``InitAutotune``): None without ``HOROVOD_AUTOTUNE``;
+    else, on the coordinator, a fresh tuner from the environment's knobs
+    (its log truncated). Workers take the coordinator's knobs from the
+    response lists and open no log."""
+    if not _env_int("HOROVOD_AUTOTUNE", 0) or rank != 0:
+        return None
+    return ParameterManager(
+        fusion_bytes, cycle_ms, os.environ.get("HOROVOD_AUTOTUNE_LOG"),
+        max_samples=_env_int("HOROVOD_AUTOTUNE_STEPS", 20),
+        window_bytes=_env_int("HOROVOD_AUTOTUNE_WINDOW_BYTES", 1 << 20),
+        window_cycles=_env_int("HOROVOD_AUTOTUNE_WINDOW_CYCLES", 20))
+
+
 def _open_lane(rank, size, card, epoch, store, fault_inject):
     """The process groups of the global set and the lane's runtime."""
 
@@ -232,15 +265,16 @@ def _open_lane(rank, size, card, epoch, store, fault_inject):
             torch.cuda.synchronize(card)
         REGISTRY.record_phase("nccl_init", now_us() - t0)
     threshold = _env_int("HOROVOD_FUSION_THRESHOLD", 64 << 20)
+    cycle_ms = float(os.environ.get("HOROVOD_CYCLE_TIME") or 1.0)
     stall_s = None if _env_int("HOROVOD_STALL_CHECK_DISABLE", 0) else float(
         os.environ.get("HOROVOD_STALL_CHECK_TIME") or 60.0)
     return Runtime(rank, size, dist.group.WORLD, DataPlane(card, threshold),
-                   {0: SetGroups(world, rank, groups)}, threshold,
-                   float(os.environ.get("HOROVOD_CYCLE_TIME") or 1.0),
+                   {0: SetGroups(world, rank, groups)}, threshold, cycle_ms,
                    make_groups,
                    cache_capacity=_env_int("HOROVOD_CACHE_CAPACITY", 1024),
                    stall_warning_s=stall_s, epoch=epoch, store=store,
-                   fault_inject=fault_inject)
+                   fault_inject=fault_inject,
+                   param_manager=_init_autotune(rank, threshold, cycle_ms))
 
 
 def _close(lane):
@@ -253,6 +287,8 @@ def _close(lane):
     ended = rt.failure is None and rt.shutdown(_TIMEOUT.total_seconds())
     rt.stop()
     rt.timeline.stop()
+    if rt.param_manager is not None:
+        rt.param_manager.close()
     if not ended:
         for s in rt.sets.values():
             if "cuda" in s.groups:
@@ -287,28 +323,29 @@ def shutdown():
 
 def reinit(ranks, epoch):
     """Re-form the world in place over surviving OLD ranks at ``epoch``
-    (``basics.py:665``): no process restart; this rank's new rank is its
-    index in ``ranks``. Collective among the members. The old groups are
-    aborted (a running lane first drains by its negotiated shutdown, so
-    every old rank must call), new ones open on the epoch's prefix of
-    the same store, and the lane reopens (controller, fusion buffer,
-    response cache), the fault trigger cleared. Joiner slots (``-1``)
-    are the parole door's (ROADMAP.md L5b)."""
+    (``basics.py:665``): no process restart; a slot's new rank is its
+    index in ``ranks``. A ``-1`` is a joiner slot: a fresh process that
+    opens with ``init(epoch=epoch)`` at that rank (the parole door's
+    scale-up, ``elastic.py``). Collective among the members. The old
+    groups are aborted (a running lane first drains by its negotiated
+    shutdown, so every old rank must call), new ones open on the epoch's
+    prefix of the same store (a joiner's ``init`` runs the same
+    collectives in the same order: both sides go through ``_open``), and
+    the lane reopens (controller, fusion buffer, response cache, a fresh
+    autotuner), the fault trigger cleared."""
     global _lane, _last_fault
     ranks, epoch = [int(r) for r in ranks], int(epoch)
     with _lock:
         lane = _lane
         old_size = lane.layout["size"] if lane is not None else 0
-        if lane is None or not ranks or len(set(ranks)) != len(ranks) or \
+        members = [r for r in ranks if r != -1]
+        if lane is None or not ranks or \
+                len(set(members)) != len(members) or \
                 any(r >= old_size or r < -1 for r in ranks) or \
                 epoch <= _epoch:
             raise RuntimeError(
                 f"reinit(ranks={ranks}, epoch={epoch}) failed: not "
                 "initialized / bad ranks / epoch not past the current")
-        if -1 in ranks:
-            raise NotImplementedError(
-                "reinit with joiner slots (-1): the parole door is not "
-                "ported yet (ROADMAP.md L5b)")
         old_rank = lane.layout["rank"]
         if old_rank not in ranks:
             raise RuntimeError(
@@ -332,9 +369,13 @@ def reinit(ranks, epoch):
                 f"re-formation rendezvous failed ({e})") from e
         _events.record("reinit_end", 0, size, epoch)
         _events.record("epoch", 0, 0, epoch, old_epoch)
+        joiners = size - len(members)
+        if joiners:
+            _events.record("rejoin", joiners, 0, epoch)
         if fault is not None:
             _last_fault = dict(fault, recovered=True)
-        REGISTRY.record_reset(len(fault["ranks"]) if fault else 0)
+        REGISTRY.record_reset(fault is not None, old_size - len(members),
+                              joiners)
         REGISTRY.record_phase("reinit", now_us() - t0)
 
 

@@ -24,10 +24,16 @@ stderr of a tensor some rank has not submitted within
 ``HOROVOD_STALL_CHECK_TIME`` (``CheckForStalledTensors:947``), and
 counts which rank completed each tensor last (the straggler table).
 
+Under ``HOROVOD_AUTOTUNE`` the coordinator's tuner moves the fusion
+threshold (:meth:`Controller.set_autotuned_params`, the reference's
+``SetAutotunedParams``): the controller fuses with the new value from
+the next cycle on, and every response list from then carries it and the
+cycle time to the workers; untuned, the list carries 0 for both.
+
 A lost peer ends the lane (``operations.py``); re-forming the world is
 ``basics.reinit``'s, with a new controller. Still to port (ROADMAP.md):
-the autotuned knobs the response list carries (L6), the hierarchical split
-(L7), the control tree and wire checksums (L8), the MPI controller (L9).
+the hierarchical split (L7), the control tree and wire checksums (L8),
+the MPI controller (L9).
 """
 
 import collections
@@ -116,6 +122,15 @@ class Controller:
         self._joined = set()
         self._last_joined = -1
         self._shutdown = [False] * size
+        # What each response list tells the workers (0: not tuned).
+        self.bcast_fusion_bytes = 0
+        self.bcast_cycle_ms = 0.0
+
+    def set_autotuned_params(self, fusion_bytes, cycle_ms):
+        """The tuner's new knobs: fuse with ``fusion_bytes`` from now on,
+        and send both to the workers in every later response list."""
+        self.fusion_threshold = self.bcast_fusion_bytes = int(fusion_bytes)
+        self.bcast_cycle_ms = float(cycle_ms)
 
     @staticmethod
     def key(req):
@@ -559,7 +574,9 @@ class ControlPlane:
                 ctl.handle_request_list(request_list, r)
             gather_us = now_us() - t_gather
             ctl.check_for_stalled_tensors()
-            out = ResponseList(cache_evictions=evictions)
+            out = ResponseList(cache_evictions=evictions,
+                               fusion_threshold_bytes=ctl.bcast_fusion_bytes,
+                               cycle_time_ms=ctl.bcast_cycle_ms)
             ctl.collect_cache_hits(out)
             fused = ctl.fuse_responses()
             out.responses, out.shutdown = fused.responses, fused.shutdown

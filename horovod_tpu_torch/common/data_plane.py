@@ -30,7 +30,10 @@ differ, since the reference frontend's CPU tensors run on it:
 Allreduces of a response share a fusion buffer, one per device and
 dtype, allocated once at the threshold and reused; an atomic group
 larger than the threshold gets its own. A lone tensor is reduced in
-place in its output.
+place in its output. When the autotuner moves the threshold
+(:meth:`DataPlane.set_fusion_threshold`, on the lane thread between two
+cycles' responses, never under a live one) the buffers are dropped and
+the next response allocates them at the new size.
 
 Each response records, per tensor, its timeline activities (the
 fusion-buffer copies and the collective, named for its transport:
@@ -141,6 +144,13 @@ class DataPlane:
             return torch.zeros(shape, dtype=dtype)
         with torch.cuda.stream(self.stream):
             return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def set_fusion_threshold(self, nbytes):
+        """Adopt a new fusion threshold: the buffers are reallocated at
+        it by the next response that needs them."""
+        if nbytes != self.fusion_threshold:
+            self.fusion_threshold = nbytes
+            self._buffers.clear()
 
     def reset_counts(self):
         self.launches.clear()

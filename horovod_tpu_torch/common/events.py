@@ -19,7 +19,12 @@ steady clock in microseconds. The lane records these types:
 - ``fault`` (kind, certain, epoch, fault_rank): a collective failed on a
   lost peer; ``inject`` (action, op_index): ``HOROVOD_FAULT_INJECT``
   fired; ``reinit_begin`` (size, epoch), ``reinit_end`` (rc, size,
-  epoch) and ``epoch`` (epoch, old_epoch): an in-place re-formation.
+  epoch) and ``epoch`` (epoch, old_epoch): an in-place re-formation;
+  ``rejoin`` (slots, epoch): joiner slots it absorbed;
+- ``knob_adopt`` (knob, value): a knob the autotuner moved, on the
+  coordinator when it moves it and on a worker when it adopts it;
+  ``knob`` 0 is the fusion threshold (bytes), 1 the cycle time (value
+  in microseconds).
 
 :func:`peek` reads without consuming; :func:`drain` consumes what was
 recorded since the last drain. Both see at most the newest 8192.
@@ -29,6 +34,7 @@ import threading
 import time
 
 CAPACITY = 8192
+KNOB_FUSION_BYTES, KNOB_CYCLE_TIME_MS = 0, 1     # kKnob* (csrc/events.h)
 
 # type -> the JSON keys of its four arguments ("" = unused), as
 # csrc/events.cc prints them.
@@ -45,13 +51,15 @@ SPECS = {
     "epoch": ("", "", "epoch", "old_epoch"),
     "reinit_begin": ("size", "", "epoch", ""),
     "reinit_end": ("rc", "size", "epoch", ""),
+    "rejoin": ("slots", "", "epoch", ""),
+    "knob_adopt": ("knob", "", "value", ""),
     "inject": ("action", "", "op_index", ""),
 }
 # The reference's control-phase order (csrc/metrics.h ControlPhase), then
 # the port's own: the lane's teardown (``shutdown()``, or the old lane's
 # within ``reinit``) and the NCCL communicator's creation within
-# ``rendezvous``. The lane records all but ``probe_sweep`` and
-# ``parole_freeze`` (no sweep; the door is ROADMAP.md L5b).
+# ``rendezvous``. The lane records all but ``probe_sweep`` (the port
+# checks in on the store instead of sweeping sockets).
 CONTROL_PHASES = ("rendezvous", "gather", "broadcast", "probe_sweep",
                   "reinit", "parole_freeze", "shutdown", "nccl_init")
 

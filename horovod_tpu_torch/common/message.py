@@ -104,13 +104,17 @@ class ResponseList:
     positions ready on every member, ``cache_hit_group_sizes``
     partitioning them into fused responses (``[3, 1]``: the first three
     fuse, the fourth runs alone), and positions every rank evicts
-    first."""
+    first. ``fusion_threshold_bytes`` and ``cycle_time_ms`` are the
+    autotuner's knobs, which every worker adopts before it runs the
+    list's responses (0: not tuned, keep the local value)."""
 
     responses: list = dataclasses.field(default_factory=list)
     shutdown: bool = False
     cache_hit_positions: list = dataclasses.field(default_factory=list)
     cache_hit_group_sizes: list = dataclasses.field(default_factory=list)
     cache_evictions: list = dataclasses.field(default_factory=list)
+    fusion_threshold_bytes: int = 0
+    cycle_time_ms: float = 0.0
 
 
 def dtype_size(name):
@@ -127,7 +131,8 @@ def nbytes(dtype_name, shape):
 
 def response_bytes(res):
     """Payload bytes of every tensor of ``res`` (``ShapesTotalBytes``);
-    0 for a barrier, which carries no dtype."""
+    0 for a barrier, which carries no dtype. The autotuner scores the
+    allreduce responses' (``ResponseBytes``)."""
     if not res.tensor_type:
         return 0
     return sum(nbytes(res.tensor_type, s) for s in res.tensor_shapes)

@@ -14,10 +14,14 @@ init's rendezvous, a re-formation's reinit, and the port's own
 communicator's creation); ``fusion``; ``cycle``; ``cache``; ``straggler``
 (which rank completed a tensor last, on the coordinator); ``elastic``
 (``epoch``, ``faults_detected``, ``faults_recovered``,
-``ranks_blacklisted``, ``ranks_rejoined``, the ``detect_us`` histogram
-of a fault's detection, and the port's ``resets`` (re-formations and
-elastic re-inits) and ``last_fault`` record); ``errors``; ``knobs``
-(``fusion_threshold_bytes``, ``cycle_time_ms``).
+``ranks_blacklisted`` (old ranks a re-formation left out, a shrink's
+victims too), ``ranks_rejoined`` (joiner slots it absorbed through the
+parole door), the ``detect_us`` histogram of a fault's detection, and
+the port's ``resets`` (re-formations and elastic re-inits) and
+``last_fault`` record); ``errors``; ``knobs`` (the live
+``fusion_threshold_bytes`` and ``cycle_time_ms``, which the autotuner
+moves). ``control_phase`` also holds ``parole_freeze``: the door's
+frozen joiner count read at an epoch transition.
 
 Left out, with what they wait for: ``wire`` (the host ring's transport
 bytes, syscalls and overlap ledger: the port has no host ring, ROADMAP.md
@@ -132,7 +136,7 @@ class Metrics:
                       *self.control_phase_us.values()):
                 h.reset()
             self.faults_detected = self.faults_recovered = 0
-            self.ranks_blacklisted = self.resets = 0
+            self.ranks_blacklisted = self.ranks_rejoined = self.resets = 0
             self.cycles = self.cycle_stalls = self.cycle_overrun_us = 0
             self.fused_responses = 0
             self.fusion_fill_bytes = self.fusion_capacity_bytes = 0
@@ -183,14 +187,15 @@ class Metrics:
             self.faults_detected += 1
             self.fault_detect_us.record(detect_us)
 
-    def record_reset(self, recovered_ranks=0):
+    def record_reset(self, recovered=False, blacklisted=0, rejoined=0):
         """The lane re-formed (``reinit``) or re-initialized at a new
-        epoch; ``recovered_ranks`` the dead ranks it left out."""
+        epoch: ``recovered`` after a fault, leaving ``blacklisted`` old
+        ranks out and absorbing ``rejoined`` joiner slots."""
         with self._lock:
             self.resets += 1
-            if recovered_ranks:
-                self.faults_recovered += 1
-                self.ranks_blacklisted += recovered_ranks
+            self.faults_recovered += int(bool(recovered))
+            self.ranks_blacklisted += blacklisted
+            self.ranks_rejoined += rejoined
 
     def record_phase(self, phase, dur_us, emit_event=True):
         """One control-phase duration, and its ``phase`` event unless the
@@ -258,7 +263,8 @@ class Metrics:
                 "epoch": epoch, "faults_detected": self.faults_detected,
                 "faults_recovered": self.faults_recovered,
                 "ranks_blacklisted": self.ranks_blacklisted,
-                "ranks_rejoined": 0, "resets": self.resets,
+                "ranks_rejoined": self.ranks_rejoined,
+                "resets": self.resets,
                 "last_fault": last_fault,
                 "detect_us": self.fault_detect_us.json()}
             out["errors"] = self.errors

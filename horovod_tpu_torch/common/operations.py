@@ -12,6 +12,16 @@ handles. Only this thread issues collectives, in the same order on
 every rank, so no rank waits on a peer in a collective the peer never
 runs; shutdown is negotiated like any request.
 
+Under ``HOROVOD_AUTOTUNE`` (``basics._init_autotune``) the coordinator
+counts each cycle's allreduced bytes into its
+:class:`~parameter_manager.ParameterManager` after running the cycle's
+responses; when a window moves the knobs it adopts them (the fusion
+threshold of its controller and data plane, its cycle time) and the
+next response list carries them to the workers, which adopt them before
+they run that list's responses: every rank fuses and sizes its fusion
+buffer with the same threshold in the same cycle. Each knob that moves
+is a ``knob_adopt`` event.
+
 Each cycle also feeds the instruments: the metrics registry
 (``metrics.py``: op counts and bytes per response, negotiation and queue
 latency, cycles), the event ring (``events.py``) and, when one is
@@ -61,6 +71,10 @@ from horovod_tpu_torch.common.data_plane import ResponseError
 from horovod_tpu_torch.common.exceptions import (
     HorovodInternalError,
     HorovodPeerFailureError,
+)
+from horovod_tpu_torch.common.events import (
+    KNOB_CYCLE_TIME_MS,
+    KNOB_FUSION_BYTES,
 )
 from horovod_tpu_torch.common.message import (
     Request,
@@ -290,12 +304,13 @@ class Runtime:
     check's threshold (None: off). ``epoch`` is the membership epoch;
     ``store`` the fault check-in's store (its prefix is the epoch's;
     None in a world of one); ``fault_inject`` a parsed
-    :func:`parse_fault_spec` or None."""
+    :func:`parse_fault_spec` or None; ``param_manager`` the coordinator's
+    autotuner, or None."""
 
     def __init__(self, rank, size, control_group, data_plane, sets,
                  fusion_threshold, cycle_time_ms, make_groups,
                  cache_capacity=1024, stall_warning_s=60.0, epoch=0,
-                 store=None, fault_inject=None):
+                 store=None, fault_inject=None, param_manager=None):
         self.rank = rank
         self.size = size
         self.data_plane = data_plane
@@ -311,6 +326,7 @@ class Runtime:
             if rank == 0 else None
         self.control = ControlPlane(control_group, rank, size, self.cache,
                                     controller)
+        self.param_manager = param_manager
         self.timeline = data_plane.timeline = Timeline()
         self.queue = TensorQueue()
         self.joined = False
@@ -430,6 +446,10 @@ class Runtime:
                     REGISTRY.record(REGISTRY.negotiation_us, now_us() - t0)
                     events.record("negotiate_end", len(responses.responses),
                                   int(responses.shutdown))
+                if self.rank != 0:
+                    self._adopt(responses.fusion_threshold_bytes,
+                                responses.cycle_time_ms)
+                pm, cycle_bytes = self.param_manager, 0
                 for res in responses.responses:
                     if self._error is not None:
                         break
@@ -438,6 +458,14 @@ class Runtime:
                     t1 = self._op_start_us = now_us()
                     self._perform(res)
                     REGISTRY.record(REGISTRY.execute_us, now_us() - t1)
+                    if pm is not None and \
+                            res.response_type == ResponseType.ALLREDUCE:
+                        cycle_bytes += response_bytes(res)
+                if pm is not None and self._error is None and \
+                        pm.update(cycle_bytes):
+                    self._adopt(pm.fusion_threshold_bytes, pm.cycle_time_ms)
+                    self.control.controller.set_autotuned_params(
+                        self.fusion_threshold, self.cycle_time_ms)
                 if responses.shutdown:
                     # Every rank ends in this cycle: rank 0 may close the
                     # store at any moment now.
@@ -456,6 +484,18 @@ class Runtime:
             if self._error is not None:
                 error = self._error
             self.queue.close(error)
+
+    def _adopt(self, fusion_bytes, cycle_ms):
+        """Take the autotuner's knobs (0: untuned, keep this rank's);
+        each that moves is a ``knob_adopt`` event."""
+        if fusion_bytes > 0 and fusion_bytes != self.fusion_threshold:
+            events.record("knob_adopt", KNOB_FUSION_BYTES, 0, fusion_bytes)
+            self.fusion_threshold = fusion_bytes
+            self.data_plane.set_fusion_threshold(fusion_bytes)
+        if cycle_ms > 0 and cycle_ms != self.cycle_time_ms:
+            events.record("knob_adopt", KNOB_CYCLE_TIME_MS, 0,
+                          int(cycle_ms * 1000.0))
+            self.cycle_time_ms = cycle_ms
 
     # ---- faults ----------------------------------------------------------
 

@@ -8,7 +8,8 @@ daemon thread of stdlib ``http.server``, and serves:
 
 - ``/healthz``: initialized, rank, size, the membership epoch, loop
   state, the last fault record, uptime, the bound port, the lane's
-  queue depth, its cycles and the straggler skew;
+  queue depth, its cycles, the straggler skew and ``pending_rejoiners``
+  (the joiners held at rank 0's parole door; 0 elsewhere);
 - ``/metrics``: the Prometheus text of a fresh snapshot
   (``exporters._flatten_prom``);
 - ``/events?n=``: the newest n events of the ring (default 256);
@@ -17,12 +18,13 @@ daemon thread of stdlib ``http.server``, and serves:
 - ``/stacks``: every Python thread's stack (``faulthandler``).
 
 The reference's serving and fleet fields and ``/fleet`` wait for A6
-and A12; its ``pending_rejoiners`` for the parole door (L5b).
+and A12.
 """
 
 import faulthandler
 import json
 import os
+import sys
 import tempfile
 import threading
 import time
@@ -53,7 +55,14 @@ def _healthz():
         "cycles": snap["cycle"]["count"],
         "straggler_skew_ms": round(
             snap["straggler"]["skew_us"]["p90_us"] / 1000.0, 3),
+        "pending_rejoiners": _pending_rejoiners(),
     }
+
+
+def _pending_rejoiners():
+    elastic = sys.modules.get("horovod_tpu_torch.common.elastic")
+    door = None if elastic is None else elastic._door
+    return 0 if door is None else door.pending_count()
 
 
 def _stacks():

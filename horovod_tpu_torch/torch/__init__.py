@@ -13,11 +13,14 @@ join; process sets; ``DistributedOptimizer``; the broadcast helpers and
 
 ``hvd.elastic`` is elastic training (``torch/elastic.py``: ``run``,
 ``TorchState``, ``TreeState``, ``ObjectState``, ``init``, ``reset``,
-``survivors``), and ``init`` takes the elastic driver's assignment when
-one runs the job (``HOROVOD_RDZV_ADDR``). Still to port behind the same
-names: the parole door (L5b), autotune (L6), hierarchical allreduce
-(L7), the control tree and wire checksums (L8), the MPI controller (L9),
-the launcher (L10) and the JAX frontend's functional lane (L11).
+``survivors``, and the parole door's ``rejoin`` and the voluntary
+``shrink``), and ``init`` takes the elastic driver's assignment when
+one runs the job (``HOROVOD_RDZV_ADDR``) or opens rank 0's door
+(``HOROVOD_REJOIN_PORT``). ``HOROVOD_AUTOTUNE=1`` tunes the fusion
+threshold and the cycle time on the coordinator. Still to port behind
+the same names: hierarchical allreduce (L7), the control tree and wire
+checksums (L8), the MPI controller (L9), the launcher (L10) and the JAX
+frontend's functional lane (L11).
 """
 
 from horovod_tpu_torch.common.exceptions import (  # noqa: F401

@@ -4,7 +4,8 @@ Counterpart of ``horovod_tpu/torch/elastic.py`` (``TorchState``: a
 model's and an optimizer's state dicts and picklable extras, committed
 to host memory, restored after a failed collective, synced from rank 0
 after a reset; ``run``, ``init``, ``reset``, ``ObjectState``,
-``survivors``) and of ``horovod_tpu/jax/elastic.py:43 JaxState`` as
+``survivors``, ``rejoin``, ``shrink``) and of
+``horovod_tpu/jax/elastic.py:43 JaxState`` as
 :class:`TreeState`: named trees (nested dicts, lists, tuples) of
 tensors, such as the ``(params, opt)`` carry of
 ``parallel/train_step.py make_split_train_step``.
@@ -35,6 +36,7 @@ reset = _elastic.reset
 ObjectState = _elastic.ObjectState
 survivors = _elastic.survivors
 rejoin = _elastic.rejoin
+shrink = _elastic.shrink
 
 
 def _map(fn, *trees):

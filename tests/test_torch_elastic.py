@@ -19,7 +19,8 @@ against the reference's.
   the reference's corpus (malformed specs stay disarmed; ``stop``,
   ``reset`` and ``flip`` raise naming L8); ``kill`` at op 3 leaves 3
   completed ops on both lanes, ``delay`` stalls its op.
-- ``hvd.elastic.rejoin`` raises naming L5b.
+- ``hvd.elastic.rejoin`` without a door's port raises ``ValueError``,
+  as the reference's does.
 """
 
 import copy
@@ -189,11 +190,15 @@ def test_checkpoint_dir_resume_continues_numbering(tmp_path):
         assert torch.equal(a, b)
 
 
-def test_rejoin_and_the_trigger_before_init():
+def test_rejoin_and_the_trigger_before_init(monkeypatch):
     import horovod_tpu_torch.torch as hvd
+    from horovod_tpu.common import elastic as ref_elastic
     from horovod_tpu_torch.common import basics
 
-    with pytest.raises(NotImplementedError, match="L5b"):
+    monkeypatch.delenv("HOROVOD_REJOIN_PORT", raising=False)
+    with pytest.raises(ValueError, match="HOROVOD_REJOIN_PORT"):
+        ref_elastic.rejoin()
+    with pytest.raises(ValueError, match="HOROVOD_REJOIN_PORT"):
         hvd.elastic.rejoin()
     assert hvd.elastic.survivors() is None
     with pytest.raises(RuntimeError, match="requires hvd.init"):
