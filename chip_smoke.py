@@ -10,8 +10,8 @@ It builds the port's hand-written kernels from the checkout's sources
 and drives the port's serving and training paths at the full width of
 the flagship dense Llama and of the repo's sparse-MoE Llama, and BERT-
 Large's MLM training (also under elastic recovery), and the Horovod lane
-(its autotuner and parole door too), in phases; any failed phase exits
-non-zero before the result line.
+(its autotuner, parole door, wire codecs and cross-plane allreduce too),
+in phases; any failed phase exits non-zero before the result line.
 
 1. Card, power limit, torch/CUDA versions; kernel build time.
 2. Each kernel against its plain PyTorch version at the main paths'
@@ -163,10 +163,35 @@ non-zero before the result line.
    world re-formed at the next epoch with a new NCCL group, its ms
    beside phase 18's resets. A grown world (1 -> 2) on NCCL needs a
    second card.
-20. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
-   launches, and K1-K3's offsets rows with phase 17's launches; the lane
-   adds no kernel), the card line, and the result line
-   ``{"ok": true, "device": {...}}``.
+20. The lane's wire codecs and the cross-plane allreduce on one card:
+   (a) each codec kernel (``csrc/wire_codec.cu``: bf16 and int8 encode,
+   decode-accumulate, decode-scale) against its plain version bit for
+   bit, on the edge cases (NaN payloads, infinities, denormals, empty,
+   all-zero and all-denormal records; a NaN that a decoder's arithmetic
+   makes is NaN on both, the card's canonical one) and on the flagship's
+   f32 gradient set (phase 11's leaf shapes, ~1.43 B elements) cut into
+   the lane's 64 MiB fusion buckets, each cut as a 4-rank compressed
+   allreduce cuts its buffer; ms per 64 MiB bucket (median of CUDA-event launches)
+   beside the HBM bound, the plain version's ms and, for the bf16
+   encode, ``to(torch.bfloat16)``'s; (b) the data plane's allreduce over
+   4 emulated ranks in one process, one thread and one ``DataPlane``
+   each, only the transport replaced by device copies (flat, 2 x 2
+   hierarchical, bf16 and int8 on every hop, bf16 on the cross hop
+   alone, int8 with a bf16 cross hop): uncompressed exact fills equal
+   the flat sum bit for bit, every mode agrees bitwise across the ranks
+   and stays within N^2 2^-7 (bf16) or N^2 2^-6 (int8) of the f64 sum on
+   a 64 MiB bucket a rank, the same run on the CPU's plain versions
+   gives the same bits, and every codec kernel launches (counted from 0
+   over this run: the main path of the codecs); (c) the lane at world
+   size 1 on NCCL under ``HOROVOD_CROSS_PLANE=hier`` and
+   ``HOROVOD_WIRE_COMPRESSION=int8``: the rank-0 warning, split 0, the
+   modes in ``metrics()["knobs"]``, an f32 grouped set bit-identical to
+   the run without the settings (no rounding at size 1), ``wire`` bytes
+   0 and no codec launch. A real 2-slice NCCL world needs 4 cards.
+21. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
+   launches, K1-K3's offsets rows with phase 17's launches, and the six
+   codec kernels with phase 20 (b)'s), the card line, and the result
+   line ``{"ok": true, "device": {...}}``.
 
 Weights are random (``torch.Generator`` seeds); nothing is downloaded.
 """
@@ -2974,7 +2999,10 @@ def lane_autotune(torch, hvd, llama, cfg, card, bound_ms, cap_s=60.0):
     try:
         default = hvd.metrics()["knobs"]
         check(basics.lane().param_manager is None and default == {
-            "fusion_threshold_bytes": 64 << 20, "cycle_time_ms": 1.0},
+            "fusion_threshold_bytes": 64 << 20, "cycle_time_ms": 1.0,
+            "wire_compression": False, "wire_codec": "off",
+            "cross_plane": "auto", "hier_split": 0,
+            "cross_compression": False},
             f"the lane without HOROVOD_AUTOTUNE: knobs {default}")
         default_ms, default_host = timed_sets(torch, fn)
     finally:
@@ -3171,6 +3199,510 @@ def run_lane_tuning(torch, ctr, llama, bert, precision, train_step, cfg,
     check(not any(launched.values()),
           f"phase 19 launched a kernel: {launched}")
     return out
+
+
+# ---- phase 20: the lane's wire codecs and the cross-plane allreduce ------
+
+CODEC_SOURCE = "horovod_tpu_torch/csrc/wire_codec.cu"
+# The reference's host codecs each kernel stands for.
+CODEC_REPLACES = {
+    "encode_bf16": "csrc/ring_ops.cc:160", "decode_accum_bf16":
+    "csrc/ring_ops.cc:168", "decode_scale_bf16": "csrc/ring_ops.cc:178",
+    "encode_int8": "csrc/ring_ops.cc:211", "decode_accum_int8":
+    "csrc/ring_ops.cc:279", "decode_scale_int8": "csrc/ring_ops.cc:287"}
+BUCKET_ELEMS = (64 << 20) // 4     # the lane's 64 MiB fusion buffer, f32
+EMU_RANKS, EMU_LOCAL = 4, 2
+
+
+def codec_specials(torch, n, seed):
+    """Seeded values in [-2, 2] with NaN payloads, infinities, signed
+    zeros and denormals planted, and an all-zero and an all-denormal
+    record where the length allows (phase 2's edge cases for the codecs)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-2, 2, n).astype(np.float32)
+    bits = x.view(np.uint32)
+    plant = [0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00001,
+             0xFFC12345, 0x7F800001, 0x00000001, 0x807FFFFF, 0x3F808000,
+             0x7F7FFFFF]
+    for i, b in enumerate(plant[:n]):
+        bits[(i * 37) % n] = b
+    if n >= 768:
+        x[256:512] = 0.0
+        bits[512:768] = rng.integers(1, 1 << 23, 256).astype(np.uint32)
+    return torch.from_numpy(x)
+
+
+def same_codec_bits(torch, got, want):
+    """Bytes equal; a float result's bits equal wherever the plain value
+    is a number and NaN where it is NaN (the card gives arithmetic's NaNs
+    its canonical payload)."""
+    got, want = got.cpu(), want.cpu()
+    if want.dtype != torch.float32:
+        return torch.equal(got, want)
+    nan = want.isnan()
+    return torch.equal(got.isnan(), nan) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+def codec_edge_cases(torch, wc):
+    """Every codec kernel against its plain version on the edge cases, at
+    lengths 0, 1, 255, 256, 257 and 1025, one segment and four."""
+    cases = 0
+    for n in (0, 1, 255, 256, 257, 1025):
+        x = codec_specials(torch, n, 500 + n)
+        for codec in (wc.BF16, wc.INT8):
+            for nseg in (1, 4):
+                seg = wc.Segments.even(n, nseg)
+                img = wc.encode(x.cuda(), codec, seg)
+                want = wc.encode(x, codec, seg)
+                check(same_codec_bits(torch, img, want),
+                      f"encode codec {codec} n {n}/{nseg}: bytes differ")
+                for post in (1.0, 1.0 / 3.0):
+                    got = wc.decode_scale(torch.zeros(n, device="cuda"),
+                                          img, codec, seg, post=post)
+                    check(same_codec_bits(torch, got, wc.decode_scale(
+                        torch.zeros(n), want, codec, seg, post=post)),
+                        f"decode_scale codec {codec} n {n}: bits differ")
+                m = seg.count(0)
+                imgs = torch.cat([wc.encode(codec_specials(torch, m, s),
+                                            codec) for s in (1, 2)])
+                base = codec_specials(torch, m, 3)
+                want = wc.decode_accum(base.clone(), imgs, codec, 2)
+                got = wc.decode_accum(base.cuda(), imgs.cuda(), codec, 2)
+                check(same_codec_bits(torch, got, want),
+                      f"decode_accum codec {codec} n {n}: bits differ")
+                cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+def flagship_buckets(torch, llama, cfg):
+    """The flagship's gradient leaves at f32 laid end to end and cut into
+    the lane's 64 MiB fusion buckets: the leaves' element counts and the
+    buckets'."""
+    from horovod_tpu_torch.parallel._tree import tree_leaves
+
+    params = llama.llama_init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    sizes = [p.numel() for p in tree_leaves(params)]
+    del params
+    torch.cuda.empty_cache()
+    total = sum(sizes)
+    buckets = [BUCKET_ELEMS] * (total // BUCKET_ELEMS)
+    if total % BUCKET_ELEMS:
+        buckets.append(total % BUCKET_ELEMS)
+    return sizes, buckets
+
+
+def codec_buckets(torch, wc, buckets):
+    """Each bucket of the gradient set through every kernel against its
+    plain version on the card, as the compressed allreduce of 4 ranks
+    cuts it (4 segments; the owner's 3 images; the gathered slots with
+    the Average's 1/4): bit for bit; the largest difference per kernel."""
+    err = {k: 0.0 for k in wc.KERNELS}
+    gen = torch.Generator(device="cuda")
+    for i, count in enumerate(buckets):
+        x = torch.randn(count, generator=gen.manual_seed(i),
+                        device="cuda") * 1e-2
+        seg = wc.Segments.even(count, EMU_RANKS)
+        for codec in (wc.BF16, wc.INT8):
+            name = wc.CODEC_NAMES[codec]
+            img = wc.encode(x, codec, seg)
+            plain = wc._encode_plain(x, torch.empty_like(img), codec, seg)
+            check(torch.equal(img, plain),
+                  f"bucket {i}: encode_{name} bytes differ from plain")
+            stride = wc.image_len(seg.largest, codec)
+            slots = torch.zeros(EMU_RANKS * stride, dtype=torch.uint8,
+                                device="cuda")
+            pos = 0
+            for j in range(EMU_RANKS):
+                w = wc.image_len(seg.count(j), codec)
+                slots[j * stride:j * stride + w] = img[pos:pos + w]
+                pos += w
+            got = wc.decode_scale(torch.empty_like(x), slots, codec, seg,
+                                  stride, 0.25)
+            want = wc._decode_scale_plain(torch.empty_like(x), slots, codec,
+                                          seg, stride, 0.25)
+            err[f"decode_scale_{name}"] = max(
+                err[f"decode_scale_{name}"],
+                float((got - want).abs().max()))
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"bucket {i}: decode_scale_{name} bits differ from plain")
+            m = seg.count(0)
+            own = img[:wc.image_len(m, codec)]
+            imgs = torch.cat([own] * (EMU_RANKS - 1))
+            got = wc.decode_accum(x[:m].clone(), imgs, codec,
+                                  EMU_RANKS - 1)
+            want = wc._decode_accum_plain(x[:m].clone(), imgs, codec,
+                                          EMU_RANKS - 1)
+            err[f"decode_accum_{name}"] = max(
+                err[f"decode_accum_{name}"],
+                float((got - want).abs().max()))
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"bucket {i}: decode_accum_{name} bits differ from plain")
+        del x
+    torch.cuda.synchronize()
+    return err
+
+
+def median_ms(torch, fn, reps=15, warmup=2):
+    """The median over ``reps`` launches of ``fn``'s device time, one
+    pair of CUDA events around each."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def codec_timing(torch, wc):
+    """Each kernel at its main-path shape on one 64 MiB bucket of 4
+    ranks' segments: ms (median of CUDA-event launches) beside the bytes
+    bound (each input read once, each output written once), the plain
+    version's ms on the same inputs, and one PyTorch call's where one
+    computes the same function (bf16 encode: ``to(torch.bfloat16)``)."""
+    n = BUCKET_ELEMS
+    x = torch.randn(n, generator=torch.Generator(device="cuda").manual_seed(
+        7), device="cuda") * 1e-2
+    seg = wc.Segments.even(n, EMU_RANKS)
+    m = seg.count(0)
+    rows = {}
+    for codec in (wc.BF16, wc.INT8):
+        name = wc.CODEC_NAMES[codec]
+        img = wc.encode(x, codec, seg)
+        wlen = img.numel()
+        stride = wc.image_len(seg.largest, codec)
+        out = torch.empty_like(x)
+        imgs = torch.cat([img[:wc.image_len(m, codec)]] * (EMU_RANKS - 1))
+        acc = x[:m].clone()
+        cases = {
+            f"encode_{name}": (
+                lambda: wc.encode(x, codec, seg),
+                lambda: wc._encode_plain(x, torch.empty_like(img), codec,
+                                         seg),
+                4 * n + wlen, f"[{n}] f32 -> {wlen} B, 4 segments"),
+            f"decode_scale_{name}": (
+                lambda: wc.decode_scale(out, img, codec, seg, 0, 0.25),
+                lambda: wc._decode_scale_plain(out, img, codec, seg, 0,
+                                               0.25),
+                wlen + 4 * n, f"{wlen} B -> [{n}] f32, post 1/4"),
+            f"decode_accum_{name}": (
+                lambda: wc.decode_accum(acc, imgs, codec, EMU_RANKS - 1),
+                lambda: wc._decode_accum_plain(acc, imgs, codec,
+                                               EMU_RANKS - 1),
+                imgs.numel() + 8 * m,
+                f"[{m}] f32 += 3 images of {imgs.numel() // 3} B")}
+        for kname, (kernel, plain, nbytes, shape) in cases.items():
+            ms = median_ms(torch, kernel)
+            plain_ms = median_ms(torch, plain, reps=5, warmup=1)
+            b_ms, b_by = bound(nbytes, 0, "float32")
+            lib = None
+            if kname == "encode_bf16":
+                lib = median_ms(torch, lambda: x.to(torch.bfloat16))
+            rows[kname] = dict(shape=shape, ms=ms, plain_ms=plain_ms,
+                               bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                               bytes=nbytes)
+            log(f"  {kname} {shape}: {ms:.4f} ms (bound {b_ms:.4f}, "
+                f"{b_ms / ms:.2f} of it; plain {plain_ms:.4f}"
+                + (f"; to(bfloat16) {lib:.4f}" if lib is not None else "")
+                + ")")
+    del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+class EmuGroup:
+    """One process group of emulated ranks: each collective is a
+    rendezvous of its members' threads, and its transport device copies
+    (a sum in member order for the exact reductions)."""
+
+    def __init__(self, members, timeout=300):
+        import threading
+
+        self.members = list(members)
+        self.barrier = threading.Barrier(len(members), timeout=timeout)
+        self.calls = [None] * len(members)
+
+    def run(self, rank, name, args, kwargs):
+        import torch.distributed as dist
+
+        pos = self.members.index(rank)
+        self.calls[pos] = (args, kwargs)
+        if self.barrier.wait() == 0:
+            import torch
+
+            n = len(self.members)
+            if name in ("all_reduce", "reduce_scatter"):
+                srcs = [c[0][0 if name == "all_reduce" else 1]
+                        for c in self.calls]
+                op = kwargs.get("op", dist.ReduceOp.SUM)
+                acc = srcs[0].clone()
+                for s in srcs[1:]:
+                    if op == dist.ReduceOp.SUM:
+                        acc += s
+                    else:
+                        acc = (torch.maximum if op == dist.ReduceOp.MAX
+                               else torch.minimum)(acc, s)
+                for i, c in enumerate(self.calls):
+                    if name == "all_reduce":
+                        c[0][0].copy_(acc)
+                    else:
+                        out = c[0][0]
+                        out.copy_(acc.view(n, -1)[i])
+            elif name == "all_gather":
+                whole = torch.cat([c[0][1] for c in self.calls])
+                for c in self.calls:
+                    c[0][0].copy_(whole)
+            elif name == "all_to_all":
+                for i, c in enumerate(self.calls):
+                    out = c[0][0]
+                    pos_out = 0
+                    for j, src in enumerate(self.calls):
+                        sizes = src[1]["input_split_sizes"]
+                        off = sum(sizes[:i])
+                        out[pos_out:pos_out + sizes[i]].copy_(
+                            src[0][1][off:off + sizes[i]])
+                        pos_out += sizes[i]
+            else:
+                raise SmokeFailure(f"emulated {name} not supported")
+        self.barrier.wait()
+
+
+def emulated_allreduce(torch, inputs, split, codec, cross, op="sum"):
+    """The data plane's allreduce of ``inputs`` (one 1-D tensor a rank,
+    on one device) over EMU_RANKS emulated ranks, each a thread with its
+    own ``DataPlane``: the hierarchy split ``split`` (slices of
+    EMU_LOCAL), ``codec`` on every hop, bf16 on the cross hop under
+    ``cross``; only the transport is replaced (:class:`EmuGroup`).
+    Returns each rank's result."""
+    import threading
+
+    from horovod_tpu_torch.common.data_plane import DataPlane
+    from horovod_tpu_torch.common.message import ReduceOp
+    from horovod_tpu_torch.common.operations import SetGroups
+
+    n = len(inputs)
+    dev = "cuda" if inputs[0].is_cuda else "cpu"
+    world = EmuGroup(range(n))
+    slices = [EmuGroup(range(i, i + EMU_LOCAL))
+              for i in range(0, n, EMU_LOCAL)]
+    crosses = [EmuGroup(range(j, n, EMU_LOCAL)) for j in range(EMU_LOCAL)]
+    results, errors = [None] * n, []
+    rop = {"sum": ReduceOp.SUM, "average": ReduceOp.AVERAGE}[op]
+
+    def rank_fn(rank):
+        try:
+            plane = DataPlane(None, 64 << 20, world=n)
+            plane._dev = dev
+            plane.wire_codec, plane.cross_compression = codec, cross
+            plane.hier_split = split
+            local = slices[rank // EMU_LOCAL]
+            cgroup = crosses[rank % EMU_LOCAL]
+            plane.hier_groups = {EMU_LOCAL: (
+                SetGroups(local.members, rank, {dev: local}),
+                SetGroups(cgroup.members, rank, {dev: cgroup}))}
+            plane._collective = lambda pg, name, fn, *a, **k: pg.run(
+                rank, name, a, k)
+            buf = inputs[rank].clone()
+            post = 1.0 / n if rop == ReduceOp.AVERAGE else 1.0
+            plane._allreduce_buf(buf, rop, post, world, n, rank,
+                                 SetGroups(range(n), rank, {dev: world}))
+            results[rank] = buf
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(f"rank {rank}: {type(e).__name__}: {e}")
+            for g in [world] + slices + crosses:
+                g.barrier.abort()
+
+    threads = [threading.Thread(target=rank_fn, args=(r,))
+               for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise SmokeFailure("emulated allreduce failed: " + "; ".join(errors))
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return results
+
+
+# (label, split, codec, cross compression)
+EMU_MODES = [("flat", 0, 0, False), ("hier", EMU_LOCAL, 0, False),
+             ("flat bf16", 0, 1, False), ("flat int8", 0, 2, False),
+             ("hier bf16", EMU_LOCAL, 1, False),
+             ("hier int8", EMU_LOCAL, 2, False),
+             ("hier cross-only bf16", EMU_LOCAL, 0, True),
+             ("hier int8 + cross bf16", EMU_LOCAL, 2, True)]
+
+
+def run_emulated(torch, wc):
+    """(b) The data plane's flat, hierarchical and compressed allreduces
+    over 4 emulated ranks (2 x 2) on the card: exact fills bit-identical
+    to the flat sum uncompressed; every mode bitwise across the ranks and
+    within the envelope (N^2 2^-7 bf16, N^2 2^-6 int8 on [-2, 2]) on a
+    64 MiB bucket a rank; the same run on the CPU's plain versions at
+    1 M + 37 elements a rank gives the same bits; each codec kernel
+    launched (the counts, set to 0 before, read after)."""
+    n = EMU_RANKS
+    gen = torch.Generator(device="cuda")
+    exact = [torch.from_numpy(((np.arange(4099) % 9 - 4) * (r + 1)).astype(
+        np.float32)).cuda() for r in range(n)]
+    want_exact = sum(x.double() for x in exact).float()
+    big = [torch.rand(BUCKET_ELEMS, generator=gen.manual_seed(40 + r),
+                      device="cuda") * 4 - 2 for r in range(n)]
+    want_big = sum(x.double() for x in big)
+    small = [torch.from_numpy(np.random.default_rng([41, r]).uniform(
+        -2, 2, (1 << 20) + 37).astype(np.float32)) for r in range(n)]
+    for k in wc.KERNELS:
+        wc.launches[k] = 0
+    out = {}
+    for label, split, codec, cross in EMU_MODES:
+        res = emulated_allreduce(torch, exact, split, codec, cross)
+        if codec == 0 and not cross:
+            check(all(torch.equal(r, want_exact) for r in res),
+                  f"emulated {label}: exact fill not the flat sum")
+        t0 = time.perf_counter()
+        res = emulated_allreduce(torch, big, split, codec, cross)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(all(torch.equal(r.view(torch.int32), res[0].view(torch.int32))
+                  for r in res), f"emulated {label}: ranks disagree")
+        err = float((res[0].double() - want_big).abs().max())
+        hops = max(codec, 1 if cross else 0)
+        limit = n * n * (2.0 ** -7 if hops == 1 else 2.0 ** -6) if hops \
+            else 1e-5
+        check(err <= limit, f"emulated {label}: max error {err} > {limit}")
+        card = emulated_allreduce(torch, [x.cuda() for x in small], split,
+                                  codec, cross, op="average")
+        host = emulated_allreduce(torch, small, split, codec, cross,
+                                  op="average")
+        check(all(torch.equal(c.cpu().view(torch.int32),
+                              h.view(torch.int32))
+                  for c, h in zip(card, host)),
+              f"emulated {label}: the card's bits differ from the CPU's")
+        out[label] = dict(max_abs_err=err, limit=limit, host_ms=ms)
+        log(f"  emulated {label}: 4 ranks x {BUCKET_ELEMS} f32, max error "
+            f"{err:.3e} (limit {limit:.3e}), {ms:.1f} ms host; card == CPU "
+            "bits at 1 M + 37")
+    launches = {k: wc.launches[k] for k in wc.KERNELS}
+    check(all(launches.values()),
+          f"emulated compressed allreduces: a codec kernel never launched "
+          f"{launches}")
+    return out, launches
+
+
+def lane_wire_at_one(torch, hvd, llama, cfg, sizes, wc):
+    """(c) The lane at world size 1 on NCCL under
+    ``HOROVOD_CROSS_PLANE=hier`` and ``HOROVOD_WIRE_COMPRESSION=int8``:
+    the rank-0 warning, split 0, the modes in ``metrics()["knobs"]``; an
+    f32 grouped set of the flagship's first leaves bit-identical to the
+    run without the settings (the reference does not round at size 1);
+    ``wire`` bytes 0 and no codec launch."""
+    import io
+
+    from horovod_tpu_torch.common import basics
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    leaves = [torch.randn(s, generator=gen, device="cuda")
+              for s in sizes[:40]]
+    results, info = {}, {}
+    for label, env in (("settings", {"HOROVOD_CROSS_PLANE": "hier",
+                                     "HOROVOD_WIRE_COMPRESSION": "int8"}),
+                       ("plain", {})):
+        saved = {k: os.environ.get(k) for k in (
+            "HOROVOD_CROSS_PLANE", "HOROVOD_WIRE_COMPRESSION")}
+        os.environ.update(env)
+        err, old = io.StringIO(), sys.stderr
+        sys.stderr = err
+        try:
+            hvd.init()
+        finally:
+            sys.stderr = old
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        try:
+            hvd.metrics_reset()
+            before = dict(wc.launches)
+            grads = [g.clone() for g in leaves]
+            hvd.grouped_allreduce_(grads, op=hvd.Average)
+            torch.cuda.synchronize()
+            results[label] = grads
+            snap = hvd.metrics()
+            info[label] = dict(
+                warning=err.getvalue().strip(), split=hvd.hier_split(),
+                knobs={k: snap["knobs"][k] for k in (
+                    "cross_plane", "wire_codec", "hier_split",
+                    "cross_compression")},
+                tx_bytes=snap["wire"]["tx_bytes"],
+                codec_launches=sum(wc.launches[k] - before[k]
+                                   for k in wc.KERNELS),
+                world=basics.size())
+        finally:
+            hvd.shutdown()
+    s = info["settings"]
+    check("HOROVOD_CROSS_PLANE=hier disabled" in s["warning"],
+          f"no hier warning at world size 1: {s['warning']!r}")
+    check(s["split"] == 0 and s["knobs"]["cross_plane"] == "hier" and
+          s["knobs"]["wire_codec"] == "int8" and s["world"] == 1,
+          f"world size 1 under hier/int8: {s}")
+    check(info["plain"]["knobs"]["cross_plane"] == "auto",
+          f"plain knobs {info['plain']}")
+    check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+              for a, b in zip(results["settings"], results["plain"])),
+          "world size 1: the settings changed an f32 result")
+    check(s["tx_bytes"] == 0 and s["codec_launches"] == 0,
+          f"world size 1 moved wire bytes or launched a codec: {s}")
+    log(f"  world size 1, hier + int8: warning {s['warning']!r}; split "
+        f"{s['split']}; knobs {s['knobs']}; {len(leaves)} f32 leaves "
+        "bit-identical to the plain run; wire bytes 0, no codec launch")
+    return info
+
+
+def run_wire(torch, llama, cfg, card):
+    """Phase 20."""
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.ops import wire_codec as wc
+
+    edge = codec_edge_cases(torch, wc)
+    log(f"  codec kernels == plain on {edge} edge cases (NaN payloads, "
+        "infinities, denormals, empty and all-zero records)")
+    sizes, buckets = flagship_buckets(torch, llama, cfg)
+    err = codec_buckets(torch, wc, buckets)
+    log(f"  flagship f32 gradient set: {len(sizes)} leaves, "
+        f"{sum(sizes) / 1e9:.3f} B elements in {len(buckets)} buckets of "
+        f"64 MiB: every kernel == plain bit for bit; card {card}")
+    timing = codec_timing(torch, wc)
+    emulated, launches = run_emulated(torch, wc)
+    lane = lane_wire_at_one(torch, hvd, llama, cfg, sizes, wc)
+    return dict(edge_cases=edge, buckets=len(buckets),
+                elements=sum(sizes), err=err, timing=timing,
+                emulated=emulated, launches=launches, lane=lane)
+
+
+def codec_rows(wire):
+    """The codec kernels' rows of the ``kernels`` line."""
+    rows = []
+    for k in ("encode_bf16", "decode_accum_bf16", "decode_scale_bf16",
+              "encode_int8", "decode_accum_int8", "decode_scale_int8"):
+        t = wire["timing"][k]
+        rows.append(dict(
+            name=f"wire {k}", route="cuda", source=CODEC_SOURCE,
+            replaces=CODEC_REPLACES[k], launches=wire["launches"][k],
+            max_abs_err=wire["err"].get(k, 0.0), ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            shape=t["shape"]))
+    return rows
 
 
 def main():
@@ -3400,7 +3932,11 @@ def main():
         elastic["torch_state"]["reset_ms"] + elastic["tree_state"]["reset_ms"])
     torch.cuda.empty_cache()
 
-    log("phase 20: results")
+    log("phase 20: the lane's wire codecs and the cross-plane allreduce")
+    wire = run_wire(torch, llama, cfg, card)
+    torch.cuda.empty_cache()
+
+    log("phase 21: results")
     log(json.dumps({"generate": gen_stats, "engine": eng_stats,
                     "train": train_stats, "train_parity": parity,
                     "moe_train": moe_train_stats,
@@ -3412,7 +3948,7 @@ def main():
                     "bert_forward": bert_fwd_stats,
                     "bert_parity": bert_parity, "ring_replay": ring,
                     "elastic": elastic, "lane_tuning": tuning,
-                    "card": card}))
+                    "wire": wire, "card": card}))
     paths = {"llama_generate": gen_launch, "DecodeEngine": eng_launch,
              "train_step": train_launch, "moe_train_step": moe_train_launch,
              "moe_llama_generate": moe_gen_launch,
@@ -3493,6 +4029,7 @@ def main():
                 "library_ms", "library_note", "kernel_route",
                 "earlier_ms")},
             cases=[case[key] for case in offsets_cases]))
+    kernels += codec_rows(wire)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,11 +15,35 @@ knobs ``HOROVOD_FUSION_THRESHOLD`` (bytes, default 64 MiB),
 writes the timeline from init on) and ``HOROVOD_TIMELINE_MARK_CYCLES``,
 ``HOROVOD_DEBUG_PORT`` (rank r serves ``telemetry/debug_server.py``
 on that port + r; 0 binds an ephemeral port), and the autotuner's
-``HOROVOD_AUTOTUNE`` (1: rank 0 tunes the fusion threshold and the cycle
-time), ``HOROVOD_AUTOTUNE_LOG``, ``_STEPS``, ``_WINDOW_BYTES`` and
+``HOROVOD_AUTOTUNE`` (1: rank 0 tunes the fusion threshold, the cycle
+time and, where they have a choice, the wire codec and the hierarchy
+split), ``HOROVOD_AUTOTUNE_LOG``, ``_STEPS``, ``_WINDOW_BYTES`` and
 ``_WINDOW_CYCLES`` (``parameter_manager.py``), read by
 :func:`_init_autotune` at every init and re-formation, so that a world
 that grew or shrank tunes again from the start with a fresh log.
+
+The cross-plane knobs (``csrc/operations.cc:1462-1505``), read at every
+open: ``HOROVOD_CROSS_PLANE`` (``auto|ici|ring|hier``, case-insensitive;
+unset, ``HOROVOD_HIERARCHICAL_ALLREDUCE=1`` means ``hier``; an unknown
+value warns and means ``auto``), ``HOROVOD_CROSS_PLANE_COMPRESSION``
+(1: bf16 on the hierarchical allreduce's cross hop alone) and
+``HOROVOD_WIRE_COMPRESSION`` (``0``/``1``/``2``, ``bf16``, ``int8``: the
+codec of f32 Sum and Average allreduces and reducescatters,
+``data_plane.py``). In modes ``auto`` and ``hier`` a first ``init`` at
+epoch 0 runs the reference's eligibility probe
+(``operations.cc:1575-1615``): one MIN allreduce of ``(local_size,
+-local_size, host-major)`` on the gloo group (and ``-autotune``, see
+below); a homogeneous host-major layout of more than one rank a slice
+on more than one slice sets the
+split to ``local_size``, anything else runs flat, and an explicit
+``hier`` then warns on rank 0 (a world of one warns without the probe).
+A joiner's ``init`` (epoch > 0) and a re-formation never probe: both go
+through :func:`_open`, and a probe that one side ran and the other did
+not would hang the lane. The lane opens the slices' groups (gloo, and
+NCCL on the card) for the split, on every rank in one order; when some
+rank set ``HOROVOD_AUTOTUNE`` (the probe's fourth entry, kept for the
+re-formations), for every smaller divisor of ``local_size`` that tiles
+the world too, the autotuner's grid.
 
 The lane's instruments are read here: :func:`metrics` (the registry's
 snapshot), :func:`metrics_reset`, :func:`events` and
@@ -53,15 +77,20 @@ process restart),
 is in: a failed lane skips the negotiation, and its NCCL communicators
 are aborted rather than destroyed behind a collective that will never
 finish. Without a driver, rank 0 hosts the store and must survive, as
-in the reference (``horovod_tpu/common/elastic.py:457``). After a
-shrink the layout is flat (one host: ``local_*`` = the new rank and
-size, ``cross_*`` 0 and 1; the hierarchical split is ROADMAP.md L7), and
-each rank keeps the card it had.
+in the reference (``horovod_tpu/common/elastic.py:457``). A
+re-formation re-derives the slice layout from the survivors' old hosts
+(``operations.cc:1837-1880``): when the old world was hierarchical and
+the sorted survivors keep every remaining host at one count L > 1 on
+more than one host, the new world has ``local_size`` L and split L;
+otherwise, and for a world with joiner slots, it is flat (one host:
+``local_*`` = the new rank and size, ``cross_*`` 0 and 1). Each rank
+keeps the card it had.
 """
 
 import atexit
 import datetime
 import os
+import re
 import sys
 import threading
 
@@ -78,8 +107,11 @@ from horovod_tpu_torch.common.operations import (
     parse_fault_spec,
 )
 from horovod_tpu_torch.common.parameter_manager import ParameterManager
+from horovod_tpu_torch.ops.wire_codec import CODEC_NAMES
 
 _TIMEOUT = datetime.timedelta(seconds=600)
+#: HOROVOD_CROSS_PLANE mode names in the reference's order.
+CROSS_PLANE_MODES = ("auto", "ici", "ring", "hier")
 
 # Launcher fallbacks, HOROVOD_* first (horovod_tpu/common/basics.py:251).
 _ENV_FALLBACKS = {
@@ -106,13 +138,46 @@ def _env_int(name, default):
     return default
 
 
+def _env_strtoll(name, default=0):
+    """``EnvInt64``: ``strtoll`` of the variable's leading digits (0 when
+    there are none), ``default`` when it is unset."""
+    val = os.environ.get(name)
+    if val is None:
+        return default
+    m = re.match(r"\s*[+-]?\d+", val)
+    return int(m.group()) if m else 0
+
+
+def _cross_plane_mode():
+    mode = (os.environ.get("HOROVOD_CROSS_PLANE") or "").lower()
+    if not mode:
+        mode = "hier" if _env_strtoll("HOROVOD_HIERARCHICAL_ALLREDUCE") \
+            else "auto"
+    if mode not in CROSS_PLANE_MODES:
+        print(f"hvd-torch: ignoring unknown HOROVOD_CROSS_PLANE={mode} "
+              "(expected auto|ici|ring|hier)", file=sys.stderr, flush=True)
+        mode = "auto"
+    return mode
+
+
+def _wire_codec_env():
+    """``HOROVOD_WIRE_COMPRESSION``: 0/1/2 or ``bf16``/``int8``; any other
+    number means off."""
+    comp = os.environ.get("HOROVOD_WIRE_COMPRESSION", "0")
+    if comp in ("bf16", "int8"):
+        return 1 if comp == "bf16" else 2
+    mode = _env_strtoll("HOROVOD_WIRE_COMPRESSION")
+    return mode if mode in (0, 1, 2) else 0
+
+
 class _Lane:
     """What init() opened; shutdown() closes it."""
 
-    def __init__(self, runtime, layout, device):
+    def __init__(self, runtime, layout, device, cross_plane):
         self.runtime = runtime
         self.layout = layout
         self.device = device
+        self.cross_plane = cross_plane
 
 
 _lock = threading.Lock()
@@ -120,6 +185,7 @@ _lane = None
 _store = None        # ((addr, port, is_master), TCPStore) for the process
 _epoch = 0
 _last_fault = None   # the newest fault record, kept across a reinit
+_tune_splits = False  # the probe's verdict: open the tuner's every split
 
 
 def init(device=None, epoch=None):
@@ -148,7 +214,10 @@ def init(device=None, epoch=None):
             driver = os.environ.get("HOROVOD_ELASTIC_EPOCH") \
                 if os.environ.get("HOROVOD_RDZV_ADDR") else None
             epoch = max(int(driver) - 1, 0) if driver else 0
-        _open(layout, card, int(epoch), _fault_inject_from_env())
+        # Only a first open probes the layout: a joiner opens at its
+        # survivors' epoch, which their re-formation reached unprobed.
+        _open(layout, card, int(epoch), _fault_inject_from_env(),
+              probe=int(epoch) == 0)
         _last_fault = None
     if os.environ.get("HOROVOD_DEBUG_PORT"):
         try:
@@ -181,10 +250,11 @@ def _base_store(rank, size):
     return _store[1]
 
 
-def _open(layout, card, epoch, fault_inject):
+def _open(layout, card, epoch, fault_inject, probe=False, split=0):
     """Open torch.distributed and the lane at ``epoch``; caller holds
-    ``_lock``."""
-    global _lane, _epoch
+    ``_lock``. ``probe``: run the hierarchy's eligibility probe (a first
+    init); else ``split`` is the hierarchy split (a re-formation's)."""
+    global _lane, _epoch, _tune_splits
     rank, size = layout["rank"], layout["size"]
     if dist.is_initialized():
         raise RuntimeError(
@@ -199,9 +269,12 @@ def _open(layout, card, epoch, fault_inject):
         fault_store = dist.PrefixStore(f"hvd/epoch{epoch}/fault", base)
     dist.init_process_group("gloo", store=store, rank=rank,
                             world_size=size, timeout=_TIMEOUT)
+    mode = _cross_plane_mode()
     try:
-        runtime = _open_lane(rank, size, card, epoch, fault_store,
-                             fault_inject)
+        if probe:
+            split, _tune_splits = _probe_hier(layout, mode)
+        runtime = _open_lane(layout, card, epoch, fault_store,
+                             fault_inject, mode, split, _tune_splits)
     except BaseException:
         dist.destroy_process_group()
         raise
@@ -212,7 +285,7 @@ def _open(layout, card, epoch, fault_inject):
         # coordinator writes it (hvd.start_timeline works on any rank).
         runtime.timeline.start(timeline, rank, _mark_cycles())
     runtime.start()
-    _lane = _Lane(runtime, layout, card)
+    _lane = _Lane(runtime, layout, card, mode)
     _epoch = epoch
 
 
@@ -227,23 +300,80 @@ def _door_enabled():
         not os.environ.get("HOROVOD_RDZV_ADDR")
 
 
-def _init_autotune(rank, fusion_bytes, cycle_ms):
+def _probe_hier(layout, mode):
+    """The hierarchy split of a first open (``operations.cc:1575-1615``):
+    in modes ``auto`` and ``hier``, one MIN allreduce of ``(local_size,
+    -local_size, host-major)`` on the gloo group, collective on every
+    rank alike (the gate reads the mode and the world size only).
+    Returns the split, ``local_size`` when the layout tiles, else 0 with
+    a warning on rank 0 under ``hier``; and whether some rank set
+    ``HOROVOD_AUTOTUNE`` (the probe's fourth entry, ``-autotune``), so
+    that every rank opens the tuner's splits alike."""
+    rank, size, local = layout["rank"], layout["size"], layout["local_size"]
+    if mode not in ("auto", "hier"):
+        return 0, False
+    homogeneous = host_major = True
+    tune = _env_int("HOROVOD_AUTOTUNE", 0) != 0
+    if size > 1:
+        ls = max(local, 1)
+        major = int(layout["local_rank"] == rank % ls and
+                    layout["cross_rank"] == rank // ls)
+        probe = torch.tensor([local, -local, major, -int(tune)],
+                             dtype=torch.int64)
+        dist.all_reduce(probe, op=dist.ReduceOp.MIN)
+        homogeneous = int(probe[0]) == -int(probe[1])
+        host_major = int(probe[2]) == 1
+        tune = int(probe[3]) < 0
+    if homogeneous and host_major and local > 1 and size % local == 0 \
+            and size != local:
+        return local, tune
+    if rank == 0 and mode == "hier":
+        print("hvd-torch: HOROVOD_CROSS_PLANE=hier disabled: requires a "
+              "homogeneous host-major layout with >1 rank per slice on >1 "
+              f"slices (local sizes {'uniform' if homogeneous else 'mixed'}"
+              f", layout {'host-major' if host_major else 'not host-major'}"
+              ")", file=sys.stderr, flush=True)
+    return 0, tune
+
+
+def _hier_splits(split, local_size, size):
+    """The autotuner's splits (``InitAutotune``): none when flat, else
+    every divisor d >= 2 of ``local_size`` that divides ``size``."""
+    if split <= 1:
+        return []
+    return [d for d in range(2, local_size + 1)
+            if local_size % d == 0 and size % d == 0]
+
+
+def _init_autotune(rank, fusion_bytes, cycle_ms, codec, mode, split,
+                   local_size, size):
     """The autotuner's one construction site, for init and every
     re-formation (``InitAutotune``): None without ``HOROVOD_AUTOTUNE``;
-    else, on the coordinator, a fresh tuner from the environment's knobs
-    (its log truncated). Workers take the coordinator's knobs from the
-    response lists and open no log."""
+    else, on the coordinator, a fresh tuner from the live knobs (its log
+    truncated). The codec joins its grid only when the user chose one;
+    the split, on a hierarchical layout, over flat (not under an
+    explicit ``hier``) and :func:`_hier_splits`. Workers take the
+    coordinator's knobs from the response lists and open no log."""
     if not _env_int("HOROVOD_AUTOTUNE", 0) or rank != 0:
         return None
+    hier_values = _hier_splits(split, local_size, size)
+    if hier_values and mode != "hier":
+        hier_values = [0] + hier_values
     return ParameterManager(
         fusion_bytes, cycle_ms, os.environ.get("HOROVOD_AUTOTUNE_LOG"),
         max_samples=_env_int("HOROVOD_AUTOTUNE_STEPS", 20),
         window_bytes=_env_int("HOROVOD_AUTOTUNE_WINDOW_BYTES", 1 << 20),
-        window_cycles=_env_int("HOROVOD_AUTOTUNE_WINDOW_CYCLES", 20))
+        window_cycles=_env_int("HOROVOD_AUTOTUNE_WINDOW_CYCLES", 20),
+        wire_codec=codec, tune_wire_codec=codec != 0,
+        hier_values=hier_values, hier_split=split)
 
 
-def _open_lane(rank, size, card, epoch, store, fault_inject):
-    """The process groups of the global set and the lane's runtime."""
+def _open_lane(layout, card, epoch, store, fault_inject, mode, split,
+               tune_splits):
+    """The process groups of the global set and of the slices (the
+    split's, or with ``tune_splits`` every split of the tuner's grid),
+    and the lane's runtime."""
+    rank, size = layout["rank"], layout["size"]
 
     def make_groups(ranks):
         ranks = sorted(int(r) for r in ranks)
@@ -268,21 +398,41 @@ def _open_lane(rank, size, card, epoch, store, fault_inject):
     cycle_ms = float(os.environ.get("HOROVOD_CYCLE_TIME") or 1.0)
     stall_s = None if _env_int("HOROVOD_STALL_CHECK_DISABLE", 0) else float(
         os.environ.get("HOROVOD_STALL_CHECK_TIME") or 60.0)
-    return Runtime(rank, size, dist.group.WORLD, DataPlane(card, threshold),
+    plane = DataPlane(card, threshold, world=size)
+    plane.wire_codec = _wire_codec_env()
+    plane.cross_compression = \
+        _env_strtoll("HOROVOD_CROSS_PLANE_COMPRESSION") != 0
+    plane.hier_split = split
+    local_size = layout["local_size"]
+    splits = _hier_splits(split, local_size, size) if tune_splits else \
+        [split] if split > 1 else []
+    for d in splits:
+        # Every rank opens every slice's groups, in one order.
+        slices = [list(range(i, i + d)) for i in range(0, size, d)]
+        crosses = [list(range(j, size, d)) for j in range(d)]
+        made = [(m, make_groups(m)) for m in slices + crosses]
+        plane.hier_groups[d] = tuple(
+            SetGroups(m, rank, g) for m, g in made if rank in m)
+    return Runtime(rank, size, dist.group.WORLD, plane,
                    {0: SetGroups(world, rank, groups)}, threshold, cycle_ms,
                    make_groups,
                    cache_capacity=_env_int("HOROVOD_CACHE_CAPACITY", 1024),
                    stall_warning_s=stall_s, epoch=epoch, store=store,
                    fault_inject=fault_inject,
-                   param_manager=_init_autotune(rank, threshold, cycle_ms))
+                   param_manager=_init_autotune(
+                       rank, threshold, cycle_ms, plane.wire_codec, mode,
+                       split, local_size, size))
 
 
 def _close(lane):
     """Tear the lane and its process groups down, whatever state it is
     in: a running lane negotiates its shutdown first (every rank must
     call); a failed one, or one whose negotiation did not end, has its
-    NCCL communicators aborted rather than waited for."""
+    NCCL communicators aborted rather than waited for: the sets' and the
+    slices' (a peer lost in a hierarchical allreduce leaves the lane in
+    a slice's or a cross group's collective)."""
     rt = lane.runtime
+    plane = rt.data_plane
     t0 = now_us()
     ended = rt.failure is None and rt.shutdown(_TIMEOUT.total_seconds())
     rt.stop()
@@ -290,19 +440,34 @@ def _close(lane):
     if rt.param_manager is not None:
         rt.param_manager.close()
     if not ended:
-        for s in rt.sets.values():
-            if "cuda" in s.groups:
-                try:
-                    s.groups["cuda"].abort()
-                except Exception as e:  # noqa: BLE001 — best effort
-                    print(f"hvd-torch: NCCL abort failed: {e}",
-                          file=sys.stderr)
+        hops = [s for pair in plane.hier_groups.values() for s in pair]
+        _abort_all([s.groups["cuda"] for s in list(rt.sets.values()) + hops
+                    if "cuda" in s.groups])
     # Drop the lane's references: a gloo context closes its sockets when
     # its last one goes, which ends a peer's collective waiting on it.
     rt.sets.clear()
+    plane.hier_groups.clear()
     rt.control.group = None
     dist.destroy_process_group()
     REGISTRY.record_phase("shutdown", now_us() - t0)
+
+
+def _abort_all(groups):
+    """Abort NCCL communicators at once, one thread each: a collective a
+    lost peer left hung holds the lane's stream, and one communicator's
+    abort can wait on that stream until the hung one's is aborted too."""
+    def abort(pg):
+        try:
+            pg.abort()
+        except Exception as e:  # noqa: BLE001 — best effort
+            print(f"hvd-torch: NCCL abort failed: {e}", file=sys.stderr)
+
+    threads = [threading.Thread(target=abort, args=(pg,), daemon=True)
+               for pg in groups]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
 
 
 def shutdown():
@@ -356,12 +521,17 @@ def reinit(ranks, epoch):
         old_epoch = _epoch
         _events.record("reinit_begin", len(ranks), 0, epoch)
         _lane = None
+        old_split = lane.runtime.data_plane.hier_split
         _close(lane)
         rank, size = ranks.index(old_rank), len(ranks)
-        layout = dict(rank=rank, size=size, local_rank=rank,
-                      local_size=size, cross_rank=0, cross_size=1)
+        local = _survivor_slices(ranks, old_split,
+                                 lane.layout["local_size"])
+        layout = dict(rank=rank, size=size, local_rank=rank % local,
+                      local_size=local, cross_rank=rank // local,
+                      cross_size=size // local)
         try:
-            _open(layout, lane.device, epoch, None)
+            _open(layout, lane.device, epoch, None,
+                  split=local if local < size else 0)
         except Exception as e:
             _events.record("reinit_end", -4, size, epoch)
             raise RuntimeError(
@@ -377,6 +547,30 @@ def reinit(ranks, epoch):
         REGISTRY.record_reset(fault is not None, old_size - len(members),
                               joiners)
         REGISTRY.record_phase("reinit", now_us() - t0)
+
+
+def _survivor_slices(ranks, old_split, old_local):
+    """The re-formed world's ``local_size`` (``operations.cc:1837-1880``):
+    with a hierarchical old world and no joiner slot, the survivors
+    grouped by old host (``old_rank // old_local``); when the sorted list
+    keeps every remaining host at one count L > 1 over more than one
+    host, L; else the world's size (flat)."""
+    size = len(ranks)
+    if old_split <= 1 or old_local <= 0 or -1 in ranks or \
+            ranks != sorted(ranks):
+        return size
+    counts = []
+    for r in ranks:
+        host = r // old_local
+        if counts and counts[-1][0] == host:
+            counts[-1][1] += 1
+        else:
+            counts.append([host, 1])
+    tile = counts[0][1]
+    if all(c == tile for _, c in counts) and tile > 1 and \
+            size % tile == 0 and size // tile > 1:
+        return tile
+    return size
 
 
 @atexit.register
@@ -482,6 +676,71 @@ def cross_size():
     return _layout("cross_size")
 
 
+def cross_plane():
+    """The cross-plane mode (``HOROVOD_CROSS_PLANE``): one of
+    :data:`CROSS_PLANE_MODES`, fixed at init."""
+    current = _lane
+    if current is None:
+        raise ValueError("hvd.cross_plane() called before hvd.init(); call "
+                         "hvd.init() first")
+    return current.cross_plane
+
+
+def hier_split():
+    """The active hierarchy split of the global set's allreduce: 0 flat,
+    L >= 2 slices of L consecutive ranks; -1 before init."""
+    current = _lane
+    return -1 if current is None else current.runtime.data_plane.hier_split
+
+
+def set_hier_split(split):
+    """Set the hierarchy split; must be rank-uniform. 0 (flat) or a split
+    whose slices' groups the lane opened (the probe's, or under
+    ``HOROVOD_AUTOTUNE`` the autotuner's grid); raises ``ValueError`` for
+    any other."""
+    plane = _require_lane("set_hier_split").data_plane
+    split = int(split)
+    if split != 0 and split not in plane.hier_groups:
+        raise ValueError(
+            f"hier split {split} has no slice groups on this lane: 0 or one "
+            f"of {sorted(plane.hier_groups)}")
+    plane.hier_split = split
+
+
+def cross_compression():
+    """Whether the bf16 codec rides the hierarchical allreduce's cross hop
+    alone (``HOROVOD_CROSS_PLANE_COMPRESSION``; fixed at init)."""
+    current = _lane
+    return current is not None and \
+        current.runtime.data_plane.cross_compression
+
+
+def wire_codec():
+    """The wire codec: 0 off, 1 bf16, 2 int8 (``HOROVOD_WIRE_COMPRESSION``
+    until init, then the lane's)."""
+    current = _lane
+    return _wire_codec_env() if current is None else \
+        current.runtime.data_plane.wire_codec
+
+
+def set_wire_codec(mode):
+    """Select the wire codec on the live lane; must be rank-uniform. A
+    mode outside 0-2 means off."""
+    mode = int(mode)
+    _require_lane("set_wire_codec").data_plane.wire_codec = \
+        mode if mode in (0, 1, 2) else 0
+
+
+def wire_compression():
+    """Whether f32 Sum/Average payloads cross the wire narrowed."""
+    return wire_codec() != 0
+
+
+def set_wire_compression(on):
+    """bf16 on the wire (True) or off."""
+    set_wire_codec(1 if on else 0)
+
+
 def loop_failed():
     """Whether the lane stopped on a failed collective."""
     current = _lane
@@ -522,13 +781,18 @@ def metrics():
     if current is None:
         return REGISTRY.snapshot(epoch=_epoch, last_fault=last_fault())
     rt = current.runtime
-    c = rt.cache
+    c, plane = rt.cache, rt.data_plane
     return REGISTRY.snapshot(
         initialized=True, rank=rt.rank, size=rt.size,
         fusion_threshold_bytes=rt.fusion_threshold,
         cycle_time_ms=rt.cycle_time_ms,
         cache=(c.hits, c.misses, c.entries, c.hit_bytes), epoch=_epoch,
-        last_fault=last_fault())
+        last_fault=last_fault(), wire_knobs={
+            "wire_compression": plane.wire_codec != 0,
+            "wire_codec": CODEC_NAMES[plane.wire_codec],
+            "cross_plane": current.cross_plane,
+            "hier_split": plane.hier_split,
+            "cross_compression": plane.cross_compression})
 
 
 def metrics_reset():

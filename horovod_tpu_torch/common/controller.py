@@ -27,13 +27,13 @@ counts which rank completed each tensor last (the straggler table).
 Under ``HOROVOD_AUTOTUNE`` the coordinator's tuner moves the fusion
 threshold (:meth:`Controller.set_autotuned_params`, the reference's
 ``SetAutotunedParams``): the controller fuses with the new value from
-the next cycle on, and every response list from then carries it and the
-cycle time to the workers; untuned, the list carries 0 for both.
+the next cycle on, and every response list from then carries it, the
+cycle time, the wire codec and the hierarchy split to the workers;
+untuned, the list carries 0 for the first two and -1 for the others.
 
 A lost peer ends the lane (``operations.py``); re-forming the world is
 ``basics.reinit``'s, with a new controller. Still to port (ROADMAP.md):
-the hierarchical split (L7), the control tree and wire checksums (L8),
-the MPI controller (L9).
+the control tree and wire checksums (L8), the MPI controller (L9).
 """
 
 import collections
@@ -125,12 +125,16 @@ class Controller:
         # What each response list tells the workers (0: not tuned).
         self.bcast_fusion_bytes = 0
         self.bcast_cycle_ms = 0.0
+        self.bcast_wire_codec = self.bcast_hier_split = -1
 
-    def set_autotuned_params(self, fusion_bytes, cycle_ms):
+    def set_autotuned_params(self, fusion_bytes, cycle_ms, wire_codec=-1,
+                             hier_split=-1):
         """The tuner's new knobs: fuse with ``fusion_bytes`` from now on,
-        and send both to the workers in every later response list."""
+        and send all four to the workers in every later response list."""
         self.fusion_threshold = self.bcast_fusion_bytes = int(fusion_bytes)
         self.bcast_cycle_ms = float(cycle_ms)
+        self.bcast_wire_codec = int(wire_codec)
+        self.bcast_hier_split = int(hier_split)
 
     @staticmethod
     def key(req):
@@ -576,7 +580,9 @@ class ControlPlane:
             ctl.check_for_stalled_tensors()
             out = ResponseList(cache_evictions=evictions,
                                fusion_threshold_bytes=ctl.bcast_fusion_bytes,
-                               cycle_time_ms=ctl.bcast_cycle_ms)
+                               cycle_time_ms=ctl.bcast_cycle_ms,
+                               wire_compression=ctl.bcast_wire_codec,
+                               hier_split=ctl.bcast_hier_split)
             ctl.collect_cache_hits(out)
             fused = ctl.fuse_responses()
             out.responses, out.shutdown = fused.responses, fused.shutdown

@@ -26,6 +26,26 @@ differ, since the reference frontend's CPU tensors run on it:
   member's negotiated splits of rows.
 - A set of one still makes its collective call (Adasum, with no
   partner, a one-rank sum), so that the card path is the real one.
+- Hierarchical allreduce (``HOROVOD_CROSS_PLANE``, ``csrc/ring_ops.cc:797
+  HierarchicalAllreduce``): with a split ``L > 1`` (:attr:`hier_split`)
+  the global set's allreduce is a reduce-scatter over this rank's slice
+  of ``L`` consecutive ranks (segments of ``q + 1`` elements to the first
+  ``count % L`` of them), an allreduce of its segment over the ranks of
+  the same local rank on every slice, the postscale applied there once,
+  and an allgather over the slice. A world that ``L`` does not tile into
+  several slices, another process set, Adasum and Product run flat
+  (Product: its gather path, ROADMAP.md queue C).
+- Wire compression (``HOROVOD_WIRE_COMPRESSION``, ``csrc/ring_ops.cc:1285``
+  and ``:1495``): an f32 Sum or Average allreduce or reducescatter over
+  two or more ranks narrows its wire to bf16 or int8
+  (``ops/wire_codec.py``, the codec kernels on the card) and sums in f32.
+  Each rank encodes every destination segment and one ``all_to_all``
+  exchanges the images; the segment's owner decodes the contributions
+  and adds them in rank order; for an allreduce it encodes the finished
+  segment once, and after an ``all_gather`` of the images every rank, the
+  owner too, decodes the same bits with the postscale folded in. Under
+  ``HOROVOD_CROSS_PLANE_COMPRESSION`` the hierarchical allreduce's cross
+  hop alone takes bf16. Everything else takes the exact path.
 
 Allreduces of a response share a fusion buffer, one per device and
 dtype, allocated once at the threshold and reused; an atomic group
@@ -40,6 +60,15 @@ fusion-buffer copies and the collective, named for its transport:
 ``NCCL_ALLREDUCE``, ``GLOO_BCAST``...), each collective call's time in
 the metrics' ``wire_us`` (host time on gloo; on NCCL two CUDA events on
 the lane's stream, read once completed) and each fused response's fill.
+
+The ``wire`` bytes of the metrics are booked per allreduce and
+reducescatter from the segment math (NCCL and gloo report none): an exact
+collective books the reference ring's bytes (the reducescatter's whole-
+tensor allreduce books an allreduce's), a compressed one the images its
+``all_to_all`` and ``all_gather`` send (the padding of uneven segments to
+the largest not counted, as in the exact path's padded calls); the
+hierarchical allreduce's cross hop books under ``cross_*`` too. Adasum
+and Product book none.
 
 CUDA ordering: everything runs on the lane's own stream, which first
 waits on the event each tensor's producer stream recorded at enqueue;
@@ -56,6 +85,8 @@ import torch.distributed as dist
 from horovod_tpu_torch.common import adasum
 from horovod_tpu_torch.common.message import ReduceOp, ResponseType
 from horovod_tpu_torch.common.metrics import REGISTRY, now_us
+from horovod_tpu_torch.ops import wire_codec
+from horovod_tpu_torch.ops.wire_codec import Segments, image_len
 
 _SCALED = (torch.float16, torch.bfloat16, torch.float32, torch.float64,
            torch.int32, torch.int64)
@@ -72,6 +103,8 @@ _BOOL_OP = {ReduceOp.SUM: dist.ReduceOp.MAX,
             ReduceOp.PRODUCT: dist.ReduceOp.MIN}
 _all_gather_flat = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
+_reduce_scatter_flat = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
 # The collective's timeline activity, after the transport's prefix.
 _ACTIVITY = {ResponseType.ALLREDUCE: "ALLREDUCE",
              ResponseType.ALLGATHER: "ALLGATHER",
@@ -101,6 +134,37 @@ def scale_(t, factor):
     return t
 
 
+def ring_allreduce_bytes(counts, r):
+    """(tx, rx) bytes of rank ``r`` in the reference's ring allreduce of
+    segments of ``counts`` bytes (``csrc/ring_ops.h RingSendSegment``):
+    each phase sends all segments but one and receives all but one."""
+    n, total = len(counts), sum(counts)
+    return (2 * total - counts[(r + 1) % n] - counts[(r + 2) % n],
+            2 * total - counts[r] - counts[(r + 1) % n])
+
+
+def ring_reducescatter_bytes(counts, r):
+    """(tx, rx) of the ring's reduce phase at rotation -1 (after it rank
+    r holds segment r)."""
+    total = sum(counts)
+    return total - counts[r], total - counts[(r - 1) % len(counts)]
+
+
+def ring_allgather_bytes(counts, r):
+    """(tx, rx) of the ring allgather of one segment a rank."""
+    total = sum(counts)
+    return total - counts[(r + 1) % len(counts)], total - counts[r]
+
+
+def exchange_bytes(counts, r):
+    """(tx, rx) of the compressed path's ``all_to_all``: each rank sends
+    segment j's image to rank j and receives one image of its own from
+    each peer. Its ``all_gather`` of the finished images moves the
+    reverse: (rx, tx)."""
+    n = len(counts)
+    return sum(counts) - counts[r], (n - 1) * counts[r]
+
+
 def _post_factor(op, postscale, n):
     return postscale / n if op == ReduceOp.AVERAGE else postscale
 
@@ -119,9 +183,21 @@ class DataPlane:
     buffer reads and writes it, except in a set of one). ``timeline`` is
     the lane's :class:`~timeline.Timeline`, set by its runtime."""
 
-    def __init__(self, device, fusion_threshold):
+    def __init__(self, device, fusion_threshold, world=1):
         self.device = device
         self.fusion_threshold = fusion_threshold
+        self.world = world
+        # The lane's wire knobs (basics.py sets them at init, the
+        # autotuner moves the codec and the split in lockstep):
+        # ``wire_codec`` 0 off, 1 bf16, 2 int8; ``cross_compression``
+        # bf16 on the hierarchical allreduce's cross hop alone;
+        # ``hier_split`` 0 flat, L > 1 slices of L consecutive ranks, each
+        # split's (local, cross) SetGroups in ``hier_groups``.
+        self.wire_codec = 0
+        self.cross_compression = False
+        self.hier_split = 0
+        self.hier_groups = {}
+        self._dev = "cpu"
         self.timeline = None
         self.stream = None
         self.launches = collections.Counter()
@@ -186,6 +262,7 @@ class DataPlane:
         if kind not in _ACTIVITY:
             raise ValueError(f"unsupported response type {kind}")
         n, pos = pset.size(), pset.position
+        self._dev = response.device
         self._label = ("NCCL_" if response.device == "cuda" else "GLOO_") + \
             _ACTIVITY[kind]
         if kind == ResponseType.ALLREDUCE:
@@ -333,8 +410,7 @@ class DataPlane:
             else:
                 self._scale(buf, e.prescale)
             with self._activity(entries, self._label):
-                self._reduce_(buf, op, pg, n, pos, pset)
-                self._scale(buf, post)
+                self._allreduce_buf(buf, op, post, pg, n, pos, pset)
             e.result = e.output
             return
         sizes = [e.input.numel() for e in entries]
@@ -350,9 +426,8 @@ class DataPlane:
         uniform = len(posts) == 1 and all(e.prescale == 1.0
                                           for e in entries)
         with self._activity(entries, self._label):
-            self._reduce_(buf, op, pg, n, pos, pset)
-            if uniform:
-                self._scale(buf, posts.pop())
+            self._allreduce_buf(buf, op, posts.pop() if uniform else 1.0,
+                                pg, n, pos, pset)
         for e, part in zip(entries, parts):
             with self._activity([e], "MEMCPY_OUT_FUSION_BUFFER"):
                 if not uniform:
@@ -405,10 +480,192 @@ class DataPlane:
         # The lane's private copy: the caller's tensor stays as it was.
         buf = x.reshape(-1).clone()
         self._scale(buf, e.prescale)
-        self._reduce_(buf, op, pg, n, pos, None)
         q, rem = divmod(shape[0], n)
         rows = [q + (1 if r < rem else 0) for r in range(n)]
-        off = sum(rows[:pos])
-        out = buf.view(shape)[off:off + rows[pos]].clone()
+        codec = self._codec(buf.dtype, op, n)
+        if codec:
+            seg = Segments.rows(shape[0], buf.numel() // max(shape[0], 1), n)
+            out = self._compressed_reduce_scatter(buf, seg, pg, n, pos,
+                                                  codec)
+            out = out.view((rows[pos],) + shape[1:])
+        else:
+            self._reduce_(buf, op, pg, n, pos, None)
+            self._book_exact(op, buf, n, pos)
+            off = sum(rows[:pos])
+            out = buf.view(shape)[off:off + rows[pos]].clone()
         self._scale(out, _post_factor(op, e.postscale, n))
         e.result = out
+
+    # ---- the allreduce's paths ----------------------------------------
+
+    def _allreduce_buf(self, buf, op, post, pg, n, pos, pset):
+        """In place on the 1-D ``buf``: the set's reduction, scaled by
+        ``post``, on the hierarchical, the compressed or the exact
+        path."""
+        hops = self._hier_hops(op, n)
+        if hops is not None and buf.numel():
+            self._hier_allreduce(buf, op, post, *hops)
+            return
+        codec = self._codec(buf.dtype, op, n)
+        if codec:
+            self._compressed_allreduce(buf, post, pg, n, pos, codec)
+            return
+        self._reduce_(buf, op, pg, n, pos, pset)
+        self._book_exact(op, buf, n, pos)
+        self._scale(buf, post)
+
+    def _codec(self, dtype, op, n, cross=False):
+        """The codec of one hop over ``n`` ranks (0: exact): f32 Sum or
+        Average only, never at one rank; bf16 on the cross hop under
+        ``cross_compression``."""
+        codec = wire_codec.BF16 if cross and self.cross_compression \
+            else self.wire_codec
+        if not codec or n <= 1 or dtype != torch.float32 or \
+                op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+            return 0
+        return codec
+
+    def _hier_hops(self, op, n):
+        """(local, cross) SetGroups when this allreduce decomposes: the
+        global set, a split tiling it into several slices, not Adasum or
+        Product."""
+        split = self.hier_split
+        if split <= 1 or n != self.world or n % split or n // split <= 1 \
+                or op in (ReduceOp.ADASUM, ReduceOp.PRODUCT):
+            return None
+        return self.hier_groups.get(split)
+
+    def _book(self, tx, rx, item, compressed=None, cross=False):
+        """Book one hop's wire bytes: ``tx``/``rx`` in elements at
+        ``item`` bytes, or, with ``compressed`` = (tx, rx) image bytes,
+        those on the wire and the elements as logical bytes."""
+        logical = (tx * item, rx * item)
+        REGISTRY.account_wire(*(compressed or logical), *logical, cross)
+
+    def _book_exact(self, op, buf, n, pos, cross=False):
+        """A flat exact allreduce's ring bytes (Adasum and Product book
+        none)."""
+        if op in (ReduceOp.ADASUM, ReduceOp.PRODUCT):
+            return
+        seg = Segments.even(buf.numel(), n)
+        self._book(*ring_allreduce_bytes(
+            [seg.count(i) for i in range(n)], pos), buf.element_size(),
+            cross=cross)
+
+    def _hier_allreduce(self, buf, op, post, local, cross):
+        """``HierarchicalAllreduce``: reduce-scatter over the slice,
+        allreduce of this rank's segment across the slices (the postscale
+        there, once), allgather over the slice."""
+        lr, n_local = local.position, local.size()
+        seg = Segments.even(buf.numel(), n_local)
+        lpg = local.groups[self._dev]
+        codec = self._codec(buf.dtype, op, n_local)
+        if codec:
+            mine = self._compressed_reduce_scatter(buf, seg, lpg, n_local,
+                                                   lr, codec)
+        else:
+            mine = self._exact_reduce_scatter(buf, seg, op, lpg, lr)
+        if mine.numel():
+            # Every rank of the cross group holds a segment of this size.
+            cpg, n_cross, cr = cross.groups[self._dev], cross.size(), \
+                cross.position
+            ccodec = self._codec(buf.dtype, op, n_cross, cross=True)
+            if ccodec:
+                self._compressed_allreduce(mine, post, cpg, n_cross, cr,
+                                           ccodec, cross=True)
+            else:
+                self._reduce_(mine, op, cpg, n_cross, cr, cross)
+                self._book_exact(op, mine, n_cross, cr, cross=True)
+                self._scale(mine, post)
+        self._exact_allgather(buf, mine, seg, lpg, lr)
+
+    def _exact_reduce_scatter(self, buf, seg, op, pg, pos):
+        """This rank's reduced segment of ``buf`` (a new tensor); uneven
+        segments travel padded to the largest."""
+        w = _wire(buf)
+        n, big = seg.nseg, seg.largest
+        src = w
+        if 0 < seg.n_big < n:
+            src = torch.zeros(n * big, dtype=w.dtype, device=w.device)
+            self._scatter_rows(src.view(n, big), w, seg, into=True)
+        out = torch.empty(big, dtype=w.dtype, device=w.device)
+        torch_op = _BOOL_OP[op] if buf.dtype == torch.bool else _TORCH_OP[op]
+        self._collective(pg, "reduce_scatter", _reduce_scatter_flat, out,
+                         src, op=torch_op)
+        self._book(*ring_reducescatter_bytes(
+            [seg.count(i) for i in range(n)], pos), buf.element_size())
+        return out[:seg.count(pos)].view(buf.dtype)
+
+    def _exact_allgather(self, buf, mine, seg, pg, pos):
+        """Every rank's segment into ``buf``; uneven segments travel
+        padded to the largest."""
+        wb, wm = _wire(buf), _wire(mine)
+        n, big = seg.nseg, seg.largest
+        if 0 < seg.n_big < n:
+            send = torch.zeros(big, dtype=wm.dtype, device=wm.device)
+            send[:wm.numel()].copy_(wm)
+            out = torch.empty(n * big, dtype=wm.dtype, device=wm.device)
+            self._collective(pg, "all_gather", _all_gather_flat, out, send)
+            self._scatter_rows(out.view(n, big), wb, seg, into=False)
+        else:
+            self._collective(pg, "all_gather", _all_gather_flat, wb, wm)
+        self._book(*ring_allgather_bytes(
+            [seg.count(i) for i in range(n)], pos), buf.element_size())
+
+    @staticmethod
+    def _scatter_rows(padded, flat, seg, into):
+        """Copy between the packed segments of ``flat`` and the rows of
+        ``padded`` [nseg, largest]: into the rows, or out of them."""
+        nb, big, small = seg.n_big, seg.big, seg.small
+        pairs = ((padded[:nb], flat[:nb * big].view(nb, big)),
+                 (padded[nb:, :small],
+                  flat[nb * big:].view(seg.nseg - nb, small)))
+        for rows, packed in pairs:
+            if into:
+                rows.copy_(packed)
+            else:
+                packed.copy_(rows)
+
+    def _compressed_reduce_scatter(self, buf, seg, pg, n, pos, codec,
+                                   cross=False):
+        """This rank's segment of the f32 ``buf``, summed in f32 from the
+        n ranks' images in rank order (a new tensor)."""
+        img = wire_codec.encode(buf, codec, seg)
+        m = seg.count(pos)
+        w = image_len(m, codec)
+        sizes = [image_len(seg.count(j), codec) for j in range(n)]
+        recv = torch.empty(n * w, dtype=torch.uint8, device=buf.device)
+        self._collective(pg, "all_to_all", dist.all_to_all_single, recv,
+                         img, output_split_sizes=[w] * n,
+                         input_split_sizes=sizes)
+        out = torch.empty(m, dtype=torch.float32, device=buf.device)
+        wire_codec.decode_scale(out, recv[:w], codec)
+        wire_codec.decode_accum(out, recv[w:], codec, n - 1)
+        counts = [seg.count(j) for j in range(n)]
+        self._book(*exchange_bytes(counts, pos), 4,
+                   compressed=exchange_bytes(sizes, pos), cross=cross)
+        return out
+
+    def _compressed_allreduce(self, buf, post, pg, n, pos, codec,
+                              cross=False):
+        """In place on the f32 ``buf``: the compressed reduce-scatter, the
+        finished segment encoded once, an ``all_gather`` of the images in
+        slots of the largest, and every segment decoded with ``post``."""
+        seg = Segments.even(buf.numel(), n)
+        mine = self._compressed_reduce_scatter(buf, seg, pg, n, pos, codec,
+                                               cross)
+        stride = image_len(seg.largest, codec)
+        img = wire_codec.encode(mine, codec)
+        if img.numel() < stride:
+            padded = torch.zeros(stride, dtype=torch.uint8,
+                                 device=buf.device)
+            padded[:img.numel()].copy_(img)
+            img = padded
+        slots = torch.empty(n * stride, dtype=torch.uint8, device=buf.device)
+        self._collective(pg, "all_gather", _all_gather_flat, slots, img)
+        wire_codec.decode_scale(buf, slots, codec, seg, stride, post)
+        counts = [seg.count(j) for j in range(n)]
+        sizes = [image_len(c, codec) for c in counts]
+        tx, rx = exchange_bytes(counts, pos)
+        wtx, wrx = exchange_bytes(sizes, pos)
+        self._book(rx, tx, 4, compressed=(wrx, wtx), cross=cross)

@@ -24,7 +24,7 @@ steady clock in microseconds. The lane records these types:
 - ``knob_adopt`` (knob, value): a knob the autotuner moved, on the
   coordinator when it moves it and on a worker when it adopts it;
   ``knob`` 0 is the fusion threshold (bytes), 1 the cycle time (value
-  in microseconds).
+  in microseconds), 3 the wire codec (0-2) and 4 the hierarchy split.
 
 :func:`peek` reads without consuming; :func:`drain` consumes what was
 recorded since the last drain. Both see at most the newest 8192.
@@ -34,7 +34,9 @@ import threading
 import time
 
 CAPACITY = 8192
-KNOB_FUSION_BYTES, KNOB_CYCLE_TIME_MS = 0, 1     # kKnob* (csrc/events.h)
+# kKnob* (csrc/events.h): 2 (ring chunk) and 5 (stripes) wait for L8.
+KNOB_FUSION_BYTES, KNOB_CYCLE_TIME_MS = 0, 1
+KNOB_COMPRESSION, KNOB_HIER_SPLIT = 3, 4
 
 # type -> the JSON keys of its four arguments ("" = unused), as
 # csrc/events.cc prints them.

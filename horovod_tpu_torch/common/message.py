@@ -106,7 +106,9 @@ class ResponseList:
     fuse, the fourth runs alone), and positions every rank evicts
     first. ``fusion_threshold_bytes`` and ``cycle_time_ms`` are the
     autotuner's knobs, which every worker adopts before it runs the
-    list's responses (0: not tuned, keep the local value)."""
+    list's responses (0: not tuned, keep the local value), and so are
+    ``wire_compression`` (the codec, 0-2) and ``hier_split``
+    (``csrc/message.h:163-168``; -1: not tuned)."""
 
     responses: list = dataclasses.field(default_factory=list)
     shutdown: bool = False
@@ -115,6 +117,8 @@ class ResponseList:
     cache_evictions: list = dataclasses.field(default_factory=list)
     fusion_threshold_bytes: int = 0
     cycle_time_ms: float = 0.0
+    wire_compression: int = -1
+    hier_split: int = -1
 
 
 def dtype_size(name):

@@ -18,15 +18,23 @@ communicator's creation); ``fusion``; ``cycle``; ``cache``; ``straggler``
 victims too), ``ranks_rejoined`` (joiner slots it absorbed through the
 parole door), the ``detect_us`` histogram of a fault's detection, and
 the port's ``resets`` (re-formations and elastic re-inits) and
-``last_fault`` record); ``errors``; ``knobs`` (the live
-``fusion_threshold_bytes`` and ``cycle_time_ms``, which the autotuner
-moves). ``control_phase`` also holds ``parole_freeze``: the door's
-frozen joiner count read at an epoch transition.
+``last_fault`` record); ``wire`` (``csrc/metrics.cc:335-350``: bytes
+sent and received, ``tx_bytes``/``rx_bytes`` on the wire and
+``tx_logical_bytes``/``rx_logical_bytes`` before the codec, their
+``compression_ratio``, and the ``cross_*`` twins of the hierarchical
+allreduce's cross hop, a part of the totals), booked by the data plane
+from the segment math, since NCCL and gloo report no bytes
+(``data_plane.py``); ``errors``; ``knobs`` (the live
+``fusion_threshold_bytes`` and ``cycle_time_ms``, and ``wire_compression``,
+``wire_codec``, ``cross_plane``, ``hier_split`` and ``cross_compression``;
+the autotuner moves the first two, the codec and the split).
+``control_phase`` also holds ``parole_freeze``: the door's frozen joiner
+count read at an epoch transition.
 
-Left out, with what they wait for: ``wire`` (the host ring's transport
-bytes, syscalls and overlap ledger: the port has no host ring, ROADMAP.md
+Left out, with what they wait for: the ``wire`` section's per-channel,
+syscall and overlap tables (the reference's socket stripes, ROADMAP.md
 L8), the ``elastic`` section's wire counters ``heals``, ``retries`` and
-``crc_errors`` (L8), and the wire and ring knobs (L8).
+``crc_errors`` (L8), and the ring and stripe knobs (L8).
 
 ``wire_us`` of a CPU collective is the host time of the gloo call. Of a
 CUDA collective it is the time between two CUDA events the lane records
@@ -55,6 +63,10 @@ _OP_CLASS = {ResponseType.ALLREDUCE: 0, ResponseType.ALLGATHER: 1,
              ResponseType.REDUCESCATTER: 4, ResponseType.JOIN: 5,
              ResponseType.BARRIER: 6, ResponseType.ERROR: 7}
 CONTROL_PHASES = events.CONTROL_PHASES
+# The wire knobs before init (the reference's defaults).
+WIRE_KNOBS_UNSET = {"wire_compression": False, "wire_codec": "off",
+                    "cross_plane": "auto", "hier_split": 0,
+                    "cross_compression": False}
 
 
 def op_class(response_type):
@@ -139,6 +151,8 @@ class Metrics:
             self.ranks_blacklisted = self.ranks_rejoined = self.resets = 0
             self.cycles = self.cycle_stalls = self.cycle_overrun_us = 0
             self.fused_responses = 0
+            # tx, rx, tx logical, rx logical; then the cross hop's.
+            self.wire_bytes = [0] * 8
             self.fusion_fill_bytes = self.fusion_capacity_bytes = 0
             self.errors = 0
             self.straggler_counts = []
@@ -159,6 +173,14 @@ class Metrics:
             c[2] += nbytes
             if not ok:
                 self.errors += 1
+
+    def account_wire(self, tx, rx, tx_logical, rx_logical, cross=False):
+        """One hop's bytes on the wire and before the codec; ``cross``
+        books them under the cross hop too."""
+        with self._lock:
+            for base in (0, 4) if cross else (0,):
+                for i, v in enumerate((tx, rx, tx_logical, rx_logical)):
+                    self.wire_bytes[base + i] += int(v)
 
     def account_fusion(self, fill_bytes, capacity_bytes):
         with self._lock:
@@ -223,7 +245,7 @@ class Metrics:
 
     def snapshot(self, initialized=False, rank=-1, size=0,
                  fusion_threshold_bytes=0, cycle_time_ms=0.0, cache=None,
-                 epoch=0, last_fault=None):
+                 epoch=0, last_fault=None, wire_knobs=None):
         """The reference's snapshot dict, less the omitted sections;
         ratios rounded to the reference's six decimals."""
         self.drain_cuda_spans()
@@ -259,6 +281,16 @@ class Metrics:
             out["straggler"] = {
                 "last_rank_counts": list(self.straggler_counts),
                 "skew_us": self.straggler_skew_us.json()}
+            w = self.wire_bytes
+            out["wire"] = {}
+            for prefix, (tx, rx, txl, rxl) in (("", w[:4]),
+                                               ("cross_", w[4:])):
+                out["wire"].update({
+                    f"{prefix}tx_bytes": tx, f"{prefix}rx_bytes": rx,
+                    f"{prefix}tx_logical_bytes": txl,
+                    f"{prefix}rx_logical_bytes": rxl,
+                    f"{prefix}compression_ratio":
+                        round(tx / txl, 6) if txl else 1.0})
             out["elastic"] = {
                 "epoch": epoch, "faults_detected": self.faults_detected,
                 "faults_recovered": self.faults_recovered,
@@ -269,7 +301,8 @@ class Metrics:
                 "detect_us": self.fault_detect_us.json()}
             out["errors"] = self.errors
             out["knobs"] = {"fusion_threshold_bytes": fusion_threshold_bytes,
-                            "cycle_time_ms": float(cycle_time_ms)}
+                            "cycle_time_ms": float(cycle_time_ms),
+                            **(wire_knobs or WIRE_KNOBS_UNSET)}
         return out
 
 

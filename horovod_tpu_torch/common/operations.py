@@ -16,11 +16,12 @@ Under ``HOROVOD_AUTOTUNE`` (``basics._init_autotune``) the coordinator
 counts each cycle's allreduced bytes into its
 :class:`~parameter_manager.ParameterManager` after running the cycle's
 responses; when a window moves the knobs it adopts them (the fusion
-threshold of its controller and data plane, its cycle time) and the
-next response list carries them to the workers, which adopt them before
-they run that list's responses: every rank fuses and sizes its fusion
-buffer with the same threshold in the same cycle. Each knob that moves
-is a ``knob_adopt`` event.
+threshold of its controller and data plane, its cycle time, the data
+plane's wire codec and hierarchy split) and the next response list
+carries them to the workers, which adopt them before they run that
+list's responses: every rank fuses, sizes its fusion buffer, encodes and
+decomposes alike in the same cycle. Each knob that moves is a
+``knob_adopt`` event.
 
 Each cycle also feeds the instruments: the metrics registry
 (``metrics.py``: op counts and bytes per response, negotiation and queue
@@ -73,8 +74,10 @@ from horovod_tpu_torch.common.exceptions import (
     HorovodPeerFailureError,
 )
 from horovod_tpu_torch.common.events import (
+    KNOB_COMPRESSION,
     KNOB_CYCLE_TIME_MS,
     KNOB_FUSION_BYTES,
+    KNOB_HIER_SPLIT,
 )
 from horovod_tpu_torch.common.message import (
     Request,
@@ -448,7 +451,9 @@ class Runtime:
                                   int(responses.shutdown))
                 if self.rank != 0:
                     self._adopt(responses.fusion_threshold_bytes,
-                                responses.cycle_time_ms)
+                                responses.cycle_time_ms,
+                                responses.wire_compression,
+                                responses.hier_split)
                 pm, cycle_bytes = self.param_manager, 0
                 for res in responses.responses:
                     if self._error is not None:
@@ -463,9 +468,11 @@ class Runtime:
                         cycle_bytes += response_bytes(res)
                 if pm is not None and self._error is None and \
                         pm.update(cycle_bytes):
-                    self._adopt(pm.fusion_threshold_bytes, pm.cycle_time_ms)
+                    self._adopt(pm.fusion_threshold_bytes, pm.cycle_time_ms,
+                                pm.wire_codec, pm.hier_split)
                     self.control.controller.set_autotuned_params(
-                        self.fusion_threshold, self.cycle_time_ms)
+                        self.fusion_threshold, self.cycle_time_ms,
+                        pm.wire_codec, pm.hier_split)
                 if responses.shutdown:
                     # Every rank ends in this cycle: rank 0 may close the
                     # store at any moment now.
@@ -485,9 +492,10 @@ class Runtime:
                 error = self._error
             self.queue.close(error)
 
-    def _adopt(self, fusion_bytes, cycle_ms):
-        """Take the autotuner's knobs (0: untuned, keep this rank's);
-        each that moves is a ``knob_adopt`` event."""
+    def _adopt(self, fusion_bytes, cycle_ms, codec=-1, split=-1):
+        """Take the autotuner's knobs (0, or -1 for the codec and the
+        split: untuned, keep this rank's); each that moves is a
+        ``knob_adopt`` event."""
         if fusion_bytes > 0 and fusion_bytes != self.fusion_threshold:
             events.record("knob_adopt", KNOB_FUSION_BYTES, 0, fusion_bytes)
             self.fusion_threshold = fusion_bytes
@@ -496,6 +504,13 @@ class Runtime:
             events.record("knob_adopt", KNOB_CYCLE_TIME_MS, 0,
                           int(cycle_ms * 1000.0))
             self.cycle_time_ms = cycle_ms
+        plane = self.data_plane
+        if codec >= 0 and codec != plane.wire_codec:
+            events.record("knob_adopt", KNOB_COMPRESSION, 0, codec)
+            plane.wire_codec = codec
+        if split >= 0 and split != plane.hier_split:
+            events.record("knob_adopt", KNOB_HIER_SPLIT, 0, split)
+            plane.hier_split = split
 
     # ---- faults ----------------------------------------------------------
 

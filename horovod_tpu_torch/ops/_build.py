@@ -24,7 +24,7 @@ _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("flash_fwd", "flash_fwd_wgmma", "flash_bwd", "flash_bwd_wgmma",
            "flash_bwd_dq_wgmma", "decode_attention", "decode_attention_wgmma",
-           "grouped_mm", "grouped_mm_wgmma")
+           "grouped_mm", "grouped_mm_wgmma", "wire_codec")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -17,12 +17,29 @@ join; process sets; ``DistributedOptimizer``; the broadcast helpers and
 ``shrink``), and ``init`` takes the elastic driver's assignment when
 one runs the job (``HOROVOD_RDZV_ADDR``) or opens rank 0's door
 (``HOROVOD_REJOIN_PORT``). ``HOROVOD_AUTOTUNE=1`` tunes the fusion
-threshold and the cycle time on the coordinator. Still to port behind
-the same names: hierarchical allreduce (L7), the control tree and wire
-checksums (L8), the MPI controller (L9), the launcher (L10) and the JAX
-frontend's functional lane (L11).
+threshold, the cycle time, the wire codec and the hierarchy split on the
+coordinator. The cross-plane surface: ``HOROVOD_CROSS_PLANE`` (the
+hierarchical allreduce on a layout of several slices), the wire codecs
+of ``HOROVOD_WIRE_COMPRESSION`` and ``HOROVOD_CROSS_PLANE_COMPRESSION``,
+and ``cross_plane``, ``CROSS_PLANE_MODES``, ``hier_split``,
+``set_hier_split``, ``cross_compression``, ``wire_compression``,
+``set_wire_compression``, ``wire_codec`` and ``set_wire_codec``. Still
+to port behind the same names: the control tree and wire checksums
+(L8), the MPI controller (L9), the launcher (L10) and the JAX frontend's
+functional lane (L11).
 """
 
+from horovod_tpu_torch.common.basics import (  # noqa: F401
+    CROSS_PLANE_MODES,
+    cross_compression,
+    cross_plane,
+    hier_split,
+    set_hier_split,
+    set_wire_codec,
+    set_wire_compression,
+    wire_codec,
+    wire_compression,
+)
 from horovod_tpu_torch.common.exceptions import (  # noqa: F401
     HorovodInternalError,
     HorovodPeerFailureError,

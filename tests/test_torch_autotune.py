@@ -17,7 +17,14 @@ as there, without a compiler).
   by the same score stream (a driver that includes the C++ sources with
   ``private`` read as ``public``, so that it can call ``Score``), the
   header equal to the reference's; then the window rules on a scripted
-  clock: warm-up, floors, the 5 s cap, the stall gap, convergence.
+  clock: warm-up, floors, the 5 s cap, the stall gap, convergence;
+- the codec and split dimensions, live: ``basics._init_autotune``'s grid
+  (``InitAutotune``'s split values: flat, not under ``hier``, and the
+  divisors of ``local_size`` that divide ``size``; ``{off, codec}`` when a
+  codec is chosen) at ``local_size`` 2 and 4, modes ``auto`` and
+  ``hier``, the codec off, bf16 and int8, against the C++ class
+  initialised with the same ``hier_values`` and ``tune_wire_codec``:
+  the grid, its order, the start, every move and the CSV log.
 """
 
 import math
@@ -77,17 +84,22 @@ int main(int argc, char** argv) {
     for (size_t c = 0; c < n; c++) printf("%.17g\n", opt.MeanScore(c));
     return 0;
   }
-  // mode "pm": fusion cycle max_samples log, then m scores.
-  long long fusion;
+  // mode "pm": fusion cycle max_samples log; codec tune_codec, the
+  // split grid (its length, then its values) and the split; then m
+  // scores.
+  long long fusion, split;
   double cycle;
-  int max_samples;
+  int max_samples, codec, tune;
+  size_t nh;
   std::string log;
-  std::cin >> fusion >> cycle >> max_samples >> log;
+  std::cin >> fusion >> cycle >> max_samples >> log >> codec >> tune >> nh;
+  std::vector<int64_t> hier(nh);
+  for (auto& h : hier) std::cin >> h;
+  std::cin >> split;
   ParameterManager pm;
-  // The port's grid: ring chunk, codec, hierarchy and stripes pinned.
+  // The port's grid: ring chunk and stripes pinned.
   pm.Initialize(fusion, cycle, log, max_samples, 1 << 20, 20,
-                /*ring_chunk_bytes=*/0, /*wire_codec=*/0,
-                /*tune_wire_codec=*/false, {}, 0, 1, 1);
+                /*ring_chunk_bytes=*/0, codec, tune != 0, hier, split, 1, 1);
   printf("%zu %lld %.17g %zu\n", pm.current_candidate_,
          (long long)pm.fusion_threshold_bytes(), pm.cycle_time_ms(),
          pm.opt_->cand_.size());
@@ -101,9 +113,9 @@ int main(int argc, char** argv) {
     double y;
     std::cin >> y;
     pm.Score(y);
-    printf("%zu %lld %.17g %d\n", pm.current_candidate_,
+    printf("%zu %lld %.17g %d %d %lld\n", pm.current_candidate_,
            (long long)pm.fusion_threshold_bytes(), pm.cycle_time_ms(),
-           (int)pm.done_);
+           (int)pm.done_, pm.wire_codec(), (long long)pm.hier_split());
   }
   return 0;
 }
@@ -248,15 +260,22 @@ def test_bayes_opt_before_any_sample():
 # ---- the parameter manager ---------------------------------------------
 
 
-def _pm_native(native, fusion, cycle, scores, log, max_samples=20):
+def _pm_native(native, fusion, cycle, scores, log, max_samples=20,
+               codec=0, tune=False, hier=(), split=0, full=False):
+    """The C++ manager's start, grid and moves (candidate, fusion, cycle,
+    done; with ``full`` also the codec and the split)."""
     out = native("pm", f"{fusion} {cycle!r} {max_samples} {log}\n"
+                 f"{codec} {int(tune)} {len(hier)} "
+                 + "".join(f"{h} " for h in hier) + f"{split}\n"
                  f"{len(scores)}\n" + "".join(f"{y!r}\n" for y in scores))
     cand, f, c, n = out[0].split()
     grid = [tuple(float(x) for x in line.split()) for line in
             out[1:1 + int(n)]]
     moves = [tuple(line.split()) for line in out[1 + int(n):]]
+    moves = [(int(a), int(b), float(x), bool(int(d)), int(m), int(h))
+             for a, b, x, d, m, h in moves]
     return (int(cand), int(f), float(c)), grid, [
-        (int(a), int(b), float(x), bool(int(d))) for a, b, x, d in moves]
+        mv if full else mv[:4] for mv in moves]
 
 
 @pytest.mark.parametrize("fusion,cycle", [
@@ -308,6 +327,80 @@ def test_log_header_is_the_references(native, tmp_path):
     ParameterManager(64 << 20, 1.0, tmp_path / "port.csv").close()
     assert (tmp_path / "port.csv").read_bytes() == \
         (tmp_path / "native.csv").read_bytes() == pmod.HEADER.encode()
+
+
+def _reference_hier_values(local_size, size, mode):
+    """``InitAutotune``'s split grid (``csrc/operations.cc:411-420``) on an
+    eligible layout (split = local_size)."""
+    values = [] if mode == "hier" else [0]
+    return values + [d for d in range(2, local_size + 1)
+                     if local_size % d == 0 and size % d == 0]
+
+
+@pytest.mark.parametrize("local_size", [2, 4])
+@pytest.mark.parametrize("mode", ["auto", "hier"])
+@pytest.mark.parametrize("codec", [0, 1, 2])
+def test_codec_and_split_dimensions_match_the_native(
+        native, tmp_path, monkeypatch, local_size, mode, codec):
+    from horovod_tpu_torch.common import basics
+
+    size = 2 * local_size
+    hier = _reference_hier_values(local_size, size, mode)
+    monkeypatch.setenv("HOROVOD_AUTOTUNE", "1")
+    monkeypatch.setenv("HOROVOD_AUTOTUNE_STEPS", "12")
+    monkeypatch.setenv("HOROVOD_AUTOTUNE_LOG", str(tmp_path / "port.csv"))
+    pm = basics._init_autotune(0, 64 << 20, 1.0, codec, mode, local_size,
+                               local_size, size)
+    assert pm.hier_values == tuple(hier)
+    assert pm.comp_values == ((0, codec) if codec else (0,))
+    scores = []
+    for _ in range(14):
+        y = _surface(pm.candidates[pm.candidate], (0.5, 0.25), codec) * 1e7
+        y *= 1.0 + 0.1 * pm.candidates[pm.candidate][4] \
+            - 0.05 * pm.candidates[pm.candidate][3]
+        scores.append(y)
+        pm.score(y)
+    pm.close()
+    start, grid, want = _pm_native(
+        native, 64 << 20, 1.0, scores, tmp_path / "native.csv", 12,
+        codec=codec, tune=codec != 0, hier=hier, split=local_size,
+        full=True)
+    port = ParameterManager(64 << 20, 1.0, max_samples=12, wire_codec=codec,
+                            tune_wire_codec=codec != 0, hier_values=hier,
+                            hier_split=local_size)
+    assert port.candidates == grid
+    assert len(grid) == 35 * len(port.comp_values) * len(hier)
+    assert (port.candidate, port.fusion_threshold_bytes,
+            port.cycle_time_ms) == start
+    assert (port.wire_codec, port.hier_split) == (codec, local_size)
+    moves = []
+    for y in scores:
+        port.score(y)
+        moves.append((port.candidate, port.fusion_threshold_bytes,
+                      port.cycle_time_ms, port.done, port.wire_codec,
+                      port.hier_split))
+    assert moves == want
+    assert (tmp_path / "port.csv").read_bytes() == \
+        (tmp_path / "native.csv").read_bytes()
+    # Every candidate's knobs: MoveTo's arithmetic.
+    for c in range(len(grid)):
+        port.move_to(c)
+        rest, hi = divmod(c, len(hier))
+        rest, mi = divmod(rest, len(port.comp_values))
+        assert (port.hier_split, port.wire_codec) == (
+            hier[hi], port.comp_values[mi])
+        assert (port.fusion_threshold_bytes, port.cycle_time_ms) == (
+            pmod.FUSION_VALUES[rest // 5], pmod.CYCLE_VALUES[rest % 5])
+
+
+def test_a_flat_layout_pins_the_split(monkeypatch):
+    from horovod_tpu_torch.common import basics
+
+    monkeypatch.setenv("HOROVOD_AUTOTUNE", "1")
+    pm = basics._init_autotune(0, 64 << 20, 1.0, 0, "auto", 0, 4, 4)
+    assert pm.hier_values == (0,) and len(pm.candidates) == 35
+    assert basics._init_autotune(1, 64 << 20, 1.0, 0, "auto", 2, 2, 4) \
+        is None
 
 
 class _Clock:

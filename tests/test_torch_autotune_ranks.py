@@ -11,11 +11,18 @@ small windows (``HOROVOD_AUTOTUNE_STEPS=4``, ``_WINDOW_CYCLES=2``,
 - ``knob_adopt`` events on both ranks, the log's header the reference's
   and its last row the converged point, equal to ``hvd.metrics()
   ["knobs"]``;
-- after ``reinit`` the tuner starts again: a fresh log, no samples.
+- after ``reinit`` the tuner starts again: a fresh log, no samples;
+- at 4 ranks as 2 x 2 slices with ``HOROVOD_WIRE_COMPRESSION=bf16``, the
+  tuner's grid holds the codec {off, bf16} and the split {flat, 2}; its
+  moves (scripted on rank 0 through its ``update``) ride the response
+  lists, and every rank runs each response with the same split and
+  codec, adopting a move in the same cycle, with ``knob_adopt`` events 3
+  and 4 on the workers; sums of integers (exact in bf16) stay exact.
 """
 
 import os
 
+import numpy as np
 import torch
 
 from horovod_tpu_torch.common import parameter_manager as pmod
@@ -117,7 +124,9 @@ def test_autotune_at_two_ranks(tmp_path):
     assert r0["log_after"] == pmod.HEADER
     assert r0["after"] == (False, 0, 31)
     assert r0["knobs_after"] == r1["knobs_after"] == {
-        "fusion_threshold_bytes": 64 << 20, "cycle_time_ms": 1.0}
+        "fusion_threshold_bytes": 64 << 20, "cycle_time_ms": 1.0,
+        "wire_compression": False, "wire_codec": "off",
+        "cross_plane": "auto", "hier_split": 0, "cross_compression": False}
 
 
 def test_untuned_lane_carries_no_knobs():
@@ -131,3 +140,79 @@ def test_untuned_lane_carries_no_knobs():
     ctl.set_autotuned_params(4 << 20, 2.5)
     assert ctl.fusion_threshold == ctl.bcast_fusion_bytes == 4 << 20
     assert ctl.bcast_cycle_ms == 2.5
+
+
+# Candidates of the 64 MiB, 1 ms point: (codec index, split index) of
+# ``((6 * 5 + 1) * 2 + codec_i) * 2 + split_i``.
+SCRIPT = [(1, 0), (0, 1), (1, 1), (0, 0), (1, 1)]
+
+
+def _lockstep_worker(rank, size):
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.common import basics
+
+    os.environ.update({"HOROVOD_LOCAL_RANK": str(rank % 2),
+                       "HOROVOD_LOCAL_SIZE": "2",
+                       "HOROVOD_CROSS_RANK": str(rank // 2),
+                       "HOROVOD_CROSS_SIZE": "2"})
+    hvd.init(device="cpu")
+    rt = basics.lane()
+    plane = rt.data_plane
+    seen = []
+    execute = plane.execute
+
+    def recording(res, entries, pset):
+        seen.append((tuple(res.tensor_names), plane.hier_split,
+                     plane.wire_codec))
+        return execute(res, entries, pset)
+
+    plane.execute = recording
+    out = {}
+    if rank == 0:
+        pm = rt.param_manager
+        out["grid"] = (pm.comp_values, pm.hier_values, len(pm.candidates))
+        moves, cycles = iter(SCRIPT), [0]
+
+        def update(nbytes):
+            cycles[0] += 1
+            if cycles[0] % 4:
+                return False
+            move = next(moves, None)
+            if move is None:
+                return False
+            pm.move_to(((6 * 5 + 1) * 2 + move[0]) * 2 + move[1])
+            return True
+        pm.update = update
+    try:
+        exact = True
+        for i in range(60):
+            x = torch.from_numpy(((np.arange(1000) % 9) - 4).astype(
+                np.float32) * (rank + 1 + i % 3))
+            got = hvd.allreduce(x, name=f"ls.{i}", op=hvd.Sum)
+            want = ((np.arange(1000) % 9) - 4) * sum(
+                r + 1 + i % 3 for r in range(size))
+            exact = exact and bool(np.array_equal(got.numpy(), want))
+        hvd.barrier()
+        plane.execute = execute
+        out.update(seen=seen, exact=exact, adopted=[
+            (e["knob"], e["value"]) for e in hvd.events()
+            if e["type"] == "knob_adopt"])
+        return out
+    finally:
+        hvd.shutdown()
+
+
+def test_workers_adopt_the_split_and_codec_in_the_same_cycle():
+    got = run_ranks(_lockstep_worker, 4, timeout=240, env={
+        "HOROVOD_AUTOTUNE": "1", "HOROVOD_WIRE_COMPRESSION": "bf16",
+        "HOROVOD_AUTOTUNE_STEPS": "20"})
+    assert got[0]["grid"] == ((0, 1), (0, 2), 140)
+    assert all(g["exact"] for g in got)
+    for g in got[1:]:
+        assert g["seen"] == got[0]["seen"]
+    knobs = {(split, codec) for _, split, codec in got[0]["seen"]}
+    assert knobs == {(0, 0), (0, 1), (2, 0), (2, 1)}
+    for g in got[1:]:
+        assert {k for k, _ in g["adopted"]} == {3, 4}
+        assert [a for a in g["adopted"] if a[0] in (3, 4)] == \
+            [a for a in got[0]["adopted"] if a[0] in (3, 4)]

@@ -16,7 +16,12 @@ to the same tolerance. K3, K4 and K5's split-K path give the same bits on
 every launch (fixed-order sums, no atomics). The MoE router breaks exact
 ties as ``lax.top_k`` does, lower expert index first, on the card too.
 K1-K3's bias variant is held to the same tolerances on both routes, with
-exact zeros for a sequence that is all padding.
+exact zeros for a sequence that is all padding. The lane's wire codecs
+(bf16 and int8 encode, decode-accumulate and decode-scale) match their
+plain versions bit for bit on packed and padded multi-segment layouts,
+infinities, denormals and the encoders' NaN payloads included; a NaN
+that a decoder's arithmetic makes is NaN on both, with the card's
+canonical payload.
 """
 
 import pytest
@@ -25,6 +30,7 @@ import torch
 from horovod_tpu_torch.ops import decode_attention as da
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import grouped_moe as gm
+from horovod_tpu_torch.ops import wire_codec as wc
 
 pytestmark = pytest.mark.cuda_sm90
 
@@ -809,3 +815,92 @@ def test_flash_chunk_op_and_ring_replay_on_wgmma():
         err = float((got.float() - want.float()).abs().max()
                     / want.float().abs().max())
         assert err <= 3e-2, f"{name}: relative error {err}"
+
+
+# ---- the lane's wire codecs ----------------------------------------------
+
+
+def _codec_input(n, seed):
+    """Seeded values in [-2, 2] with NaN payloads, infinities, signed
+    zeros and denormals planted, and an all-zero and an all-denormal
+    record where the length allows."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-2, 2, n).astype(np.float32)
+    bits = x.view(np.uint32)
+    plant = [0x80000000, 0x7F800000, 0xFF800000, 0x7FC00001, 0xFF812345,
+             0x00000001, 0x807FFFFF, 0x3F808000, 0x7F7FFFFF]
+    for i, b in enumerate(plant[:n // 300]):
+        bits[(i * 997) % n] = b
+    if n >= 1024:
+        x[256:512] = 0.0
+        bits[512:768] = rng.integers(1, 1 << 23, 256).astype(np.uint32)
+    return torch.from_numpy(x)
+
+
+def _same(got, want):
+    """The same bytes; for a float result the same bits wherever the
+    plain version's value is a number, and NaN where it is NaN: the card
+    gives arithmetic's NaNs (NaN times a quant, a NaN summed) its
+    canonical payload, 0x7FFFFFFF, where the CPU keeps the operand's."""
+    got = got.cpu()
+    if want.dtype != torch.float32:
+        assert torch.equal(got, want)
+        return
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+
+
+@pytest.mark.parametrize("codec", [wc.BF16, wc.INT8])
+@pytest.mark.parametrize("count,n", [(1, 1), (255, 1), (257, 1), (4099, 4),
+                                     (3, 4), (1 << 20, 8), (5000, 3)])
+def test_wire_codec_kernels_match_plain(codec, count, n):
+    x = _codec_input(count, count + n)
+    seg = wc.Segments.even(count, n)
+    img = wc.encode(x.cuda(), codec, seg)
+    want = wc.encode(x, codec, seg)
+    _same(img, want)
+    stride = wc.image_len(seg.largest, codec)
+    slots = torch.zeros(n * stride, dtype=torch.uint8)
+    pos = 0
+    for i in range(n):
+        w = wc.image_len(seg.count(i), codec)
+        slots[i * stride:i * stride + w] = want[pos:pos + w]
+        pos += w
+    for post in (1.0, 1.0 / 3.0):
+        got = wc.decode_scale(torch.zeros(count, device="cuda"), img, codec,
+                              seg, post=post)
+        _same(got, wc.decode_scale(torch.zeros(count), want, codec, seg,
+                                   post=post))
+        got = wc.decode_scale(torch.zeros(count, device="cuda"),
+                              slots.cuda(), codec, seg, stride, post)
+        _same(got, wc.decode_scale(torch.zeros(count), slots, codec, seg,
+                                   stride, post))
+    m = seg.count(0)
+    images = torch.cat([wc.encode(_codec_input(m, s), codec)
+                        for s in range(3)])
+    base = _codec_input(m, 99)
+    got = wc.decode_accum(base.cuda(), images.cuda(), codec, 3)
+    torch.cuda.synchronize()
+    _same(got, wc.decode_accum(base.clone(), images, codec, 3))
+
+
+def test_wire_codec_counts_launches_and_checks_inputs():
+    before = dict(wc.launches)
+    x = torch.randn(1000, device="cuda")
+    img = wc.encode(x, wc.INT8)
+    wc.decode_scale(torch.empty_like(x), img, wc.INT8)
+    wc.decode_accum(torch.zeros_like(x), img, wc.INT8)
+    wc.encode(torch.empty(0, device="cuda"), wc.BF16)    # nothing to do
+    torch.cuda.synchronize()
+    moved = {k: wc.launches[k] - before[k] for k in wc.KERNELS}
+    assert moved == {"encode_bf16": 0, "decode_accum_bf16": 0,
+                     "decode_scale_bf16": 0, "encode_int8": 1,
+                     "decode_accum_int8": 1, "decode_scale_int8": 1}
+    with pytest.raises(ValueError):
+        wc.encode(x.half(), wc.BF16)
+    with pytest.raises(ValueError):
+        wc.decode_scale(x, img[:10], wc.INT8)

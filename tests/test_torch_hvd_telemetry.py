@@ -8,10 +8,12 @@ allreduce, the fused four (twice: the second time from the cache), a
 broadcast, an allgather, an alltoall and a reducescatter under a
 timeline, between two step marks. Then:
 
-- ``metrics()`` has the reference's sections less those
-  ``common/metrics.py`` omits (``wire``, the elastic section's wire
-  counters, the wire knobs),
-  with the same fields; the op counts and bytes per class, ``cache`` and
+- ``metrics()`` has the reference's sections with the same fields, less
+  the fields ``common/metrics.py`` omits until ROADMAP.md L8 (the
+  ``wire`` section's stripes, syscalls and overlap ledger, the elastic
+  section's heals, retries and CRC errors, the ring, stripe, CRC and
+  retry knobs); the knobs it has equal the reference's; the op counts
+  and bytes per class, ``cache`` and
   ``fusion.fused_responses`` equal the reference's;
   ``metrics_reset()`` zeroes the counters;
 - every event type is one of the reference's (``csrc/events.cc``), with
@@ -40,9 +42,14 @@ from tests.test_torch_hvd_cache import open_lane, run_both
 from tests.test_torch_hvd_ops import _compare, _keep
 
 REPO = Path(__file__).resolve().parent.parent
-OMITTED = {"wire"}
-# The elastic section less the wire's counters (L8), plus the port's own.
-ELASTIC_WIRE = {"heals", "retries", "crc_errors"}
+# Each section's fields that wait for L8 (the reference's socket wire).
+OMITTED = {"wire": {"channels", "syscalls", "overlap"},
+           "elastic": {"heals", "retries", "crc_errors"},
+           "knobs": {"ring_chunk_bytes", "wire_channels",
+                     "wire_channels_established", "simd", "wire_timeout_ms",
+                     "wire_retry_attempts", "wire_retry_backoff_ms",
+                     "wire_crc"}}
+# The port's own fields of the elastic section.
 ELASTIC_PORT = {"resets", "last_fault"}
 
 
@@ -133,18 +140,22 @@ def test_metrics_key_set_is_the_references(lanes):
     ref, port = lanes
     for rank in range(2):
         want, got = ref[rank]["metrics"], port[rank]["metrics"]
-        assert set(got) == set(want) - OMITTED
+        assert set(got) == set(want)
         fields = _fields(want)
-        fields["knobs"] = ["cycle_time_ms", "fusion_threshold_bytes"]
-        fields["elastic"] = sorted(set(fields["elastic"]) - ELASTIC_WIRE
-                                   | ELASTIC_PORT)
+        for section, left_out in OMITTED.items():
+            assert left_out <= set(fields[section])
+            fields[section] = sorted(set(fields[section]) - left_out)
+        fields["elastic"] = sorted(set(fields["elastic"]) | ELASTIC_PORT)
         assert _fields(got) == {k: fields[k] for k in got}
         assert got["elastic"]["epoch"] == want["elastic"]["epoch"] == 0
         assert got["elastic"]["last_fault"] is None
-        assert set(want["knobs"]) >= set(got["knobs"])
         assert got["initialized"] and got["rank"] == rank
+        assert got["knobs"] == {k: want["knobs"][k] for k in got["knobs"]}
         assert got["knobs"] == {"fusion_threshold_bytes": 64 << 20,
-                                "cycle_time_ms": 20.0}
+                                "cycle_time_ms": 20.0,
+                                "wire_compression": False,
+                                "wire_codec": "off", "cross_plane": "auto",
+                                "hier_split": 0, "cross_compression": False}
 
 
 def test_counters_equal_the_references(lanes):
