@@ -11,7 +11,9 @@ and drives the port's serving and training paths at the full width of
 the flagship dense Llama and of the repo's sparse-MoE Llama, and BERT-
 Large's MLM training (also under elastic recovery), and the Horovod lane
 (its autotuner, parole door, wire codecs and cross-plane allreduce too),
-in phases; any failed phase exits non-zero before the result line.
+and a job started by the port's launcher, in phases; any failed phase
+exits non-zero before the result line. ``python3 chip_smoke.py
+--launched-worker static|elastic DIR`` is one rank of that job.
 
 1. Card, power limit, torch/CUDA versions; kernel build time.
 2. Each kernel against its plain PyTorch version at the main paths'
@@ -188,7 +190,24 @@ in phases; any failed phase exits non-zero before the result line.
    modes in ``metrics()["knobs"]``, an f32 grouped set bit-identical to
    the run without the settings (no rounding at size 1), ``wire`` bytes
    0 and no codec launch. A real 2-slice NCCL world needs 4 cards.
-21. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
+21. The port's launcher on the card: (a) ``python -m
+   horovod_tpu_torch.runner.launch --check-build`` exits 0 with its
+   CUDA, NCCL (the version ``torch.cuda.nccl.version()`` gives) and gloo
+   rows on; (b) a ``--local-cards`` launch (one rank a card) of this
+   script in its worker mode: 3 steps of phase 13's BERT-Large step on
+   the split step, each step's gradients one ``grouped_allreduce_async_``
+   Average on the lane; every rank on ``cuda:{local_rank}`` with rank
+   0's losses, and at one card the losses and the final params' digest
+   bit-identical to the same 3 steps in this process; the children load
+   the kernel libraries phase 1 built (none rebuilt); (c) the same job
+   under the port's ``ElasticDriver`` (``--min-np 1 --max-np N``, a
+   discovery script printing ``localhost:N``, ``TreeState`` committed
+   every step): rank 0's first attempt exits 17 after step 1, its slot
+   is respawned, the job exits 0 with (b)'s digest; (d) launch to first
+   step of (b) and (c), (b)'s step ms beside phase 13's, and the
+   respawn's seconds from the worker's exit to its replacement's first
+   step.
+22. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
    launches, K1-K3's offsets rows with phase 17's launches, and the six
    codec kernels with phase 20 (b)'s), the card line, and the result
    line ``{"ok": true, "device": {...}}``.
@@ -3705,6 +3724,334 @@ def codec_rows(wire):
     return rows
 
 
+# ---- phase 21: the port's launcher on the card ---------------------------
+
+LAUNCH_STEPS = 3
+WORKER_FLAG = "--launched-worker"
+LAUNCH_TIMEOUT_S = 420
+
+
+class AveragedAdam:
+    """``fused_adam`` whose apply first averages the step's gradients on
+    the lane: one ``grouped_allreduce_async_`` Average of every leaf."""
+
+    def __init__(self, hvd, inner):
+        self.hvd, self.inner = hvd, inner
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def apply(self, params, grads, opt):
+        from horovod_tpu_torch.parallel._tree import tree_leaves
+
+        for h in self.hvd.grouped_allreduce_async_(tree_leaves(grads),
+                                                   op=self.hvd.Average):
+            h.synchronize()
+        return self.inner.apply(params, grads, opt)
+
+
+def params_digest(torch, params):
+    """sha256 of the params' bytes, leaf by leaf, read back to the host."""
+    import hashlib
+
+    from horovod_tpu_torch.parallel._tree import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves(params):
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def bert_lane_job(torch, hvd, bert, precision, train_step, cfg, on_step,
+                  elastic=False):
+    """Phase 13's BERT-Large step (B16 x T512, seeded padding,
+    ``fused_adam(1e-4)``, full remat) on the split step, each step's
+    gradients one Average on the lane: ``LAUNCH_STEPS`` steps, plainly
+    or under ``hvd.elastic.run`` with a ``TreeState`` committed every
+    step. ``on_step(step, state)`` runs after each step (after its
+    commit). Returns (losses, step ms, digest of the final params)."""
+    data = bert_batch(torch, cfg, 16, 512, 40)
+    ts = train_step.make_split_train_step(
+        lambda p, d: bert.bert_mlm_loss(p, d, cfg),
+        AveragedAdam(hvd, precision.fused_adam(1e-4)))
+    carry = ts.init(bert.bert_init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+    losses, step_ms = [], []
+
+    def one(carry):
+        t0 = time.perf_counter()
+        loss, carry = ts.step(carry, data)
+        losses.append(float(loss))   # reads back: the step has ended
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return carry
+
+    if not elastic:
+        for step in range(LAUNCH_STEPS):
+            carry = one(carry)
+            on_step(step + 1, None)
+        return losses, step_ms, params_digest(torch, carry[0])
+    state = hvd.elastic.TreeState(carry=carry, step=0)
+    del carry
+
+    @hvd.elastic.run
+    def train(state):
+        while state.step < LAUNCH_STEPS:
+            state.carry = one(state.carry)
+            state.step += 1
+            state.commit()
+            on_step(state.step, state)
+
+    train(state)
+    return losses, step_ms, params_digest(torch, state.carry[0])
+
+
+def launched_worker(mode, out):
+    """A rank of phase 21's launched job (``chip_smoke.py
+    --launched-worker static|elastic OUT``): the lane on the card the
+    launcher's layout gives it, ``bert_lane_job``, its results in
+    ``OUT/rank<r>.json``. Under ``elastic``, rank 0's first attempt
+    exits 17 after step 1's commit, marked by ``OUT/fault.json``."""
+    import torch
+
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.models import bert
+    from horovod_tpu_torch.ops import decode_attention as da
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import grouped_moe as gm
+    from horovod_tpu_torch.parallel import precision, train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctr = launch_counters(fa, da, gm)
+    reset_counts(ctr)
+    hvd.init()
+    record = dict(device=torch.cuda.current_device(), pid=os.getpid())
+    check(record["device"] == hvd.local_rank(),
+          f"rank {hvd.rank()}: current device {record['device']}, local "
+          f"rank {hvd.local_rank()}")
+    marker = os.path.join(out, "fault.json")
+
+    def on_step(step, state):
+        record.setdefault("first_step_at", time.time())
+        if mode == "elastic" and hvd.rank() == 0 and step == 1 \
+                and not os.path.exists(marker):
+            with open(marker, "w") as f:
+                json.dump({"exit_at": time.time(),
+                           "first_step_at": record["first_step_at"]}, f)
+            os._exit(17)
+
+    cfg = bert.BertConfig.large()
+    losses, step_ms, digest = bert_lane_job(
+        torch, hvd, bert, precision, train_step, cfg, on_step,
+        elastic=mode == "elastic")
+    # A survivor of a re-formation may hold another rank than it began
+    # with: record the last epoch's layout.
+    rank = hvd.rank()
+    record.update(rank=rank, local_rank=hvd.local_rank(), size=hvd.size(),
+                  losses=losses, step_ms=step_ms, digest=digest,
+                  launches=counts(ctr), bias_launches=bias_counts(ctr))
+    hvd.shutdown()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def run_launcher_cmd(root, env, argv, timeout=LAUNCH_TIMEOUT_S):
+    """``python -m horovod_tpu_torch.runner.launch argv`` from the
+    checkout's root: (return code, stdout, stderr). On timeout the
+    launcher gets SIGTERM, which takes its ranks down, then SIGKILL."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.launch", *argv],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        try:
+            out, err = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        raise SmokeFailure(f"launcher {argv[:4]} timed out after {timeout} "
+                           f"s; stderr tail: {err[-3000:]}")
+    return proc.returncode, out, err
+
+
+def launched_results(out, n):
+    ranks = []
+    for r in range(n):
+        path = os.path.join(out, f"rank{r}.json")
+        check(os.path.exists(path), f"launched rank {r} wrote no result")
+        with open(path) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def check_launched(ranks, n, cfg, want_losses, want_digest, label,
+                   elastic=False):
+    """Every rank on its card, with the same final params; the kernels
+    launched in the child (per step K1 2L, K2 = K3 L, all biased). At
+    N = 1 the losses and the params' digest are the in-process run's bit
+    for bit; more ranks average N equal gradients, which rounds, so
+    there the losses agree with it to 1e-3. Under ``elastic`` a rank's
+    losses are the steps it ran: a respawned rank's, the tail."""
+    L = cfg.n_layers
+    for r, g in enumerate(ranks):
+        check(g["rank"] == r and g["local_rank"] == r and g["size"] == n
+              and (elastic or g["device"] == r),
+              f"{label}: rank {r} layout {g}")
+        check(g["digest"] == ranks[0]["digest"],
+              f"{label}: rank {r}'s final params differ from rank 0's")
+        steps = len(g["losses"])
+        check(0 < steps <= LAUNCH_STEPS and (elastic or steps ==
+                                             LAUNCH_STEPS),
+              f"{label}: rank {r} ran {steps} steps")
+        want = want_losses[-steps:]
+        if n == 1:
+            check(g["losses"] == want,
+                  f"{label}: losses {g['losses']} are not the in-process "
+                  f"run's {want} bit for bit")
+        else:
+            check(all(abs(a - b) <= 1e-3 * abs(b)
+                      for a, b in zip(g["losses"], want)),
+                  f"{label}: rank {r} losses {g['losses']} vs {want}")
+        for k, per in {"K1": 2 * L, "K2": L, "K3": L}.items():
+            got, biased = g["launches"][k], g["bias_launches"][k]
+            check(got == biased and (got == per * steps if not elastic
+                                     else got >= per * steps),
+                  f"{label}: rank {r} {k} launched {got} times ({biased} "
+                  f"with the bias) in {steps} steps, {per} a step")
+    if n == 1:
+        check(ranks[0]["digest"] == want_digest,
+              f"{label}: final params digest {ranks[0]['digest']} is not "
+              f"the in-process run's {want_digest}")
+
+
+def run_launcher_phase(torch, bert, precision, train_step, cfg, card,
+                       step13_ms):
+    """The port's launcher on the card: (a) ``--check-build``; (b) a
+    static ``--local-cards`` launch of ``LAUNCH_STEPS`` BERT-Large steps
+    on the lane, held bit for bit against the same steps in this
+    process; (c) the same job under the port's ``ElasticDriver``
+    (``--min-np 1 --max-np N``, a discovery script printing
+    ``localhost:N``), rank 0's first attempt failing after step 1 and
+    its slot respawned; (d) the launch-to-first-step, step and respawn
+    times."""
+    import tempfile
+
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.runner.launch import nccl_version_string
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("HOROVOD_")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    n = torch.cuda.device_count()
+    out = {"cards": n}
+
+    t0 = time.perf_counter()
+    rc, text, err = run_launcher_cmd(root, env, ["--check-build"], 120)
+    out["check_build_s"] = time.perf_counter() - t0
+    check(rc == 0, f"--check-build exited {rc}: {err[-2000:]}")
+    nccl = nccl_version_string()
+    for row in (f"[X] NCCL {nccl}", "[X] gloo",
+                f"[X] CUDA {torch.version.cuda}", "[X] TCP rendezvous"):
+        check(row in text, f"--check-build lacks {row!r}:\n{text}")
+    out["check_build"] = text
+    log("  (a) --check-build: " + "; ".join(
+        line.strip() for line in text.splitlines() if "[" in line))
+
+    def in_process():
+        hvd.init(device="cuda")
+        try:
+            return bert_lane_job(torch, hvd, bert, precision, train_step,
+                                 cfg, lambda step, state: None)
+        finally:
+            hvd.shutdown()
+
+    want_losses, in_ms, want_digest = in_process()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["in_process"] = dict(losses=want_losses, step_ms=in_ms,
+                             digest=want_digest)
+    built = sorted(os.listdir(_build.BUILD_DIR))
+    worker = [sys.executable, os.path.join(root, "chip_smoke.py"),
+              WORKER_FLAG]
+    with tempfile.TemporaryDirectory() as tmp:
+        static_dir = os.path.join(tmp, "static")
+        os.mkdir(static_dir)
+        t_launch = time.time()
+        rc, text, err = run_launcher_cmd(
+            root, env, ["--local-cards", *worker, "static", static_dir])
+        static_s = time.time() - t_launch
+        check(rc == 0, f"(b) the --local-cards launch exited {rc}: "
+              f"{err[-4000:]}")
+        ranks = launched_results(static_dir, n)
+        check_launched(ranks, n, cfg, want_losses, want_digest, "(b)")
+        static = dict(
+            wall_s=static_s,
+            launch_to_first_step_s=ranks[0]["first_step_at"] - t_launch,
+            step_ms=ranks[0]["step_ms"],
+            median_step_ms=float(np.median(ranks[0]["step_ms"])),
+            launches=ranks[0]["launches"], digest=ranks[0]["digest"])
+
+        elastic_dir = os.path.join(tmp, "elastic")
+        os.mkdir(elastic_dir)
+        discovery = os.path.join(tmp, "discover.sh")
+        with open(discovery, "w") as f:
+            f.write(f"#!/bin/sh\necho localhost:{n}\n")
+        os.chmod(discovery, 0o755)
+        t_launch = time.time()
+        rc, text, err = run_launcher_cmd(
+            root, env, ["--min-np", "1", "--max-np", str(n),
+                        "--host-discovery-script", discovery,
+                        "--elastic-poll-interval", "0.5", *worker,
+                        "elastic", elastic_dir])
+        elastic_s = time.time() - t_launch
+        check(rc == 0, f"(c) the elastic launch exited {rc}: {err[-4000:]}")
+        marker = os.path.join(elastic_dir, "fault.json")
+        check(os.path.exists(marker),
+              "(c) rank 0's first attempt never failed")
+        with open(marker) as f:
+            fault = json.load(f)
+        ranks = launched_results(elastic_dir, n)
+        check_launched(ranks, n, cfg, want_losses, want_digest, "(c)",
+                       elastic=True)
+        check(ranks[0]["digest"] == static["digest"],
+              "(c) the elastic job's final params differ from (b)'s")
+        respawn = [g for g in ranks if g["first_step_at"] > fault["exit_at"]]
+        check(respawn, "(c) no rank started after the failed attempt")
+        elastic = dict(
+            wall_s=elastic_s,
+            launch_to_first_step_s=fault["first_step_at"] - t_launch,
+            respawn_s=min(g["first_step_at"] for g in respawn)
+            - fault["exit_at"], losses=ranks[0]["losses"],
+            digest=ranks[0]["digest"])
+    check(sorted(os.listdir(_build.BUILD_DIR)) == built,
+          "a launched rank built a kernel library: the children must load "
+          "the ones this run built")
+    out.update(static=static, elastic=elastic)
+    same = "bit-identical to" if n == 1 else "within 1e-3 of"
+    log(f"  (b) --local-cards, {n} rank(s): {LAUNCH_STEPS} steps, losses "
+        f"{want_losses} {same} the in-process run's (digest "
+        f"{want_digest[:16]}); launch to first "
+        f"step {static['launch_to_first_step_s']:.2f} s, whole launch "
+        f"{static['wall_s']:.2f} s; step ms "
+        f"{[round(x, 1) for x in static['step_ms']]} (median "
+        f"{static['median_step_ms']:.1f}; in-process "
+        f"{[round(x, 1) for x in in_ms]}; phase 13 {step13_ms:.1f}); "
+        f"child launches {static['launches']}; card {card}")
+    log(f"  (c) elastic (--min-np 1 --max-np {n}): the failed attempt's "
+        f"slot respawned, final digest equal to (b)'s; launch to first "
+        f"step {elastic['launch_to_first_step_s']:.2f} s, worker exit to "
+        f"its replacement's first step {elastic['respawn_s']:.2f} s, whole "
+        f"launch {elastic['wall_s']:.2f} s; card {card}")
+    return out
+
+
 def main():
     import torch
 
@@ -3936,7 +4283,12 @@ def main():
     wire = run_wire(torch, llama, cfg, card)
     torch.cuda.empty_cache()
 
-    log("phase 21: results")
+    log("phase 21: the port's launcher on the card")
+    launched = run_launcher_phase(torch, bert, precision, train_step, bcfg,
+                                  card, bert_train_stats["ms_per_step"])
+    torch.cuda.empty_cache()
+
+    log("phase 22: results")
     log(json.dumps({"generate": gen_stats, "engine": eng_stats,
                     "train": train_stats, "train_parity": parity,
                     "moe_train": moe_train_stats,
@@ -3948,7 +4300,7 @@ def main():
                     "bert_forward": bert_fwd_stats,
                     "bert_parity": bert_parity, "ring_replay": ring,
                     "elastic": elastic, "lane_tuning": tuning,
-                    "wire": wire, "card": card}))
+                    "wire": wire, "launcher": launched, "card": card}))
     paths = {"llama_generate": gen_launch, "DecodeEngine": eng_launch,
              "train_step": train_launch, "moe_train_step": moe_train_launch,
              "moe_llama_generate": moe_gen_launch,
@@ -4039,7 +4391,10 @@ def main():
 
 if __name__ == "__main__":
     try:
-        main()
+        if sys.argv[1:2] == [WORKER_FLAG]:
+            launched_worker(*sys.argv[2:4])
+        else:
+            main()
     except Exception as e:  # every failed phase ends the run, loudly
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

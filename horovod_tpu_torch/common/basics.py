@@ -62,6 +62,13 @@ rendezvous and takes an in-process store, unless the parole door is on
 (``HOROVOD_REJOIN_PORT``, ``elastic.py``): then rank 0 hosts the store
 at size 1 too, so that a joiner can reach the grown world's. A joiner
 opens with ``init(epoch=E)`` straight into the survivors' epoch prefix.
+A world's first rendezvous waits at most ``HOROVOD_START_TIMEOUT``
+seconds (default 60, the reference core's) for every rank, and then
+raises a ``TimeoutError`` naming the wait that ran out: making the
+store (rank 0 for every rank to connect, a worker to reach rank 0) and
+the epoch's check-in (:func:`_await_world`). The store's own bound,
+which every later ``get``/``wait`` keeps, and the process groups' stay
+at 600 s.
 The device rule is the
 port's (``_device.py``): with no ``device`` and no CUDA, ``init``
 raises; after ``init(device="cpu")`` a CUDA tensor raises, and a CUDA
@@ -93,6 +100,7 @@ import os
 import re
 import sys
 import threading
+import time
 
 import torch
 import torch.distributed as dist
@@ -190,7 +198,9 @@ _tune_splits = False  # the probe's verdict: open the tuner's every split
 
 def init(device=None, epoch=None):
     """Open the lane. ``device`` None means the card (``cuda`` must be
-    available), ``"cpu"`` a gloo-only lane. ``epoch`` is the membership
+    available), ``"cpu"`` a gloo-only lane. On the card the lane takes
+    ``cuda:{local_rank}`` and makes it the process's current device.
+    ``epoch`` is the membership
     epoch to open at: None is 0, or under the elastic driver its epoch
     less one (every worker of an epoch names the same one); an elastic
     ``reset()`` passes the next. A second call is a no-op."""
@@ -210,6 +220,10 @@ def init(device=None, epoch=None):
                       cross_size=_env_int("HOROVOD_CROSS_SIZE", 1))
         card = (torch.device("cuda", layout["local_rank"])
                 if dev.type == "cuda" else None)
+        if card is not None:
+            # "cuda" now means this rank's card, as an upstream script's
+            # torch.cuda.set_device(hvd.local_rank()) makes it.
+            torch.cuda.set_device(card)
         if epoch is None:
             driver = os.environ.get("HOROVOD_ELASTIC_EPOCH") \
                 if os.environ.get("HOROVOD_RDZV_ADDR") else None
@@ -239,15 +253,65 @@ def _fault_inject_from_env():
     return parsed
 
 
+def _start_timeout():
+    """``HOROVOD_START_TIMEOUT`` (seconds, default 60, as the reference
+    core's ``csrc/operations.cc:376``): how long a first rendezvous
+    waits for the world."""
+    return datetime.timedelta(
+        seconds=float(os.environ.get("HOROVOD_START_TIMEOUT") or 60))
+
+
+def _start_timed_out(what, start, exc):
+    return TimeoutError(
+        f"HOROVOD_START_TIMEOUT ({start.total_seconds():g} s) ran out "
+        f"{what}: {exc}")
+
+
 def _base_store(rank, size):
-    """The process's TCPStore for this controller address, made once."""
+    """The process's TCPStore for this controller address, made once.
+    Making it waits for the world, bounded by ``HOROVOD_START_TIMEOUT``:
+    rank 0 for every rank to connect, a worker to reach rank 0. Then the
+    store's own bound goes back to ``_TIMEOUT``, which every later
+    ``get``/``wait`` on it keeps (the fault check-in, the door)."""
     global _store
     key = (os.environ.get("HOROVOD_CONTROLLER_ADDR") or "127.0.0.1",
            _env_int("HOROVOD_CONTROLLER_PORT", 29500), rank == 0)
     if _store is None or _store[0] != key:
-        _store = (key, dist.TCPStore(key[0], key[1], size,
-                                     is_master=key[2], timeout=_TIMEOUT))
+        start = _start_timeout()
+        t0 = time.monotonic()
+        try:
+            store = dist.TCPStore(key[0], key[1], size, is_master=key[2],
+                                  timeout=start)
+        except Exception as e:  # noqa: BLE001 — reworded when it is the wait
+            if time.monotonic() - t0 < 0.9 * start.total_seconds():
+                raise
+            what = (f"while rank 0's rendezvous store at {key[0]}:{key[1]} "
+                    f"waited for all {size} ranks to connect" if key[2]
+                    else f"while rank {rank} tried to reach rank 0's "
+                    f"rendezvous store at {key[0]}:{key[1]}")
+            raise _start_timed_out(what, start, e) from e
+        store.set_timeout(_TIMEOUT)
+        _store = (key, store)
     return _store[1]
+
+
+def _await_world(store, rank, size):
+    """A first rendezvous's check-in under the epoch's prefix: every
+    rank marks its arrival and waits for all the others, bounded by
+    ``HOROVOD_START_TIMEOUT`` (the store's own bound stays as it is)."""
+    start = _start_timeout()
+    store.set(f"arrived/{rank}", "1")
+    try:
+        store.wait([f"arrived/{r}" for r in range(size)], start)
+    except Exception as e:  # noqa: BLE001 — say which wait ran out
+        try:
+            missing = [r for r in range(size)
+                       if not store.check([f"arrived/{r}"])]
+        except Exception:  # noqa: BLE001 — rank 0's store went away
+            missing = "unknown (rank 0's store is gone)"
+        raise _start_timed_out(
+            f"while rank {rank} waited for the world of {size} to arrive "
+            f"(missing ranks: {missing})", start, e) from e
 
 
 def _open(layout, card, epoch, fault_inject, probe=False, split=0):
@@ -267,6 +331,10 @@ def _open(layout, card, epoch, fault_inject, probe=False, split=0):
         base = _base_store(rank, size)
         store = dist.PrefixStore(f"hvd/epoch{epoch}", base)
         fault_store = dist.PrefixStore(f"hvd/epoch{epoch}/fault", base)
+        if probe and size > 1:
+            # A world's first rendezvous; a joiner's or a re-formation's
+            # meets ranks that are already up.
+            _await_world(store, rank, size)
     dist.init_process_group("gloo", store=store, rank=rank,
                             world_size=size, timeout=_TIMEOUT)
     mode = _cross_plane_mode()

@@ -33,7 +33,9 @@ untuned, the list carries 0 for the first two and -1 for the others.
 
 A lost peer ends the lane (``operations.py``); re-forming the world is
 ``basics.reinit``'s, with a new controller. Still to port (ROADMAP.md):
-the control tree and wire checksums (L8), the MPI controller (L9).
+the control tree and wire checksums (L8), and control frames over MPI
+(``HOROVOD_CONTROLLER=mpi``, L9b; a bare mpirun's bootstrap is
+``mpi_bootstrap.py``).
 """
 
 import collections

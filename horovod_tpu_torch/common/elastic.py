@@ -34,7 +34,9 @@ joiners`` and the joiners open straight into it (``basics.init(epoch=
 E)``). :func:`shrink` re-forms the world without some ranks, no fault:
 the autoscaler's scale-down leg, after which a victim may knock again.
 
-Not in this slice: the bare-mpirun bootstrap (L9).
+Without a driver and without ``HOROVOD_RANK``, :func:`init` first
+bootstraps from an MPI world (``mpi_bootstrap.py``, L9's first half),
+as the reference's does; ``HOROVOD_CONTROLLER=mpi`` is ROADMAP.md L9b.
 """
 
 import copy
@@ -363,10 +365,20 @@ def shrink(victims):
 def init(device=None, epoch=None):
     """Open the lane; under the elastic driver, first register and take
     this epoch's rank assignment, exported as the ``HOROVOD_*`` layout.
-    ``device`` as ``basics.init`` (None: the card); ``epoch`` applies
-    without a driver (the driver numbers its own). Without a driver,
-    rank 0 opens the parole door when ``HOROVOD_REJOIN_PORT`` is set."""
+    Without a driver and without ``HOROVOD_RANK``, a job that a bare
+    ``mpirun`` or ``srun`` started takes its layout and endpoint from
+    the MPI world (``mpi_bootstrap.py``); ``HOROVOD_CONTROLLER=mpi``
+    raises (ROADMAP.md L9b). ``device`` as ``basics.init`` (None: the
+    card); ``epoch`` applies without a driver (the driver numbers its
+    own). Without a driver, rank 0 opens the parole door when
+    ``HOROVOD_REJOIN_PORT`` is set."""
     if not _is_elastic():
+        # A bare mpirun/srun (no launcher's HOROVOD_RANK): the layout and
+        # rank 0's endpoint come from the MPI world (L9's bootstrap).
+        from horovod_tpu_torch.common import mpi_bootstrap
+
+        mpi_bootstrap.check_controller()
+        mpi_bootstrap.maybe_bootstrap_from_mpi()
         basics.init(device, epoch=epoch)
         _ensure_door()
         return

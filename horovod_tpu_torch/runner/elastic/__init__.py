@@ -1,2 +1,3 @@
-"""The elastic driver's worker-side endpoints: rendezvous and
-notifications."""
+"""The elastic launch: the driver (``driver.py``), host discovery
+(``discovery.py``), the rendezvous server and client
+(``rendezvous.py``) and the workers' notifications (``worker.py``)."""

@@ -23,10 +23,12 @@ hierarchical allreduce on a layout of several slices), the wire codecs
 of ``HOROVOD_WIRE_COMPRESSION`` and ``HOROVOD_CROSS_PLANE_COMPRESSION``,
 and ``cross_plane``, ``CROSS_PLANE_MODES``, ``hier_split``,
 ``set_hier_split``, ``cross_compression``, ``wire_compression``,
-``set_wire_compression``, ``wire_codec`` and ``set_wire_codec``. Still
-to port behind the same names: the control tree and wire checksums
-(L8), the MPI controller (L9), the launcher (L10) and the JAX frontend's
-functional lane (L11).
+``set_wire_compression``, ``wire_codec`` and ``set_wire_codec``. A job
+starts under the port's own launcher (``horovodrun-torch``,
+``runner/launch.py``), its elastic driver, or a bare ``mpirun``
+(``common/mpi_bootstrap.py``). Still to port behind the same names: the
+control tree and wire checksums (L8), control frames over MPI (L9b) and
+the JAX frontend's functional lane (L11).
 """
 
 from horovod_tpu_torch.common.basics import (  # noqa: F401

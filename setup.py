@@ -35,6 +35,7 @@ setup(
     entry_points={
         "console_scripts": [
             "horovodrun = horovod_tpu.runner.launch:main",
+            "horovodrun-torch = horovod_tpu_torch.runner.launch:main",
         ],
     },
 )

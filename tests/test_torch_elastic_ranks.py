@@ -18,6 +18,8 @@ reference's elastic core.
   (``tests/integration/test_elastic_torch.py``'s worker): one killed at
   step 6 and respawned, both finish 12 steps at size 2, their digests
   equal to each other and to the reference worker's.
+- The same scenario under the port's own ``ElasticDriver``: the same
+  steps, size and digests.
 """
 
 import json
@@ -389,11 +391,17 @@ _IMPLS = {
 }
 
 
-def _drive(tmp_path, impl):
-    from horovod_tpu.runner.elastic.discovery import FixedHosts
-    from horovod_tpu.runner.elastic.driver import ElasticDriver
+def _drive(tmp_path, impl, driver="ref"):
+    """The workers of ``impl`` under ``driver``'s ``ElasticDriver``
+    (the reference's or the port's), 2 slots on this host."""
+    if driver == "ref":
+        from horovod_tpu.runner.elastic.discovery import FixedHosts
+        from horovod_tpu.runner.elastic.driver import ElasticDriver
+    else:
+        from horovod_tpu_torch.runner.elastic.discovery import FixedHosts
+        from horovod_tpu_torch.runner.elastic.driver import ElasticDriver
 
-    tmp = tmp_path / impl
+    tmp = tmp_path / f"{impl}.{driver}"
     tmp.mkdir()
     imports, init = _IMPLS[impl]
     worker = tmp / "worker.py"
@@ -423,4 +431,34 @@ def test_reference_driver_respawns_port_workers(tmp_path):
     want = ref[0]["peers"][0]
     for r in port + ref:
         assert r["step"] == 12 and r["size"] == 2, r
+        assert all(abs(d - want) < 1e-5 for d in r["peers"]), (r, want)
+
+
+def _plain_digest(steps=12):
+    """The worker's training without a fault or a peer: both ranks take
+    the same batches, so the averaged gradients are one rank's."""
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.rand(64, 4).astype("float32"))
+    y = torch.from_numpy(rng.rand(64, 1).astype("float32"))
+    torch.manual_seed(7)
+    model = torch.nn.Linear(4, 1)
+    opt = torch.optim.SGD(model.parameters(), lr=0.05)
+    for step in range(steps):
+        i = (step * 8) % 64
+        opt.zero_grad()
+        torch.nn.functional.mse_loss(model(x[i:i + 8]), y[i:i + 8]).backward()
+        opt.step()
+    return float(sum(p.detach().sum() for p in model.parameters()))
+
+
+def test_port_driver_respawns_port_workers(tmp_path):
+    """The port's own ElasticDriver, the port's workers: the killed one
+    respawned, both finish 12 steps at size 2 with the digest the
+    reference driver's run reaches (its run above equals the plain
+    training's)."""
+    done = _drive(tmp_path, "port", driver="port")
+    want = _plain_digest()
+    for r in done:
+        assert r["step"] == 12 and r["size"] == 2, r
+        assert len(r["peers"]) == 2
         assert all(abs(d - want) < 1e-5 for d in r["peers"]), (r, want)

@@ -14,6 +14,11 @@ transport emulated), since neither path sums anything outside the codec
 arithmetic; each rank's ``wire`` bytes are the hierarchy's formula; the
 codec kernels launch.
 
+The launcher on the cards: ``--local-cards`` starts one rank a card,
+each on ``cuda:{local_rank}``, with an exact NCCL allreduce; a rank that
+exits 3 while its peers block in (or after) the lane's allreduce ends
+the job with rc 1 and no process left. These two need two cards or more.
+
 A lost peer on NCCL: in the same 2 x 2 world rank 3 is SIGKILLed
 (``set_fault_inject``) at the top of a hierarchical allreduce. NCCL
 queues the collective whatever its peers do, so the loss shows at a
@@ -215,3 +220,110 @@ def test_a_lost_rank_mid_hier_on_four_cards():
         assert g["before"] == 2 and g["dead"] == [3]
         assert (g["split"], g["layout"], g["exact"],
                 g["failed_lane_ended"]) == (0, (3, 3), True, True)
+
+
+# ---- the launcher on the cards -------------------------------------------
+
+_LAUNCHED = """
+import json, os, sys, time
+sys.path.insert(0, {repo!r})
+import torch
+import horovod_tpu_torch.torch as hvd
+
+out = {out!r}
+hvd.init()
+rank, size = hvd.rank(), hvd.size()
+with open(os.path.join(out, f"pid{{rank}}"), "w") as f:
+    f.write(str(os.getpid()))
+if {fail} and rank == 1:
+    time.sleep(2.0)
+    with open(os.path.join(out, "exit.time"), "w") as f:
+        f.write(repr(time.time()))
+    os._exit(3)
+x = torch.full((1 << 20,), float(rank + 1), device="cuda")
+try:
+    got = hvd.allreduce(x, name="sum", op=hvd.Sum).cpu()
+except Exception:
+    if not {fail}:
+        raise
+    # Whatever the lane makes of the loss, block on, as a rank whose
+    # NCCL kernel never returns would: the launcher must kill it.
+    time.sleep(600)
+with open(os.path.join(out, f"rank{{rank}}.json"), "w") as f:
+    json.dump({{"device": torch.cuda.current_device(),
+               "local_rank": hvd.local_rank(), "size": size,
+               "sum": float(got[0]),
+               "exact": bool((got == got[0]).all())}}, f)
+hvd.shutdown()
+"""
+
+
+def _launch_local_cards(tmp_path, fail):
+    import json
+    import subprocess
+    import sys
+
+    from tests.utils_mp import REPO_ROOT
+
+    out = tmp_path / ("fail" if fail else "ok")
+    out.mkdir()
+    worker = out / "worker.py"
+    worker.write_text(_LAUNCHED.format(repo=REPO_ROOT, out=str(out),
+                                       fail=fail))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("HOROVOD_")}
+    env["PYTHONPATH"] = REPO_ROOT
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+         "--local-cards", sys.executable, str(worker)],
+        capture_output=True, text=True, timeout=240, env=env)
+    ended = time.time()
+    n = torch.cuda.device_count()
+    if fail:
+        return proc, ended, out, n
+    return proc, [json.loads((out / f"rank{r}.json").read_text())
+                  for r in range(n)], n
+
+
+def test_local_cards_launch_on_every_card(tmp_path):
+    """``--local-cards``: one rank a card, each on cuda:{local_rank},
+    an exact NCCL allreduce."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    if torch.cuda.get_device_capability(0) < (9, 0):
+        pytest.skip("needs compute capability >= 9.0")
+    proc, got, n = _launch_local_cards(tmp_path, fail=False)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    for r, g in enumerate(got):
+        assert g["device"] == g["local_rank"] == r and g["size"] == n
+        assert g["sum"] == n * (n + 1) / 2 and g["exact"]
+
+
+def test_local_cards_failed_rank_ends_the_job(tmp_path):
+    """A rank that exits 3 while its peers block in (or after) the
+    lane's allreduce: the launcher kills them and returns 1, no process
+    left."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    if torch.cuda.get_device_capability(0) < (9, 0):
+        pytest.skip("needs compute capability >= 9.0")
+    proc, ended, out, n = _launch_local_cards(tmp_path, fail=True)
+    assert proc.returncode == 1, proc.stderr[-4000:]
+    assert "(1, 3)" in proc.stderr
+    assert ended - float((out / "exit.time").read_text()) < 15
+    pids = [int((out / f"pid{r}").read_text()) for r in range(n)]
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline:
+        alive = []
+        for p in pids:
+            try:
+                os.kill(p, 0)
+                with open(f"/proc/{p}/stat") as f:
+                    if f.read().split(")")[-1].split()[0] != "Z":
+                        alive.append(p)
+            except (ProcessLookupError, OSError):
+                pass
+        if not alive:
+            break
+        time.sleep(0.2)
+    assert not alive, f"processes of the job still alive: {alive}"

@@ -1,9 +1,10 @@
 """The PyTorch port's import rules and default-device rule.
 
 ``horovod_tpu_torch`` imports torch and numpy only: importing it loads
-neither jax, triton nor the JAX package, no module of it (nor
-chip_smoke.py) names jax, ml_dtypes or horovod_tpu in an import, and
-its entry points raise — never fall back to the CPU — when no device
+neither jax, triton, the JAX package, yaml nor mpi4py (which the MPI
+bootstrap imports only behind its launcher gate), no module of it (nor
+chip_smoke.py) names jax, ml_dtypes, horovod_tpu or yaml in an import,
+and its entry points raise — never fall back to the CPU — when no device
 is given and there is no CUDA. Every kernel source is listed in
 ``ops/_build.py``, and importing the port builds nothing.
 """
@@ -21,7 +22,7 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "horovod_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "ml_dtypes", "horovod_tpu", "bench")
+FORBIDDEN = ("jax", "ml_dtypes", "horovod_tpu", "bench", "yaml")
 
 
 def _forbidden(name):
@@ -52,9 +53,17 @@ def test_import_loads_no_jax_triton_or_reference_package():
         "import horovod_tpu_torch.checkpoint\n"
         "import horovod_tpu_torch.runner.elastic.rendezvous\n"
         "import horovod_tpu_torch.runner.elastic.worker\n"
+        "import horovod_tpu_torch.runner.elastic.driver\n"
+        "import horovod_tpu_torch.runner.elastic.discovery\n"
+        "import horovod_tpu_torch.runner.launch\n"
+        "import horovod_tpu_torch.runner.mpi_run\n"
+        "import horovod_tpu_torch.runner.js_run\n"
+        "import horovod_tpu_torch.runner.task_service\n"
+        "import horovod_tpu_torch.common.mpi_bootstrap\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'triton', 'ml_dtypes', 'horovod_tpu'))\n"
+        "('jax', 'jaxlib', 'triton', 'ml_dtypes', 'horovod_tpu', 'yaml',\n"
+        " 'mpi4py'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -111,6 +120,13 @@ def test_import_builds_nothing():
         "import horovod_tpu_torch.checkpoint\n"
         "import horovod_tpu_torch.runner.elastic.rendezvous\n"
         "import horovod_tpu_torch.runner.elastic.worker\n"
+        "import horovod_tpu_torch.runner.elastic.driver\n"
+        "import horovod_tpu_torch.runner.elastic.discovery\n"
+        "import horovod_tpu_torch.runner.launch\n"
+        "import horovod_tpu_torch.runner.mpi_run\n"
+        "import horovod_tpu_torch.runner.js_run\n"
+        "import horovod_tpu_torch.runner.task_service\n"
+        "import horovod_tpu_torch.common.mpi_bootstrap\n"
         "from horovod_tpu_torch.ops import _build\n"
         "assert _build._libs == {}, _build._libs\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
