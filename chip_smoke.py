@@ -11,7 +11,8 @@ and drives the port's serving and training paths at the full width of
 the flagship dense Llama and of the repo's sparse-MoE Llama, and BERT-
 Large's MLM training (also under elastic recovery), and the Horovod lane
 (its autotuner, parole door, wire codecs and cross-plane allreduce too),
-and a job started by the port's launcher, in phases; any failed phase
+a job started by the port's launcher, and ZeRO-1 on both lanes, in
+phases; any failed phase
 exits non-zero before the result line. ``python3 chip_smoke.py
 --launched-worker static|elastic DIR`` is one rank of that job.
 
@@ -207,7 +208,24 @@ exits non-zero before the result line. ``python3 chip_smoke.py
    step of (b) and (c), (b)'s step ms beside phase 13's, and the
    respawn's seconds from the worker's exit to its replacement's first
    step.
-22. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
+22. ZeRO-1 at world size 1 on the flagship (B4 x T2048, ``attn+gate``,
+   3 steps from one seed): (a) ``make_split_train_step(zero=
+   ZeroConfig(size=1))`` with ``fused_adam(3e-4)``, unfused and fused
+   (``HOROVOD_JIT_FUSION``), losses, params and state bit-identical to
+   the replicated split step's; (b) the same with ``fused_master_adam``
+   (f32 params, bf16 compute); ms/step, first step, peak memory and state
+   bytes of all three, K1-K3 14 launches each per grad call on wgmma;
+   (c) ``hvd.DistributedFusedAdam`` on NCCL over the flagship's bf16
+   gradients, ``zero=True`` with ``overlap`` on and off and ``zero=
+   False``, each bit-identical to ``fused_adam``'s apply, ms per apply
+   (median of 10) beside ``fused_adam``'s, the lane's ops under
+   ``zero=True`` reducescatter and allgather only; (d)
+   ``hvd.make_fused_train_step`` fused (allgathers in flight into the
+   next step) and unfused: the same losses and params, equal to (a)'s
+   replicated losses, ms/step; (e) the lane's reducescatter on gloo in
+   f32 and bf16 on this torch. Across cards: ``tests/
+   test_torch_zero_cuda_ranks.py``.
+23. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
    launches, K1-K3's offsets rows with phase 17's launches, and the six
    codec kernels with phase 20 (b)'s), the card line, and the result
    line ``{"ok": true, "device": {...}}``.
@@ -4052,6 +4070,325 @@ def run_launcher_phase(torch, bert, precision, train_step, cfg, card,
     return out
 
 
+# ---- phase 22: ZeRO-1 on both lanes ------------------------------------
+
+ZERO_LR = 3e-4
+
+
+def same_tree_bits(torch, got, want):
+    """Whether two trees of tensors hold the same bits (``want`` may lie
+    on the host)."""
+    from horovod_tpu_torch.parallel._tree import tree_leaves
+
+    a, b = tree_leaves(got), tree_leaves(want)
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.detach().reshape(-1).view(torch.uint8),
+            y.to(x.device).reshape(-1).view(torch.uint8))
+        for x, y in zip(a, b))
+
+
+def to_host(torch, tree):
+    """A copy of a tree (dicts, tuples, namedtuples of tensors) on the
+    host."""
+    if isinstance(tree, dict):
+        return {k: to_host(torch, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [to_host(torch, v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else \
+            tuple(items)
+    if isinstance(tree, list):
+        return [to_host(torch, v) for v in tree]
+    return tree.detach().cpu() if torch.is_tensor(tree) else tree
+
+
+def zero_state_matches(torch, layout, zstate, rstate, master_dtype=None):
+    """Whether a world-size-1 ZeRO state holds the replicated state's
+    bits, packed into the layout's buckets."""
+    from horovod_tpu_torch.parallel._tree import tree_leaves
+
+    fields = ["mu", "nu"] + (["master"] if master_dtype else [])
+    for f in fields:
+        zs = getattr(zstate, f) if hasattr(zstate, f) else zstate[f]
+        leaves = [t.to(zs[0].device) for t in tree_leaves(
+            getattr(rstate, f) if hasattr(rstate, f) else rstate[f])]
+        for i, z in enumerate(zs):
+            want = layout.pack_bucket(leaves, i, master_dtype)
+            if not torch.equal(z.view(torch.uint8), want.view(torch.uint8)):
+                return False
+    return True
+
+
+def timed_steps(torch, step, carry, data, steps):
+    """``steps`` calls of ``step``, each synchronized: (losses, carry,
+    seconds per step)."""
+    losses, secs = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, carry = step(carry, data)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss.detach().clone())
+    return losses, carry, secs
+
+
+def zero_split_runs(torch, ctr, llama, precision, train_step, fusion, Z,
+                    cfg, data, kind, total, steps=3):
+    """Phase 22 (a) or (b): the replicated split step, then ZeRO-1 at
+    world size 1 unfused and fused, each from the same seeded params;
+    losses, params and state bit for bit against the replicated run."""
+    make_opt = {"adam": lambda: precision.fused_adam(ZERO_LR),
+                "master": lambda: precision.fused_master_adam(ZERO_LR)}[kind]
+    pcfg = cfg if kind == "adam" else dataclasses.replace(
+        cfg, param_dtype="float32")
+    runs, ref = {}, None
+    for name, zero, fused in (
+            ("replicated", None, True),
+            ("zero unfused", Z.ZeroConfig(size=1), False),
+            ("zero fused", Z.ZeroConfig(size=1), True)):
+        fusion.set_jit_fusion(fused)
+        try:
+            ts = train_step.make_split_train_step(
+                lambda p, d: llama.llama_loss(p, d, pcfg), make_opt(),
+                zero=zero)
+            carry = ts.init(llama.llama_init(
+                pcfg, torch.Generator(device="cuda").manual_seed(0),
+                device="cuda"))
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(ctr)
+            losses, carry, secs = timed_steps(torch, ts.step, carry, data,
+                                              steps)
+            launched = counts(ctr)
+            check_wgmma_routes(ctr, f"phase 22 {kind} {name}")
+        finally:
+            fusion.set_jit_fusion(None)
+        for k in ("K1", "K2", "K3"):
+            check(launched[k] == cfg.n_layers * steps,
+                  f"phase 22 {kind} {name}: {k} launched {launched[k]} "
+                  f"times in {steps} steps")
+            total[k] += launched[k]
+        loss_bits = [int(x.view(torch.int32)) for x in losses]
+        row = dict(ms_per_step=float(np.mean(secs[1:])) * 1e3,
+                   first_step_ms=secs[0] * 1e3,
+                   losses=[float(x) for x in losses], launches=launched,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   state_bytes=Z.optimizer_state_bytes(carry[1]))
+        if ref is None:
+            ref = (loss_bits, to_host(torch, carry))
+        else:
+            check(loss_bits == ref[0],
+                  f"phase 22 {kind} {name}: losses {row['losses']} differ "
+                  f"from the replicated step's bits")
+            check(same_tree_bits(torch, carry[0], ref[1][0]),
+                  f"phase 22 {kind} {name}: params differ from the "
+                  "replicated step's bits")
+            layout = Z.zero_bucket_layout(
+                Z.layout_leaves(Z._optimizer_hyper(make_opt()), carry[0]),
+                1, Z.DEFAULT_BUCKET_BYTES)
+            check(zero_state_matches(
+                torch, layout, carry[1], ref[1][1],
+                torch.float32 if kind == "master" else None),
+                f"phase 22 {kind} {name}: the state differs from the "
+                "replicated state's bits")
+            row["bit_identical"] = True
+        runs[name] = row
+        del carry
+        torch.cuda.empty_cache()
+    return runs
+
+
+def zero_lane_applies(torch, hvd, llama, precision, train_step, Z, cfg,
+                      data, reps=10):
+    """Phase 22 (c): ``hvd.DistributedFusedAdam`` on NCCL over the
+    flagship's bf16 gradients against ``fused_adam``'s apply."""
+    from horovod_tpu_torch.parallel._tree import tree_leaves, tree_map
+
+    params = llama.llama_init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    _, grads = train_step._value_and_grad(
+        lambda p, d: llama.llama_loss(p, d, cfg), params, data, 1)
+
+    def clone(tree):
+        return tree_map(lambda t: t.clone(), tree)
+
+    def timed(apply, p, g, s):
+        secs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, s = apply(p, g, s)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return float(np.median(secs)) * 1e3
+
+    ref_opt = precision.fused_adam(ZERO_LR)
+    ref_p = clone(params)
+    ref_s = ref_opt.init(ref_p)
+    ref_p, ref_s = ref_opt.apply(ref_p, grads, ref_s)
+    out = {"fused_adam": {"ms_per_apply": timed(
+        ref_opt.apply, clone(ref_p), grads, ref_opt.init(ref_p))}}
+    layout = Z.zero_bucket_layout(tree_leaves(params), 1,
+                                  Z.DEFAULT_BUCKET_BYTES)
+    for name, kw in (("zero=True overlap", dict(zero=True)),
+                     ("zero=True overlap=False",
+                      dict(zero=True, overlap=False)),
+                     ("zero=False", {})):
+        opt = hvd.DistributedFusedAdam(ZERO_LR, **kw)
+        p = clone(params)
+        s = opt.init(p)
+        hvd.metrics_reset()
+        p, s = opt.apply(p, clone(grads), s)
+        torch.cuda.synchronize()
+        ops = hvd.metrics()["device_ops"]
+        check(same_tree_bits(torch, p, ref_p),
+              f"phase 22 (c) {name}: params differ from fused_adam's bits")
+        if kw.get("zero"):
+            check(zero_state_matches(torch, layout, s, ref_s),
+                  f"phase 22 (c) {name}: state differs from fused_adam's")
+            n = len(layout.buckets)
+            check(ops.get("reducescatter", {}).get("tensors") == n and
+                  ops.get("allgather", {}).get("tensors") == n and
+                  ops.get("allreduce", {}).get("tensors", 0) == 0,
+                  f"phase 22 (c) {name}: lane ops {ops}, expected {n} "
+                  "reducescatters and allgathers and no allreduce")
+        else:
+            check(same_tree_bits(torch, s.mu, ref_s.mu) and
+                  same_tree_bits(torch, s.nu, ref_s.nu),
+                  f"phase 22 (c) {name}: state differs from fused_adam's")
+        ms = timed(opt.apply, p, clone(grads) if not kw else grads, s)
+        out[name] = dict(ms_per_apply=ms, ops={
+            k: v for k, v in ops.items() if v.get("tensors")},
+            state_bytes=Z.optimizer_state_bytes(s), bit_identical=True)
+        del p, s
+        torch.cuda.empty_cache()
+    out["buckets"] = len(layout.buckets)
+    return out
+
+
+def zero_fused_train_step(torch, ctr, hvd, llama, fusion, cfg, data, total,
+                          want_losses, steps=3):
+    """Phase 22 (d): ``hvd.make_fused_train_step`` on the flagship, fused
+    (hooks, allgathers in flight into the next step) and unfused."""
+    init, step, finish = hvd.make_fused_train_step(
+        lambda p, d: llama.llama_loss(p, d, cfg), ZERO_LR)
+    out, ref = {}, None
+    for fused in (True, False):
+        fusion.set_jit_fusion(fused)
+        try:
+            carry = init(llama.llama_init(
+                cfg, torch.Generator(device="cuda").manual_seed(0),
+                device="cuda"))
+            reset_counts(ctr)
+            losses, carry, secs = timed_steps(torch, step, carry, data,
+                                              steps)
+            lagging = carry[2] is not None
+            params, carry = finish(carry)
+            torch.cuda.synchronize()
+            launched = counts(ctr)
+            check_wgmma_routes(ctr, "phase 22 (d)")
+        finally:
+            fusion.set_jit_fusion(None)
+        for k in ("K1", "K2", "K3"):
+            check(launched[k] == cfg.n_layers * steps,
+                  f"phase 22 (d): {k} launched {launched[k]} times")
+            total[k] += launched[k]
+        check(lagging == fused, f"phase 22 (d) fused={fused}: allgathers "
+              f"in flight after a step: {lagging}")
+        bits = [int(x.view(torch.int32)) for x in losses]
+        label = "fused" if fused else "unfused"
+        if ref is None:
+            ref = (bits, to_host(torch, params))
+        else:
+            check(bits == ref[0] and same_tree_bits(torch, params, ref[1]),
+                  "phase 22 (d): unfused losses or params differ from the "
+                  "fused step's bits")
+        check(bits == want_losses, f"phase 22 (d) {label}: losses "
+              f"{[float(x) for x in losses]} differ from (a)'s replicated "
+              "split step")
+        out[label] = dict(ms_per_step=float(np.mean(secs[1:])) * 1e3,
+                          first_step_ms=secs[0] * 1e3,
+                          losses=[float(x) for x in losses],
+                          launches=launched)
+        del carry, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def gloo_reduce_scatter(torch, hvd):
+    """Phase 22 (e): the lane's reducescatter on gloo (CPU tensors) in
+    f32 and bf16, on this machine's torch."""
+    hvd.init(device="cpu")
+    try:
+        got = {}
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.arange(24, dtype=torch.float32).reshape(6, 4).to(dt)
+            out = hvd.reducescatter(x, name=f"rs.{dt}", op=hvd.Sum)
+            check(torch.equal(out, x), f"gloo reducescatter {dt}: {out}")
+            got[str(dt).removeprefix("torch.")] = "ok"
+        return got
+    finally:
+        hvd.shutdown()
+
+
+def run_zero_phase(torch, ctr, llama, precision, train_step, cfg, card):
+    """Phase 22: ZeRO-1 on the jit lane and on the eager lane."""
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.parallel import fusion
+    from horovod_tpu_torch.parallel import zero as Z
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        4, 2048)).astype(np.int32)).cuda()
+    data = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+    total = {k: 0 for k in ctr}
+    split = {}
+    for kind in ("adam", "master"):
+        split[kind] = zero_split_runs(torch, ctr, llama, precision,
+                                      train_step, fusion, Z, cfg, data,
+                                      kind, total)
+        log(f"  ({'a' if kind == 'adam' else 'b'}) flagship B4 T2048 "
+            f"{'fused_adam' if kind == 'adam' else 'fused_master_adam'} "
+            "(3e-4), 3 steps: " + "; ".join(
+                f"{n} {r['ms_per_step']:.1f} ms/step (first "
+                f"{r['first_step_ms']:.0f} ms, peak {r['peak_gib']:.2f} "
+                f"GiB, state {r['state_bytes'] / 1e9:.3f} GB)"
+                for n, r in split[kind].items())
+            + f"; losses {split[kind]['replicated']['losses']}, ZeRO "
+            "bit-identical to the replicated step (losses, params, "
+            f"state); K1-K3 {cfg.n_layers} each per grad call; card {card}")
+    want = [int(np.float32(x).view(np.int32))
+            for x in split["adam"]["replicated"]["losses"]]
+    hvd.init()
+    try:
+        lane = zero_lane_applies(torch, hvd, llama, precision, train_step,
+                                 Z, cfg, data)
+        log("  (c) hvd.DistributedFusedAdam on NCCL over the flagship's "
+            f"bf16 gradients ({lane['buckets']} buckets), ms per apply "
+            "(median of 10): " + "; ".join(
+                f"{n} {r['ms_per_apply']:.2f}" for n, r in lane.items()
+                if isinstance(r, dict))
+            + "; every variant bit-identical to fused_adam; zero=True ops "
+            f"{lane['zero=True overlap']['ops']}")
+        fused = zero_fused_train_step(torch, ctr, hvd, llama, fusion, cfg,
+                                      data, total, want)
+        log("  (d) hvd.make_fused_train_step, flagship B4 T2048: " +
+            "; ".join(f"{n} {r['ms_per_step']:.1f} ms/step (first "
+                      f"{r['first_step_ms']:.0f} ms)"
+                      for n, r in fused.items())
+            + "; fused == unfused == (a)'s replicated losses bit for bit")
+    finally:
+        hvd.shutdown()
+    gloo = gloo_reduce_scatter(torch, hvd)
+    log(f"  (e) gloo reducescatter on torch {torch.__version__}: {gloo}")
+    secs = time.perf_counter() - t_phase
+    log(f"  phase 22: {secs:.1f} s; K1-K3 launches {total}")
+    return total, dict(split=split, lane=lane, fused_train_step=fused,
+                       gloo_reduce_scatter=gloo, seconds=secs,
+                       launches=total)
+
+
 def main():
     import torch
 
@@ -4288,7 +4625,13 @@ def main():
                                   card, bert_train_stats["ms_per_step"])
     torch.cuda.empty_cache()
 
-    log("phase 22: results")
+    log("phase 22: ZeRO-1 on the jit lane and the eager lane (world "
+        "size 1)")
+    zero_launch, zero = run_zero_phase(torch, ctr, llama, precision,
+                                       train_step, cfg, card)
+    torch.cuda.empty_cache()
+
+    log("phase 23: results")
     log(json.dumps({"generate": gen_stats, "engine": eng_stats,
                     "train": train_stats, "train_parity": parity,
                     "moe_train": moe_train_stats,
@@ -4300,14 +4643,16 @@ def main():
                     "bert_forward": bert_fwd_stats,
                     "bert_parity": bert_parity, "ring_replay": ring,
                     "elastic": elastic, "lane_tuning": tuning,
-                    "wire": wire, "launcher": launched, "card": card}))
+                    "wire": wire, "launcher": launched, "zero": zero,
+                    "card": card}))
     paths = {"llama_generate": gen_launch, "DecodeEngine": eng_launch,
              "train_step": train_launch, "moe_train_step": moe_train_launch,
              "moe_llama_generate": moe_gen_launch,
              "moe_DecodeEngine": moe_eng_launch,
              "bert_train_step": bert_train_launch,
              "bert_forward": bert_fwd_launch,
-             "elastic_bert_train": elastic_launch}
+             "elastic_bert_train": elastic_launch,
+             "zero_train_step": zero_launch}
     bert_bias = {k: bert_train_stats["bias_launches"][k]
                  + (bert_fwd_launch[k] if k == "K1" else 0)
                  + elastic["bias_launches"][k] for k in ("K1", "K2", "K3")}

@@ -882,6 +882,11 @@ def events_drain():
 _step = dict(open=-1, count=0, begin_us=0)
 
 
+def step_id():
+    """The open step's id (``step_mark``), or -1."""
+    return _step["open"]
+
+
 def step_mark(begin=True):
     """Mark a training-step boundary: ``begin`` closes an open step
     (``step_end``) and opens the next (``step_begin``), returning its

@@ -20,10 +20,13 @@ differ, since the reference frontend's CPU tensors run on it:
 - Product gathers every contribution and multiplies (``xla_ici.py:508``);
   bool Sum/Product are Or/And (Max/Min on bytes).
 - Allgather pads each contribution to the largest first dim, gathers
-  and slices (``:600``); reducescatter reduces the whole tensor and keeps
-  this member's rows, the first dim split as evenly as possible with the
-  remainder to the lower positions (``:622``); alltoall sends each
-  member's negotiated splits of rows.
+  and slices (``:600``); reducescatter is one reduce-scatter of the
+  rows (uneven segments padded to the largest), the first dim split as
+  evenly as possible with the remainder to the lower positions
+  (``:622``), as the host lane's ``ReduceScatterv`` moves (N-1)/N of the
+  tensor (Product reduces the whole tensor on its gather path and keeps
+  this member's rows); alltoall sends each member's negotiated splits of
+  rows.
 - A set of one still makes its collective call (Adasum, with no
   partner, a one-rank sum), so that the card path is the real one.
 - Hierarchical allreduce (``HOROVOD_CROSS_PLANE``, ``csrc/ring_ops.cc:797
@@ -63,8 +66,8 @@ the lane's stream, read once completed) and each fused response's fill.
 
 The ``wire`` bytes of the metrics are booked per allreduce and
 reducescatter from the segment math (NCCL and gloo report none): an exact
-collective books the reference ring's bytes (the reducescatter's whole-
-tensor allreduce books an allreduce's), a compressed one the images its
+collective books the reference ring's bytes (a reducescatter the ring's
+reduce phase at rotation -1), a compressed one the images its
 ``all_to_all`` and ``all_gather`` send (the padding of uneven segments to
 the largest not counted, as in the exact path's padded calls); the
 hierarchical allreduce's cross hop books under ``cross_*`` too. Adasum
@@ -477,22 +480,28 @@ class DataPlane:
             raise ResponseError("reducescatter does not support Adasum")
         x = e.input
         shape = tuple(x.shape) if x.dim() else (1,)
-        # The lane's private copy: the caller's tensor stays as it was.
-        buf = x.reshape(-1).clone()
-        self._scale(buf, e.prescale)
+        buf = x.reshape(-1)
+        if op == ReduceOp.PRODUCT or (e.prescale != 1.0 and
+                                      buf.dtype in _SCALED):
+            # The lane's private copy, for the paths that write their
+            # input: the caller's tensor stays as it was.
+            buf = buf.clone()
+            self._scale(buf, e.prescale)
         q, rem = divmod(shape[0], n)
         rows = [q + (1 if r < rem else 0) for r in range(n)]
         codec = self._codec(buf.dtype, op, n)
+        seg = Segments.rows(shape[0], buf.numel() // max(shape[0], 1), n)
         if codec:
-            seg = Segments.rows(shape[0], buf.numel() // max(shape[0], 1), n)
             out = self._compressed_reduce_scatter(buf, seg, pg, n, pos,
                                                   codec)
-            out = out.view((rows[pos],) + shape[1:])
-        else:
+        elif op == ReduceOp.PRODUCT:
+            # Product keeps the allreduce's gather path (queue C).
             self._reduce_(buf, op, pg, n, pos, None)
-            self._book_exact(op, buf, n, pos)
             off = sum(rows[:pos])
             out = buf.view(shape)[off:off + rows[pos]].clone()
+        else:
+            out = self._exact_reduce_scatter(buf, seg, op, pg, pos)
+        out = out.view((rows[pos],) + shape[1:])
         self._scale(out, _post_factor(op, e.postscale, n))
         e.result = out
 

@@ -472,7 +472,9 @@ def llama_forward(params, tokens, config, return_aux=False, device=None,
     device); the params must lie there. Under ``mesh`` (a
     ``parallel.mesh.Mesh``) ``tokens`` is this rank's (data, seq) shard
     (``mesh.shard``) and the logits are its shard; the params are the
-    same on every rank, and their gradients are summed over the mesh."""
+    same on every rank, and their gradients are summed over the mesh
+    (less the axes a ZeRO step defers to its reduce-scatter,
+    ``Mesh.defer_grad_sum``)."""
     c = config
     if mesh is not None:
         if c.n_experts > 0:
@@ -483,7 +485,7 @@ def llama_forward(params, tokens, config, return_aux=False, device=None,
     _, a = on_device(params, device, tokens=tokens)
     if mesh is not None:
         params = tree_unflatten(params, replicate(tree_leaves(params),
-                                                  mesh.group))
+                                                  mesh.grad_group()))
     dt = c.compute_dtype
     x = params["embed"].to(dt)[a["tokens"].long()]
     body = _build_layer_body(c, mesh, seq_axis)

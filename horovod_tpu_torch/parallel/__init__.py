@@ -1,5 +1,6 @@
 """Training-step machinery of the port: the fused single-pass
-optimizers (``precision``) and the split train step (``train_step``),
+optimizers (``precision``), the split train step (``train_step``),
+ZeRO-1 (``zero``) and its fused schedule's knob and hooks (``fusion``),
 imported as modules; and sequence parallelism over a ``data`` x ``seq``
 mesh, re-exported here under the JAX package's names: the mesh
 (``mesh``), its differentiable collectives (``ops``), ring attention

@@ -17,6 +17,7 @@ and ``seq`` axes are ported; ``fsdp``, ``tensor`` and ``expert`` larger
 than 1 raise naming ROADMAP.md A8, ``pipe`` naming A10.
 """
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -80,6 +81,7 @@ class Mesh:
             int(i) for i in np.unravel_index(rank, grid.shape))))
         self._axis_groups = axis_groups
         self.group = group
+        self._deferred = ()
 
     @property
     def size(self):
@@ -95,6 +97,35 @@ class Mesh:
         """The process group of the ranks that differ from this one only
         along ``axis`` (None for an axis of size 1)."""
         return self._axis_groups.get(axis)
+
+    @contextlib.contextmanager
+    def defer_grad_sum(self, *axes):
+        """Within the block, :meth:`grad_group` leaves out ``axes``: a
+        ZeRO step whose reduce-scatter sums the gradients over them
+        (``parallel/zero.py``) so they are reduced once."""
+        before = self._deferred
+        self._deferred = before + tuple(axes)
+        try:
+            yield
+        finally:
+            self._deferred = before
+
+    def grad_group(self):
+        """The group a replicated parameter's gradient is summed over: the
+        whole mesh, less the axes :meth:`defer_grad_sum` defers (None
+        when no axis larger than 1 is left)."""
+        if not self._deferred:
+            return self.group
+        left = [a for a in AXIS_ORDER
+                if self.shape[a] > 1 and a not in self._deferred]
+        if not left:
+            return None
+        if len(left) == 1:
+            return self.axis_group(left[0])
+        if len(left) == sum(self.shape[a] > 1 for a in AXIS_ORDER):
+            return self.group
+        raise NotImplementedError(
+            f"a gradient sum over the axes {left} of a larger mesh")
 
     def shard(self, x):
         """This rank's block of a global [B, T, ...] tensor: the batch

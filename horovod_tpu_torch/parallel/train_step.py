@@ -1,7 +1,7 @@
 """The split train step: gradient calls per microbatch, then one fused
 optimizer apply.
 
-Counterpart of horovod_tpu/parallel/train_step.py's non-ZeRO path of
+Counterpart of horovod_tpu/parallel/train_step.py's
 ``make_split_train_step`` with a fused optimizer (``precision``). JAX
 compiles the grad and apply as two jits joined by donated buffers;
 PyTorch runs eagerly, so the same structure is a gradient call per
@@ -13,20 +13,38 @@ by 1/N inside each gradient call, so the accumulated gradients are the
 full-batch mean-loss gradients and the accumulated loss is the
 full-batch mean loss; gradients accumulate in the params' dtype (a bf16
 add rounds as ``jnp.add`` does). The step follows the params' device
-and never moves them. ZeRO-1 (``zero=``, ROADMAP.md A9), step telemetry
-(``telemetry=``, A12) and optax transformations (no optax in the port)
-are not ported.
+and never moves them.
+
+``zero=`` (a ``parallel.zero.ZeroConfig``) makes the apply ZeRO-1's:
+the gradient buckets reduce-scattered over the zero axis, Adam on this
+rank's 1/N shard of the state, the params allgathered back. Its two
+layouts, chosen by ``HOROVOD_JIT_FUSION`` (``parallel.fusion``) when the
+step is built: unfused, the gradient calls and then the apply one bucket
+at a time; fused (the default), each bucket's reduce-scatter starts from
+an autograd hook as the backward of the last microbatch completes the
+bucket (after its gradient is added into the accumulator), so it
+overlaps the rest of the backward. Both give the same bits. Under
+``ZeroConfig.mesh`` the gradient calls run inside
+``mesh.defer_grad_sum(zero.axis)``, so the model sums its gradients over
+the other mesh axes and the reduce-scatter alone over the zero axis;
+without a mesh each rank's loss is the mean over its own batch and the
+reduce-scatter averages (``parallel/zero.py``). The loss returned is this
+rank's. Step telemetry (``telemetry=``, ROADMAP.md A12) and optax
+transformations (no optax in the port) are not ported.
 """
 
+import contextlib
 from typing import Any, NamedTuple
 
 import torch
 
+from horovod_tpu_torch.parallel import fusion
 from horovod_tpu_torch.parallel._tree import (
     tree_leaves,
     tree_map,
     tree_unflatten,
 )
+from horovod_tpu_torch.parallel.zero import make_zero_apply
 
 
 class TrainStep(NamedTuple):
@@ -61,6 +79,68 @@ def _value_and_grad(loss_fn, params, batch, n):
     return loss.detach(), tree_unflatten(params, grads)
 
 
+def _accumulate(loss_fn, params, mbs, n, grad_call):
+    """The plain gradient calls of microbatches ``mbs``: the first one's
+    gradients become the accumulator, the others add into it."""
+    with grad_call():
+        loss, grads = _value_and_grad(loss_fn, params, mbs[0], n)
+        for mb in mbs[1:]:
+            mb_loss, mb_grads = _value_and_grad(loss_fn, params, mb, n)
+            loss = loss + mb_loss
+            for acc, g in zip(tree_leaves(grads), tree_leaves(mb_grads)):
+                acc.add_(g)
+    return loss, grads
+
+
+def _fused_zero_step(loss_fn, zero_apply, n, grad_call):
+    """The fused ZeRO-1 step: microbatches ``0..n-2`` run the plain
+    gradient calls; the last one's backward starts each bucket's
+    reduce-scatter from a hook; then, bucket by bucket in the order they
+    completed, the shard update and an async allgather, all drained
+    before the step returns."""
+
+    def step(carry, batch):
+        params, opt = carry
+        program = zero_apply.program
+        layout = program.layout
+        mbs = _split_microbatches(batch, n) if n > 1 else [batch]
+        loss, acc = None, None
+        if n > 1:
+            loss, acc = _accumulate(loss_fn, params, mbs[:-1], n, grad_call)
+            acc = tree_leaves(acc)
+        scattered = {}
+
+        def on_ready(i, leaves):
+            flat = layout.pack_bucket(leaves, i)
+            scattered[i] = (flat, *program.reduce_scatter(i, flat))
+
+        with grad_call():
+            # Only the scattered buckets keep the gradients: each is freed
+            # once its reduce-scatter is done.
+            last = fusion.value_and_grad_bucketed(
+                loss_fn, params, mbs[-1], n, layout, on_ready, acc)[0]
+        del acc
+        loss = last if loss is None else loss + last
+        p_leaves = tree_leaves(params)
+        count = opt.count + 1
+        gathers = []
+        with torch.no_grad():
+            for i in list(scattered):
+                flat, shard, work = scattered.pop(i)
+                if work is not None:
+                    work.wait()
+                del flat
+                gathers.append(program.all_gather(
+                    i, program.update(i, shard, p_leaves, opt, count),
+                    p_leaves))
+                del shard
+            for finish in gathers:
+                finish()
+        return loss, (params, opt._replace(count=count))
+
+    return step
+
+
 def make_split_train_step(loss_fn, optimizer, *, microbatches=1,
                           telemetry=None, zero=None):
     """Build the split step for ``loss_fn(params, batch) -> scalar``.
@@ -69,16 +149,16 @@ def make_split_train_step(loss_fn, optimizer, *, microbatches=1,
     (``fused_adam`` or ``fused_master_adam``: ``init``/``apply``). For
     the master variant the carry's params are the compute-dtype cast
     built by ``init``; the f32 master lives in the optimizer state.
+    ``zero`` (a ``parallel.zero.ZeroConfig``) shards that state over the
+    zero axis: the carry's state is then this rank's block
+    (``ZeroAdamState`` / ``ZeroMasterAdamState``).
 
     Returns ``TrainStep(init, step)`` with ``init(params) -> carry`` and
     ``step(carry, batch) -> (loss, carry)``; ``batch`` is a dict of
-    tensors on the params' device, split along its leading axis into
-    ``microbatches`` gradient calls.
+    tensors on the params' device (this rank's share of the batch under
+    ``zero``), split along its leading axis into ``microbatches``
+    gradient calls.
     """
-    if zero is not None:
-        raise NotImplementedError(
-            "zero= (the ZeRO-1 sharded apply) is not ported yet "
-            "(ROADMAP.md A9)")
     if telemetry is not None:
         raise NotImplementedError(
             "telemetry= (StepTimer) is not ported yet (ROADMAP.md A12)")
@@ -91,22 +171,32 @@ def make_split_train_step(loss_fn, optimizer, *, microbatches=1,
     if n < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
 
+    grad_call = contextlib.nullcontext
+    if zero is not None:
+        zero_apply, init = make_zero_apply(optimizer, zero)
+        if zero.mesh is not None:
+            def grad_call():
+                return zero.mesh.defer_grad_sum(zero.axis)
+        if fusion.jit_fusion_enabled():
+            return TrainStep(init=init, step=_fused_zero_step(
+                loss_fn, zero_apply, n, grad_call))
+
+        def apply(params, grads, opt):
+            return zero_apply(grads, params, opt)
+    else:
+        apply = optimizer.apply
+
+        def init(params):
+            opt = optimizer.init(params)
+            if hasattr(optimizer, "compute_params"):
+                params = optimizer.compute_params(opt)
+            return (params, opt)
+
     def step(carry, batch):
         params, opt = carry
         mbs = _split_microbatches(batch, n) if n > 1 else [batch]
-        loss, grads = _value_and_grad(loss_fn, params, mbs[0], n)
-        for mb in mbs[1:]:
-            mb_loss, mb_grads = _value_and_grad(loss_fn, params, mb, n)
-            loss = loss + mb_loss
-            for acc, g in zip(tree_leaves(grads), tree_leaves(mb_grads)):
-                acc.add_(g)
-        params, opt = optimizer.apply(params, grads, opt)
+        loss, grads = _accumulate(loss_fn, params, mbs, n, grad_call)
+        params, opt = apply(params, grads, opt)
         return loss, (params, opt)
-
-    def init(params):
-        opt = optimizer.init(params)
-        if hasattr(optimizer, "compute_params"):
-            params = optimizer.compute_params(opt)
-        return (params, opt)
 
     return TrainStep(init=init, step=step)

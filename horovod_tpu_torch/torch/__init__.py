@@ -26,9 +26,12 @@ and ``cross_plane``, ``CROSS_PLANE_MODES``, ``hier_split``,
 ``set_wire_compression``, ``wire_codec`` and ``set_wire_codec``. A job
 starts under the port's own launcher (``horovodrun-torch``,
 ``runner/launch.py``), its elastic driver, or a bare ``mpirun``
-(``common/mpi_bootstrap.py``). Still to port behind the same names: the
-control tree and wire checksums (L8), control frames over MPI (L9b) and
-the JAX frontend's functional lane (L11).
+(``common/mpi_bootstrap.py``). The JAX frontend's functional lane
+(``torch/fused_optimizer.py``): ``allreduce_gradients``,
+``DistributedFusedAdam`` (with ``zero=True``, ZeRO-1 on the lane) and
+``make_fused_train_step``; ``init(jit_fusion=...)``. Still to port
+behind the same names: the control tree and wire checksums (L8) and
+control frames over MPI (L9b).
 """
 
 from horovod_tpu_torch.common.basics import (  # noqa: F401
@@ -56,6 +59,11 @@ from horovod_tpu_torch.common.process_sets import (  # noqa: F401
     remove_process_set,
 )
 from horovod_tpu_torch.torch.compression import Compression  # noqa: F401
+from horovod_tpu_torch.torch.fused_optimizer import (  # noqa: F401
+    DistributedFusedAdam,
+    allreduce_gradients,
+    make_fused_train_step,
+)
 from horovod_tpu_torch.torch.functions import (  # noqa: F401
     allgather_object,
     broadcast_object,

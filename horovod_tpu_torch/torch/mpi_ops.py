@@ -39,9 +39,20 @@ Max = ReduceOp.MAX
 Product = ReduceOp.PRODUCT
 Adasum = ReduceOp.ADASUM
 
-# Under the elastic driver (HOROVOD_RDZV_ADDR) init takes its epoch's
-# rank assignment first.
-init = _elastic.init
+
+
+def init(device=None, epoch=None, jit_fusion=None):
+    """Open the lane (``common/elastic.py init``: under the elastic driver
+    it first takes its epoch's rank assignment). ``jit_fusion``
+    (tri-state) overrides ``HOROVOD_JIT_FUSION``, the fused ZeRO-1
+    schedule's knob (``parallel/fusion.py``); None follows the
+    environment."""
+    if jit_fusion is not None:
+        from horovod_tpu_torch.parallel import fusion
+
+        fusion.set_jit_fusion(jit_fusion)
+    _elastic.init(device, epoch=epoch)
+
 shutdown = basics.shutdown
 is_initialized = basics.is_initialized
 rank = basics.rank

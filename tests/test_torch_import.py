@@ -42,6 +42,9 @@ def test_import_loads_no_jax_triton_or_reference_package():
         "import horovod_tpu_torch.models.convert\n"
         "import horovod_tpu_torch.serving.engine\n"
         "import horovod_tpu_torch.parallel.train_step\n"
+        "import horovod_tpu_torch.parallel.zero\n"
+        "import horovod_tpu_torch.parallel.fusion\n"
+        "import horovod_tpu_torch.torch.fused_optimizer\n"
         "import horovod_tpu_torch.parallel.precision\n"
         "import horovod_tpu_torch.parallel.ring_attention\n"
         "import horovod_tpu_torch.parallel.ulysses\n"
@@ -110,6 +113,9 @@ def test_import_builds_nothing():
         "import horovod_tpu_torch.ops.grouped_moe\n"
         "import horovod_tpu_torch.serving.engine\n"
         "import horovod_tpu_torch.parallel.train_step\n"
+        "import horovod_tpu_torch.parallel.zero\n"
+        "import horovod_tpu_torch.parallel.fusion\n"
+        "import horovod_tpu_torch.torch.fused_optimizer\n"
         "import horovod_tpu_torch.parallel.ring_attention\n"
         "import horovod_tpu_torch.parallel.ulysses\n"
         "import horovod_tpu_torch.torch\n"

@@ -31,6 +31,7 @@ from horovod_tpu_torch.models.convert import (
     from_jax_params,
 )
 from horovod_tpu_torch.parallel import precision
+from horovod_tpu_torch.parallel.zero import ZeroConfig
 from horovod_tpu_torch.parallel.train_step import (
     _split_microbatches,
     make_split_train_step,
@@ -147,8 +148,11 @@ def test_master_carry_is_bf16_and_loss_falls():
     assert losses[-1] < losses[0], losses
 
 
-@pytest.mark.parametrize("kw,item", [({"zero": object()}, "A9"),
-                                     ({"telemetry": object()}, "A12")])
+# ZeRO-1 itself is ported (tests/test_torch_zero*.py); its cross-plane
+# split (inter_axis) is A9b, which the "A9" match covers.
+@pytest.mark.parametrize("kw,item", [
+    ({"zero": ZeroConfig(size=2, inter_axis="slice", inter_size=2)}, "A9"),
+    ({"telemetry": object()}, "A12")])
 def test_unported_arguments_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         make_split_train_step(lambda p, d: 0.0,
