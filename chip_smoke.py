@@ -11,8 +11,8 @@ and drives the port's serving and training paths at the full width of
 the flagship dense Llama and of the repo's sparse-MoE Llama, and BERT-
 Large's MLM training (also under elastic recovery), and the Horovod lane
 (its autotuner, parole door, wire codecs and cross-plane allreduce too),
-a job started by the port's launcher, and ZeRO-1 on both lanes, in
-phases; any failed phase
+a job started by the port's launcher, ZeRO-1 on both lanes, the Adam
+update's kernel and ResNet-50 training, in phases; any failed phase
 exits non-zero before the result line. ``python3 chip_smoke.py
 --launched-worker static|elastic DIR`` is one rank of that job.
 
@@ -43,7 +43,8 @@ exits non-zero before the result line. ``python3 chip_smoke.py
 6. Training: ``make_split_train_step(llama_loss, fused_adam(3e-4))`` at
    batch 4 x 2048 tokens, ``remat="attn+gate"``, bf16 params: one
    warm-up step, 5 timed steps on one fixed batch; K1, K2 and K3 must
-   each launch 14 times per grad call and the loss must fall. Also the
+   each launch 14 times per grad call, the Adam kernel once a param leaf
+   a step, and the loss must fall. Also the
    lm_head's f32-output product (which path this torch takes, its cost).
 7. Training parity: at flagship widths in f32 (2 layers, batch 2 x
    256), loss and gradients on the card match the plain CPU path, and
@@ -52,8 +53,9 @@ exits non-zero before the result line. ``python3 chip_smoke.py
 8. MoE training: ``benchmarks/moe_bench.py``'s config and step (split
    step, ``fused_adam(3e-4)``, 2 microbatches, ``remat="moe"``) at
    batch 4 x 2048: one warm-up and 4 timed steps; per grad call K5 and
-   K6's two halves launch 36 times each and K1-K3 12 times each; the
-   loss must fall. Active-parameter MFU, peak memory, a profile. First,
+   K6's two halves launch 36 times each and K1-K3 12 times each, the
+   Adam kernel once a param leaf a step; the loss must fall.
+   Active-parameter MFU, peak memory, a profile. First,
    one layer's grouped FFN runs forward and backward with no host sync.
 9. MoE serving: ``llama_generate`` b16 (K5 3 per layer in prefill and
    in each decode step) and b1 (decode by the top-K gather: no K5);
@@ -105,7 +107,7 @@ exits non-zero before the result line. ``python3 chip_smoke.py
    tok/s, MFU by ``bench.py:123 _mfu_row``'s formula, peak memory, the
    f32 logits product's share, a profile; per step K1 launches 48 times
    with the bias (forward and the remat recompute), K2 and K3 24, all on
-   wgmma; the loss must fall.
+   wgmma, the Adam kernel once a param leaf; the loss must fall.
 14. ``bert_forward`` alone at the same batch: ms, K1 24 per call.
 15. BERT parity at BERT-Large widths, 2 layers, B4 x T128, lengths
    128/77/1/0: f32 loss and gradients on the card (the FMA route)
@@ -214,7 +216,9 @@ exits non-zero before the result line. ``python3 chip_smoke.py
    (``HOROVOD_JIT_FUSION``), losses, params and state bit-identical to
    the replicated split step's; (b) the same with ``fused_master_adam``
    (f32 params, bf16 compute); ms/step, first step, peak memory and state
-   bytes of all three, K1-K3 14 launches each per grad call on wgmma;
+   bytes of all three, K1-K3 14 launches each per grad call on wgmma,
+   the Adam kernel (its master variant in (b)) once a param leaf a step
+   replicated and once a ``ADAM_CHUNK`` of a bucket's shard under ZeRO;
    (c) ``hvd.DistributedFusedAdam`` on NCCL over the flagship's bf16
    gradients, ``zero=True`` with ``overlap`` on and off and ``zero=
    False``, each bit-identical to ``fused_adam``'s apply, ms per apply
@@ -225,10 +229,28 @@ exits non-zero before the result line. ``python3 chip_smoke.py
    replicated losses, ms/step; (e) the lane's reducescatter on gloo in
    f32 and bf16 on this torch. Across cards: ``tests/
    test_torch_zero_cuda_ranks.py``.
-23. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
-   launches, K1-K3's offsets rows with phase 17's launches, and the six
-   codec kernels with phase 20 (b)'s), the card line, and the result
-   line ``{"ok": true, "device": {...}}``.
+23. The Adam update's kernel (``csrc/adam.cu``): (a) both variants
+   (moments in the parameter dtype, bf16 and f32; an f32 master with a
+   bf16 or f32 gradient and its compute cast) against the plain version
+   bit for bit over 3 successive counts, at a length off the 8-element
+   vector and on a view one element off the 16-byte alignment; (b) one
+   apply over the flagship's leaves (bf16, and its f32 master with bf16
+   gradients) bit for bit leaf by leaf, then ms per apply of the kernel,
+   the plain version and ``torch._fused_adam_`` (the library yardstick,
+   never on the path) beside the bound of the bytes moved.
+24. ResNet-50 (depth 50, 1000 classes, f32 params, bf16 compute, NHWC)
+   trained by ``examples/torch_port/torch_resnet50.py``'s step with the
+   lane open at world size 1 on NCCL, B128 x 224 x 224 x 3: images/s
+   (the median step after 2 warm-up), ms/step, peak memory, the
+   profiler's busy share, no kernel of the port launched (the JAX
+   package has none on this path); then depth 18, width 8, f32 with TF32
+   off: the loss, gradients and running statistics on the card against
+   the CPU on the same weights.
+25. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
+   launches, K1-K3's offsets rows with phase 17's launches, the six
+   codec kernels with phase 20 (b)'s, and the Adam kernel's two
+   variants with the train paths' launches), the card line, and the
+   result line ``{"ok": true, "device": {...}}``.
 
 Weights are random (``torch.Generator`` seeds); nothing is downloaded.
 """
@@ -341,6 +363,7 @@ KERNEL_KINDS = (("K1-K3 flash", ("flash_",)),
                 ("K4 decode", ("decode_attention", "namespace)::scores_",
                                "namespace)::pv_", "namespace)::reduce_")),
                 ("K5/K6 grouped", ("gmm_",)),
+                ("Adam", ("adam_kernel",)),
                 ("matmul", ("gemm", "nvjet", "xmma", "cutlass")),
                 ("elementwise", ("elementwise",)),
                 ("reduction", ("reduce", "norm", "softmax")),
@@ -687,12 +710,13 @@ def flagship_config(LlamaConfig):
                        param_dtype="bfloat16")
 
 
-def launch_counters(fa, da, gm):
-    """Every kernel wrapper of the port, by the name the counts use."""
+def launch_counters(fa, da, gm, adam):
+    """Every kernel wrapper of the main paths, by the name the counts
+    use: K1-K6 and the Adam update."""
     return {"K1": fa._flash_fwd_cuda, "K2": fa._flash_bwd_dkv_cuda,
             "K3": fa._flash_bwd_dq_cuda, "K4": da._decode_attention_cuda,
             "K5": gm._gmm_cuda, "K6 dlhs": gm._gmm_dlhs_cuda,
-            "K6 tgmm": gm._tgmm_cuda}
+            "K6 tgmm": gm._tgmm_cuda, "Adam": adam._adam_cuda}
 
 
 # The kernels with a wgmma route for bf16 (and an FMA route for f32).
@@ -707,6 +731,21 @@ def reset_counts(ctr):
             fn.offsets_launches = 0
         for route in getattr(fn, "launches_by_route", ()):
             fn.launches_by_route[route] = 0
+        for variant in getattr(fn, "launches_by_variant", ()):
+            fn.launches_by_variant[variant] = 0
+
+
+def check_adam(ctr, path, per_step, steps, variant="adam"):
+    """The Adam kernel launched ``per_step`` times a step (one a leaf or
+    ZeRO chunk), all of ``variant``, since the counts were reset."""
+    fn = ctr["Adam"]
+    want = {v: per_step * steps if v == variant else 0
+            for v in fn.launches_by_variant}
+    check(fn.launches == per_step * steps and
+          fn.launches_by_variant == want,
+          f"{path}: the Adam kernel launched {fn.launches} times "
+          f"({fn.launches_by_variant}) in {steps} steps, expected "
+          f"{per_step} {variant} launches a step")
 
 
 def counts(ctr):
@@ -890,6 +929,8 @@ def logits_case(torch, llama, cfg, tokens):
 
 def run_train(torch, ctr, llama, precision, train_step, cfg, batch,
               seq, steps, card):
+    from horovod_tpu_torch.parallel._tree import tree_leaves
+
     params = llama.llama_init(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     n_params = sum(w.numel() for w in params["layers"].values()) + sum(
@@ -917,6 +958,7 @@ def run_train(torch, ctr, llama, precision, train_step, cfg, batch,
     dt = (time.perf_counter() - t0) / steps
     launched = counts(ctr)
     check_wgmma_routes(ctr, "train step")
+    check_adam(ctr, "train step", len(tree_leaves(carry[0])), steps)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
     L = cfg.n_layers
@@ -1194,6 +1236,8 @@ def moe_ffn_without_host_sync(torch, gm, cfg, tokens):
 def run_moe_train(torch, ctr, llama, precision, train_step, cfg, batch, seq,
                   steps, card):
     """moe_bench.py's step: split step, fused Adam, 2 microbatches."""
+    from horovod_tpu_torch.parallel._tree import tree_leaves
+
     params = llama.llama_init(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     total, active = param_counts(params, cfg)
@@ -1224,6 +1268,7 @@ def run_moe_train(torch, ctr, llama, precision, train_step, cfg, batch, seq,
     dt = (time.perf_counter() - t0) / steps
     launched = counts(ctr)
     check_wgmma_routes(ctr, "MoE train step")
+    check_adam(ctr, "MoE train step", len(tree_leaves(carry[0])), steps)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
     L = cfg.n_layers
@@ -2174,6 +2219,7 @@ def run_bert_train(torch, ctr, bert, precision, train_step, cfg, batch, seq,
         losses.append(loss)
     launched, biased = counts(ctr), bias_counts(ctr)
     check_wgmma_routes(ctr, "BERT train step")
+    check_adam(ctr, "BERT train step", len(tree_leaves(carry[0])), steps)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
     L = cfg.n_layers
@@ -3233,8 +3279,8 @@ def run_lane_tuning(torch, ctr, llama, bert, precision, train_step, cfg,
                door=lane_door(torch, hvd, bert, precision, train_step, bcfg,
                               card, reset18_ms))
     launched = counts(ctr)
-    check(not any(launched.values()),
-          f"phase 19 launched a kernel: {launched}")
+    check(not any(n for k, n in launched.items() if k != "Adam"),
+          f"phase 19 launched a kernel of K1-K6: {launched}")
     return out
 
 
@@ -3833,7 +3879,9 @@ def launched_worker(mode, out):
     import torch
 
     import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.common import basics
     from horovod_tpu_torch.models import bert
+    from horovod_tpu_torch.ops import adam
     from horovod_tpu_torch.ops import decode_attention as da
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import grouped_moe as gm
@@ -3841,13 +3889,14 @@ def launched_worker(mode, out):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ctr = launch_counters(fa, da, gm)
+    ctr = launch_counters(fa, da, gm, adam)
     reset_counts(ctr)
     hvd.init()
     record = dict(device=torch.cuda.current_device(), pid=os.getpid())
-    check(record["device"] == hvd.local_rank(),
-          f"rank {hvd.rank()}: current device {record['device']}, local "
-          f"rank {hvd.local_rank()}")
+    card = basics.card_index(hvd.local_rank())
+    check(record["device"] == card,
+          f"rank {hvd.rank()}: current device {record['device']}, its card "
+          f"{card} (local rank {hvd.local_rank()})")
     marker = os.path.join(out, "fault.json")
 
     def on_step(step, state):
@@ -4161,6 +4210,17 @@ def zero_split_runs(torch, ctr, llama, precision, train_step, fusion, Z,
                                               steps)
             launched = counts(ctr)
             check_wgmma_routes(ctr, f"phase 22 {kind} {name}")
+            if zero is None:
+                per_step = len(Z.tree_leaves(carry[0]))
+            else:
+                layout = Z.zero_bucket_layout(
+                    Z.layout_leaves(Z._optimizer_hyper(make_opt()),
+                                    carry[0]), 1, Z.DEFAULT_BUCKET_BYTES)
+                per_step = sum(-(-b.shard_elems(1) // Z.ADAM_CHUNK)
+                               for b in layout.buckets)
+            check_adam(ctr, f"phase 22 {kind} {name}", per_step, steps,
+                       variant=kind)
+            total["Adam " + kind] += launched["Adam"]
         finally:
             fusion.set_jit_fusion(None)
         for k in ("K1", "K2", "K3"):
@@ -4343,6 +4403,7 @@ def run_zero_phase(torch, ctr, llama, precision, train_step, cfg, card):
         4, 2048)).astype(np.int32)).cuda()
     data = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
     total = {k: 0 for k in ctr}
+    total.update({"Adam adam": 0, "Adam master": 0})
     split = {}
     for kind in ("adam", "master"):
         split[kind] = zero_split_runs(torch, ctr, llama, precision,
@@ -4389,6 +4450,315 @@ def run_zero_phase(torch, ctr, llama, precision, train_step, cfg, card):
                        launches=total)
 
 
+# ---- phase 23: the Adam update as one kernel --------------------------------
+
+ADAM_HYPER = (3e-4, 0.9, 0.999, 1e-8)
+ADAM_FLOPS = 14          # f32 operations an element (mul, add, div, sqrt)
+# (label, variant, p/mu/nu dtype, g (and cast) dtype)
+ADAM_VARIANTS = (("bf16", "adam", "bfloat16", "bfloat16"),
+                 ("f32", "adam", "float32", "float32"),
+                 ("f32 master, bf16 g", "master", "float32", "bfloat16"),
+                 ("f32 master, f32 g", "master", "float32", "float32"))
+
+
+def adam_leaf_inputs(torch, shape, p_dtype, g_dtype, seed, offset=0):
+    """p, g, mu, nu as views ``offset`` elements into larger buffers,
+    random values of an Adam state's magnitudes."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = int(np.prod(shape))
+
+    def view(dtype, scale, positive=False):
+        t = torch.randn(n + offset, generator=gen, device="cuda")
+        t = (t.abs_() if positive else t).mul_(scale).to(dtype)
+        return t[offset:].view(shape)
+
+    return (view(p_dtype, 1.0), view(g_dtype, 1e-2), view(p_dtype, 1e-3),
+            view(p_dtype, 1e-5, positive=True))
+
+
+def adam_bias(torch, precision, step):
+    return precision._bias_corrections(
+        torch.full((), step, dtype=torch.int32, device="cuda"),
+        ADAM_HYPER[1], ADAM_HYPER[2])
+
+
+def adam_edge_cases(torch, adam, precision):
+    """Phase 23 (a): both variants at bf16 and f32 against the plain
+    version bit for bit over 3 successive counts, at a length that is not
+    a multiple of the 8-element vector and on a view one element off the
+    16-byte alignment (the scalar path)."""
+    n, out = 1_000_003, []
+    for label, variant, pd, gd in ADAM_VARIANTS:
+        for offset in (0, 1):
+            p, g, mu, nu = adam_leaf_inputs(
+                torch, (n,), getattr(torch, pd), getattr(torch, gd),
+                len(out), offset)
+            runs = {k: [t.clone() for t in (p, mu, nu)]
+                    for k in ("kernel", "plain")}
+            casts = {k: torch.empty(n, dtype=g.dtype, device="cuda")
+                     for k in runs} if variant == "master" else None
+            for step in (1, 2, 3):
+                bc1, bc2 = adam_bias(torch, precision, step)
+                for k, fn in (("kernel", adam._adam_cuda),
+                              ("plain", adam._adam_plain)):
+                    tp, tmu, tnu = runs[k]
+                    fn(tp, g, tmu, tnu, *ADAM_HYPER, bc1, bc2, None,
+                       None if casts is None else casts[k])
+                torch.cuda.synchronize()
+                got = runs["kernel"] + ([casts["kernel"]] if casts else [])
+                want = runs["plain"] + ([casts["plain"]] if casts else [])
+                check(all(torch.equal(a.view(torch.uint8),
+                                      b.view(torch.uint8))
+                          for a, b in zip(got, want)),
+                      f"phase 23 (a) {label} n={n} offset {offset} step "
+                      f"{step}: the kernel's bits differ from the plain "
+                      "version's")
+            out.append(f"{label} +{offset}")
+    log(f"  (a) both variants bit-identical to the plain version over 3 "
+        f"steps at n={n} (not a multiple of 8), aligned and 1 element "
+        f"off: {out}")
+    return out
+
+
+def flagship_adam_leaves(torch, llama, cfg, variant, g_dtype):
+    """The flagship's param leaves as one apply's inputs: the bf16 params
+    (``adam``) or their f32 master (``master``), gradients in
+    ``g_dtype``, moments in the params' dtype (f32 for the master), and
+    for the master the compute cast's buffers."""
+    from horovod_tpu_torch.parallel._tree import tree_leaves
+
+    params = tree_leaves(llama.llama_init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+    if variant == "master":
+        params = [p.float() for p in params]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def like(p, dtype, scale, positive=False):
+        t = torch.empty(p.shape, dtype=dtype, device="cuda")
+        for row in t.view(-1).split(1 << 26):      # bounded f32 draws
+            r = torch.randn(row.shape, generator=gen, device="cuda")
+            row.copy_((r.abs_() if positive else r).mul_(scale))
+        return t
+
+    g = [like(p, g_dtype, 1e-2) for p in params]
+    mu = [like(p, p.dtype, 1e-3) for p in params]
+    nu = [like(p, p.dtype, 1e-5, positive=True) for p in params]
+    casts = [torch.empty(p.shape, dtype=g_dtype, device="cuda")
+             for p in params] if variant == "master" else None
+    return params, g, mu, nu, casts
+
+
+def adam_flagship(torch, adam, precision, llama, cfg, variant, g_dtype,
+                  card):
+    """Phase 23 (b): one apply over the flagship's leaves, kernel against
+    the plain version bit for bit leaf by leaf, then ms per apply of the
+    kernel, the plain version and ``torch._fused_adam_`` (the library
+    column; for the master variant over the f32 master with f32
+    gradients, without the cast), beside the bytes' bound."""
+    p, g, mu, nu, casts = flagship_adam_leaves(torch, llama, cfg, variant,
+                                               g_dtype)
+    bc1, bc2 = adam_bias(torch, precision, 1)
+    worst = 0.0
+    for i in range(len(p)):
+        runs = {k: [t.clone() for t in (p[i], mu[i], nu[i])]
+                for k in ("kernel", "plain")}
+        cast = {k: None if casts is None else torch.empty_like(casts[i])
+                for k in runs}
+        adam._adam_cuda(*runs["kernel"][:1], g[i], *runs["kernel"][1:],
+                        *ADAM_HYPER, bc1, bc2, None, cast["kernel"])
+        adam._adam_plain(*runs["plain"][:1], g[i], *runs["plain"][1:],
+                         *ADAM_HYPER, bc1, bc2, None, cast["plain"])
+        torch.cuda.synchronize()
+        got = runs["kernel"] + ([cast["kernel"]] if casts else [])
+        want = runs["plain"] + ([cast["plain"]] if casts else [])
+        for a, b in zip(got, want):
+            worst = max(worst, float((a.float() - b.float()).abs().max()))
+            check(torch.equal(a.view(torch.uint8), b.view(torch.uint8)),
+                  f"phase 23 (b) {variant} leaf {i} {tuple(a.shape)}: the "
+                  "kernel's bits differ from the plain version's")
+        del runs, cast
+    torch.cuda.empty_cache()
+
+    def apply(fn):
+        def run():
+            for i in range(len(p)):
+                fn(p[i], g[i], mu[i], nu[i], *ADAM_HYPER, bc1, bc2, None,
+                   None if casts is None else casts[i])
+        return run
+
+    n = sum(t.numel() for t in p)
+    moved = nbytes(*p, *g, *mu, *nu) + nbytes(*p, *mu, *nu) + (
+        nbytes(*casts) if casts else 0)
+    bound_ms, bound_by = bound(moved, ADAM_FLOPS * n, "float32")
+    ms = median_ms(torch, apply(adam._adam_cuda), reps=10)
+    plain_ms = median_ms(torch, apply(adam._adam_plain), reps=3, warmup=1)
+    lib_g = g if casts is None else [t.float() for t in g]
+    steps = [torch.ones((), dtype=torch.float32, device="cuda")
+             for _ in p]
+    lr, b1, b2, eps = ADAM_HYPER
+    library_ms = median_ms(torch, lambda: torch._fused_adam_(
+        p, lib_g, mu, nu, [], steps, lr=lr, beta1=b1, beta2=b2,
+        weight_decay=0.0, eps=eps, amsgrad=False, maximize=False), reps=10)
+    row = dict(variant=variant, leaves=len(p), params=n,
+               dtypes=f"{str(p[0].dtype)[6:]} p/mu/nu, "
+                      f"{str(g_dtype)[6:]} g", bytes=moved,
+               max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+               library_note="torch._fused_adam_ on the same leaves" + (
+                   "" if casts is None else
+                   ", the gradients upcast to f32 first (it takes no "
+                   "bf16 gradient beside an f32 param) and no cast "
+                   "written"))
+    log(f"  (b) {variant} over the flagship's {len(p)} leaves ({n / 1e9:.3f}"
+        f" B params, {row['dtypes']}): bit-identical to the plain version; "
+        f"kernel {ms:.3f} ms per apply, bound {bound_ms:.3f} ms ({bound_by}, "
+        f"{moved / 1e9:.2f} GB at 3.35 TB/s), plain {plain_ms:.2f} ms, "
+        f"torch._fused_adam_ {library_ms:.3f} ms; card {card}")
+    del p, g, mu, nu, casts, lib_g
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_adam_phase(torch, adam, precision, llama, cfg, card):
+    """Phase 23: the Adam kernel against its plain version, then timed."""
+    edge = adam_edge_cases(torch, adam, precision)
+    torch.cuda.empty_cache()
+    rows = {"adam": adam_flagship(torch, adam, precision, llama, cfg,
+                                  "adam", torch.bfloat16, card),
+            "master": adam_flagship(torch, adam, precision, llama, cfg,
+                                    "master", torch.bfloat16, card)}
+    return dict(edge_cases=edge, **rows)
+
+
+# ---- phase 24: ResNet-50 on one card ----------------------------------------
+
+
+def load_example(name):
+    """``examples/torch_port/<name>.py`` of this checkout as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "torch_port", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def resnet_parity(torch, resnet):
+    """Phase 24 (b): depth 18, width 8, f32 (TF32 off), 4 x 32 x 32 images
+    ("SAME" uneven): the loss, every gradient and the new running
+    statistics on the card against the CPU on the same weights (every
+    leaf perturbed from its init, so no residual branch is zero)."""
+    from horovod_tpu_torch.parallel._tree import tree_leaves, tree_map
+
+    cfg = resnet.ResNetConfig(depth=18, num_classes=10, width=8,
+                              compute_dtype="float32")
+    params, state = resnet.resnet_init(cfg, torch.Generator().manual_seed(1),
+                                       device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    params = tree_map(lambda t: t + 0.1 * torch.randn(
+        t.shape, generator=gen), params)
+    rng = np.random.default_rng(3)
+    batch = {"images": torch.from_numpy(rng.standard_normal(
+                 (4, 32, 32, 3)).astype(np.float32)),
+             "labels": torch.from_numpy(rng.integers(0, 10, 4))}
+
+    def run(device):
+        p = tree_map(lambda t: t.to(device).requires_grad_(True), params)
+        s = tree_map(lambda t: t.to(device), state)
+        b = {k: v.to(device) for k, v in batch.items()}
+        loss, new_s = resnet.resnet_loss(p, s, b, cfg, device=device)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        return float(loss.detach()), [t.detach().cpu() for t in (
+            *grads, *tree_leaves(new_s))]
+
+    cpu_loss, cpu_out = run("cpu")
+    card_loss, card_out = run("cuda")
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    leaf_err = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                   for a, b in zip(card_out, cpu_out))
+    log(f"  (b) f32 parity, depth 18 width 8, B4 32x32: card vs CPU loss rel "
+        f"err {loss_err:.3e} (tol 1e-5), gradients and running statistics "
+        f"{leaf_err:.3e} (tol 2e-4 of each leaf's max abs)")
+    check(loss_err <= 1e-5, f"ResNet loss on the card differs from the "
+          f"CPU's by {loss_err}")
+    check(leaf_err <= 2e-4, f"ResNet gradients or statistics on the card "
+          f"differ from the CPU's by {leaf_err}")
+    return dict(loss_rel_err=loss_err, leaf_rel_err=leaf_err)
+
+
+def run_resnet_phase(torch, ctr, card, batch=128, side=224, warmup=2,
+                     steps=10):
+    """Phase 24: ResNet-50 trained by ``examples/torch_port/
+    torch_resnet50.py``'s step (the lane open at world size 1 on NCCL)
+    at B128 x 224 x 224 x 3, bf16 compute, then the f32 parity case."""
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.parallel._tree import tree_leaves
+
+    example = load_example("torch_resnet50")
+    cfg = resnet.ResNetConfig(depth=50, num_classes=1000)
+    dev = torch.device("cuda")
+    hvd.init()
+    try:
+        params, state = resnet.resnet_init(
+            cfg, torch.Generator(device="cuda").manual_seed(0), device=dev)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        step = example.make_train_step(cfg, params, 0.0125 * hvd.size(),
+                                       dev)
+        data = example.synthetic_batch(np.random.RandomState(0), batch,
+                                       side, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs = [], []
+        t0 = time.perf_counter()
+        for _ in range(warmup):
+            loss, state = step(state, data)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        reset_counts(ctr)
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            loss, state = step(state, data)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(loss)
+        launched = counts(ctr)
+        peak = torch.cuda.max_memory_allocated()
+        prof = device_profile(torch, f"ResNet-50 train step B{batch} "
+                              f"{side}x{side}", lambda: step(state, data),
+                              top=10)
+        responses = lane_responses(hvd)
+    finally:
+        hvd.shutdown()
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"ResNet-50: non-finite loss {losses}")
+    check(not any(launched.values()),
+          f"ResNet-50 launched a kernel of the port: {launched}")
+    ms = float(np.median(secs)) * 1e3
+    out = dict(depth=50, batch=batch, image=side, n_params=n_params,
+               dtype=cfg.compute_dtype, ms_per_step=ms,
+               step_ms=[x * 1e3 for x in secs],
+               images_per_s=batch / (ms / 1e3), peak_gib=peak / 2**30,
+               first_steps_s=first_s, losses=losses,
+               busy_share=None if prof is None else 1 - prof["idle_share"],
+               profile=prof, lane_responses=responses)
+    log(f"  (a) ResNet-50 ({n_params / 1e6:.2f} M params, f32 params, bf16 "
+        f"compute, NHWC) B{batch} x {side}x{side}, torch_resnet50.py's step "
+        f"(SGD momentum 0.9, gradients averaged on the lane, NCCL, world "
+        f"size 1): {ms:.1f} ms/step (median of {steps}; "
+        f"{[round(x * 1e3, 1) for x in secs]}), {out['images_per_s']:.1f} "
+        f"images/s, peak {out['peak_gib']:.2f} GiB, first {warmup} steps "
+        f"{first_s:.2f} s, device busy share "
+        f"{'not measured' if prof is None else round(out['busy_share'], 3)}"
+        f"; losses {[round(x, 4) for x in losses]}; card {card}")
+    out["parity"] = resnet_parity(torch, resnet)
+    return out
+
+
 def main():
     import torch
 
@@ -4400,7 +4770,7 @@ def main():
         from horovod_tpu_torch.models import generate as gen
         from horovod_tpu_torch.models import llama
         from horovod_tpu_torch.models.llama import LlamaConfig, llama_init
-        from horovod_tpu_torch.ops import _build
+        from horovod_tpu_torch.ops import _build, adam
         from horovod_tpu_torch.ops import decode_attention as da
         from horovod_tpu_torch.ops import flash_attention as fa
         from horovod_tpu_torch.ops import grouped_moe as gm
@@ -4420,7 +4790,7 @@ def main():
     # token for token and gradient for gradient.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ctr = launch_counters(fa, da, gm)
+    ctr = launch_counters(fa, da, gm, adam)
 
     log("phase 1: card and build")
     card = subprocess.run(
@@ -4631,7 +5001,16 @@ def main():
                                        train_step, cfg, card)
     torch.cuda.empty_cache()
 
-    log("phase 23: results")
+    log("phase 23: the Adam update as one kernel (csrc/adam.cu)")
+    adam_stats = run_adam_phase(torch, adam, precision, llama, cfg, card)
+    torch.cuda.empty_cache()
+
+    log("phase 24: ResNet-50 on one card (examples/torch_port/"
+        "torch_resnet50.py's step)")
+    resnet50 = run_resnet_phase(torch, ctr, card)
+    torch.cuda.empty_cache()
+
+    log("phase 25: results")
     log(json.dumps({"generate": gen_stats, "engine": eng_stats,
                     "train": train_stats, "train_parity": parity,
                     "moe_train": moe_train_stats,
@@ -4644,6 +5023,7 @@ def main():
                     "bert_parity": bert_parity, "ring_replay": ring,
                     "elastic": elastic, "lane_tuning": tuning,
                     "wire": wire, "launcher": launched, "zero": zero,
+                    "adam": adam_stats, "resnet50": resnet50,
                     "card": card}))
     paths = {"llama_generate": gen_launch, "DecodeEngine": eng_launch,
              "train_step": train_launch, "moe_train_step": moe_train_launch,
@@ -4727,6 +5107,31 @@ def main():
                 "earlier_ms")},
             cases=[case[key] for case in offsets_cases]))
     kernels += codec_rows(wire)
+    # The Adam kernel, one row a variant: its launches are the train
+    # paths' (phase 22 (b) the master variant's, the rest the other's).
+    adam_paths = {
+        "adam": {**{p: n["Adam"] for p, n in paths.items() if n["Adam"]},
+                 "zero_train_step": zero_launch["Adam adam"]},
+        "master": {"zero_train_step": zero_launch["Adam master"]}}
+    adam_launches = {v: sum(by.values()) for v, by in adam_paths.items()}
+    check(adam_launches["adam"] > 0 and adam_launches["master"] > 0,
+          f"the Adam kernel's variants launched {adam_launches} times on "
+          "the main paths")
+    for variant, label in (("adam", "moments in the parameter dtype"),
+                           ("master", "f32 master, compute-dtype cast")):
+        head = adam_stats[variant]
+        kernels.append(dict(
+            name=f"Adam update ({label})", route="cuda",
+            source="horovod_tpu_torch/csrc/adam.cu",
+            replaces="none: horovod_tpu/parallel/precision.py:118 "
+                     "_adam_leaf, one XLA fusion (no Pallas kernel)",
+            launches=adam_launches[variant],
+            launches_by_path=adam_paths[variant],
+            **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "library_note")},
+            shape=f"{head['leaves']} flagship leaves, {head['params']} "
+                  f"params, {head['dtypes']}"))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

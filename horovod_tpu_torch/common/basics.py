@@ -196,10 +196,21 @@ _last_fault = None   # the newest fault record, kept across a reinit
 _tune_splits = False  # the probe's verdict: open the tuner's every split
 
 
+def card_index(local_rank):
+    """The card a process opens its lane on: its elastic driver's spawn
+    slot (``HOROVOD_ELASTIC_SLOT``, fixed for the process's life), else
+    ``local_rank``. Under the driver a survivor's local rank can change
+    at a new epoch (workers are numbered by spawn age) while its state
+    stays on the card it ran on; the slot keeps it there."""
+    slot = os.environ.get("HOROVOD_ELASTIC_SLOT")
+    return int(slot) if slot not in (None, "") else int(local_rank)
+
+
 def init(device=None, epoch=None):
     """Open the lane. ``device`` None means the card (``cuda`` must be
     available), ``"cpu"`` a gloo-only lane. On the card the lane takes
-    ``cuda:{local_rank}`` and makes it the process's current device.
+    ``cuda:{card_index(local_rank)}`` (the elastic driver's spawn slot,
+    else the local rank) and makes it the process's current device.
     ``epoch`` is the membership
     epoch to open at: None is 0, or under the elastic driver its epoch
     less one (every worker of an epoch names the same one); an elastic
@@ -218,7 +229,7 @@ def init(device=None, epoch=None):
                       local_size=_env_int("HOROVOD_LOCAL_SIZE", size),
                       cross_rank=_env_int("HOROVOD_CROSS_RANK", 0),
                       cross_size=_env_int("HOROVOD_CROSS_SIZE", 1))
-        card = (torch.device("cuda", layout["local_rank"])
+        card = (torch.device("cuda", card_index(layout["local_rank"]))
                 if dev.type == "cuda" else None)
         if card is not None:
             # "cuda" now means this rank's card, as an upstream script's

@@ -33,14 +33,18 @@ def _leaf_to_torch(a, device):
 
 
 def from_jax_params(tree, device=None):
-    """Convert a (nested dict) JAX parameter tree leaf for leaf, keeping
-    keys, shapes and dtypes; leaves land on ``device`` (default cuda)."""
+    """Convert a JAX parameter tree (nested dicts and lists, e.g. the
+    ResNet's params or its batch-norm state) leaf for leaf, keeping keys,
+    list order, shapes and dtypes; leaves land on ``device`` (default
+    cuda)."""
     return _tree_to_torch(tree, resolve_device(device))
 
 
 def _tree_to_torch(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to_torch(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to_torch(v, dev) for v in tree]
     return _leaf_to_torch(tree, dev)
 
 

@@ -1,13 +1,15 @@
-"""Fused single-pass Adam optimizers, plain tensor code.
+"""Fused Adam optimizers.
 
 Counterpart of the fused half of horovod_tpu/parallel/precision.py:
 ``fused_adam`` (moments in the parameter dtype) and
 ``fused_master_adam`` (f32 master weights and moments, the compute cast
-written in the same pass). The JAX package leaves these updates to XLA,
-outside any Pallas kernel, so here they are plain PyTorch: every update
-is computed in f32 and only the STORED moments and params are rounded
-to their dtype — the recipe ``fused_adam``'s JAX docstring pins for
-bf16 params.
+written in the same pass). The JAX package leaves each leaf's update to
+one XLA fusion; here each leaf is one call of ``ops.adam.adam_update``:
+one pass of the Hopper kernel ``csrc/adam.cu`` on the card, the plain
+PyTorch chain ``_adam_leaf`` on the CPU, the same bits. Every update is
+computed in f32 and only the STORED moments and params are rounded to
+their dtype — the recipe ``fused_adam``'s JAX docstring pins for bf16
+params.
 
 Both ``apply`` functions run under ``torch.no_grad()`` and update the
 params, moments and master IN PLACE, returning the same tensors: the
@@ -24,6 +26,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from horovod_tpu_torch.ops.adam import adam_update
 from horovod_tpu_torch.parallel._tree import tree_leaves, tree_map
 
 
@@ -43,17 +46,6 @@ class FusedOptimizer(NamedTuple):
     hyper: Any = None
 
 
-def _adam_leaf(p, g, mu, nu, lr, b1, b2, eps, bc1, bc2, out_dtype):
-    """One leaf's full Adam step in f32. Returns (p2 in ``out_dtype``,
-    mu2, nu2 in their own dtypes); the caller stores them."""
-    gf = g.float()
-    mu2 = b1 * mu.float() + (1.0 - b1) * gf
-    nu2 = b2 * nu.float() + (1.0 - b2) * torch.square(gf)
-    update = lr * (mu2 / bc1) / (torch.sqrt(nu2 / bc2) + eps)
-    p2 = (p.float() - update).to(out_dtype)
-    return p2, mu2.to(mu.dtype), nu2.to(nu.dtype)
-
-
 def _bias_corrections(count, b1, b2):
     cf = count.float()
     return 1.0 - b1 ** cf, 1.0 - b2 ** cf
@@ -64,9 +56,11 @@ def _zeros(tree):
 
 
 def fused_adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8):
-    """Single-pass Adam: moments in the parameter dtype, all update
-    arithmetic in f32 (for f32 params the same optimizer as
-    ``optax.adam``; for bf16 params it rounds only what it stores)."""
+    """Adam with moments in the parameter dtype, all update arithmetic in
+    f32 (for f32 params the same optimizer as ``optax.adam``; for bf16
+    params it rounds only what it stores). Each leaf's update is one
+    ``adam_update``: one kernel launch on the card (``csrc/adam.cu``),
+    the plain ``_adam_leaf`` chain on the CPU."""
 
     def init(params):
         leaf = tree_leaves(params)[0]
@@ -81,11 +75,7 @@ def fused_adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8):
         for p, g, mu, nu in zip(tree_leaves(params), tree_leaves(grads),
                                 tree_leaves(state.mu),
                                 tree_leaves(state.nu)):
-            p2, mu2, nu2 = _adam_leaf(p, g, mu, nu, learning_rate, b1, b2,
-                                      eps, bc1, bc2, p.dtype)
-            p.copy_(p2)
-            mu.copy_(mu2)
-            nu.copy_(nu2)
+            adam_update(p, g, mu, nu, learning_rate, b1, b2, eps, bc1, bc2)
         return params, FusedAdamState(count=count, mu=state.mu,
                                       nu=state.nu)
 
@@ -142,12 +132,8 @@ def fused_master_adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8,
                 tree_leaves(params), tree_leaves(grads),
                 tree_leaves(state.master), tree_leaves(state.mu),
                 tree_leaves(state.nu)):
-            m2, mu2, nu2 = _adam_leaf(m, g, mu, nu, learning_rate, b1, b2,
-                                      eps, bc1, bc2, m.dtype)
-            m.copy_(m2)
-            mu.copy_(mu2)
-            nu.copy_(nu2)
-            p.copy_(m2.to(compute_dtype))
+            adam_update(m, g, mu, nu, learning_rate, b1, b2, eps, bc1, bc2,
+                        cast=p)
         return params, FusedMasterState(master=state.master, count=count,
                                         mu=state.mu, nu=state.nu)
 

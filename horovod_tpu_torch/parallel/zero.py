@@ -50,8 +50,9 @@ from typing import Any, NamedTuple
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch.ops.adam import adam_update
 from horovod_tpu_torch.parallel._tree import tree_leaves, tree_unflatten
-from horovod_tpu_torch.parallel.precision import _adam_leaf, _bias_corrections
+from horovod_tpu_torch.parallel.precision import _bias_corrections
 
 _all_gather_flat = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
@@ -371,23 +372,23 @@ def zero_state_init(hyper, layout, params, axis):
 @torch.no_grad()
 def shard_adam(hyper, p_shard, g_shard, mu, nu, count, out_dtype,
                master=False):
-    """Adam on one flat shard, ``ADAM_CHUNK`` elements at a time: writes
-    ``mu`` and ``nu`` (and, with ``master``, ``p_shard``) in place and
-    returns the updated shard in ``out_dtype``."""
+    """Adam on one flat shard, one ``adam_update`` (one kernel launch on
+    the card) per ``ADAM_CHUNK`` elements: writes ``mu`` and ``nu`` (and,
+    with ``master``, ``p_shard``) in place and returns the updated shard
+    in ``out_dtype``. The chunks bound the plain version's temporaries on
+    the CPU."""
     lr, b1, b2, eps = (hyper[k] for k in ("learning_rate", "b1", "b2",
                                           "eps"))
     bc1, bc2 = _bias_corrections(count, b1, b2)
     out = torch.empty(p_shard.shape, dtype=out_dtype, device=p_shard.device)
     for lo in range(0, p_shard.numel(), ADAM_CHUNK):
         sl = slice(lo, lo + ADAM_CHUNK)
-        p2, mu2, nu2 = _adam_leaf(p_shard[sl], g_shard[sl], mu[sl], nu[sl],
-                                  lr, b1, b2, eps, bc1, bc2, p_shard.dtype)
-        mu[sl].copy_(mu2)
-        nu[sl].copy_(nu2)
         if master:
-            p_shard[sl].copy_(p2)
-        out[sl].copy_(p2)
-        del p2, mu2, nu2   # before the next chunk's temporaries
+            adam_update(p_shard[sl], g_shard[sl], mu[sl], nu[sl], lr, b1, b2,
+                        eps, bc1, bc2, cast=out[sl])
+        else:
+            adam_update(p_shard[sl], g_shard[sl], mu[sl], nu[sl], lr, b1, b2,
+                        eps, bc1, bc2, out=out[sl])
     return out
 
 

@@ -7,10 +7,13 @@ The port's own copy of ``horovod_tpu/runner/elastic/driver.py``
 ``_cut_epoch:312``). It gives each worker what the port's worker reads
 (``common/elastic.py init``): ``HOROVOD_ELASTIC``,
 ``HOROVOD_WORKER_ID``, ``HOROVOD_HOSTNAME`` and the rendezvous's
-``HOROVOD_RDZV_ADDR``/``PORT``; the worker then takes its epoch's
-layout and controller endpoint, and ``HOROVOD_ELASTIC_EPOCH``, from
-the rendezvous. On the card each worker's ``local_rank`` picks its
-card (``cuda:{local_rank}``).
+``HOROVOD_RDZV_ADDR``/``PORT``, and its spawn slot on the host,
+``HOROVOD_ELASTIC_SLOT``; the worker then takes its epoch's layout and
+controller endpoint, and ``HOROVOD_ELASTIC_EPOCH``, from the
+rendezvous. On the card each worker's slot picks its card
+(``cuda:{slot}``): a survivor's ``local_rank`` can change at a new
+epoch (the layout numbers a host's workers by spawn age), its card and
+the state restored onto it do not.
 
 Lifecycle per epoch:
   1. reconcile: kill workers on removed hosts, spawn workers for empty
@@ -177,6 +180,9 @@ class ElasticDriver:
                 "HOROVOD_HOSTNAME": host,
                 "HOROVOD_RDZV_ADDR": self._rdzv_addr(),
                 "HOROVOD_RDZV_PORT": str(self._rendezvous.port),
+                # The card: the slot, which a worker keeps for its life,
+                # not the local rank, which can change at a new epoch.
+                "HOROVOD_ELASTIC_SLOT": str(local_index),
             })
             rc = self._execute_worker(w, env)
             self._on_worker_exit(w, rc)

@@ -18,12 +18,15 @@ from horovod_tpu_torch.torch import mpi_ops
 
 
 def _named_tensors(params, prefix=""):
-    """(name, tensor) pairs of a ``state_dict``, of a nested dict of
-    tensors (the port's Llama params: ``layers/wq`` ...), or of an
-    iterable of pairs (``named_parameters()``)."""
+    """(name, tensor) pairs of a ``state_dict``, of a nested tree of
+    dicts and lists of tensors (the port's Llama params: ``layers/wq``
+    ...; the ResNet's: ``stage0/1/conv2`` ...), or of an iterable of pairs
+    (``named_parameters()``)."""
     items = params.items() if hasattr(params, "items") else params
     out = []
     for name, p in items:
+        if isinstance(p, list):
+            p = {str(i): v for i, v in enumerate(p)}
         if isinstance(p, dict):
             out += _named_tensors(p, f"{prefix}{name}/")
         elif torch.is_tensor(p):

@@ -21,12 +21,15 @@ exact zeros for a sequence that is all padding. The lane's wire codecs
 plain versions bit for bit on packed and padded multi-segment layouts,
 infinities, denormals and the encoders' NaN payloads included; a NaN
 that a decoder's arithmetic makes is NaN on both, with the card's
-canonical payload.
+canonical payload. The Adam kernel (both variants, bf16 and f32) gives
+its plain version's bits over three successive steps, at odd lengths
+and on misaligned views.
 """
 
 import pytest
 import torch
 
+from horovod_tpu_torch.ops import adam
 from horovod_tpu_torch.ops import decode_attention as da
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import grouped_moe as gm
@@ -904,3 +907,83 @@ def test_wire_codec_counts_launches_and_checks_inputs():
         wc.encode(x.half(), wc.BF16)
     with pytest.raises(ValueError):
         wc.decode_scale(x, img[:10], wc.INT8)
+
+
+# ---- the Adam update -------------------------------------------------------
+
+
+def _adam_inputs(n, p_dtype, g_dtype, seed, offset):
+    """p, g, mu, nu as views at ``offset`` elements into larger buffers
+    (offset 0: 16-byte aligned; odd: the scalar path)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def view(dtype, scale, positive=False):
+        t = torch.randn(n + offset, generator=gen, device="cuda") * scale
+        return (t.abs() if positive else t).to(dtype)[offset:]
+
+    return (view(p_dtype, 1.0), view(g_dtype, 1e-2),
+            view(p_dtype, 1e-3), view(p_dtype, 1e-5, positive=True))
+
+
+def _bits(t):
+    return t.contiguous().view(torch.uint8)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("n", [1, 7, 8, 4099, 1 << 20])
+@pytest.mark.parametrize("variant,p_dtype,g_dtype", [
+    ("adam", torch.bfloat16, torch.bfloat16),
+    ("adam", torch.float32, torch.float32),
+    ("master", torch.float32, torch.bfloat16),
+    ("master", torch.float32, torch.float32)])
+def test_adam_kernel_matches_plain_bit_for_bit(variant, p_dtype, g_dtype, n,
+                                               offset):
+    from horovod_tpu_torch.parallel.precision import _bias_corrections
+
+    p, g, mu, nu = _adam_inputs(n, p_dtype, g_dtype, n + offset, offset)
+    state = {"kernel": [t.clone() for t in (p, mu, nu)],
+             "plain": [t.clone() for t in (p, mu, nu)]}
+    casts = {k: torch.empty(n, dtype=g_dtype, device="cuda")
+             for k in state} if variant == "master" else None
+    count = torch.zeros((), dtype=torch.int32, device="cuda")
+    before = adam._adam_cuda.launches_by_variant[variant]
+    for _ in range(3):
+        count = count + 1
+        bc1, bc2 = _bias_corrections(count, 0.9, 0.999)
+        for name, fn in (("kernel", adam._adam_cuda),
+                         ("plain", adam._adam_plain)):
+            tp, tmu, tnu = state[name]
+            fn(tp, g, tmu, tnu, 3e-4, 0.9, 0.999, 1e-8, bc1, bc2, None,
+               None if casts is None else casts[name])
+        torch.cuda.synchronize()
+        for a, b in zip(state["kernel"], state["plain"]):
+            assert torch.equal(_bits(a), _bits(b))
+        if casts is not None:
+            assert torch.equal(_bits(casts["kernel"]), _bits(casts["plain"]))
+    assert adam._adam_cuda.launches_by_variant[variant] - before == 3
+
+
+def test_adam_kernel_writes_a_separate_out_and_raises_on_what_it_takes_not():
+    from horovod_tpu_torch.parallel.precision import _bias_corrections
+
+    bc1, bc2 = _bias_corrections(torch.ones((), dtype=torch.int32,
+                                            device="cuda"), 0.9, 0.999)
+    p, g, mu, nu = _adam_inputs(1001, torch.bfloat16, torch.bfloat16, 5, 0)
+    p0 = p.clone()
+    out, ref = torch.empty_like(p), torch.empty_like(p)
+    mu_ref, nu_ref = mu.clone(), nu.clone()
+    adam.adam_update(p, g, mu, nu, 1e-3, 0.9, 0.999, 1e-8, bc1, bc2, out=out)
+    adam._adam_plain(p0, g, mu_ref, nu_ref, 1e-3, 0.9, 0.999, 1e-8, bc1,
+                     bc2, ref, None)
+    torch.cuda.synchronize()
+    assert torch.equal(p, p0) and torch.equal(_bits(out), _bits(ref))
+    assert torch.equal(_bits(mu), _bits(mu_ref))
+    with pytest.raises(ValueError):      # mixed dtypes without a master
+        adam.adam_update(p, g.float(), mu, nu, 1e-3, 0.9, 0.999, 1e-8, bc1,
+                         bc2)
+    with pytest.raises(ValueError):      # bias corrections on the host
+        adam.adam_update(p, g, mu, nu, 1e-3, 0.9, 0.999, 1e-8, bc1.cpu(),
+                         bc2.cpu())
+    with pytest.raises(ValueError):      # a master that is not f32
+        adam.adam_update(p, g, mu, nu, 1e-3, 0.9, 0.999, 1e-8, bc1, bc2,
+                         cast=torch.empty_like(p))

@@ -3,7 +3,8 @@
 ``horovod_tpu_torch`` imports torch and numpy only: importing it loads
 neither jax, triton, the JAX package, yaml nor mpi4py (which the MPI
 bootstrap imports only behind its launcher gate), no module of it (nor
-chip_smoke.py) names jax, ml_dtypes, horovod_tpu or yaml in an import,
+chip_smoke.py, nor the examples of ``examples/torch_port/``) names jax,
+ml_dtypes, horovod_tpu or yaml in an import,
 and its entry points raise — never fall back to the CPU — when no device
 is given and there is no CUDA. Every kernel source is listed in
 ``ops/_build.py``, and importing the port builds nothing.
@@ -20,7 +21,8 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "horovod_tpu_torch").rglob("*.py")) + [
+PORT_FILES = sorted((REPO / "horovod_tpu_torch").rglob("*.py")) + sorted(
+    (REPO / "examples" / "torch_port").glob("*.py")) + [
     REPO / "chip_smoke.py"]
 FORBIDDEN = ("jax", "ml_dtypes", "horovod_tpu", "bench", "yaml")
 
@@ -46,6 +48,9 @@ def test_import_loads_no_jax_triton_or_reference_package():
         "import horovod_tpu_torch.parallel.fusion\n"
         "import horovod_tpu_torch.torch.fused_optimizer\n"
         "import horovod_tpu_torch.parallel.precision\n"
+        "import horovod_tpu_torch.ops.adam\n"
+        "import horovod_tpu_torch.models.resnet\n"
+        "import horovod_tpu_torch.models.mlp\n"
         "import horovod_tpu_torch.parallel.ring_attention\n"
         "import horovod_tpu_torch.parallel.ulysses\n"
         "import horovod_tpu_torch.torch\n"
