@@ -12,8 +12,9 @@ the flagship dense Llama and of the repo's sparse-MoE Llama, and BERT-
 Large's MLM training (also under elastic recovery), and the Horovod lane
 (its autotuner, parole door, wire codecs and cross-plane allreduce too),
 a job started by the port's launcher, ZeRO-1 on both lanes, the Adam
-update's kernel and ResNet-50 training, in phases; any failed phase
-exits non-zero before the result line. ``python3 chip_smoke.py
+update's kernel, ResNet-50 training, and Mixtral-8x7B's GShard step
+and a tensor-parallel replay of the mesh path's blocks, in phases; any
+failed phase exits non-zero before the result line. ``python3 chip_smoke.py
 --launched-worker static|elastic DIR`` is one rank of that job.
 
 1. Card, power limit, torch/CUDA versions; kernel build time.
@@ -246,7 +247,26 @@ exits non-zero before the result line. ``python3 chip_smoke.py
    package has none on this path); then depth 18, width 8, f32 with TF32
    off: the loss, gradients and running statistics on the card against
    the CPU on the same weights.
-25. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
+25. The mesh path's blocks at full width: (a) Mixtral-8x7B (vocab
+   32000, d4096, H32/Hkv8, d_ff 14336, 8 experts top-2; cut to 2 of its
+   32 layers, ~3.16 B params) without a mesh through the GShard dispatch
+   (``moe_impl="gshard"``, capacity factor 1.25, ``remat="attn+gate"``),
+   B2 x T2048, ``make_split_train_step(llama_loss, fused_adam(3e-4))``:
+   one warm-up and 3 timed steps, finite losses, ms/step, peak memory,
+   K1-K3 once a layer per grad call on wgmma, no K5/K6, the Adam kernel
+   once a leaf a step; then at capacity factor E/K (C = T: nothing can
+   drop) one grad call through GShard and one through the grouped path
+   (K5/K6 3 a layer), the losses to 1e-2 and each gradient leaf to 5e-2
+   (norm-relative). (b) A ``tensor=4`` replay of one flagship layer
+   (H16/Hkv4: 4 heads and 1 kv head a shard): each shard's blocks
+   (``shard_params`` with ``llama_partition_rules``) through
+   ``_attention_block`` and ``_dense_ffn``, the code the mesh runs, with
+   a ``None`` group, forward and backward at B2 x T2048; the four
+   partial outputs and input gradients summed on the card against the
+   unsharded blocks (2e-2 norm-relative); K1-K3 four launches, on wgmma.
+   Phase 2 holds K1-K3 at both attention shapes. Across cards:
+   ``tests/test_torch_mesh_cuda_ranks.py``.
+26. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
    launches, K1-K3's offsets rows with phase 17's launches, the six
    codec kernels with phase 20 (b)'s, and the Adam kernel's two
    variants with the train paths' launches), the card line, and the
@@ -4759,6 +4779,217 @@ def run_resnet_phase(torch, ctr, card, batch=128, side=224, warmup=2,
     return out
 
 
+# ---- phase 25: the mesh path's blocks and Mixtral-8x7B -------------------
+
+
+def mixtral_config(LlamaConfig, layers=2):
+    """Mixtral-8x7B (``LlamaConfig.mixtral_8x7b``: vocab 32000, d4096,
+    H32/Hkv8, d_ff 14336, 8 experts top-2) at full width cut to
+    ``layers`` layers, the GShard dispatch, bf16 compute and storage,
+    ``remat="attn+gate"`` (which saves the dispatch and combine)."""
+    return dataclasses.replace(LlamaConfig.mixtral_8x7b(), n_layers=layers,
+                               dtype="bfloat16", param_dtype="bfloat16",
+                               remat="attn+gate", moe_impl="gshard")
+
+
+def gshard_against_grouped(torch, ctr, llama, train_step, params, cfg, data):
+    """At capacity_factor = E/K (C = T: nothing can drop) one grad call
+    through the GShard dispatch and one through the grouped K5/K6 path on
+    the same params and batch: the losses (bf16, 1e-2 relative) and each
+    gradient leaf (norm-relative, 5e-2), the grouped call's launches."""
+    from horovod_tpu_torch.parallel._tree import tree_leaves
+
+    c = dataclasses.replace(cfg, remat="none", capacity_factor=float(
+        cfg.n_experts // cfg.n_experts_per_token))
+    out, launched = {}, None
+    for impl in ("gshard", "grouped"):
+        ci = dataclasses.replace(c, moe_impl=impl)
+        reset_counts(ctr)
+        loss, grads = train_step._value_and_grad(
+            lambda p, d: llama.llama_loss(p, d, ci), params, data, 1)
+        torch.cuda.synchronize()
+        if impl == "grouped":
+            launched = counts(ctr)
+            check_wgmma_routes(ctr, "Mixtral grouped grad call")
+        out[impl] = (float(loss), tree_leaves(grads))
+        del grads
+    (g_loss, g_grads), (k_loss, k_grads) = out["gshard"], out["grouped"]
+    loss_rel = abs(g_loss - k_loss) / abs(k_loss)
+    grad_rel = max(norm_rel(a, b) for a, b in zip(g_grads, k_grads))
+    L = cfg.n_layers
+    want = {"K1": L, "K2": L, "K3": L, "K5": 3 * L, "K6 dlhs": 3 * L,
+            "K6 tgmm": 3 * L}
+    log(f"  GShard (capacity_factor {c.capacity_factor}, C = T) against "
+        f"the grouped K5/K6 path, one grad call each: loss {g_loss:.6f} / "
+        f"{k_loss:.6f} (relative {loss_rel:.3e}, tol 1e-2), largest "
+        f"gradient leaf norm-relative difference {grad_rel:.3e} (tol 5e-2); "
+        f"grouped launches {launched}")
+    check(loss_rel <= 1e-2, f"GShard loss {g_loss} against grouped {k_loss}")
+    check(grad_rel <= 5e-2, f"GShard gradients against grouped: {grad_rel}")
+    for k, n in want.items():
+        check(launched[k] == n, f"the grouped grad call launched {k} "
+              f"{launched[k]} times, expected {n}")
+    return launched, dict(capacity_factor=c.capacity_factor,
+                          gshard_loss=g_loss, grouped_loss=k_loss,
+                          loss_rel=loss_rel, grad_norm_rel_max=grad_rel)
+
+
+def run_mixtral_train(torch, ctr, llama, precision, train_step, cfg, batch,
+                      seq, steps, card):
+    """Phase 25 (a): Mixtral-8x7B at full width, 2 layers, without a
+    mesh, the GShard dispatch: split steps with ``fused_adam(3e-4)``,
+    then GShard against the grouped path where nothing can drop."""
+    from horovod_tpu_torch.parallel._tree import tree_leaves
+
+    params = llama.llama_init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    total, active = param_counts(params, cfg)
+    log(f"  Mixtral-8x7B, {cfg.n_layers} of 32 layers: {total / 1e9:.3f} B "
+        f"params, {active / 1e9:.3f} B active, {total * 2 / 1e9:.2f} GB "
+        f"bf16 ({total * 8 / 1e9:.2f} GB with gradients and Adam moments)")
+    rng = np.random.default_rng(11)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        batch, seq)).astype(np.int32)).cuda()
+    data = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+    ts = train_step.make_split_train_step(
+        lambda p, d: llama.llama_loss(p, d, cfg), precision.fused_adam(3e-4))
+    carry = ts.init(params)
+    del params
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, carry = ts.step(carry, data)                      # warm-up
+    losses = [loss]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    reset_counts(ctr)
+    secs = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, carry = ts.step(carry, data)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launched = counts(ctr)
+    check_wgmma_routes(ctr, "Mixtral train step")
+    check_adam(ctr, "Mixtral train step", len(tree_leaves(carry[0])), steps)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    L = cfg.n_layers
+    per_call = {"K1": L, "K2": L, "K3": L, "K4": 0, "K5": 0, "K6 dlhs": 0,
+                "K6 tgmm": 0}
+    for k, n in per_call.items():
+        check(launched[k] == n * steps,
+              f"Mixtral: {k} launched {launched[k]} times in {steps} steps, "
+              f"expected {n} per grad call")
+    check(all(np.isfinite(losses)), f"Mixtral: non-finite loss {losses}")
+    ms = float(np.median(secs)) * 1e3
+    tok = batch * seq
+    flops_per_token = 6 * active + 12 * L * seq * cfg.d_model
+    mfu = flops_per_token * tok / (ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    log(f"  (a) Mixtral train step B{batch} T{seq} remat={cfg.remat} GShard "
+        f"(capacity_factor {cfg.capacity_factor}) bf16 fused_adam: {ms:.1f} "
+        f"ms/step (median of {steps}; {[round(x * 1e3, 1) for x in secs]}), "
+        f"{tok / (ms / 1e3):.0f} tok/s, active-parameter MFU {mfu:.4f}, peak "
+        f"memory {peak / 2**30:.2f} GiB, first step {first_s:.2f} s; losses "
+        f"{[round(x, 4) for x in losses]}; launches {launched} (per grad "
+        f"call: {per_call}); card {card}")
+    prof = device_profile(torch, f"Mixtral train step B{batch} T{seq}",
+                          lambda: ts.step(carry, data), top=10)
+    grouped_launch, parity = gshard_against_grouped(
+        torch, ctr, llama, train_step, carry[0], cfg, data)
+    return launched, grouped_launch, dict(
+        n_layers=L, ms_per_step=ms, step_ms=[x * 1e3 for x in secs],
+        tok_s=tok / (ms / 1e3), mfu=mfu, peak_mem_gib=peak / 2**30,
+        first_step_s=first_s, losses=losses, n_params=total,
+        n_active_params=active, profile=prof, against_grouped=parity)
+
+
+def tensor_blocks(torch, llama, layer, t, rank):
+    """Tensor rank ``rank``'s blocks of a one-layer tree under a
+    ``tensor=t`` mesh: ``shard_params`` with ``llama_partition_rules``,
+    as a mesh rank takes them (a ``Mesh`` of the shape alone: no
+    groups)."""
+    from horovod_tpu_torch.parallel.mesh import AXIS_ORDER, Mesh
+    from horovod_tpu_torch.parallel.sharding import shard_params
+
+    shape = {a: (t if a == "tensor" else 1) for a in AXIS_ORDER}
+    mesh = Mesh(shape, rank, torch.device("cuda"), {}, None)
+    blocks, _ = shard_params({"layers": layer}, mesh,
+                             llama.llama_partition_rules())
+    return {k: v[0] for k, v in blocks["layers"].items()}
+
+
+def run_tensor_replay(torch, ctr, llama, cfg, card, t=4, batch=2, seq=2048):
+    """Phase 25 (b): one flagship layer's attention and MLP blocks as the
+    ``tensor=t`` mesh runs them (``_attention_block``, ``_dense_ffn``),
+    each shard's blocks with a ``None`` group (so each returns its
+    partial sum), forward and backward on the card; the ``t`` partial
+    outputs and input gradients summed against the unsharded blocks."""
+    one = dataclasses.replace(cfg, n_layers=1)
+    layer = llama.llama_init(one, torch.Generator(device="cuda").manual_seed(
+        4), device="cuda")["layers"]
+    full = {k: v[0] for k, v in layer.items()}
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((batch, seq, cfg.d_model), generator=g,
+                    device="cuda").to(cfg.compute_dtype)
+    probe = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
+    positions = torch.arange(seq, device="cuda").expand(batch, seq)
+
+    def blocks(lp, xi):
+        xi = xi.detach().requires_grad_(True)
+        attn = llama._attention_block(xi, lp, cfg, positions)
+        ffn = llama._dense_ffn(xi, lp, cfg)
+        dx, = torch.autograd.grad(((attn + ffn) * probe).float().sum(), xi)
+        return attn.detach(), ffn.detach(), dx
+
+    shards = [tensor_blocks(torch, llama, layer, t, i) for i in range(t)]
+    heads = shards[0]["wq"].shape[1] // cfg.head_dim, \
+        shards[0]["wk"].shape[1] // cfg.head_dim
+    reset_counts(ctr)
+    parts = [blocks(lp, x) for lp in shards]
+    torch.cuda.synchronize()
+    launched = counts(ctr)
+    check_wgmma_routes(ctr, f"tensor={t} replay")
+    for k in ("K1", "K2", "K3"):
+        check(launched[k] == t, f"tensor={t} replay: {k} launched "
+              f"{launched[k]} times, expected {t} (one a shard)")
+    want = blocks(full, x)
+    got = [sum(p[i].float() for p in parts) for i in range(3)]
+    errs = {name: norm_rel(a, w) for name, a, w in
+            zip(("attention", "mlp", "dx"), got, want)}
+    shard_ms = cuda_ms(torch, lambda: llama._attention_block(
+        x, shards[0], cfg, positions), 10)
+    full_ms = cuda_ms(torch, lambda: llama._attention_block(
+        x, full, cfg, positions), 10)
+    log(f"  (b) tensor={t} replay of one flagship layer (H{cfg.n_heads}/"
+        f"Hkv{cfg.n_kv_heads} -> {heads[0]}/{heads[1]} heads a shard), "
+        f"B{batch} T{seq}: the {t} partial sums against the unsharded "
+        f"blocks, norm-relative {errs} (tol 2e-2); launches {launched}; "
+        f"a shard's attention forward {shard_ms:.3f} ms, the unsharded "
+        f"{full_ms:.3f} ms; card {card}")
+    for name, e in errs.items():
+        check(e <= 2e-2, f"tensor={t} replay: {name} off by {e}")
+    return launched, dict(tensor=t, heads_a_shard=heads, norm_rel=errs,
+                          shard_attention_ms=shard_ms,
+                          full_attention_ms=full_ms)
+
+
+def run_mesh_phase(torch, ctr, llama, precision, train_step, LlamaConfig,
+                   card):
+    """Phase 25: (a) Mixtral-8x7B, (b) the tensor=4 replay."""
+    mixtral_launch, grouped_launch, mixtral = run_mixtral_train(
+        torch, ctr, llama, precision, train_step,
+        mixtral_config(LlamaConfig), 2, 2048, 3, card)
+    torch.cuda.empty_cache()
+    replay_launch, replay = run_tensor_replay(
+        torch, ctr, llama, flagship_config(LlamaConfig), card)
+    torch.cuda.empty_cache()
+    return ({"mixtral_train_step": mixtral_launch,
+             "mixtral_grouped_grad": grouped_launch,
+             "tensor4_replay": replay_launch},
+            dict(mixtral=mixtral, tensor_replay=replay))
+
+
 def main():
     import torch
 
@@ -4813,16 +5044,22 @@ def main():
 
     log("phase 2: kernels against their plain versions")
     bf16, f32 = torch.bfloat16, torch.float32
+    # Phase 25's shapes last: Mixtral's attention (H32 Hkv8) and a
+    # tensor=4 shard of the flagship's (4 heads, 1 kv head).
     k1 = [flash_case(torch, fa, 16, 128, bf16, 50, attrs),
           flash_case(torch, fa, 1, 77, bf16, 50, attrs),
           flash_case(torch, fa, 1, 4096, bf16, 20, attrs),
           flash_case(torch, fa, 4, 2048, bf16, 20, attrs),
           flash_case(torch, fa, 2, 2048, bf16, 20, attrs, hkv=8),
-          flash_case(torch, fa, 4, 128, f32, 20, attrs)]
+          flash_case(torch, fa, 4, 128, f32, 20, attrs),
+          flash_case(torch, fa, 2, 2048, bf16, 20, attrs, h=32, hkv=8),
+          flash_case(torch, fa, 2, 2048, bf16, 20, attrs, h=4, hkv=1)]
     bwd = [bwd_case(torch, fa, 4, 2048, bf16, 5, attrs),
            bwd_case(torch, fa, 2, 2048, bf16, 5, attrs, hkv=8),
            bwd_case(torch, fa, 1, 77, bf16, 20, attrs),
-           bwd_case(torch, fa, 2, 256, f32, 10, attrs)]
+           bwd_case(torch, fa, 2, 256, f32, 10, attrs),
+           bwd_case(torch, fa, 2, 2048, bf16, 5, attrs, h=32, hkv=8),
+           bwd_case(torch, fa, 2, 2048, bf16, 5, attrs, h=4, hkv=1)]
     k2, k3 = [c[0] for c in bwd], [c[1] for c in bwd]
     # K4 at both generate paths' decode steps (dense Hkv4 n_rep4, MoE
     # Hkv8 n_rep2; S192), a long cache, and f32 (the FMA route).
@@ -5010,7 +5247,12 @@ def main():
     resnet50 = run_resnet_phase(torch, ctr, card)
     torch.cuda.empty_cache()
 
-    log("phase 25: results")
+    log("phase 25: Mixtral-8x7B (2 layers, GShard) and a tensor=4 replay "
+        "of a flagship layer")
+    mesh_paths, mesh_stats = run_mesh_phase(
+        torch, ctr, llama, precision, train_step, LlamaConfig, card)
+
+    log("phase 26: results")
     log(json.dumps({"generate": gen_stats, "engine": eng_stats,
                     "train": train_stats, "train_parity": parity,
                     "moe_train": moe_train_stats,
@@ -5024,7 +5266,7 @@ def main():
                     "elastic": elastic, "lane_tuning": tuning,
                     "wire": wire, "launcher": launched, "zero": zero,
                     "adam": adam_stats, "resnet50": resnet50,
-                    "card": card}))
+                    "mesh": mesh_stats, "card": card}))
     paths = {"llama_generate": gen_launch, "DecodeEngine": eng_launch,
              "train_step": train_launch, "moe_train_step": moe_train_launch,
              "moe_llama_generate": moe_gen_launch,
@@ -5032,7 +5274,7 @@ def main():
              "bert_train_step": bert_train_launch,
              "bert_forward": bert_fwd_launch,
              "elastic_bert_train": elastic_launch,
-             "zero_train_step": zero_launch}
+             "zero_train_step": zero_launch, **mesh_paths}
     bert_bias = {k: bert_train_stats["bias_launches"][k]
                  + (bert_fwd_launch[k] if k == "K1" else 0)
                  + elastic["bias_launches"][k] for k in ("K1", "K2", "K3")}

@@ -1,6 +1,11 @@
 """JAX parameter trees and fused-optimizer states -> the port's, and a
 ZeRO-1 state both ways.
 
+Under a mesh that shards the params, ``from_jax_params`` then
+``parallel.sharding.shard_params(params, mesh, llama_partition_rules())``
+gives each rank its blocks (what JAX's device of the same index holds),
+and ``gather_params`` joins the ranks' blocks back into the global tree.
+
 The tree arrives as numpy arrays (``np.asarray`` of each JAX leaf) or
 anything ``np.asarray`` takes; this module imports neither jax nor
 ml_dtypes. Trap: a JAX bfloat16 array converts to numpy with dtype

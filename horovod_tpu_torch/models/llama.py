@@ -7,26 +7,35 @@ converts leaf for leaf, see ``convert.py``); the helpers are plain
 functions on tensors, with the same numeric recipe as the JAX ones.
 
 Ported here: ``LlamaConfig``, ``llama_init`` (dense and MoE trees),
-``_rmsnorm``, ``_rope``, ``moe_route``, ``_ffn`` (dense SwiGLU, or the
-dropless grouped MoE dispatch of ``ops/grouped_moe.py``), and the
+``llama_partition_rules``, ``_rmsnorm``, ``_rope``, ``moe_route``,
+``_ffn`` (dense SwiGLU, the dropless grouped MoE dispatch of
+``ops/grouped_moe.py``, or the GShard dispatch ``_moe_ffn``), and the
 training forward: ``llama_forward`` and ``llama_loss`` (the JAX
 ``lax.scan`` over layers is a Python loop over the unbound layer slices)
 with the remat modes ``none``, ``full``, ``attn``, ``attn+gate``,
-``attn+moe`` and ``moe``, on one device or, for dense configs, under a
-``data`` x ``seq`` mesh (``parallel/mesh.py``): each rank runs its
-shard of the batch, attention over the ``seq`` axis is ring or Ulysses
-(``seq_parallel``), rope positions and the loss's mean are global, and
-the replicated parameters' gradients are summed over the mesh (the
-reduction JAX's GSPMD inserts). Tensor, fsdp and expert parallelism and
-the GShard MoE dispatch (A8), pipelines (A10), and the other remat modes
-(A1) are not ported yet and raise.
+``attn+moe`` and ``moe``, on one device or under a mesh
+(``parallel/mesh.py``) of the ``data``, ``fsdp``, ``seq``, ``expert``
+and ``tensor`` axes. There each rank runs its shard of the batch and
+its blocks of the params (``parallel/sharding.py``), and the model
+inserts the collectives JAX's GSPMD inserts: the ``fsdp`` leaves
+gathered one layer at a time (their gradients reduce-scattered),
+Megatron's tensor parallelism (column-parallel q/k/v and gate/up,
+row-parallel wo and down, ``replicate`` in and ``psum`` out, the
+vocab-parallel lm_head and cross-entropy), the experts of the
+``expert`` axis, attention over the ``seq`` axis by ring or Ulysses
+(``seq_parallel``) on the rank's heads, rope positions and the loss's
+mean global, and each leaf's gradient summed over the batch axes its
+spec leaves replicated. Pipelines (A10), the grouped dispatch under a
+mesh (A8) and the other remat modes (A1) are not ported yet and raise.
 
 Remat is PyTorch's selective activation checkpointing, which decides per
 dispatcher op. The JAX save-names map onto ops: ``flash_o``/``flash_lse``
 are the outputs of the flash op ``hvd_torch::flash_fwd`` (K1), and
 ``ffn_gate`` is the pre-silu gate, produced by the named matmul op
 ``hvd_torch::named_matmul``; the MoE names are the outputs of the
-grouped-MoE ops (``ops/grouped_moe.py``). On the sequence-parallel path
+grouped-MoE ops (``ops/grouped_moe.py``), and the GShard dispatch's
+``moe_dispatch``/``moe_combine`` are ``hvd_torch::checkpoint_name``
+outputs. On the sequence-parallel path
 each ring step's chunk op ``hvd_torch::flash_chunk`` gives
 ``flash_o``/``flash_lse`` and the attention output is named ``attn_out``
 by ``hvd_torch::checkpoint_name``, as JAX names it there.
@@ -36,6 +45,7 @@ import dataclasses
 import functools
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -46,9 +56,20 @@ from torch.utils.checkpoint import (
 from horovod_tpu_torch._device import on_device, resolve_device
 from horovod_tpu_torch.ops import grouped_moe
 from horovod_tpu_torch.ops.flash_attention import flash_attention
-from horovod_tpu_torch.parallel._tree import tree_leaves, tree_unflatten
-from horovod_tpu_torch.parallel.ops import psum, replicate
+from horovod_tpu_torch.parallel._tree import (
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
+from horovod_tpu_torch.parallel.mesh import BATCH_AXES
+from horovod_tpu_torch.parallel.ops import (
+    all_gather,
+    all_gather_invariant,
+    psum,
+    replicate,
+)
 from horovod_tpu_torch.parallel.ring_attention import ring_self_attention
+from horovod_tpu_torch.parallel.sharding import P, block_index, param_specs
 from horovod_tpu_torch.parallel.ulysses import ulysses_self_attention
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -68,9 +89,8 @@ def torch_dtype(name):
 class LlamaConfig:
     """Field-for-field mirror of the JAX ``LlamaConfig`` (see its
     comments for each field). Fields the port does not use yet
-    (capacity factor, pipeline and sequence parallelism, scan and flash
-    tuning) are kept so that one config describes one model in both
-    packages."""
+    (pipelines, scan and flash tuning) are kept so that one config
+    describes one model in both packages."""
 
     vocab_size: int = 32000
     d_model: int = 4096
@@ -240,8 +260,36 @@ torch.library.register_autograd(
     setup_context=lambda ctx, inputs, output: None)
 
 
+def _route(h, router_w, k):
+    """:func:`moe_route` before its aux loss: (gate_vals, gate_idx,
+    probs [..., E] f32)."""
+    logits = h.float() @ router_w.float()
+    probs = torch.softmax(logits, dim=-1)                    # [..., E]
+    ranked = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals = ranked.values[..., :k]
+    gate_idx = ranked.indices[..., :k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    return gate_vals, gate_idx.int(), probs
+
+
+def _switch_aux(probs, gate_idx, group=None, n_shards=1):
+    """E * <fraction routed top-1 to e> . <mean prob of e>, the means
+    over every token: over all leading axes, and under a mesh over the
+    ``n_shards`` blocks of the batch that ``group`` sums."""
+    E = probs.shape[-1]
+    lead = tuple(range(probs.dim() - 1))
+    experts = torch.arange(E, device=probs.device)
+    top1 = (gate_idx[..., :1] == experts).float()
+    if group is None:
+        return E * torch.sum(top1.mean(lead) * probs.mean(lead))
+    n = probs.numel() // E * n_shards
+    return E * torch.sum(psum(top1.sum(lead), group) / n
+                         * (psum(probs.sum(lead), group) / n))
+
+
 def moe_route(h, router_w, n_experts_per_token):
-    """The one router, shared by the grouped dispatch and cached decode:
+    """The one router, shared by both dispatches and cached decode:
     f32 logits product, softmax, top-K (descending, as ``lax.top_k``),
     the epsilon-guarded gate normalisation and the Switch
     load-balancing aux loss E * <fraction routed top-1 to e> . <mean
@@ -255,43 +303,119 @@ def moe_route(h, router_w, n_experts_per_token):
     ``h`` is [..., D]; returns (gate_vals [..., K] f32, gate_idx
     [..., K] int32, aux). The one-hot is a compare with the expert ids:
     ``F.one_hot`` on CUDA reads the indices' range on the host."""
-    E = router_w.shape[-1]
-    logits = h.float() @ router_w.float()
-    probs = torch.softmax(logits, dim=-1)                    # [..., E]
-    ranked = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_vals = ranked.values[..., :n_experts_per_token]
-    gate_idx = ranked.indices[..., :n_experts_per_token]
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
-                                        min=1e-9)
-    lead = tuple(range(probs.dim() - 1))
-    experts = torch.arange(E, device=h.device)
-    top1 = (gate_idx[..., :1] == experts).float()
-    aux = E * torch.sum(top1.mean(lead) * probs.mean(lead))
-    return gate_vals, gate_idx.int(), aux
+    gate_vals, gate_idx, probs = _route(h, router_w, n_experts_per_token)
+    return gate_vals, gate_idx, _switch_aux(probs, gate_idx)
 
 
-def _ffn(h, lp, c):
-    """One layer's FFN on normalised activations: the dense SwiGLU, or
-    top-K expert routing for MoE configs, dispatched as the JAX ``_ffn``
-    with no mesh: ``moe_impl`` "auto" or "grouped" takes the dropless
-    grouped path (K5/K6). Returns (y, aux_loss) (aux is 0 when dense).
-    The dense pre-silu gate is named ``ffn_gate`` for
-    remat="attn+gate"."""
-    if c.n_experts > 0:
-        if c.moe_impl in ("auto", "grouped"):
-            return grouped_moe.grouped_moe_ffn(h, lp, c)
-        if c.moe_impl == "gshard":
-            raise NotImplementedError(
-                "moe_impl='gshard' (the GShard dispatch of the "
-                "expert-parallel mesh path) is not ported yet (ROADMAP.md "
-                "A8); use 'auto' or 'grouped'")
-        raise ValueError(f"unknown moe_impl {c.moe_impl!r}: expected "
-                         "'auto', 'grouped', or 'gshard'")
+def _group(mesh, *axes):
+    """``mesh``'s group over ``axes`` (None without a mesh)."""
+    return None if mesh is None else mesh.axes_group(axes)
+
+
+def _moe_ffn(h, lp, c, mesh=None, seq_axis="seq"):
+    """Top-K routed expert FFN, the GShard dispatch (the JAX
+    ``_moe_ffn``): each batch row is a dispatch group; within it the
+    (token, slot) pairs scatter into per-expert buffers of capacity
+    C = max(int(T K capacity_factor / E), 1) by one-hot tensors,
+    filling slot 0 for every token before slot 1, and a pair over
+    capacity falls through on the residual (combine weight 0). The
+    dispatch and combine tensors [B, T, E, C] are built in the compute
+    dtype and named ``moe_dispatch``/``moe_combine`` for
+    ``remat="attn+gate"``; the products are plain einsums, as in JAX.
+
+    Under ``mesh`` (JAX's layout: tokens split over the batch and
+    ``seq`` axes and replicated over ``expert`` and ``tensor``, the
+    experts split over ``expert``, each expert's F over ``tensor``) every
+    rank routes its tokens alike and builds the dispatch of its own
+    E/expert experts, runs them on its F block, and the partial outputs
+    are summed over ``expert`` and ``tensor``. No token moves between
+    ranks. T is the global row length: a ``seq`` rank's positions
+    start after the earlier ``seq`` ranks' counts, as JAX's cumsum over
+    the whole row does. The aux loss's means are the global batch's.
+    Returns (out [B, T, D], aux loss)."""
+    b, t, _ = h.shape
+    E, K = c.n_experts, c.n_experts_per_token
     dt = c.compute_dtype
+    n_seq = mesh.shape.get(seq_axis, 1) if mesh is not None and seq_axis \
+        else 1
+    C = max(int(t * n_seq * K * c.capacity_factor / E), 1)
+    gate_vals, gate_idx, probs = _route(h, lp["router"], K)
+    if mesh is None:
+        aux = _switch_aux(probs, gate_idx)
+    else:
+        aux = _switch_aux(probs, gate_idx, mesh.batch_group(),
+                          mesh.axes_size(BATCH_AXES))
+    n_exp = 1 if mesh is None else mesh.shape["expert"]
+    if E % n_exp:
+        raise ValueError(f"n_experts ({E}) does not split over the "
+                         f"'expert' axis ({n_exp})")
+    lo = 0 if mesh is None else mesh.axis_index("expert") * (E // n_exp)
+    experts = torch.arange(lo, lo + E // n_exp, device=h.device)
+    onehot = (gate_idx[..., None] == experts).long()          # [B,T,K,E']
+    per_slot = onehot.sum(1)                                  # [B,K,E']
+    before, total = torch.zeros_like(per_slot), per_slot
+    if n_seq > 1:
+        every = all_gather(per_slot[None], mesh.axis_group(seq_axis))
+        before = every[:mesh.axis_index(seq_axis)].sum(0)
+        total = every.sum(0)
+    et = _group(mesh, "expert", "tensor")
+    (gv,) = replicate((gate_vals,), et)
+    slots = torch.arange(C, device=h.device)
+    counts = torch.zeros_like(total[:, 0])
+    dispatch = combine = None
+    for slot in range(K):
+        oh = onehot[:, :, slot]                                # [B,T,E']
+        pos = oh.cumsum(1) - 1 + (counts + before[:, slot])[:, None, :]
+        keep = (pos < C) & (oh > 0)
+        pos_oh = ((pos[..., None] == slots) & keep[..., None]).to(dt)
+        w = pos_oh * gv[..., slot].to(dt)[..., None, None]
+        dispatch = pos_oh if dispatch is None else dispatch + pos_oh
+        combine = w if combine is None else combine + w
+        counts = counts + total[:, slot]
+    dispatch = checkpoint_name(dispatch, "moe_dispatch")
+    combine = checkpoint_name(combine, "moe_combine")
+    (hd,) = replicate((h,), et)
+    xe = torch.einsum("btec,btd->becd", dispatch, hd.to(dt))  # [B,E',C,D]
+    gate = F.silu(torch.einsum("becd,edf->becf", xe, lp["moe_gate"].to(dt)))
+    up = torch.einsum("becd,edf->becf", xe, lp["moe_up"].to(dt))
+    ye = torch.einsum("becf,efd->becd", gate * up, lp["moe_down"].to(dt))
+    y = torch.einsum("btec,becd->btd", combine, ye)
+    return psum(y, et), aux
+
+
+def _dense_ffn(h, lp, c, tensor=None):
+    """The SwiGLU MLP on this rank's blocks: w_gate/w_up column blocks,
+    w_down a row block, the partial output summed over ``tensor``
+    (Megatron; None: this rank's partial sum). The pre-silu gate is
+    named ``ffn_gate`` for remat="attn+gate"."""
+    dt = c.compute_dtype
+    (h,) = replicate((h,), tensor)
     gate = named_matmul(h, lp["w_gate"].to(dt), "ffn_gate")
     up = h @ lp["w_up"].to(dt)
-    y = (F.silu(gate) * up) @ lp["w_down"].to(dt)
-    return y, torch.zeros((), dtype=torch.float32, device=h.device)
+    return psum((F.silu(gate) * up) @ lp["w_down"].to(dt), tensor)
+
+
+def _ffn(h, lp, c, mesh=None, seq_axis="seq"):
+    """One layer's FFN on normalised activations: the dense SwiGLU, or
+    top-K expert routing for MoE configs, dispatched as the JAX
+    ``_ffn``: ``moe_impl`` "grouped", or "auto" without a mesh, takes
+    the dropless grouped path (K5/K6); "gshard", or "auto" under a mesh,
+    the GShard dispatch. Returns (y, aux_loss) (aux is 0 when dense)."""
+    if c.n_experts > 0:
+        if c.moe_impl == "grouped" or (c.moe_impl == "auto"
+                                       and mesh is None):
+            if mesh is not None:
+                raise NotImplementedError(
+                    "moe_impl='grouped' under a mesh (the dropless "
+                    "dispatch of sharded experts) is not ported yet "
+                    "(ROADMAP.md A8); use 'auto' or 'gshard' there")
+            return grouped_moe.grouped_moe_ffn(h, lp, c)
+        if c.moe_impl not in ("auto", "gshard"):
+            raise ValueError(f"unknown moe_impl {c.moe_impl!r}: expected "
+                             "'auto', 'grouped', or 'gshard'")
+        return _moe_ffn(h, lp, c, mesh, seq_axis)
+    return (_dense_ffn(h, lp, c, _group(mesh, "tensor")),
+            torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 def _attention(q, k, v, mesh=None, seq_axis="seq", seq_parallel="ring"):
@@ -314,6 +438,27 @@ def _attention(q, k, v, mesh=None, seq_axis="seq", seq_parallel="ring"):
     return flash_attention(q, k, v, causal=True)
 
 
+def _attention_block(x, lp, c, positions, tensor=None, mesh=None,
+                     seq_axis="seq"):
+    """The attention sublayer's output on this rank's blocks (the
+    residual not added): rmsnorm, q/k/v by the column blocks of
+    wq/wk/wv (this rank's heads: H/tensor and Hkv/tensor, head h still
+    reading kv head h // n_rep), rope at ``positions``, attention, the
+    row block of wo, the partial output summed over ``tensor``
+    (Megatron; None: this rank's partial sum)."""
+    dt = c.compute_dtype
+    bb, tt = x.shape[0], x.shape[1]
+    h = _rmsnorm(x, lp["attn_norm"].to(dt), c.norm_eps)
+    (h,) = replicate((h,), tensor)
+    q = (h @ lp["wq"].to(dt)).reshape(bb, tt, -1, c.head_dim)
+    kk = (h @ lp["wk"].to(dt)).reshape(bb, tt, -1, c.head_dim)
+    vv = (h @ lp["wv"].to(dt)).reshape(bb, tt, -1, c.head_dim)
+    q = _rope(q, positions, c.rope_theta)
+    kk = _rope(kk, positions, c.rope_theta)
+    attn = _attention(q, kk, vv, mesh, seq_axis, c.seq_parallel)
+    return psum(attn.reshape(bb, tt, -1) @ lp["wo"].to(dt), tensor)
+
+
 _FLASH_OPS = (torch.ops.hvd_torch.flash_fwd.default,
               torch.ops.hvd_torch.flash_chunk.default)
 _NAMED_OP = torch.ops.hvd_torch.named_matmul.default
@@ -327,7 +472,8 @@ _X_SORTED_OP = torch.ops.hvd_torch.dispatch_gather.default
 _MOE_EXTRA_SAVE = ("moe_x_sorted", "moe_gate_act", "moe_up_act")
 _REMAT_SAVES = {
     "attn": ("attn_out", "flash_o", "flash_lse"),
-    "attn+gate": ("attn_out", "flash_o", "flash_lse", "ffn_gate"),
+    "attn+gate": ("attn_out", "flash_o", "flash_lse", "ffn_gate",
+                  "moe_dispatch", "moe_combine"),
     "attn+moe": ("attn_out", "flash_o", "flash_lse", "moe_y_slots"),
     "moe": ("attn_out", "flash_o", "flash_lse", "moe_y_slots",
             *_MOE_EXTRA_SAVE),
@@ -359,17 +505,36 @@ def _save_only_these_names(names):
     return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
-def _build_layer_body(c, mesh=None, seq_axis="seq"):
+def _gather_leaf(w, spec, mesh, axis, invariant=False):
+    """``w``'s dims that ``spec`` splits over ``axis`` gathered over it:
+    the backward reduce-scatters the gradient (sums the ranks' tokens),
+    or with ``invariant`` keeps this rank's block (every rank along the
+    axis computed the same gradient)."""
+    group = mesh.axis_group(axis)
+    if group is None:
+        return w
+    gather = all_gather_invariant if invariant else all_gather
+    for dim in range(w.dim()):
+        if axis in spec.entry(dim):
+            w = gather(w, group, dim)
+    return w
+
+
+def _build_layer_body(c, mesh=None, seq_axis="seq", specs=None):
     """One decoder layer ``(x, lp) -> (x, aux)``, wrapped in the
     configured remat mode; under ``mesh`` on this rank's shard (rope at
-    global positions, attention by :func:`_attention`). Under ``full``
-    the backward re-runs the whole layer, K1 included; under the
-    save-set modes it re-runs all but the saved ops, so K1 runs once per
-    layer per grad call. On an MoE layer the backward needs ``y_slots``
-    (the router's combine gradient), so ``full``, ``attn`` and
-    ``attn+gate`` re-run all three grouped products (K5), ``attn+moe``
-    the gate and up products, ``moe`` none."""
-    dt = c.compute_dtype
+    global positions, attention by :func:`_attention`) and this rank's
+    blocks of the layer's params, whose ``specs`` (the lead dim's entry
+    dropped) split them over ``fsdp`` (gathered here, one layer at a
+    time, and so gathered again by the recompute of a remat mode rather
+    than saved), ``tensor`` and ``expert``. Under ``full`` the backward
+    re-runs the whole layer, K1 included; under the save-set modes it
+    re-runs all but the saved ops, so K1 runs once per layer per grad
+    call. On a grouped MoE layer the backward needs ``y_slots`` (the
+    router's combine gradient), so ``full``, ``attn`` and ``attn+gate``
+    re-run all three grouped products (K5), ``attn+moe`` the gate and up
+    products, ``moe`` none."""
+    tensor = _group(mesh, "tensor")
 
     def layer(x, lp):
         bb, tt = x.shape[0], x.shape[1]
@@ -378,18 +543,13 @@ def _build_layer_body(c, mesh=None, seq_axis="seq"):
         start = mesh.axis_index(seq_axis) * tt if mesh and seq_axis else 0
         positions = torch.arange(start, start + tt,
                                  device=x.device).expand(bb, tt)
-        h = _rmsnorm(x, lp["attn_norm"].to(dt), c.norm_eps)
-        q = (h @ lp["wq"].to(dt)).reshape(bb, tt, c.n_heads, c.head_dim)
-        kk = (h @ lp["wk"].to(dt)).reshape(bb, tt, c.n_kv_heads,
-                                           c.head_dim)
-        vv = (h @ lp["wv"].to(dt)).reshape(bb, tt, c.n_kv_heads,
-                                           c.head_dim)
-        q = _rope(q, positions, c.rope_theta)
-        kk = _rope(kk, positions, c.rope_theta)
-        attn = _attention(q, kk, vv, mesh, seq_axis, c.seq_parallel)
-        x = x + attn.reshape(bb, tt, -1) @ lp["wo"].to(dt)
-        h = _rmsnorm(x, lp["mlp_norm"].to(dt), c.norm_eps)
-        ff, aux = _ffn(h, lp, c)
+        if mesh is not None:
+            lp = {k: _gather_leaf(w, specs[k], mesh, "fsdp")
+                  for k, w in lp.items()}
+        x = x + _attention_block(x, lp, c, positions, tensor, mesh,
+                                 seq_axis)
+        h = _rmsnorm(x, lp["mlp_norm"].to(c.compute_dtype), c.norm_eps)
+        ff, aux = _ffn(h, lp, c, mesh, seq_axis)
         return x + ff, aux
 
     mode = c.remat
@@ -399,13 +559,15 @@ def _build_layer_body(c, mesh=None, seq_axis="seq"):
             f"{_REMAT_QUEUED[mode]}); use 'none', 'full', 'attn', "
             "'attn+gate', 'attn+moe' or 'moe'")
     if mode in ("attn+moe", "moe") and not (
-            c.n_experts > 0 and c.moe_impl in ("auto", "grouped")):
-        # These modes save residuals only the grouped dispatch emits; on
-        # a dense config they would silently degrade to plain "attn".
+            c.n_experts > 0 and (c.moe_impl == "grouped" or (
+                c.moe_impl == "auto" and mesh is None))):
+        # These modes save residuals only the grouped dispatch emits;
+        # under the GShard dispatch or a dense config they would
+        # silently degrade to plain "attn".
         raise ValueError(
             f"remat={mode!r} requires the grouped MoE dispatch "
-            "(n_experts > 0 and moe_impl 'auto' or 'grouped'); use "
-            "remat='attn' or 'attn+gate' here")
+            "(n_experts > 0 and moe_impl='grouped', or 'auto' with no "
+            "mesh); use remat='attn' or 'attn+gate' here")
     if mode is False or mode == "none":
         return layer
     if mode is True or mode == "full":
@@ -462,41 +624,149 @@ class _F32Logits(torch.autograd.Function):
         return dh, dw.to(w.dtype)
 
 
-def llama_forward(params, tokens, config, return_aux=False, device=None,
-                  mesh=None, seq_axis="seq"):
-    """tokens [B, T] int -> logits [B, T, vocab] (float32).
+def llama_partition_rules(pipeline=False):
+    """Megatron TP + FSDP sharding rules for the param tree (the JAX
+    package's, for ``parallel.sharding.shard_params``). Layer-stacked
+    leaves have a leading layer axis, unsharded (``pipeline`` names the
+    ``pipe`` axis there, whose mesh axis is not ported: ROADMAP.md A10).
+    ``tensor`` splits heads and the FFN width, ``fsdp`` the other matmul
+    dim (ZeRO-3), ``expert`` the experts; the router stays replicated."""
+    lead = "pipe" if pipeline else None
+    return [
+        (r"embed", P(("tensor", "fsdp"), None)),
+        (r"layers/.*norm", P(lead, None)),
+        (r"layers/w[qkv]$", P(lead, "fsdp", "tensor")),
+        (r"layers/wo", P(lead, "tensor", "fsdp")),
+        (r"layers/w_(gate|up)", P(lead, "fsdp", "tensor")),
+        (r"layers/w_down", P(lead, "tensor", "fsdp")),
+        (r"layers/router", P(lead, None, None)),
+        (r"layers/moe_(gate|up)", P(lead, "expert", "fsdp", "tensor")),
+        (r"layers/moe_down", P(lead, "expert", "tensor", "fsdp")),
+        (r"final_norm", P(None)),
+        (r"lm_head", P("fsdp", "tensor")),
+    ]
 
-    With ``return_aux`` the MoE load-balancing loss (the mean over
-    layers; 0 for dense configs) is returned alongside the logits. ``device``
-    follows the entry-point rule (``None`` means cuda, or the mesh's
-    device); the params must lie there. Under ``mesh`` (a
-    ``parallel.mesh.Mesh``) ``tokens`` is this rank's (data, seq) shard
-    (``mesh.shard``) and the logits are its shard; the params are the
-    same on every rank, and their gradients are summed over the mesh
-    (less the axes a ZeRO step defers to its reduce-scatter,
-    ``Mesh.defer_grad_sum``)."""
-    c = config
+
+def _param_shapes(c):
+    """The global shape of every leaf of ``llama_init(c)``'s tree."""
+    d, hd, L, F_ = c.d_model, c.head_dim, c.n_layers, c.d_ff
+    layers = {"attn_norm": (L, d), "wq": (L, d, c.n_heads * hd),
+              "wk": (L, d, c.n_kv_heads * hd),
+              "wv": (L, d, c.n_kv_heads * hd),
+              "wo": (L, c.n_heads * hd, d), "mlp_norm": (L, d)}
+    if c.n_experts > 0:
+        E = c.n_experts
+        layers.update(router=(L, d, E), moe_gate=(L, E, d, F_),
+                      moe_up=(L, E, d, F_), moe_down=(L, E, F_, d))
+    else:
+        layers.update(w_gate=(L, d, F_), w_up=(L, d, F_),
+                      w_down=(L, F_, d))
+    return {"embed": (c.vocab_size, d), "layers": layers,
+            "final_norm": (d,), "lm_head": (d, c.vocab_size)}
+
+
+def _mesh_specs(params, c, mesh):
+    """The spec tree of this rank's blocks under
+    :func:`llama_partition_rules`, each block's shape checked."""
+    t = mesh.shape["tensor"]
+    if c.n_heads % t or c.n_kv_heads % t:
+        raise ValueError(
+            f"n_heads ({c.n_heads}) and n_kv_heads ({c.n_kv_heads}) must "
+            f"divide over the 'tensor' axis ({t}): GSPMD would re-shard the "
+            "heads here, which the port does not")
+    specs = param_specs(params, llama_partition_rules())
+
+    def check(x, spec, shape):
+        want = []
+        for dim, n in enumerate(shape):
+            _, ways = block_index(mesh, spec.entry(dim))
+            if n % ways:
+                raise ValueError(f"a {shape} leaf does not split {ways} "
+                                 f"ways over {spec.entry(dim)}")
+            want.append(n // ways)
+        if tuple(x.shape) != tuple(want):
+            raise ValueError(
+                f"under this mesh a {shape} leaf's block is {tuple(want)}, "
+                f"got {tuple(x.shape)}: pass this rank's blocks, "
+                "shard_params(params, mesh, llama_partition_rules())")
+        return spec
+
+    return tree_map(check, params, specs, _param_shapes(c))
+
+
+def _sum_grads(params, specs, mesh):
+    """``params`` unchanged; in the backward each leaf's gradient is
+    summed over the batch axes its spec leaves replicated
+    (``Mesh.grad_group``; an fsdp split's sum is its gather's
+    reduce-scatter), one ``replicate`` a group."""
+    leaves = tree_leaves(params)
+    by_axes = {}
+    for i, spec in enumerate(tree_leaves(specs)):
+        by_axes.setdefault(tuple(a for a in spec.axes()
+                                 if a in BATCH_AXES), []).append(i)
+    for axes, idx in by_axes.items():
+        summed = replicate([leaves[i] for i in idx],
+                           mesh.grad_group(sharded=axes))
+        for i, x in zip(idx, summed):
+            leaves[i] = x
+    return tree_unflatten(params, leaves)
+
+
+def _local_logits(params, tokens, c, device, mesh, seq_axis):
+    """(this rank's f32 logits over its vocab block [B, T, V/tensor],
+    the MoE aux loss): the trunk of :func:`llama_forward`."""
     if mesh is not None:
-        if c.n_experts > 0:
-            raise NotImplementedError(
-                "an MoE config under a mesh (moe_impl 'auto' means the "
-                "GShard dispatch there) is not ported yet (ROADMAP.md A8)")
         device = mesh.device if device is None else device
     _, a = on_device(params, device, tokens=tokens)
-    if mesh is not None:
-        params = tree_unflatten(params, replicate(tree_leaves(params),
-                                                  mesh.grad_group()))
+    specs = None
     dt = c.compute_dtype
-    x = params["embed"].to(dt)[a["tokens"].long()]
-    body = _build_layer_body(c, mesh, seq_axis)
+    embed, lm_head = params["embed"], params["lm_head"]
+    if mesh is not None:
+        specs = _mesh_specs(params, c, mesh)
+        params = _sum_grads(params, specs, mesh)
+        # The vocab lookup's "index passthrough": the table gathered over
+        # both of its axes, then this rank's own tokens looked up.
+        embed = _gather_leaf(_gather_leaf(params["embed"], specs["embed"],
+                                          mesh, "fsdp"),
+                             specs["embed"], mesh, "tensor", invariant=True)
+        lm_head = _gather_leaf(params["lm_head"], specs["lm_head"], mesh,
+                               "fsdp")
+        specs = {k: P(*s[1:]) for k, s in specs["layers"].items()}
+    x = embed.to(dt)[a["tokens"].long()]
+    body = _build_layer_body(c, mesh, seq_axis, specs)
     aux = []
     for lp in _unbind_layers(params["layers"]):
         x, aux_layer = body(x, lp)
         aux.append(aux_layer)
     x = _rmsnorm(x, params["final_norm"].to(dt), c.norm_eps)
-    logits = _F32Logits.apply(x, params["lm_head"].to(dt))
+    (x,) = replicate((x,), _group(mesh, "tensor"))
+    return _F32Logits.apply(x, lm_head.to(dt)), torch.stack(aux).mean()
+
+
+def llama_forward(params, tokens, config, return_aux=False, device=None,
+                  mesh=None, seq_axis="seq"):
+    """tokens [B, T] int -> logits [B, T, vocab] (float32).
+
+    With ``return_aux`` the MoE load-balancing loss (the mean over
+    layers; 0 for dense configs) is returned alongside the logits.
+    ``device`` follows the entry-point rule (``None`` means cuda, or the
+    mesh's device); the params must lie there. Under ``mesh`` (a
+    ``parallel.mesh.Mesh``) ``tokens`` is this rank's (batch, seq) shard
+    (``mesh.shard``), ``params`` this rank's blocks
+    (``parallel.sharding.shard_params(params, mesh,
+    llama_partition_rules())``; the whole tree when only ``data`` and
+    ``seq`` are larger than 1), and the logits are this rank's shard of
+    the full vocab. Each leaf's gradient is summed over the batch axes
+    its spec leaves replicated, less the axes a ZeRO step defers to its
+    reduce-scatter (``Mesh.defer_grad_sum``); the ``tensor`` and
+    ``expert`` axes follow Megatron's f/g placement, so every rank along
+    them holds its block's whole gradient."""
+    logits, aux = _local_logits(params, tokens, config, device, mesh,
+                                seq_axis)
+    if mesh is not None:
+        logits = all_gather_invariant(logits, mesh.axis_group("tensor"), -1)
     if return_aux:
-        return logits, torch.stack(aux).mean()
+        return logits, aux
     return logits
 
 
@@ -508,34 +778,61 @@ def _token_nll(logits, targets):
     return lse - picked
 
 
+def _vocab_parallel_nll(logits, targets, group, start):
+    """:func:`_token_nll` of logits split over ``group`` along the vocab
+    (this rank's block starts at ``start``): the max, the sum of
+    exponentials and the target's logit are summed over the group, so no
+    rank holds the [B, T, vocab] logits."""
+    if group is None:
+        return _token_nll(logits, targets)
+    v = logits.shape[-1]
+    with torch.no_grad():
+        m = logits.amax(-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    lse = m + torch.log(psum(torch.exp(logits - m[..., None]).sum(-1),
+                             group))
+    local = targets.long() - start
+    inside = (local >= 0) & (local < v)
+    picked = logits.gather(-1, local.clamp(0, v - 1)[..., None])[..., 0]
+    return lse - psum(torch.where(inside, picked, torch.zeros_like(picked)),
+                      group)
+
+
 def llama_loss(params, batch, config, device=None, mesh=None,
                seq_axis="seq"):
     """Causal LM loss (+ the weighted MoE aux loss for expert configs).
     batch = {"tokens": [B, T], "targets": [B, T], "mask": [B, T] or
     absent}: the mean token NLL, or the masked mean
     sum(nll * mask) / max(sum(mask), 1). Under ``mesh`` the batch is
-    this rank's shard and the loss is the global one, the same on every
-    rank: the sum over the mesh of each shard's sum(nll * mask) over the
-    global token count."""
-    logits, aux = llama_forward(params, batch["tokens"], config,
-                                return_aux=True, device=device, mesh=mesh,
-                                seq_axis=seq_axis)
-    nll = _token_nll(logits, torch.as_tensor(batch["targets"],
-                                             device=logits.device))
+    this rank's shard, the params its blocks (:func:`llama_forward`),
+    and the loss is the global one, the same on every rank: the sum over
+    the batch axes of each shard's sum(nll * mask) over the global token
+    count, the NLL taken over the ``tensor`` axis's vocab blocks."""
+    logits, aux = _local_logits(params, batch["tokens"], config, device,
+                                mesh, seq_axis)
+    targets = torch.as_tensor(batch["targets"], device=logits.device)
     mask = batch.get("mask")
-    if mesh is not None:
+    if mesh is None:
+        nll = _token_nll(logits, targets)
         if mask is None:
-            total, count = nll.sum(), float(nll.numel() * mesh.size)
+            loss = nll.mean()
+        else:
+            mask = torch.as_tensor(mask, device=logits.device).float()
+            loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    else:
+        tensor = mesh.axis_group("tensor")
+        nll = _vocab_parallel_nll(
+            logits, targets, tensor,
+            mesh.axis_index("tensor") * logits.shape[-1])
+        group = mesh.batch_group()
+        if mask is None:
+            total = nll.sum()
+            count = float(nll.numel() * mesh.axes_size(BATCH_AXES))
         else:
             mask = torch.as_tensor(mask, device=logits.device).float()
             total = (nll * mask).sum()
-            count = torch.clamp(psum(mask.sum(), mesh.group), min=1.0)
-        loss = psum(total, mesh.group) / count
-    elif mask is None:
-        loss = nll.mean()
-    else:
-        mask = torch.as_tensor(mask, device=logits.device).float()
-        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+            count = torch.clamp(psum(mask.sum(), group), min=1.0)
+        loss = psum(total, group) / count
     if config.n_experts > 0:
         loss = loss + config.moe_aux_weight * aux
     return loss

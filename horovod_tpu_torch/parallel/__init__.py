@@ -1,9 +1,10 @@
 """Training-step machinery of the port: the fused single-pass
 optimizers (``precision``), the split train step (``train_step``),
 ZeRO-1 (``zero``) and its fused schedule's knob and hooks (``fusion``),
-imported as modules; and sequence parallelism over a ``data`` x ``seq``
-mesh, re-exported here under the JAX package's names: the mesh
-(``mesh``), its differentiable collectives (``ops``), ring attention
+imported as modules; and the mesh of the ``data``, ``fsdp``, ``seq``,
+``expert`` and ``tensor`` axes, re-exported here under the JAX
+package's names: the mesh (``mesh``), its differentiable collectives
+(``ops``), the sharding rules' helpers (``sharding``), ring attention
 (``ring_attention``) and Ulysses (``ulysses``)."""
 
 from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -13,9 +14,12 @@ from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
     create_mesh,
 )
 from horovod_tpu_torch.parallel.ops import (  # noqa: F401
+    all_gather,
+    all_gather_invariant,
     all_to_all,
     ppermute_ring,
     psum,
+    reduce_scatter,
     replicate,
 )
 from horovod_tpu_torch.parallel.ring_attention import (  # noqa: F401
@@ -23,6 +27,11 @@ from horovod_tpu_torch.parallel.ring_attention import (  # noqa: F401
     ring_attention,
     ring_flash_steps,
     ring_self_attention,
+)
+from horovod_tpu_torch.parallel.sharding import (  # noqa: F401
+    P,
+    gather_params,
+    shard_params,
 )
 from horovod_tpu_torch.parallel.ulysses import (  # noqa: F401
     ulysses_attention,

@@ -6,19 +6,25 @@ Counterpart of horovod_tpu/parallel/mesh.py (``AXIS_ORDER``,
 ``Mesh`` over devices and lets ``shard_map`` hand each device its block
 of a global array; the port has one process per device, so a mesh here
 is this rank's place in the grid: its coordinate on each axis, one
-process group per axis (the ranks that differ only along it), and one
-group of the whole mesh. Ranks are laid out as
-``np.arange(world).reshape(shape)`` in ``AXIS_ORDER``, as JAX's CPU mesh
-lays out its devices, so rank r holds the shard JAX's device r holds.
+process group for every set of axes larger than 1 (the ranks that
+differ only along those axes: one axis for a gather or a ring, several
+for a gradient's or an activation's sum), and one group of the whole
+mesh. Ranks are laid out as ``np.arange(world).reshape(shape)`` in
+``AXIS_ORDER``, as JAX's CPU mesh lays out its devices, so rank r holds
+the shard JAX's device r holds.
 
-Groups are NCCL on the card (the default) and gloo when the caller asks
-for ``device="cpu"``; a CUDA mesh never drops to gloo. Only the ``data``
-and ``seq`` axes are ported; ``fsdp``, ``tensor`` and ``expert`` larger
-than 1 raise naming ROADMAP.md A8, ``pipe`` naming A10.
+The batch is split over ``data`` and ``fsdp`` jointly (data major) and
+the sequence over ``seq``, as JAX's activation spec
+``P(("data", "fsdp"), "seq")``; activations are replicated over
+``expert`` and ``tensor``. Groups are NCCL on the card (the default)
+and gloo when the caller asks for ``device="cpu"``; a CUDA mesh never
+drops to gloo. A ``pipe`` axis larger than 1 raises naming ROADMAP.md
+A10.
 """
 
 import contextlib
 import dataclasses
+import itertools
 import math
 import os
 from datetime import timedelta
@@ -31,7 +37,10 @@ from horovod_tpu_torch._device import resolve_device
 
 # Canonical axis order, outermost to innermost (the JAX package's).
 AXIS_ORDER = ("pipe", "data", "fsdp", "expert", "seq", "tensor")
-_QUEUED = {"fsdp": "A8", "tensor": "A8", "expert": "A8", "pipe": "A10"}
+# The axes a batch is split over: a parameter's gradient is summed over
+# those its spec leaves replicated.
+BATCH_AXES = ("data", "fsdp", "seq")
+_QUEUED = {"pipe": "A10"}
 _TIMEOUT = timedelta(seconds=120)
 
 
@@ -69,7 +78,8 @@ class Mesh:
     """This rank's place in the mesh. ``shape`` maps every axis of
     ``AXIS_ORDER`` to its size (as JAX's ``mesh.shape``), ``coords`` to
     this rank's index along it; ``group`` spans the whole mesh;
-    ``device`` is where this rank's tensors live."""
+    ``device`` is where this rank's tensors live. ``axis_groups`` maps an
+    axis, or a tuple of axes in ``AXIS_ORDER``, to its process group."""
 
     def __init__(self, shape, rank, device, axis_groups, group):
         self.shape = dict(shape)
@@ -98,6 +108,23 @@ class Mesh:
         along ``axis`` (None for an axis of size 1)."""
         return self._axis_groups.get(axis)
 
+    def axes_group(self, axes):
+        """The process group of the ranks that differ from this one only
+        along ``axes`` (those of size 1 ignored; None when none is left;
+        the whole mesh's group when every axis larger than 1 is named)."""
+        live = tuple(a for a in AXIS_ORDER if a in axes and self.shape[a] > 1)
+        if not live:
+            return None
+        if len(live) == 1:
+            return self._axis_groups.get(live[0])
+        if len(live) == sum(n > 1 for n in self.shape.values()):
+            return self.group
+        return self._axis_groups[live]
+
+    def axes_size(self, axes):
+        """The number of ranks in :meth:`axes_group`'s group."""
+        return math.prod(self.shape[a] for a in set(axes))
+
     @contextlib.contextmanager
     def defer_grad_sum(self, *axes):
         """Within the block, :meth:`grad_group` leaves out ``axes``: a
@@ -110,35 +137,37 @@ class Mesh:
         finally:
             self._deferred = before
 
-    def grad_group(self):
-        """The group a replicated parameter's gradient is summed over: the
-        whole mesh, less the axes :meth:`defer_grad_sum` defers (None
-        when no axis larger than 1 is left)."""
-        if not self._deferred:
-            return self.group
-        left = [a for a in AXIS_ORDER
-                if self.shape[a] > 1 and a not in self._deferred]
-        if not left:
-            return None
-        if len(left) == 1:
-            return self.axis_group(left[0])
-        if len(left) == sum(self.shape[a] > 1 for a in AXIS_ORDER):
-            return self.group
-        raise NotImplementedError(
-            f"a gradient sum over the axes {left} of a larger mesh")
+    def grad_group(self, sharded=()):
+        """The group a parameter's gradient is summed over: the batch
+        axes (``data``, ``fsdp``, ``seq``) outside ``sharded`` (the axes
+        its spec splits it over), less the axes :meth:`defer_grad_sum`
+        defers; None when none larger than 1 is left. ``tensor`` and
+        ``expert`` never: every rank along them runs the same tokens, so
+        each already holds the whole gradient of what it computes."""
+        return self.axes_group([a for a in BATCH_AXES if a not in sharded
+                                and a not in self._deferred])
+
+    def batch_group(self):
+        """The group of the ranks holding different tokens (``data``,
+        ``fsdp``, ``seq``): a loss's sum over the batch."""
+        return self.axes_group(BATCH_AXES)
 
     def shard(self, x):
         """This rank's block of a global [B, T, ...] tensor: the batch
-        split over ``data`` (JAX's ``("data", "fsdp")``, fsdp being 1),
-        the sequence over ``seq``."""
+        split over ``("data", "fsdp")`` (data major), the sequence over
+        ``seq``."""
         out = x
-        for dim, axis in ((0, "data"), (1, "seq")):
-            n = self.shape[axis]
+        n_fsdp = self.shape["fsdp"]
+        batch = (self.coords["data"] * n_fsdp + self.coords["fsdp"],
+                 self.shape["data"] * n_fsdp)
+        for dim, (i, n), axis in (
+                (0, batch, "('data', 'fsdp')"),
+                (1, (self.coords["seq"], self.shape["seq"]), "'seq'")):
             if out.shape[dim] % n:
                 raise ValueError(f"dim {dim} ({out.shape[dim]}) does not "
-                                 f"divide over the {axis!r} axis ({n})")
+                                 f"divide over the {axis} axes ({n})")
             step = out.shape[dim] // n
-            out = out.narrow(dim, self.coords[axis] * step, step)
+            out = out.narrow(dim, i * step, step)
         return out
 
     def shard_batch(self, batch):
@@ -192,7 +221,7 @@ def create_mesh(config=None, *, device=None, **axis_sizes):
         if sizes[axis] > 1:
             raise NotImplementedError(
                 f"the {axis!r} mesh axis is not ported yet (ROADMAP.md "
-                f"{item}); the port shards over 'data' and 'seq' only")
+                f"{item})")
     if dev.type == "cuda":
         dev = torch.device("cuda", _env_int("HOROVOD_LOCAL_RANK", rank)
                            % torch.cuda.device_count()) \
@@ -200,18 +229,21 @@ def create_mesh(config=None, *, device=None, **axis_sizes):
         torch.cuda.set_device(dev)
     backend = "nccl" if dev.type == "cuda" else "gloo"
     grid = np.arange(world).reshape(tuple(sizes[a] for a in AXIS_ORDER))
+    live = [a for a in AXIS_ORDER if sizes[a] > 1]
     axis_groups = {}
     # Every rank creates every group, in one order (new_group is
-    # collective over the world).
-    for i, axis in enumerate(AXIS_ORDER):
-        if sizes[axis] == 1:
-            continue
-        lines = np.moveaxis(grid, i, -1).reshape(-1, sizes[axis])
-        for line in lines:
-            g = dist.new_group([int(r) for r in line], timeout=_TIMEOUT,
-                               backend=backend)
-            if rank in line:
-                axis_groups[axis] = g
+    # collective over the world): each axis larger than 1, each set of
+    # them short of all, the smaller sets first, then the whole mesh.
+    for k in range(1, max(len(live), 2)):
+        for axes in itertools.combinations(live, k):
+            dims = [AXIS_ORDER.index(a) for a in axes]
+            n = math.prod(sizes[a] for a in axes)
+            lines = np.moveaxis(grid, dims, range(-k, 0)).reshape(-1, n)
+            for line in lines:
+                g = dist.new_group([int(r) for r in line],
+                                   timeout=_TIMEOUT, backend=backend)
+                if rank in line:
+                    axis_groups[axes[0] if k == 1 else axes] = g
     group = dist.new_group(list(range(world)), timeout=_TIMEOUT,
                            backend=backend)
     return Mesh(sizes, rank, dev, axis_groups, group)

@@ -1,10 +1,10 @@
 """Differentiable collectives over a mesh axis's process group.
 
-Counterpart of the parts of horovod_tpu/parallel/ops.py that sequence
-parallelism uses (``psum``, ``all_to_all``, ``ppermute_ring``; an
-axis's index and size are ``Mesh.axis_index`` and ``Mesh.axis_size``).
-Under JAX's ``shard_map`` these are
-XLA collectives with transposes; here each is a
+Counterpart of horovod_tpu/parallel/ops.py's ``psum``, ``all_gather``,
+``reduce_scatter`` and ``all_to_all``, and of the ring shift that
+sequence parallelism uses (``ppermute_ring``; an axis's index and size
+are ``Mesh.axis_index`` and ``Mesh.axis_size``). Under JAX's
+``shard_map`` these are XLA collectives with transposes; here each is a
 ``torch.autograd.Function`` over ``torch.distributed`` with the same
 transpose as its backward:
 
@@ -14,8 +14,20 @@ transpose as its backward:
 - :func:`replicate`: identity; the backward all-reduces each gradient
   (Sum). It marks replicated parameters entering per-rank work: the
   reduction JAX's GSPMD inserts for a replicated weight.
+- :func:`all_gather`: the tiled all-gather along an axis; its backward
+  is the reduce-scatter sum (each member's cotangent is its own
+  contribution to the gathered tensor).
+- :func:`reduce_scatter`: the tiled sum-then-scatter; its backward is
+  the all-gather.
+- :func:`all_gather_invariant`: the same all-gather for a result every
+  member then uses alike (``lax.all_gather_invariant``): its cotangent
+  is the same on every member, so the backward keeps this member's
+  block of it and sums nothing.
 - :func:`all_to_all`: the tiled all-to-all; its backward is the inverse
   all-to-all.
+
+``psum`` and ``replicate`` are Megatron's g and f: a tensor-parallel
+block enters through ``replicate`` and leaves through ``psum``.
 - :func:`ppermute_ring`: rank i's tensors to rank i + shift of the
   group; its backward is the inverse shift. One
   ``dist.batch_isend_irecv`` per call, so gloo never deadlocks on the
@@ -72,6 +84,99 @@ def replicate(xs, group):
     if group is None:
         return tuple(xs)
     return _Replicate.apply(group, *xs)
+
+
+_all_gather_flat = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_reduce_scatter_flat = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+def _gather(x, group, axis):
+    n = dist.get_world_size(group)
+    xt = x.movedim(axis, 0).contiguous()
+    out = xt.new_empty((n * xt.shape[0],) + xt.shape[1:])
+    _all_gather_flat(out, xt, group=group)
+    return out.movedim(0, axis)
+
+
+def _scatter_sum(x, group, axis):
+    n = dist.get_world_size(group)
+    xt = x.movedim(axis, 0).contiguous()
+    out = xt.new_empty((xt.shape[0] // n,) + xt.shape[1:])
+    _reduce_scatter_flat(out, xt, group=group)
+    return out.movedim(0, axis)
+
+
+def _own_block(x, group, axis):
+    n = dist.get_world_size(group)
+    step = x.shape[axis] // n
+    return x.narrow(axis, dist.get_rank(group) * step, step).contiguous()
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.args = group, axis
+        return _gather(x, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum(g, *ctx.args), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.args = group, axis
+        return _scatter_sum(x, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, *ctx.args), None, None
+
+
+class _AllGatherInvariant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.args = group, axis
+        return _gather(x, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_block(g, *ctx.args), None, None
+
+
+def _tiled(fn, x, group, axis, what):
+    if group is None:
+        return x
+    axis = axis % x.dim()
+    if what == "reduce_scatter" and x.shape[axis] % dist.get_world_size(
+            group):
+        raise ValueError(f"reduce_scatter: dim {axis} ({tuple(x.shape)}) "
+                         "does not divide over the group")
+    return fn.apply(x, group, axis)
+
+
+def all_gather(x, group, axis=0):
+    """The members' ``x`` joined along ``axis`` in member order (JAX's
+    tiled ``all_gather``). The backward reduce-scatters the cotangent:
+    member i gets the sum over the group of block i."""
+    return _tiled(_AllGather, x, group, axis, "all_gather")
+
+
+def reduce_scatter(x, group, axis=0):
+    """The sum over ``group`` of ``x``, cut into group-size blocks along
+    ``axis``; member i keeps block i (JAX's tiled ``psum_scatter``). The
+    backward all-gathers the cotangent."""
+    return _tiled(_ReduceScatter, x, group, axis, "reduce_scatter")
+
+
+def all_gather_invariant(x, group, axis=0):
+    """:func:`all_gather` for a result that every member uses alike (a
+    tensor-parallel rank's copy of a replicated computation): the
+    backward keeps this member's block of the cotangent."""
+    return _tiled(_AllGatherInvariant, x, group, axis, "all_gather")
 
 
 def _all_to_all(x, group, split_axis, concat_axis):

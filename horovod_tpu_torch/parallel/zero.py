@@ -480,6 +480,13 @@ def make_zero_apply(optimizer, zero):
     donation) and returns them with the new state. ``apply_fn.program``
     is the :class:`ZeroApply` after ``init``."""
     hyper = _optimizer_hyper(optimizer)
+    sharded = [a for a in ("fsdp", "expert", "tensor")
+               if zero.mesh is not None and zero.mesh.shape[a] > 1]
+    if sharded:
+        raise NotImplementedError(
+            f"zero= over a mesh whose {sharded} axes shard the params (the "
+            "ZeRO layout of each rank's blocks) is not ported yet "
+            "(ROADMAP.md A9b)")
     if zero.inter_axis is not None or int(zero.inter_size) > 1:
         raise NotImplementedError(
             "ZeroConfig.inter_axis (the cross-plane reduce-scatter/"

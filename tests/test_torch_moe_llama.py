@@ -7,8 +7,9 @@ one-hot fallback: ``llama_loss`` and every gradient leaf under each
 remat mode, with the grouped-matmul (K5) count that shows what the
 backward recomputed; ``llama_forward``'s aux loss; the decode FFN's two
 paths; ``llama_generate`` and ``DecodeEngine`` token for token; the split
-train step after 3 steps; the init tree and its conversion; and the
-configs that must raise.
+train step after 3 steps; the init tree and its conversion; the GShard
+dispatch (``moe_impl="gshard"``) against JAX's; and the configs that
+must raise.
 
 Routing is checked first: every test that routes asserts that the
 smallest gap between the K-th and (K+1)-th router probability is far
@@ -319,10 +320,27 @@ def test_moe_tree_round_trips_from_jax():
 
 
 def test_gshard_dispatch_raises_naming_a8(moe):
-    _, tc, jparams = moe
+    """moe_impl="gshard" runs (the GShard dispatch): loss and every
+    gradient leaf equal JAX's; the dropless dispatch under a mesh is what
+    still raises naming A8."""
+    from horovod_tpu_torch.parallel.mesh import AXIS_ORDER, Mesh
+
+    jc, tc, jparams = moe
     cfg = dataclasses.replace(tc, moe_impl="gshard")
+    batch = _batch(0, 256)
+    want_loss, want = jax.value_and_grad(jl.llama_loss)(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()},
+        dataclasses.replace(jc, moe_impl="gshard"))
+    loss, grads = _port_value_and_grad(_port(jparams), batch, cfg)
+    assert float(loss) == pytest.approx(float(want_loss), rel=1e-6)
+    _assert_grads_close(grads, {k: np.asarray(v)
+                                for k, v in _flat(want).items()}, 2e-5)
+    mesh = Mesh({a: 1 for a in AXIS_ORDER}, 0, torch.device("cpu"), {},
+                None)
     with pytest.raises(NotImplementedError, match="A8"):
-        tl.llama_loss(_port(jparams), _batch(0, 256), cfg, device="cpu")
+        tl.llama_loss(_port(jparams), batch,
+                      dataclasses.replace(tc, moe_impl="grouped"),
+                      mesh=mesh)
 
 
 def test_unknown_moe_impl_raises(moe):

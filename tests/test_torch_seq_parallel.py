@@ -22,9 +22,12 @@ largest entry), the remat modes none/full/attn/attn+gate agreeing, and
 three ``make_split_train_step(llama_loss, fused_adam(3e-4))`` steps
 giving the same params on every rank, equal to the port's
 single-process steps on the whole batch. Last, the mesh layout against
-JAX's ``create_mesh`` and the axes that are not ported.
+JAX's ``create_mesh``, the other axes' meshes on the same world (``pipe``
+still raises), and an MoE config under the mesh (the GShard dispatch)
+against the whole batch on one process.
 """
 
+import ast
 import functools
 import importlib
 
@@ -288,8 +291,8 @@ def _flash_ring_modes(params, local, mesh):
 def _llama_battery(rank, size, data, seq, jparams, batch):
     """This rank's logits, loss and gradients under a data x seq mesh
     for ring and Ulysses and every remat mode, 3 split train steps
-    (ring), its mesh coordinates, and the errors of the axes that are
-    not ported."""
+    (ring), its mesh coordinates, the meshes of the other axes (or their
+    errors), and an MoE config's loss under the mesh."""
     from horovod_tpu_torch.models import llama as tl
     from horovod_tpu_torch.models.convert import from_jax_params
     from horovod_tpu_torch.parallel import mesh as mesh_mod
@@ -315,17 +318,22 @@ def _llama_battery(rank, size, data, seq, jparams, batch):
     for axes in (dict(data=2, tensor=2), dict(fsdp=4), dict(expert=2),
                  dict(pipe=2)):
         try:
-            mesh_mod.create_mesh(device="cpu", **axes)
-            errors[str(axes)] = "no error"
+            errors[str(axes)] = {a: mesh_mod.create_mesh(
+                device="cpu", **axes).shape[a] for a in axes}
         except NotImplementedError as e:
             errors[str(axes)] = str(e)
     out["errors"] = errors
-    try:
-        tl.llama_loss(params, local, _tl_config(n_experts=4), mesh=mesh)
-        out["moe"] = "no error"
-    except NotImplementedError as e:
-        out["moe"] = str(e)
+    moe_cfg = _tl_config(n_experts=4, remat="none")
+    out["moe"] = float(tl.llama_loss(_moe_params(moe_cfg), local, moe_cfg,
+                                     mesh=mesh))
     return out
+
+
+def _moe_params(cfg):
+    from horovod_tpu_torch.models import llama as tl
+
+    return tl.llama_init(cfg, torch.Generator().manual_seed(5),
+                         device="cpu")
 
 
 def _jax_llama(jparams, batch, data, seq, sp):
@@ -408,8 +416,19 @@ def test_llama_under_a_mesh_matches_jax(data, seq):
                          == rank)[0]
         assert r["coords"] == dict(zip(jmesh.axis_names, map(int, at)))
         for axes, err in r["errors"].items():
-            assert ("A10" if "pipe" in axes else "A8") in err, (axes, err)
-        assert "A8" in r["moe"]
+            if "pipe" in axes:
+                assert "A10" in err, (axes, err)
+            else:
+                assert err == ast.literal_eval(axes), (axes, err)
+    # An MoE config under the mesh takes the GShard dispatch ("auto"):
+    # the loss of the whole batch on one process.
+    moe_cfg = _tl_config(n_experts=4, remat="none", moe_impl="gshard")
+    moe_loss = float(tl.llama_loss(
+        _moe_params(moe_cfg), {k: torch.from_numpy(v)
+                               for k, v in batch.items()}, moe_cfg,
+        device="cpu"))
+    for r in per_rank:
+        assert r["moe"] == pytest.approx(moe_loss, rel=1e-5)
     # The split step: the same params on every rank, equal to the port's
     # single-process steps on the whole batch. Adam divides each gradient
     # element by its own scale, so an element whose gradient is near zero
