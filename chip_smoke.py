@@ -12,8 +12,9 @@ the flagship dense Llama and of the repo's sparse-MoE Llama, and BERT-
 Large's MLM training (also under elastic recovery), and the Horovod lane
 (its autotuner, parole door, wire codecs and cross-plane allreduce too),
 a job started by the port's launcher, ZeRO-1 on both lanes, the Adam
-update's kernel, ResNet-50 training, and Mixtral-8x7B's GShard step
-and a tensor-parallel replay of the mesh path's blocks, in phases; any
+update's kernel, ResNet-50 training, Mixtral-8x7B's GShard step, and
+tensor-parallel replays of the mesh path's blocks (the flagship's,
+BERT-Large's and the grouped dispatch's), in phases; any
 failed phase exits non-zero before the result line. ``python3 chip_smoke.py
 --launched-worker static|elastic DIR`` is one rank of that job.
 
@@ -266,7 +267,20 @@ failed phase exits non-zero before the result line. ``python3 chip_smoke.py
    unsharded blocks (2e-2 norm-relative); K1-K3 four launches, on wgmma.
    Phase 2 holds K1-K3 at both attention shapes. Across cards:
    ``tests/test_torch_mesh_cuda_ranks.py``.
-26. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
+26. The mesh path's tensor shards of BERT-Large and of the grouped
+   dispatch: (a) one BERT-Large layer (H16 D64, d_ff 4096) as four
+   ``tensor`` shards (``bert_partition_rules``; 4 heads a shard) through
+   ``bert._attention_block`` and ``_mlp_block`` with a ``None`` group, B16
+   x T512 with seeded padding: K1-K3's bias variant four launches each,
+   the partial sums and input gradients against the unsharded layer
+   (2e-2 norm-relative); (b) one Mixtral layer's dropless grouped
+   expert FFN as four shards (F 14336 -> 3584 a shard), B2 x T2048: K5
+   and K6's halves 12 launches each, the partial outputs, input
+   gradients and joined weight gradients against the unsharded layer.
+   Phase 2 holds K1-K3's bias variant at H8 and H4 and K5/K6 at Mixtral's
+   ``tensor=2`` and ``tensor=4`` expert shards beside the bound, the
+   plain versions, SDPA and ``torch._grouped_mm``.
+27. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
    launches, K1-K3's offsets rows with phase 17's launches, the six
    codec kernels with phase 20 (b)'s, and the Adam kernel's two
    variants with the train paths' launches), the card line, and the
@@ -4904,18 +4918,17 @@ def run_mixtral_train(torch, ctr, llama, precision, train_step, cfg, batch,
         n_active_params=active, profile=prof, against_grouped=parity)
 
 
-def tensor_blocks(torch, llama, layer, t, rank):
+def tensor_blocks(torch, rules, layer, t, rank):
     """Tensor rank ``rank``'s blocks of a one-layer tree under a
-    ``tensor=t`` mesh: ``shard_params`` with ``llama_partition_rules``,
-    as a mesh rank takes them (a ``Mesh`` of the shape alone: no
-    groups)."""
+    ``tensor=t`` mesh: ``shard_params`` with the model's partition
+    ``rules``, as a mesh rank takes them (a ``Mesh`` of the shape alone:
+    no groups)."""
     from horovod_tpu_torch.parallel.mesh import AXIS_ORDER, Mesh
     from horovod_tpu_torch.parallel.sharding import shard_params
 
     shape = {a: (t if a == "tensor" else 1) for a in AXIS_ORDER}
     mesh = Mesh(shape, rank, torch.device("cuda"), {}, None)
-    blocks, _ = shard_params({"layers": layer}, mesh,
-                             llama.llama_partition_rules())
+    blocks, _ = shard_params({"layers": layer}, mesh, rules)
     return {k: v[0] for k, v in blocks["layers"].items()}
 
 
@@ -4942,7 +4955,8 @@ def run_tensor_replay(torch, ctr, llama, cfg, card, t=4, batch=2, seq=2048):
         dx, = torch.autograd.grad(((attn + ffn) * probe).float().sum(), xi)
         return attn.detach(), ffn.detach(), dx
 
-    shards = [tensor_blocks(torch, llama, layer, t, i) for i in range(t)]
+    shards = [tensor_blocks(torch, llama.llama_partition_rules(), layer, t, i)
+              for i in range(t)]
     heads = shards[0]["wq"].shape[1] // cfg.head_dim, \
         shards[0]["wk"].shape[1] // cfg.head_dim
     reset_counts(ctr)
@@ -4988,6 +5002,136 @@ def run_mesh_phase(torch, ctr, llama, precision, train_step, LlamaConfig,
              "mixtral_grouped_grad": grouped_launch,
              "tensor4_replay": replay_launch},
             dict(mixtral=mixtral, tensor_replay=replay))
+
+
+# ---- phase 26: BERT-Large and the grouped dispatch as tensor shards --------
+
+
+def run_bert_tensor_replay(torch, ctr, bert, card, t=4, batch=16, seq=512):
+    """Phase 26 (a): one BERT-Large layer's attention and MLP blocks as
+    the ``tensor=t`` mesh runs them (``bert._attention_block``,
+    ``_mlp_block``: K1-K3's bias variant on H/t heads), each shard with a
+    ``None`` group so each returns its partial sum; forward and backward
+    on the card, the ``t`` partial outputs and input gradients summed
+    against the unsharded blocks, with the same seeded padding bias."""
+    cfg = bert.BertConfig.large()
+    layer = bert.bert_init(dataclasses.replace(cfg, n_layers=1),
+                           torch.Generator(device="cuda").manual_seed(4),
+                           device="cuda")["layers"]
+    full = {k: v[0] for k, v in layer.items()}
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((batch, seq, cfg.d_model), generator=g,
+                    device="cuda").to(cfg.compute_dtype)
+    probe = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
+    kv_bias = padding_bias(torch, padding_lengths(torch, batch, seq, 31), seq)
+
+    def blocks(lp, xi):
+        xi = xi.detach().requires_grad_(True)
+        attn = bert._attention_block(xi, lp, kv_bias, cfg)
+        mlp = bert._mlp_block(xi, lp, cfg)
+        dx, = torch.autograd.grad(((attn + mlp) * probe).float().sum(), xi)
+        return attn.detach(), mlp.detach(), dx
+
+    shards = [tensor_blocks(torch, bert.bert_partition_rules(), layer, t, i)
+              for i in range(t)]
+    heads = shards[0]["wq"].shape[1] // cfg.head_dim
+    reset_counts(ctr)
+    parts = [blocks(lp, x) for lp in shards]
+    torch.cuda.synchronize()
+    launched, biased = counts(ctr), bias_counts(ctr)
+    check_wgmma_routes(ctr, f"BERT tensor={t} replay")
+    for k in ("K1", "K2", "K3"):
+        check(launched[k] == t and biased[k] == t,
+              f"BERT tensor={t} replay: {k} launched {launched[k]} times "
+              f"({biased[k]} biased), expected {t} biased (one a shard)")
+    want = blocks(full, x)
+    got = [sum(p[i].float() for p in parts) for i in range(3)]
+    errs = {name: norm_rel(a, w) for name, a, w in
+            zip(("attention", "mlp", "dx"), got, want)}
+    shard_ms = cuda_ms(torch, lambda: bert._attention_block(
+        x, shards[0], kv_bias, cfg), 10)
+    full_ms = cuda_ms(torch, lambda: bert._attention_block(
+        x, full, kv_bias, cfg), 10)
+    log(f"  (a) BERT-Large tensor={t} replay of one layer (H{cfg.n_heads} "
+        f"-> {heads} heads a shard, D{cfg.head_dim}), B{batch} T{seq}, "
+        f"seeded padding: the {t} partial sums against the unsharded "
+        f"blocks, norm-relative {errs} (tol 2e-2); launches {launched}, "
+        f"biased {biased}; a shard's attention forward {shard_ms:.3f} ms, "
+        f"the unsharded {full_ms:.3f} ms; card {card}")
+    for name, e in errs.items():
+        check(e <= 2e-2, f"BERT tensor={t} replay: {name} off by {e}")
+    return launched, dict(tensor=t, heads_a_shard=heads, norm_rel=errs,
+                          bias_launches=biased, shard_attention_ms=shard_ms,
+                          full_attention_ms=full_ms)
+
+
+def run_grouped_tensor_replay(torch, ctr, llama, gm, LlamaConfig, card, t=4,
+                              batch=2, seq=2048):
+    """Phase 26 (b): one Mixtral layer's dropless grouped expert FFN
+    (``grouped_moe_ffn``) as the ``tensor=t`` mesh runs it: each shard's
+    experts at F/t columns (gate/up) and rows (down), K5 forward and K6
+    backward, with a ``None`` group so each returns its partial output;
+    the ``t`` partial outputs and input gradients summed, and the
+    shards' weight gradients joined, against the unsharded layer."""
+    cfg = dataclasses.replace(mixtral_config(LlamaConfig, layers=1),
+                              moe_impl="grouped", remat="none")
+    layer = llama.llama_init(cfg, torch.Generator(device="cuda").manual_seed(
+        5), device="cuda")["layers"]
+    keys = ("router", "moe_gate", "moe_up", "moe_down")
+    layer = {k: layer[k] for k in keys}
+    full = {k: v[0] for k, v in layer.items()}
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((batch, seq, cfg.d_model), generator=g,
+                    device="cuda").to(cfg.compute_dtype)
+    probe = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
+
+    def ffn(lp, xi):
+        xi = xi.detach().requires_grad_(True)
+        w = [lp[k].detach().requires_grad_(True) for k in keys[1:]]
+        y, _ = gm.grouped_moe_ffn(xi, {"router": lp["router"],
+                                       **dict(zip(keys[1:], w))}, cfg)
+        grads = torch.autograd.grad((y * probe).float().sum(), [xi, *w])
+        return y.detach(), *grads
+
+    shards = [tensor_blocks(torch, llama.llama_partition_rules(), layer, t, i)
+              for i in range(t)]
+    f_shard = shards[0]["moe_gate"].shape[-1]
+    reset_counts(ctr)
+    parts = [ffn(lp, x) for lp in shards]
+    torch.cuda.synchronize()
+    launched = counts(ctr)
+    check_wgmma_routes(ctr, f"grouped tensor={t} replay")
+    for k in ("K5", "K6 dlhs", "K6 tgmm"):
+        check(launched[k] == 3 * t, f"grouped tensor={t} replay: {k} "
+              f"launched {launched[k]} times, expected {3 * t} (3 a shard)")
+    want = ffn(full, x)
+    got = [sum(p[0].float() for p in parts), sum(p[1].float() for p in parts),
+           torch.cat([p[2] for p in parts], -1),
+           torch.cat([p[3] for p in parts], -1),
+           torch.cat([p[4] for p in parts], -2)]
+    names = ("y", "dx", "d moe_gate", "d moe_up", "d moe_down")
+    errs = {n: norm_rel(a, w) for n, a, w in zip(names, got, want)}
+    log(f"  (b) Mixtral grouped expert FFN as tensor={t} shards (F "
+        f"{cfg.d_ff} -> {f_shard} a shard, 8 experts top-2), B{batch} "
+        f"T{seq}: partial outputs, input gradients and joined weight "
+        f"gradients against the unsharded layer, norm-relative {errs} "
+        f"(tol 2e-2); launches {launched}; card {card}")
+    for n, e in errs.items():
+        check(e <= 2e-2, f"grouped tensor={t} replay: {n} off by {e}")
+    return launched, dict(tensor=t, f_a_shard=f_shard, norm_rel=errs)
+
+
+def run_shard_phase(torch, ctr, bert, llama, gm, LlamaConfig, card):
+    """Phase 26: (a) BERT-Large's layer, (b) Mixtral's grouped FFN, each
+    as tensor=4 shards."""
+    bert_launch, bert_replay = run_bert_tensor_replay(torch, ctr, bert, card)
+    torch.cuda.empty_cache()
+    grouped_launch, grouped_replay = run_grouped_tensor_replay(
+        torch, ctr, llama, gm, LlamaConfig, card)
+    torch.cuda.empty_cache()
+    return ({"bert_tensor4_replay": bert_launch,
+             "grouped_tensor4_replay": grouped_launch},
+            dict(bert=bert_replay, grouped=grouped_replay))
 
 
 def main():
@@ -5093,6 +5237,17 @@ def main():
         gmm_case(torch, gm, "skewed gate/up", [0, 5000, 3001, 191], 2048,
                  4096, bf16, 20, attrs),
     ]
+    # Mixtral's experts (d4096, F 14336, 8 experts) as the tensor=2 and
+    # tensor=4 shards of the grouped dispatch under a mesh run them:
+    # B2 T2048 top-2 routes 8192 rows; gate/up at F/t columns, down at F/t
+    # rows (phase 26 (b) and the four-card Mixtral case).
+    shard_sizes = [1100, 950, 1020, 1080, 990, 1010, 1040, 1002]
+    for t in (2, 4):
+        gmm_cases += [
+            gmm_case(torch, gm, f"Mixtral tensor={t} gate/up", shard_sizes,
+                     4096, 14336 // t, bf16, 10, attrs),
+            gmm_case(torch, gm, f"Mixtral tensor={t} down", shard_sizes,
+                     14336 // t, 4096, bf16, 10, attrs)]
     k5 = [c["K5"] for c in gmm_cases]
     k6 = [c[h] for c in gmm_cases for h in ("K6 dlhs", "K6 tgmm") if h in c]
 
@@ -5167,9 +5322,15 @@ def main():
     log("phase 12: the kernels' bias variant at BERT-Large's attention")
     # B16 H16 T512 D64 non-causal (the train step's shape) with a padding
     # bias and a random one; f32 on the FMA route (B2 T128).
+    # Phase 26's shapes last: a tensor=2 and a tensor=4 shard of it (H8,
+    # H4).
     bias_cases = [bias_case(torch, fa, 16, 512, bf16, 20, attrs, "padding"),
                   bias_case(torch, fa, 16, 512, bf16, 20, attrs, "random"),
-                  bias_case(torch, fa, 2, 128, f32, 10, attrs, "padding")]
+                  bias_case(torch, fa, 2, 128, f32, 10, attrs, "padding"),
+                  bias_case(torch, fa, 16, 512, bf16, 20, attrs, "padding",
+                            h=8),
+                  bias_case(torch, fa, 16, 512, bf16, 20, attrs, "padding",
+                            h=4)]
 
     log("phase 13: BERT-Large MLM training at full width and depth")
     bcfg = bert.BertConfig.large()
@@ -5252,7 +5413,12 @@ def main():
     mesh_paths, mesh_stats = run_mesh_phase(
         torch, ctr, llama, precision, train_step, LlamaConfig, card)
 
-    log("phase 26: results")
+    log("phase 26: a BERT-Large layer and a Mixtral layer's grouped "
+        "expert FFN as tensor=4 shards")
+    shard_paths, shard_stats = run_shard_phase(
+        torch, ctr, bert, llama, gm, LlamaConfig, card)
+
+    log("phase 27: results")
     log(json.dumps({"generate": gen_stats, "engine": eng_stats,
                     "train": train_stats, "train_parity": parity,
                     "moe_train": moe_train_stats,
@@ -5266,7 +5432,8 @@ def main():
                     "elastic": elastic, "lane_tuning": tuning,
                     "wire": wire, "launcher": launched, "zero": zero,
                     "adam": adam_stats, "resnet50": resnet50,
-                    "mesh": mesh_stats, "card": card}))
+                    "mesh": mesh_stats, "shards": shard_stats,
+                    "card": card}))
     paths = {"llama_generate": gen_launch, "DecodeEngine": eng_launch,
              "train_step": train_launch, "moe_train_step": moe_train_launch,
              "moe_llama_generate": moe_gen_launch,
@@ -5274,10 +5441,12 @@ def main():
              "bert_train_step": bert_train_launch,
              "bert_forward": bert_fwd_launch,
              "elastic_bert_train": elastic_launch,
-             "zero_train_step": zero_launch, **mesh_paths}
+             "zero_train_step": zero_launch, **mesh_paths, **shard_paths}
     bert_bias = {k: bert_train_stats["bias_launches"][k]
                  + (bert_fwd_launch[k] if k == "K1" else 0)
-                 + elastic["bias_launches"][k] for k in ("K1", "K2", "K3")}
+                 + elastic["bias_launches"][k]
+                 + shard_stats["bert"]["bias_launches"][k]
+                 for k in ("K1", "K2", "K3")}
 
     def row(name, source, replaces, keys, cases, head=None):
         by_path = {p: sum(n[k] for k in keys) for p, n in paths.items()}

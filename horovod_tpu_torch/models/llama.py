@@ -25,8 +25,9 @@ vocab-parallel lm_head and cross-entropy), the experts of the
 ``expert`` axis, attention over the ``seq`` axis by ring or Ulysses
 (``seq_parallel``) on the rank's heads, rope positions and the loss's
 mean global, and each leaf's gradient summed over the batch axes its
-spec leaves replicated. Pipelines (A10), the grouped dispatch under a
-mesh (A8) and the other remat modes (A1) are not ported yet and raise.
+spec leaves replicated; the dropless grouped dispatch runs there on
+each rank's tokens (``ops/grouped_moe.py``). Pipelines (A10) and the
+other remat modes (A1) are not ported yet and raise.
 
 Remat is PyTorch's selective activation checkpointing, which decides per
 dispatcher op. The JAX save-names map onto ops: ``flash_o``/``flash_lse``
@@ -56,11 +57,7 @@ from torch.utils.checkpoint import (
 from horovod_tpu_torch._device import on_device, resolve_device
 from horovod_tpu_torch.ops import grouped_moe
 from horovod_tpu_torch.ops.flash_attention import flash_attention
-from horovod_tpu_torch.parallel._tree import (
-    tree_leaves,
-    tree_map,
-    tree_unflatten,
-)
+from horovod_tpu_torch.parallel._tree import tree_leaves, tree_unflatten
 from horovod_tpu_torch.parallel.mesh import BATCH_AXES
 from horovod_tpu_torch.parallel.ops import (
     all_gather,
@@ -69,7 +66,7 @@ from horovod_tpu_torch.parallel.ops import (
     replicate,
 )
 from horovod_tpu_torch.parallel.ring_attention import ring_self_attention
-from horovod_tpu_torch.parallel.sharding import P, block_index, param_specs
+from horovod_tpu_torch.parallel.sharding import P, block_specs
 from horovod_tpu_torch.parallel.ulysses import ulysses_self_attention
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -395,21 +392,24 @@ def _dense_ffn(h, lp, c, tensor=None):
     return psum((F.silu(gate) * up) @ lp["w_down"].to(dt), tensor)
 
 
+def _grouped(c, mesh):
+    """Whether ``c``'s MoE layers take the dropless grouped dispatch:
+    ``moe_impl`` "grouped", or "auto" without a mesh."""
+    return c.n_experts > 0 and (c.moe_impl == "grouped" or (
+        c.moe_impl == "auto" and mesh is None))
+
+
 def _ffn(h, lp, c, mesh=None, seq_axis="seq"):
     """One layer's FFN on normalised activations: the dense SwiGLU, or
     top-K expert routing for MoE configs, dispatched as the JAX
     ``_ffn``: ``moe_impl`` "grouped", or "auto" without a mesh, takes
-    the dropless grouped path (K5/K6); "gshard", or "auto" under a mesh,
-    the GShard dispatch. Returns (y, aux_loss) (aux is 0 when dense)."""
+    the dropless grouped path (K5/K6; under a mesh on each rank's tokens
+    and F/tensor block of every expert, ``ops/grouped_moe.py``);
+    "gshard", or "auto" under a mesh, the GShard dispatch. Returns (y,
+    aux_loss) (aux is 0 when dense)."""
     if c.n_experts > 0:
-        if c.moe_impl == "grouped" or (c.moe_impl == "auto"
-                                       and mesh is None):
-            if mesh is not None:
-                raise NotImplementedError(
-                    "moe_impl='grouped' under a mesh (the dropless "
-                    "dispatch of sharded experts) is not ported yet "
-                    "(ROADMAP.md A8); use 'auto' or 'gshard' there")
-            return grouped_moe.grouped_moe_ffn(h, lp, c)
+        if _grouped(c, mesh):
+            return grouped_moe.grouped_moe_ffn(h, lp, c, mesh)
         if c.moe_impl not in ("auto", "gshard"):
             raise ValueError(f"unknown moe_impl {c.moe_impl!r}: expected "
                              "'auto', 'grouped', or 'gshard'")
@@ -535,6 +535,7 @@ def _build_layer_body(c, mesh=None, seq_axis="seq", specs=None):
     re-run all three grouped products (K5), ``attn+moe`` the gate and up
     products, ``moe`` none."""
     tensor = _group(mesh, "tensor")
+    grouped = _grouped(c, mesh)
 
     def layer(x, lp):
         bb, tt = x.shape[0], x.shape[1]
@@ -546,6 +547,13 @@ def _build_layer_body(c, mesh=None, seq_axis="seq", specs=None):
         if mesh is not None:
             lp = {k: _gather_leaf(w, specs[k], mesh, "fsdp")
                   for k, w in lp.items()}
+            if grouped:
+                # The grouped dispatch runs every expert on each rank:
+                # the experts gathered over ``expert``, where every rank
+                # runs the same tokens (GSPMD's layout of JAX's program).
+                lp = {k: _gather_leaf(w, specs[k], mesh, "expert",
+                                      invariant=True)
+                      for k, w in lp.items()}
         x = x + _attention_block(x, lp, c, positions, tensor, mesh,
                                  seq_axis)
         h = _rmsnorm(x, lp["mlp_norm"].to(c.compute_dtype), c.norm_eps)
@@ -558,9 +566,7 @@ def _build_layer_body(c, mesh=None, seq_axis="seq", specs=None):
             f"remat={mode!r} is not ported yet (ROADMAP.md "
             f"{_REMAT_QUEUED[mode]}); use 'none', 'full', 'attn', "
             "'attn+gate', 'attn+moe' or 'moe'")
-    if mode in ("attn+moe", "moe") and not (
-            c.n_experts > 0 and (c.moe_impl == "grouped" or (
-                c.moe_impl == "auto" and mesh is None))):
+    if mode in ("attn+moe", "moe") and not grouped:
         # These modes save residuals only the grouped dispatch emits;
         # under the GShard dispatch or a dense config they would
         # silently degrade to plain "attn".
@@ -674,39 +680,23 @@ def _mesh_specs(params, c, mesh):
             f"n_heads ({c.n_heads}) and n_kv_heads ({c.n_kv_heads}) must "
             f"divide over the 'tensor' axis ({t}): GSPMD would re-shard the "
             "heads here, which the port does not")
-    specs = param_specs(params, llama_partition_rules())
-
-    def check(x, spec, shape):
-        want = []
-        for dim, n in enumerate(shape):
-            _, ways = block_index(mesh, spec.entry(dim))
-            if n % ways:
-                raise ValueError(f"a {shape} leaf does not split {ways} "
-                                 f"ways over {spec.entry(dim)}")
-            want.append(n // ways)
-        if tuple(x.shape) != tuple(want):
-            raise ValueError(
-                f"under this mesh a {shape} leaf's block is {tuple(want)}, "
-                f"got {tuple(x.shape)}: pass this rank's blocks, "
-                "shard_params(params, mesh, llama_partition_rules())")
-        return spec
-
-    return tree_map(check, params, specs, _param_shapes(c))
+    return block_specs(params, llama_partition_rules(), _param_shapes(c),
+                       mesh)
 
 
-def _sum_grads(params, specs, mesh):
+def _sum_grads(params, specs, mesh, batch_axes=BATCH_AXES):
     """``params`` unchanged; in the backward each leaf's gradient is
-    summed over the batch axes its spec leaves replicated
+    summed over the ``batch_axes`` its spec leaves replicated
     (``Mesh.grad_group``; an fsdp split's sum is its gather's
     reduce-scatter), one ``replicate`` a group."""
     leaves = tree_leaves(params)
     by_axes = {}
     for i, spec in enumerate(tree_leaves(specs)):
         by_axes.setdefault(tuple(a for a in spec.axes()
-                                 if a in BATCH_AXES), []).append(i)
+                                 if a in batch_axes), []).append(i)
     for axes, idx in by_axes.items():
         summed = replicate([leaves[i] for i in idx],
-                           mesh.grad_group(sharded=axes))
+                           mesh.grad_group(axes, batch_axes))
         for i, x in zip(idx, summed):
             leaves[i] = x
     return tree_unflatten(params, leaves)

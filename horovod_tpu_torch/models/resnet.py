@@ -18,16 +18,19 @@ card); no kernel of the port runs on this path.
 - Batch norm in f32: the batch's population variance (two passes, as
   ``jnp.var``) for the output and for the running update ``new = 0.9 *
   old + 0.1 * batch``; the output cast back to the compute dtype.
-- Under a ``data`` mesh (``parallel.mesh.Mesh``), each rank's input is
-  its shard of the batch and its batch statistics are the global
-  batch's: the mean, then the centred second moment, each summed by
-  ``parallel.ops.psum`` over the ``data`` group; a global statistic
-  enters the rank's own work through ``parallel.ops.replicate`` (whose
-  backward sums its cotangent over the group, the transpose of JAX's
-  invariant-to-varying cast), as every parameter leaf does. The loss is
-  the global batch's mean, the same on every rank. This is what JAX's
-  GSPMD step over a data-sharded batch computes
-  (``__graft_entry__.py:513 _resnet_dp_step``).
+- Under a mesh (``parallel.mesh.Mesh``, any axes), every leaf is
+  replicated (``resnet_partition_rules``: JAX's ``P()`` for all) and the
+  batch is split over ``data`` and ``fsdp`` (JAX's ``P(("data",
+  "fsdp"))``, ``mesh.shard(x, seq_dim=None)``); ranks along the other
+  axes repeat the same work, as under GSPMD. Each rank's batch
+  statistics are the global batch's: the mean, then the centred second
+  moment, each summed by ``parallel.ops.psum`` over the batch group; a
+  global statistic enters the rank's own work through
+  ``parallel.ops.replicate`` (whose backward sums its cotangent over the
+  group, the transpose of JAX's invariant-to-varying cast), as every
+  parameter leaf does. The loss is the global batch's mean, the same on
+  every rank. This is what JAX's GSPMD step over a data-sharded batch
+  computes (``__graft_entry__.py:513 _resnet_dp_step``).
 """
 
 import dataclasses
@@ -38,7 +41,9 @@ import torch.nn.functional as F
 
 from horovod_tpu_torch._device import check_on, resolve_device
 from horovod_tpu_torch.parallel._tree import tree_leaves, tree_unflatten
+from horovod_tpu_torch.parallel.mesh import ROW_AXES
 from horovod_tpu_torch.parallel.ops import psum, replicate
+from horovod_tpu_torch.parallel.sharding import P
 
 # depths per stage for each family member, and whether it is bottlenecked
 _DEPTHS = {
@@ -180,7 +185,7 @@ def _global_mean(t, count, group):
 def _batch_norm(x, p, s, train, momentum, eps, group=None, n_ranks=1):
     """Returns (y, new running stats) for the NCHW view ``x``; statistics
     in f32, over the global batch of ``n_ranks`` equal shards under
-    ``group`` (the ``data`` axis's, or None)."""
+    ``group`` (the batch axes', or None)."""
     xf = x.float()
     if train:
         count = x.numel() // x.shape[1] * n_ranks
@@ -199,16 +204,17 @@ def _batch_norm(x, p, s, train, momentum, eps, group=None, n_ranks=1):
     return y.to(x.dtype), new_s
 
 
-def _data_axis(mesh):
-    """The ``data`` group and size of ``mesh`` (None, 1 without one)."""
+def resnet_partition_rules():
+    """Data-parallel: every leaf replicated, as the JAX package's."""
+    return [(r".*", P())]
+
+
+def _batch_axis(mesh):
+    """The group and size of ``mesh``'s batch axes, ``data`` and
+    ``fsdp`` (None, 1 without a mesh)."""
     if mesh is None:
         return None, 1
-    others = [a for a, n in mesh.shape.items() if a != "data" and n > 1]
-    if others:
-        raise NotImplementedError(
-            f"the ResNet under a mesh takes the data axis alone, got "
-            f"{dict(mesh.shape)} (resnet_partition_rules: ROADMAP.md A8)")
-    return mesh.axis_group("data"), mesh.axis_size("data")
+    return mesh.batch_group(ROW_AXES), mesh.axes_size(ROW_AXES)
 
 
 def resnet_forward(params, state, x, config, train=True, mesh=None,
@@ -217,17 +223,17 @@ def resnet_forward(params, state, x, config, train=True, mesh=None,
 
     ``device`` follows the entry-point rule (None means cuda, or the
     mesh's device); the params must lie there. Under ``mesh`` ``x`` is
-    this rank's shard of the batch (``mesh.shard``), the batch-norm
-    statistics are the global batch's, and each parameter's gradient is
-    summed over the mesh."""
+    this rank's shard of the batch (``mesh.shard(x, seq_dim=None)``),
+    the batch-norm statistics are the global batch's, and each
+    parameter's gradient is summed over the batch axes."""
     c = config
     dev = resolve_device(mesh.device if device is None and mesh is not None
                          else device)
     check_on(dev, head=params["head"]["w"])
-    group, n_ranks = _data_axis(mesh)
+    group, n_ranks = _batch_axis(mesh)
     if mesh is not None:
-        params = tree_unflatten(params, replicate(tree_leaves(params),
-                                                  mesh.grad_group()))
+        params = tree_unflatten(params, replicate(
+            tree_leaves(params), mesh.grad_group(batch_axes=ROW_AXES)))
     dt = c.dtype
     bn = functools.partial(_batch_norm, train=train, momentum=c.bn_momentum,
                            eps=c.bn_eps, group=group, n_ranks=n_ranks)
@@ -286,5 +292,5 @@ def resnet_loss(params, state, batch, config, train=True, mesh=None,
     nll = -torch.log_softmax(logits, dim=-1).gather(-1, labels[:, None])
     if mesh is None:
         return nll.mean(), new_state
-    group, n_ranks = _data_axis(mesh)
+    group, n_ranks = _batch_axis(mesh)
     return psum(nll.sum(), group) / (nll.numel() * n_ranks), new_state

@@ -439,19 +439,39 @@ torch.library.register_autograd("hvd_torch::dispatch_gather",
                                 setup_context=_dispatch_gather_setup)
 
 
-def grouped_moe_ffn(h, lp, c):
+def grouped_moe_ffn(h, lp, c, mesh=None):
     """Dropless top-K routed expert FFN over ``h`` [B, T, D] with the
     layer params ``lp`` (router [D, E], moe_gate/moe_up [E, D, F],
     moe_down [E, F, D]). Returns (out [B, T, D], aux loss), with the TPU
-    module's router, gate normalisation and Switch aux loss."""
-    from horovod_tpu_torch.models.llama import moe_route
+    module's router, gate normalisation and Switch aux loss.
+
+    Under ``mesh`` (``parallel/mesh.py``) ``h`` is this rank's tokens and
+    ``lp`` holds every expert at this rank's ``tensor`` block of F
+    (moe_gate/moe_up [E, D, F/t], moe_down [E, F/t, D]; the caller
+    gathers the fsdp and expert splits): the rank routes and sorts its
+    own tokens (JAX's sort is global; dropless, so the numbers are the
+    same), K5 runs gate/up on its F/t columns and down on its F/t rows,
+    and the partial outputs are summed over ``tensor`` (Megatron: the
+    tokens and the gate values enter through ``replicate``). The aux
+    loss's means are the global batch's."""
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.parallel.mesh import BATCH_AXES
+    from horovod_tpu_torch.parallel.ops import psum, replicate
 
     b, t, d = h.shape
     n_experts, k = c.n_experts, c.n_experts_per_token
     s = b * t
     dt = c.compute_dtype
     hf = h.reshape(s, d)
-    gate_vals, gate_idx, aux = moe_route(hf, lp["router"], k)  # [S, K]
+    if mesh is None:
+        tensor = None
+        gate_vals, gate_idx, aux = llama.moe_route(hf, lp["router"], k)
+    else:
+        tensor = mesh.axis_group("tensor")
+        gate_vals, gate_idx, probs = llama._route(hf, lp["router"], k)
+        aux = llama._switch_aux(probs, gate_idx, mesh.batch_group(),
+                                mesh.axes_size(BATCH_AXES))
+    hx, gate_vals = replicate((hf, gate_vals), tensor)
 
     # Sort the S*K (token, k) slots by routed expert, stably. The group
     # sizes come from a compare-and-sum, not torch.bincount: on CUDA
@@ -462,7 +482,7 @@ def grouped_moe_ffn(h, lp, c):
                            dtype=e_flat.dtype)
     group_sizes = (e_flat[:, None] == experts).sum(0, dtype=torch.int32)
 
-    x_sorted = _dispatch_gather(hf.to(dt), order // k, order, k)
+    x_sorted = _dispatch_gather(hx.to(dt), order // k, order, k)
     gate_pre = _grouped_mm(x_sorted, lp["moe_gate"].to(dt), group_sizes,
                            "moe_gate_act")
     up = _grouped_mm(x_sorted, lp["moe_up"].to(dt), group_sizes,
@@ -470,4 +490,4 @@ def grouped_moe_ffn(h, lp, c):
     y_slots = _gmm_unpermute(F.silu(gate_pre) * up, lp["moe_down"].to(dt),
                              group_sizes, torch.argsort(order))  # [S*K, D]
     y = (y_slots.reshape(s, k, d) * gate_vals.to(dt)[..., None]).sum(1)
-    return y.reshape(b, t, d), aux
+    return psum(y, tensor).reshape(b, t, d), aux

@@ -17,6 +17,7 @@ from horovod_tpu_torch.parallel.ops import (  # noqa: F401
     all_gather,
     all_gather_invariant,
     all_to_all,
+    hier_allreduce,
     ppermute_ring,
     psum,
     reduce_scatter,

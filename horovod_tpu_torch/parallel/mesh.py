@@ -40,6 +40,11 @@ AXIS_ORDER = ("pipe", "data", "fsdp", "expert", "seq", "tensor")
 # The axes a batch is split over: a parameter's gradient is summed over
 # those its spec leaves replicated.
 BATCH_AXES = ("data", "fsdp", "seq")
+# The axes a batch's rows are split over. A model whose activations are
+# split over these alone (BERT, the ResNet: JAX's ``P(("data",
+# "fsdp"))``) runs the same work on every rank along the other axes, so
+# its gradients and loss are summed over these.
+ROW_AXES = ("data", "fsdp")
 _QUEUED = {"pipe": "A10"}
 _TIMEOUT = timedelta(seconds=120)
 
@@ -137,32 +142,37 @@ class Mesh:
         finally:
             self._deferred = before
 
-    def grad_group(self, sharded=()):
-        """The group a parameter's gradient is summed over: the batch
-        axes (``data``, ``fsdp``, ``seq``) outside ``sharded`` (the axes
+    def grad_group(self, sharded=(), batch_axes=BATCH_AXES):
+        """The group a parameter's gradient is summed over: the
+        ``batch_axes`` (by default ``data``, ``fsdp``, ``seq``; ``ROW_AXES``
+        for a model that splits rows alone) outside ``sharded`` (the axes
         its spec splits it over), less the axes :meth:`defer_grad_sum`
         defers; None when none larger than 1 is left. ``tensor`` and
         ``expert`` never: every rank along them runs the same tokens, so
         each already holds the whole gradient of what it computes."""
-        return self.axes_group([a for a in BATCH_AXES if a not in sharded
+        return self.axes_group([a for a in batch_axes if a not in sharded
                                 and a not in self._deferred])
 
-    def batch_group(self):
+    def batch_group(self, batch_axes=BATCH_AXES):
         """The group of the ranks holding different tokens (``data``,
-        ``fsdp``, ``seq``): a loss's sum over the batch."""
-        return self.axes_group(BATCH_AXES)
+        ``fsdp``, ``seq``, or ``batch_axes``): a loss's sum over the
+        batch."""
+        return self.axes_group(batch_axes)
 
-    def shard(self, x):
+    def shard(self, x, seq_dim=1):
         """This rank's block of a global [B, T, ...] tensor: the batch
-        split over ``("data", "fsdp")`` (data major), the sequence over
-        ``seq``."""
+        split over ``("data", "fsdp")`` (data major), dim ``seq_dim``
+        over ``seq`` (None: the rows alone, as BERT and the ResNet take
+        their batch)."""
         out = x
         n_fsdp = self.shape["fsdp"]
         batch = (self.coords["data"] * n_fsdp + self.coords["fsdp"],
                  self.shape["data"] * n_fsdp)
-        for dim, (i, n), axis in (
-                (0, batch, "('data', 'fsdp')"),
-                (1, (self.coords["seq"], self.shape["seq"]), "'seq'")):
+        splits = [(0, batch, "('data', 'fsdp')")]
+        if seq_dim is not None:
+            splits.append((seq_dim, (self.coords["seq"], self.shape["seq"]),
+                           "'seq'"))
+        for dim, (i, n), axis in splits:
             if out.shape[dim] % n:
                 raise ValueError(f"dim {dim} ({out.shape[dim]}) does not "
                                  f"divide over the {axis} axes ({n})")
@@ -170,9 +180,10 @@ class Mesh:
             out = out.narrow(dim, i * step, step)
         return out
 
-    def shard_batch(self, batch):
+    def shard_batch(self, batch, seq_dim=1):
         """:meth:`shard` of every entry of a dict of [B, T] tensors."""
-        return {k: self.shard(torch.as_tensor(v)) for k, v in batch.items()}
+        return {k: self.shard(torch.as_tensor(v), seq_dim)
+                for k, v in batch.items()}
 
 
 def _env_int(name, default):

@@ -25,6 +25,10 @@ transpose as its backward:
   block of it and sums nothing.
 - :func:`all_to_all`: the tiled all-to-all; its backward is the inverse
   all-to-all.
+- :func:`hier_allreduce`: the cross-plane allreduce (reduce-scatter over
+  the intra group, all-reduce of the shard over the inter group,
+  all-gather over intra), made of the three above, whose backwards it
+  takes.
 
 ``psum`` and ``replicate`` are Megatron's g and f: a tensor-parallel
 block enters through ``replicate`` and leaves through ``psum``.
@@ -92,12 +96,15 @@ _reduce_scatter_flat = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
 
 
+# The tiled collectives return contiguous tensors, as JAX's arrays are:
+# a gathered weight feeds kernels that take contiguous operands (K5), and
+# a scattered gradient the Adam kernel.
 def _gather(x, group, axis):
     n = dist.get_world_size(group)
     xt = x.movedim(axis, 0).contiguous()
     out = xt.new_empty((n * xt.shape[0],) + xt.shape[1:])
     _all_gather_flat(out, xt, group=group)
-    return out.movedim(0, axis)
+    return out.movedim(0, axis).contiguous()
 
 
 def _scatter_sum(x, group, axis):
@@ -105,7 +112,7 @@ def _scatter_sum(x, group, axis):
     xt = x.movedim(axis, 0).contiguous()
     out = xt.new_empty((xt.shape[0] // n,) + xt.shape[1:])
     _reduce_scatter_flat(out, xt, group=group)
-    return out.movedim(0, axis)
+    return out.movedim(0, axis).contiguous()
 
 
 def _own_block(x, group, axis):
@@ -177,6 +184,16 @@ def all_gather_invariant(x, group, axis=0):
     tensor-parallel rank's copy of a replicated computation): the
     backward keeps this member's block of the cotangent."""
     return _tiled(_AllGatherInvariant, x, group, axis, "all_gather")
+
+
+def hier_allreduce(x, intra, inter, axis=0):
+    """The sum of ``x`` over the ranks of the ``intra`` and ``inter``
+    groups, cross-plane (JAX's ``hier_allreduce``): reduce-scattered
+    along ``axis`` over ``intra``, the 1/L shard summed over ``inter``
+    (only it crosses that plane), all-gathered back over ``intra``.
+    Equal to ``psum`` over both up to the order of the f32 sums."""
+    return all_gather(psum(reduce_scatter(x, intra, axis), inter), intra,
+                      axis)
 
 
 def _all_to_all(x, group, split_axis, concat_axis):

@@ -79,6 +79,29 @@ def block_index(mesh, axes):
     return i, math.prod(mesh.shape[a] for a in axes)
 
 
+def block_specs(blocks, rules, shapes, mesh):
+    """The spec tree of this rank's ``blocks`` under ``rules``, each
+    block's shape checked against its leaf's global shape (``shapes``, a
+    tree of tuples): a model under a mesh takes the blocks
+    :func:`shard_params` gives it."""
+    def check(x, spec, shape):
+        want = []
+        for dim, n in enumerate(shape):
+            _, ways = block_index(mesh, spec.entry(dim))
+            if n % ways:
+                raise ValueError(f"a {shape} leaf does not split {ways} "
+                                 f"ways over {spec.entry(dim)}")
+            want.append(n // ways)
+        if tuple(x.shape) != tuple(want):
+            raise ValueError(
+                f"under this mesh a {shape} leaf's block is {tuple(want)}, "
+                f"got {tuple(x.shape)}: pass this rank's blocks, "
+                "shard_params(params, mesh, <the model's partition rules>)")
+        return spec
+
+    return tree_map(check, blocks, param_specs(blocks, rules), shapes)
+
+
 def leaf_block(x, spec, mesh):
     """This rank's block of the global tensor ``x`` under ``spec``."""
     for dim in range(x.dim()):

@@ -25,8 +25,9 @@ an autograd hook as the backward of the last microbatch completes the
 bucket (after its gradient is added into the accumulator), so it
 overlaps the rest of the backward. Both give the same bits. Under
 ``ZeroConfig.mesh`` the gradient calls run inside
-``mesh.defer_grad_sum(zero.axis)``, so the model sums its gradients over
-the other mesh axes and the reduce-scatter alone over the zero axis;
+``mesh.defer_grad_sum(zero.axis, zero.inter_axis)``, so the model sums
+its gradients over the other mesh axes and the reduce-scatter (and the
+cross-plane sum) alone over those;
 without a mesh each rank's loss is the mean over its own batch and the
 reduce-scatter averages (``parallel/zero.py``). The loss returned is this
 rank's. Step telemetry (``telemetry=``, ROADMAP.md A12) and optax
@@ -175,8 +176,10 @@ def make_split_train_step(loss_fn, optimizer, *, microbatches=1,
     if zero is not None:
         zero_apply, init = make_zero_apply(optimizer, zero)
         if zero.mesh is not None:
+            deferred = [a for a in (zero.axis, zero.inter_axis) if a]
+
             def grad_call():
-                return zero.mesh.defer_grad_sum(zero.axis)
+                return zero.mesh.defer_grad_sum(*deferred)
         if fusion.jit_fusion_enabled():
             return TrainStep(init=init, step=_fused_zero_step(
                 loss_fn, zero_apply, n, grad_call))

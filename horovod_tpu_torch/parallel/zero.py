@@ -34,13 +34,30 @@ here, in the reduce-scatter):
 A zero axis of size 1 is the identity: no collective runs, and the step
 is bit-identical to the replicated one.
 
+Under a mesh whose ``fsdp``, ``tensor`` or ``expert`` axis shards the
+params, each rank's layout is built from its own blocks
+(``parallel.sharding.shard_params``), and its ZeRO group is the zero
+axis's group at its coordinate on the other axes (``Mesh.axis_group``):
+the ranks holding the same blocks. The gradient sums the model still
+owes (over the batch axes a leaf's spec leaves replicated, less the
+deferred ones) come first, as without ZeRO. JAX lays out one global
+bucket list over the global leaves; the port's is a rank's blocks', and
+``models/convert.py`` moves a state between the two.
+
+The cross-plane split (``inter_axis``/``inter_size``, JAX's
+``build_zero_apply_inner``): between each bucket's reduce-scatter and
+all-gather the 1/size shard is summed across the planes, so only it
+crosses the inter fabric; without a mesh the world is ``inter_size``
+slices of ``size`` consecutive ranks (the lane's L7 split), the shard
+summed over the ranks of the same position, and the mean folded as
+``1/(size * inter_size)``; under a mesh ``inter_axis`` names a mesh axis
+whose sum the train step defers as well.
+
 Memory at Llama-3-8B scale (single-leaf buckets of up to 1.9 B
 elements): buckets are packed, scattered, updated and gathered one at a
 time; a bucket of one unpadded leaf is a view of it, and its gathered
 shards are written straight into the parameter; the Adam update runs in
 chunks of the shard (elementwise, so the same bits as one pass).
-``inter_axis`` (the cross-plane split of the pair) waits for ROADMAP.md
-A9b.
 """
 
 import dataclasses
@@ -85,10 +102,13 @@ class ZeroConfig:
     ``axis`` names the mesh axis the shards live on (default ``"data"``);
     ``size`` is the shard count, by default ``mesh.shape[axis]``.
     Without ``mesh`` the shards live on the ranks of the
-    ``torch.distributed`` world, whose size must be ``size`` (a ``size``
-    of 1 needs no world), over a group ``init`` opens. ``bucket_bytes``
-    is the fused-bucket granularity. ``inter_axis``/``inter_size``
-    (JAX's cross-plane split) raise: ROADMAP.md A9b."""
+    ``torch.distributed`` world, whose size must be ``size *
+    inter_size`` (1 needs no world), over groups ``init`` opens.
+    ``bucket_bytes`` is the fused-bucket granularity.
+    ``inter_axis``/``inter_size`` split the pair across planes: the
+    scattered shard summed over ``inter_axis`` (a mesh axis; without a
+    mesh a label, the world then ``inter_size`` slices of ``size``
+    ranks)."""
 
     axis: str = "data"
     size: int = None
@@ -107,35 +127,66 @@ class ZeroConfig:
 
 class ZeroAxis(NamedTuple):
     """This rank on the zero axis: its ``group`` (None at size 1),
-    ``rank`` and ``size``, and ``scale``, the factor on the scattered
-    gradient (``1/size``, or 1 under a mesh's global loss)."""
+    ``rank`` and ``size``, ``scale``, the factor on the scattered
+    gradient (``1/(size * inter_size)``, or 1 under a mesh's global
+    loss), and ``inter``, the group the shard is summed over across the
+    planes (None without the split)."""
     group: Any
     rank: int
     size: int
     scale: float
+    inter: Any = None
+
+
+# Mesh axes that shard parameters: a zero or inter axis must be one the
+# params are replicated over.
+_PARAM_AXES = ("pipe", "fsdp", "expert", "tensor")
 
 
 def zero_axis(zero, device):
     """Resolve ``zero`` to this rank's :class:`ZeroAxis` for params on
-    ``device``. Without a mesh every rank must call it (a group over the
-    world is opened: NCCL for a CUDA ``device``, else gloo)."""
+    ``device``. Without a mesh every rank must call it (the slices' and
+    crosses' groups over the world are opened: NCCL for a CUDA
+    ``device``, else gloo)."""
     size = zero.resolved_size()
+    inter_size = int(zero.inter_size)
     if zero.mesh is not None:
         mesh = zero.mesh
         if mesh.shape[zero.axis] != size:
             raise ValueError(f"ZeroConfig size {size} but the mesh's "
                              f"{zero.axis!r} axis has {mesh.shape[zero.axis]}")
+        for a in (zero.axis, zero.inter_axis):
+            if a in _PARAM_AXES and mesh.shape[a] > 1:
+                raise ValueError(
+                    f"the {a!r} axis shards the params: ZeRO shards over an "
+                    "axis the params are replicated over (data or seq)")
+        inter = None
+        if zero.inter_axis is not None:
+            n = mesh.shape[zero.inter_axis]
+            if inter_size not in (1, n):
+                raise ValueError(f"ZeroConfig inter_size {inter_size} but "
+                                 f"the mesh's {zero.inter_axis!r} axis has {n}")
+            inter = mesh.axis_group(zero.inter_axis)
         return ZeroAxis(mesh.axis_group(zero.axis),
-                        mesh.axis_index(zero.axis), size, 1.0)
-    if size == 1:
+                        mesh.axis_index(zero.axis), size, 1.0, inter)
+    world = size * inter_size
+    if world == 1:
         return ZeroAxis(None, 0, 1, 1.0)
-    if not dist.is_initialized() or dist.get_world_size() != size:
+    if not dist.is_initialized() or dist.get_world_size() != world:
         raise ValueError(
-            f"ZeroConfig(size={size}) without a mesh shards over the "
-            "torch.distributed world, which must be joined at that size")
-    group = dist.new_group(list(range(size)), backend=(
-        "nccl" if torch.device(device).type == "cuda" else "gloo"))
-    return ZeroAxis(group, dist.get_rank(), size, 1.0 / size)
+            f"ZeroConfig(size={size}, inter_size={inter_size}) without a "
+            "mesh shards over the torch.distributed world, which must be "
+            f"joined at size {world}")
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    rank = dist.get_rank()
+    grid = [[s * size + p for p in range(size)] for s in range(inter_size)]
+    # Every rank opens every group, in one order (new_group is collective).
+    slices = [dist.new_group(line, backend=backend) if size > 1 else None
+              for line in grid]
+    crosses = [dist.new_group(list(line), backend=backend)
+               if inter_size > 1 else None for line in zip(*grid)]
+    return ZeroAxis(slices[rank // size], rank % size, size,
+                    1.0 / world, crosses[rank % size])
 
 
 # ---- bucket layout ---------------------------------------------------
@@ -423,6 +474,13 @@ class ZeroApply:
         """Adam on this rank's shard of bucket ``index``; writes
         mu/nu (and the master) in place and returns the updated shard in
         the params' dtype."""
+        if self.axis.inter is not None:
+            if self.axis.group is None:
+                # At size 1 the shard is the packed gradient, which may
+                # be a view of the caller's leaf: sum a copy.
+                g_shard = g_shard.clone()
+            # The cross-plane hop: only the 1/size shard crosses.
+            dist.all_reduce(g_shard, group=self.axis.inter)
         if self.axis.scale != 1.0:
             g_shard = g_shard * self.axis.scale
         if self.master:
@@ -474,23 +532,13 @@ class ZeroApply:
 
 def make_zero_apply(optimizer, zero):
     """The ZeRO apply for ``make_split_train_step``: returns ``(apply_fn,
-    init)``. ``init(params) -> (params, opt)`` builds the layout and this
-    rank's carry; ``apply_fn(grads, params, opt) -> (params, opt)``
-    updates the params in place (the port's counterpart of JAX's
-    donation) and returns them with the new state. ``apply_fn.program``
+    init)``. ``init(params) -> (params, opt)`` builds the layout of
+    ``params`` (this rank's blocks under a mesh) and this rank's carry;
+    ``apply_fn(grads, params, opt) -> (params, opt)`` updates the params
+    in place (the port's counterpart of JAX's donation) and returns them
+    with the new state. ``apply_fn.program``
     is the :class:`ZeroApply` after ``init``."""
     hyper = _optimizer_hyper(optimizer)
-    sharded = [a for a in ("fsdp", "expert", "tensor")
-               if zero.mesh is not None and zero.mesh.shape[a] > 1]
-    if sharded:
-        raise NotImplementedError(
-            f"zero= over a mesh whose {sharded} axes shard the params (the "
-            "ZeRO layout of each rank's blocks) is not ported yet "
-            "(ROADMAP.md A9b)")
-    if zero.inter_axis is not None or int(zero.inter_size) > 1:
-        raise NotImplementedError(
-            "ZeroConfig.inter_axis (the cross-plane reduce-scatter/"
-            "allgather split) is not ported yet (ROADMAP.md A9b)")
     programs = []
 
     def init(params):

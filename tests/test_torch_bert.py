@@ -263,5 +263,29 @@ def test_configs_mirror_jax():
 
 
 def test_partition_rules_raise_naming_a8():
-    with pytest.raises(NotImplementedError, match="A8"):
-        tb.bert_partition_rules()
+    """The rules are ported (they raised naming A8 before): JAX's rules,
+    pattern for pattern and spec for spec, and every leaf of the tree
+    takes the spec JAX's first match gives it. The mesh path itself is
+    held against JAX in ``tests/test_torch_mesh_parallel.py``."""
+    import re
+
+    from horovod_tpu_torch.parallel.sharding import param_specs
+
+    got, want = tb.bert_partition_rules(), jb.bert_partition_rules()
+    assert [p for p, _ in got] == [p for p, _ in want]
+    assert [tuple(s) for _, s in got] == [tuple(s) for _, s in want]
+    tc, params = _tiny_params()
+    specs = param_specs(params, got)
+    for path, spec in _flat_specs(specs).items():
+        first = next(s for p, s in want if re.search(p, path))
+        assert tuple(spec) == tuple(first), path
+
+
+def _flat_specs(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_specs(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out

@@ -16,7 +16,9 @@ to the same tolerance. K3, K4 and K5's split-K path give the same bits on
 every launch (fixed-order sums, no atomics). The MoE router breaks exact
 ties as ``lax.top_k`` does, lower expert index first, on the card too.
 K1-K3's bias variant is held to the same tolerances on both routes, with
-exact zeros for a sequence that is all padding. The lane's wire codecs
+exact zeros for a sequence that is all padding, at BERT-Large's heads and
+its tensor=2 and tensor=4 shards' (H8, H4). K5 and K6 run at Mixtral's
+tensor=2 and tensor=4 expert shards. The lane's wire codecs
 (bf16 and int8 encode, decode-accumulate and decode-scale) match their
 plain versions bit for bit on packed and padded multi-segment layouts,
 infinities, denormals and the encoders' NaN payloads included; a NaN
@@ -325,6 +327,37 @@ K5_LAYOUTS = {
 }
 
 
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("proj", ["gate/up", "down"])
+def test_grouped_kernels_at_mixtral_tensor_shards(t, proj):
+    """K5 and both halves of K6 on the wgmma route at Mixtral's experts
+    (d4096, F 14336, 8 experts) as a ``tensor=t`` shard of the grouped
+    dispatch takes them: B1 x T2048 top-2 (an fsdp=2 rank's 4096 rows),
+    gate/up at F/t columns, down at F/t rows."""
+    sizes = [560, 470, 530, 490, 515, 505, 520, 506]
+    k, n = (4096, 14336 // t) if proj == "gate/up" else (14336 // t, 4096)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    lhs = _rand((sum(sizes), k), torch.bfloat16, 51)
+    rhs = (_rand((len(sizes), k, n), torch.bfloat16, 52).float()
+           * k ** -0.5).bfloat16()
+    grad = _rand((sum(sizes), n), torch.bfloat16, 53)
+    before = [dict(fn.launches_by_route) for fn in (
+        gm._gmm_cuda, gm._gmm_dlhs_cuda, gm._tgmm_cuda)]
+    cases = (("gmm", gm._gmm_cuda(lhs, rhs, gs),
+              gm._gmm_reference(lhs, rhs, gs)),
+             ("dlhs", gm._gmm_dlhs_cuda(grad, rhs, gs),
+              gm._gmm_dlhs_reference(grad, rhs, gs)),
+             ("tgmm", gm._tgmm_cuda(lhs, grad, gs),
+              gm._tgmm_reference(lhs, grad, gs)))
+    torch.cuda.synchronize()
+    for fn, was in zip((gm._gmm_cuda, gm._gmm_dlhs_cuda, gm._tgmm_cuda),
+                       before):
+        assert fn.launches_by_route == dict(was, wgmma=was["wgmma"] + 1)
+    for name, got, want in cases:
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        assert _rel(got, want) <= 1e-2, f"{name}: relative error"
+
+
 @pytest.mark.parametrize("layout", sorted(K5_LAYOUTS))
 def test_gmm_wgmma_matches_plain(layout):
     m, k, n, sizes = K5_LAYOUTS[layout]
@@ -604,7 +637,9 @@ def test_moe_route_breaks_exact_ties_like_lax_top_k(e):
 # ragged T around the tiles, causal, GQA, each head dim.
 BIAS_SHAPES = [(3, 16, 16, 512, 64, False), (3, 4, 2, 77, 64, False),
                (2, 4, 2, 200, 128, True), (3, 8, 4, 129, 32, False),
-               (3, 2, 1, 37, 16, True)]
+               (3, 2, 1, 37, 16, True),
+               # BERT-Large's tensor=2 and tensor=4 shards: H8, H4.
+               (3, 8, 8, 512, 64, False), (3, 4, 4, 512, 64, False)]
 
 
 def _bias(kind, b, t, seed):

@@ -321,8 +321,9 @@ def test_moe_tree_round_trips_from_jax():
 
 def test_gshard_dispatch_raises_naming_a8(moe):
     """moe_impl="gshard" runs (the GShard dispatch): loss and every
-    gradient leaf equal JAX's; the dropless dispatch under a mesh is what
-    still raises naming A8."""
+    gradient leaf equal JAX's. The dropless dispatch under a mesh (which
+    raised naming A8 before) runs on a mesh of one rank: loss and every
+    gradient leaf equal JAX's grouped dispatch."""
     from horovod_tpu_torch.parallel.mesh import AXIS_ORDER, Mesh
 
     jc, tc, jparams = moe
@@ -337,10 +338,21 @@ def test_gshard_dispatch_raises_naming_a8(moe):
                                 for k, v in _flat(want).items()}, 2e-5)
     mesh = Mesh({a: 1 for a in AXIS_ORDER}, 0, torch.device("cpu"), {},
                 None)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tl.llama_loss(_port(jparams), batch,
-                      dataclasses.replace(tc, moe_impl="grouped"),
-                      mesh=mesh)
+    want_loss, want = jax.value_and_grad(jl.llama_loss)(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()},
+        dataclasses.replace(jc, moe_impl="grouped"))
+    params = _port(jparams)
+    leaves = _flat(params)
+    for v in leaves.values():
+        v.requires_grad_(True)
+    loss = tl.llama_loss(params, batch,
+                         dataclasses.replace(tc, moe_impl="grouped"),
+                         mesh=mesh)
+    grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                 list(leaves.values()))))
+    assert float(loss.detach()) == pytest.approx(float(want_loss), rel=1e-6)
+    _assert_grads_close(grads, {k: np.asarray(v)
+                                for k, v in _flat(want).items()}, 2e-5)
 
 
 def test_unknown_moe_impl_raises(moe):

@@ -13,6 +13,7 @@ gradient entry near zero can move that entry by up to lr; 1e-4 is well
 under one such step and far over the f32 noise of every other entry).
 """
 
+import functools
 import importlib
 
 import jax
@@ -36,6 +37,7 @@ from horovod_tpu_torch.parallel.train_step import (
     _split_microbatches,
     make_split_train_step,
 )
+from tests.utils_mp import run_ranks
 
 fa_mod = importlib.import_module("horovod_tpu.ops.flash_attention")
 LR = 1e-3
@@ -148,15 +150,69 @@ def test_master_carry_is_bf16_and_loss_falls():
     assert losses[-1] < losses[0], losses
 
 
-# ZeRO-1 itself is ported (tests/test_torch_zero*.py); its cross-plane
-# split (inter_axis) is A9b, which the "A9" match covers.
+def _cross_plane_worker(rank, size, jparams, batch, steps):
+    """Rank ``rank`` of a 2-rank gloo world: ``steps`` split steps of
+    ``fused_adam`` with ZeRO-1 split across two planes of one rank each
+    (``size=1, inter_size=2``: each bucket's shard summed over the cross,
+    the mean folded as 1/2), every rank on the whole batch. Returns the
+    losses and the params as numpy."""
+    from horovod_tpu_torch.parallel.mesh import create_mesh
+
+    create_mesh(device="cpu", data=size)   # joins the world
+    tc = tl.LlamaConfig.tiny(dtype="float32", param_dtype="float32",
+                             remat="attn+gate")
+    ts = make_split_train_step(
+        lambda p, d: tl.llama_loss(p, d, tc, device="cpu"),
+        precision.fused_adam(LR),
+        zero=ZeroConfig(size=1, inter_axis="slice", inter_size=size))
+    carry = ts.init(from_jax_params(jparams, device="cpu"))
+    losses = []
+    for _ in range(steps):
+        loss, carry = ts.step(carry, _port_batch(batch))
+        losses.append(float(loss))
+    return losses, [_np(p) for p in _leaves(carry[0])]
+
+
+# ZeRO-1's cross-plane split (inter_axis, A9b) raised here before; now
+# it runs, and only telemetry= still raises.
 @pytest.mark.parametrize("kw,item", [
-    ({"zero": ZeroConfig(size=2, inter_axis="slice", inter_size=2)}, "A9"),
+    ({"zero": ZeroConfig(size=1, inter_axis="slice", inter_size=2)}, "A9"),
     ({"telemetry": object()}, "A12")])
 def test_unported_arguments_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        make_split_train_step(lambda p, d: 0.0,
-                              precision.fused_adam(LR), **kw)
+    """``telemetry=`` raises naming A12. ``zero=`` with the cross-plane
+    split runs: on two real ranks (two planes of one), three steps equal
+    JAX's ZeRO steps split over two emulated planes (the same config:
+    the shard summed over both, the mean folded as 1/2) on the same
+    gradients, on both ranks."""
+    if item == "A12":
+        with pytest.raises(NotImplementedError, match=item):
+            make_split_train_step(lambda p, d: 0.0,
+                                  precision.fused_adam(LR), **kw)
+        return
+    from horovod_tpu.parallel import ZeroConfig as JZeroConfig
+
+    jc, _, jparams, batch = _setup()
+    # Numpy first: JAX's step donates the params.
+    nparams = jax.tree.map(np.asarray, jparams)
+    zero = kw["zero"]
+    jts = j_make_step(lambda p, d: jl.llama_loss(p, d, jc),
+                      j_fused_adam(LR),
+                      zero=JZeroConfig(size=zero.size,
+                                       inter_axis=zero.inter_axis,
+                                       inter_size=zero.inter_size))
+    jcarry = jts.init(jparams)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jlosses = []
+    for _ in range(3):
+        jloss, jcarry = jts.step(jcarry, jb)
+        jlosses.append(float(jloss))
+    got = run_ranks(functools.partial(
+        _cross_plane_worker, jparams=nparams, batch=batch, steps=3),
+        zero.inter_size, timeout=180)
+    for losses, params in got:
+        np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
+        for g, w in zip(params, jax.tree.leaves(jcarry[0]), strict=True):
+            np.testing.assert_allclose(g, _np(w), rtol=0, atol=1e-4)
 
 
 def test_optimizer_without_apply_raises():

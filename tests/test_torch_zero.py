@@ -190,6 +190,91 @@ def test_state_converters_both_ways(kind, size):
         from_jax_zero_state(jstate, 0, 3, device="cpu")
 
 
+def _jax_block_state(kind):
+    """A JAX ZeRO state over ``data=2`` after three of JAX's ZeRO steps
+    of an MLP whose leaves split over ``fsdp`` and ``tensor``; its
+    params' global leaves."""
+    rng = np.random.default_rng(6)
+    params = {"w1": jnp.asarray(rng.standard_normal((8, 16)) * 0.1,
+                                jnp.float32),
+              "b1": jnp.asarray(rng.standard_normal(16) * 0.1, jnp.float32),
+              "w2": jnp.asarray(rng.standard_normal((16, 4)) * 0.1,
+                                jnp.float32)}
+    batch = {"x": jnp.asarray(rng.standard_normal((8, 8)), jnp.float32),
+             "y": jnp.asarray(rng.standard_normal((8, 4)), jnp.float32)}
+
+    def loss_fn(p, d):
+        h = jnp.tanh(d["x"] @ p["w1"] + p["b1"])
+        return jnp.mean((h @ p["w2"] - d["y"]) ** 2)
+
+    opt = j_fused_adam(1e-2) if kind == "adam" else \
+        j_fused_master_adam(1e-2, compute_dtype=jnp.bfloat16)
+    ts = j_make_step(loss_fn, opt, zero=JZ.ZeroConfig(size=2,
+                                                      bucket_bytes=128))
+    carry = ts.init(params)
+    for _ in range(3):
+        _, carry = ts.step(carry, batch)
+    return jax.tree.map(np.asarray, carry[1]), params
+
+
+@pytest.mark.parametrize("kind", ["adam", "master"])
+def test_state_converters_over_sharded_blocks(kind):
+    """JAX's global ZeRO state of params sharded over ``fsdp`` and
+    ``tensor`` (a ``data=2 x fsdp=2 x tensor=2`` mesh, ZeRO over
+    ``data``) into each rank's carry and back, bit for bit: each rank's
+    moments (and master) per leaf are its block of JAX's leaf, in the
+    layout of its own blocks."""
+    from horovod_tpu_torch.models.convert import ZeroBlocks
+    from horovod_tpu_torch.parallel.mesh import AXIS_ORDER
+    from horovod_tpu_torch.parallel.sharding import P
+
+    jstate, params = _jax_block_state(kind)
+    keys = sorted(params)                           # b1, w1, w2
+    specs = {"b1": P("tensor"), "w1": P("fsdp", "tensor"),
+             "w2": P("tensor", None)}
+    dt = torch.bfloat16 if kind == "master" else torch.float32
+    shape = {a: 1 for a in AXIS_ORDER} | {"data": 2, "fsdp": 2, "tensor": 2}
+    blocks = ZeroBlocks(
+        leaves=[Z.LeafSpec(params[k].shape, dt) for k in keys],
+        specs=[specs[k] for k in keys], shape=shape, axis="data",
+        bucket_bytes=128,
+        jax_leaves=[Z.LeafSpec(params[k].shape, torch.float32)
+                    for k in keys])
+    states = [from_jax_zero_state(jstate, r, 2, device="cpu", blocks=blocks)
+              for r in range(8)]
+    # JAX's leaves of each bucketed field, unpacked by JAX's own layout.
+    jlayout = JZ.zero_bucket_layout([params[k] for k in keys], 2, 128)
+    fields = ("master", "mu", "nu") if kind == "master" else ("mu", "nu")
+    for r, st in enumerate(states):
+        c = np.unravel_index(r, (2, 2, 2))          # data, fsdp, tensor
+        assert int(st.count[0]) == 3
+        _, layout = blocks.layouts(r)
+        pair = [q for q in range(8)
+                if np.unravel_index(q, (2, 2, 2))[1:] == c[1:]]
+        for f in fields:
+            want = jlayout.unpack([jnp.asarray(a)
+                                   for a in getattr(jstate, f)])
+            full = [torch.cat([getattr(states[q], f)[j] for q in pair])
+                    for j in range(len(layout.buckets))]
+            for k, got, w in zip(keys, layout.unpack(full), want):
+                w = np.asarray(w)
+                f_i, t_i = c[1], c[2]
+                if k == "b1":
+                    w = w[8 * t_i:8 * (t_i + 1)]
+                elif k == "w1":
+                    w = w[4 * f_i:4 * (f_i + 1), 8 * t_i:8 * (t_i + 1)]
+                else:
+                    w = w[8 * t_i:8 * (t_i + 1)]
+                np.testing.assert_array_equal(_bits(got), _bits(w),
+                                              err_msg=f"{f} {k} rank {r}")
+    back = to_jax_zero_state(states, bfloat16=ml_dtypes.bfloat16,
+                             blocks=blocks)
+    for got, want in zip(jax.tree.leaves(tuple(back)),
+                         jax.tree.leaves(jstate)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
 def test_optimizer_state_bytes_matches_jax():
     jstate = _jax_state("master", 2)
     port = from_jax_zero_state(jstate, 0, 2, device="cpu")
@@ -218,14 +303,25 @@ def test_optimizer_hyper_errors_match_jax():
 
 
 def test_config_errors():
+    """The config's errors; the cross-plane split (``inter_axis``, which
+    raised naming A9b before) builds, and its world is ``size *
+    inter_size`` ranks."""
     with pytest.raises(ValueError, match="size= or mesh="):
         Z.ZeroConfig().resolved_size()
-    with pytest.raises(NotImplementedError, match="A9b"):
-        Z.make_zero_apply(precision.fused_adam(1e-3), Z.ZeroConfig(
-            size=1, inter_axis="slice", inter_size=2))
+    apply_fn, init = Z.make_zero_apply(precision.fused_adam(1e-3),
+                                       Z.ZeroConfig(size=1,
+                                                    inter_axis="slice",
+                                                    inter_size=2))
+    assert apply_fn.program is None
     with pytest.raises(ValueError, match="world"):
         Z.zero_axis(Z.ZeroConfig(size=2), "cpu")
-    assert Z.zero_axis(Z.ZeroConfig(size=1), "cpu") == (None, 0, 1, 1.0)
+    with pytest.raises(ValueError, match="size 4"):
+        Z.zero_axis(Z.ZeroConfig(size=2, inter_axis="slice", inter_size=2),
+                    "cpu")
+    assert Z.zero_axis(Z.ZeroConfig(size=1), "cpu") == (None, 0, 1, 1.0,
+                                                         None)
+    assert Z.zero_axis(Z.ZeroConfig(size=1, inter_axis="slice"), "cpu") \
+        == (None, 0, 1, 1.0, None)
 
 
 def _tiny(dtype):
