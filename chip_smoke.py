@@ -14,9 +14,11 @@ Large's MLM training (also under elastic recovery), and the Horovod lane
 a job started by the port's launcher, ZeRO-1 on both lanes, the Adam
 update's kernel, ResNet-50 training, Mixtral-8x7B's GShard step, and
 tensor-parallel replays of the mesh path's blocks (the flagship's,
-BERT-Large's and the grouped dispatch's), in phases; any
+BERT-Large's and the grouped dispatch's), the disaggregated serving
+loop (with a killed decode rank) and ZeRO's re-layout, in phases; any
 failed phase exits non-zero before the result line. ``python3 chip_smoke.py
---launched-worker static|elastic DIR`` is one rank of that job.
+--launched-worker static|elastic DIR`` is one rank of that job, and
+``--serve-worker f32|bf16 DIR`` one rank of phase 27's serving drill.
 
 1. Card, power limit, torch/CUDA versions; kernel build time.
 2. Each kernel against its plain PyTorch version at the main paths'
@@ -280,7 +282,28 @@ failed phase exits non-zero before the result line. ``python3 chip_smoke.py
    Phase 2 holds K1-K3's bias variant at H8 and H4 and K5/K6 at Mixtral's
    ``tensor=2`` and ``tensor=4`` expert shards beside the bound, the
    plain versions, SDPA and ``torch._grouped_mm``.
-27. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
+27. The disaggregated serving loop (``serving/service.py``) and ZeRO's
+   re-layout: (a) ``ServingLoop`` at world size 1 over the flagship in
+   bf16 with int8 KV, 16 requests on a Poisson trace (50 rps) with phase
+   4's prompt lengths (17-128) and 32 new tokens each: every request
+   served, K1 once a layer a prefill and K4 never (the continuous-
+   batching step's ragged attention is the plain chain, as in the JAX
+   package: asserted), tok/s, p50/p99, a profile; (b) two ranks on this card as
+   two processes (``--serve-worker``), the lane on gloo (NCCL refuses
+   two ranks on one device), each engine on ``cuda:0``, the frontend
+   shipping pool-format blocks and rank 1 SIGKILLed at round 6: at f32
+   with 2 layers (f32 KV) every request's tokens equal
+   ``llama_generate``'s; at the flagship's width in bf16 with int8 KV
+   the share equal to (a)'s, each difference with the top-2 logit margin
+   of the bf16 forward at its first differing token; (c) the 4 -> 3
+   hand-over of the flagship's ZeRO carry (``fused_adam``'s bf16 mu and
+   nu) replayed on one card: each survivor's block joined from the
+   segments the plan's alltoallv sends it (``alltoallv_splits``, the
+   splits ``execute_plan`` uses), bit-exact against ``simulate_plan``,
+   ms beside the HBM bound. Across cards:
+   ``tests/test_torch_zero_cuda_ranks.py`` (elastic case) and
+   ``tests/test_torch_serving_cuda_ranks.py``.
+28. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
    launches, K1-K3's offsets rows with phase 17's launches, the six
    codec kernels with phase 20 (b)'s, and the Adam kernel's two
    variants with the train paths' launches), the card line, and the
@@ -5134,6 +5157,343 @@ def run_shard_phase(torch, ctr, bert, llama, gm, LlamaConfig, card):
             dict(bert=bert_replay, grouped=grouped_replay))
 
 
+# ---- phase 27: the disaggregated serving loop and ZeRO's re-layout ------
+
+SERVE_FLAG = "--serve-worker"
+SERVE_KILL_ROUND = 6
+SERVE_TIMEOUT_S = 420
+# Phase 4's engine shape: 16 requests of 17-128 prompt tokens, 32 new.
+SERVE_LOOP = dict(block_size=32, n_blocks=128, max_batch=16,
+                  max_context=160, steps_per_round=4, prefill_per_round=4)
+
+
+def serving_trace(poisson_trace, cfg, n=16, rps=50.0, seed=1):
+    """Phase 4's load on a Poisson clock: ``n`` requests at ``rps``, prompts
+    of 17-128 tokens, 32 new tokens each."""
+    return poisson_trace(n, rps, seed=seed, prompt_len=(17, 128),
+                         max_new=(32, 32), vocab_size=cfg.vocab_size)
+
+
+def serving_cfg(LlamaConfig, mode):
+    """The served model of a mode: the flagship in bf16, or its widths at
+    2 layers in f32 (the token-parity drill)."""
+    cfg = flagship_config(LlamaConfig)
+    if mode == "f32":
+        cfg = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                                  param_dtype="float32")
+    return cfg
+
+
+def run_loop_one(torch, ctr, ServingLoop, poisson_trace, params, cfg):
+    """(a) ``ServingLoop`` at world size 1 (no lane: the frontend decodes
+    too), int8 KV: every request completes, K1 once a layer a prefill.
+    K4 never launches: the continuous-batching step attends through
+    ``decode_attention_ragged``, the plain chain in both packages (the
+    JAX package's ``horovod_tpu/ops/decode_attention.py:106`` is an
+    einsum chain, no Pallas kernel); K4 is ``llama_generate``'s."""
+    trace = serving_trace(poisson_trace, cfg)
+    warm = ServingLoop(params, cfg, trace[:2], quantized=True,
+                       device="cuda", **SERVE_LOOP)
+    warm.run()
+    torch.cuda.synchronize()
+    reset_counts(ctr)
+    loop = ServingLoop(params, cfg, trace, quantized=True, device="cuda",
+                       **SERVE_LOOP)
+    t0 = time.perf_counter()
+    rep = loop.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts(ctr)
+    check_wgmma_routes(ctr, "ServingLoop")
+    sched = loop.engine.scheduler
+    L, n = cfg.n_layers, len(trace)
+    check(rep["served"] == n, f"served {rep['served']} of {n}")
+    prefills = n + sched.evictions
+    check(launched["K1"] == L * prefills,
+          f"K1 launched {launched['K1']} times, expected {L} a prefill x "
+          f"{prefills}")
+    check(launched["K4"] == 0 and loop.engine.steps > 0,
+          f"K4 launched {launched['K4']} times in {loop.engine.steps} "
+          "decode steps of the ragged (plain) attention, expected none")
+    for r in trace:
+        toks = rep["completed"][r.rid]
+        check(len(toks) == len(r.prompt) + r.max_new_tokens and
+              ((toks >= 0) & (toks < cfg.vocab_size)).all(),
+              f"request {r.rid}: bad tokens")
+    stats = dict(wall_s=wall, tok_s=rep["sustained_tok_s"],
+                 p50_ms=rep["p50_ms"], p99_ms=rep["p99_ms"],
+                 steps=loop.engine.steps, rounds=rep["rounds"],
+                 evictions=sched.evictions, prefills=prefills)
+    log(f"  ServingLoop (size 1) {n} requests, int8 KV: {wall:.3f} s, "
+        f"{rep['sustained_tok_s']} tok/s, p50 {rep['p50_ms']} ms, p99 "
+        f"{rep['p99_ms']} ms, {loop.engine.steps} decode steps, "
+        f"{rep['rounds']} rounds; launches {launched}")
+    small = serving_trace(poisson_trace, cfg, n=4)
+    stats["profile"] = device_profile(
+        torch, "ServingLoop 4 requests x 32 new",
+        lambda: ServingLoop(params, cfg, small, quantized=True,
+                            device="cuda", **SERVE_LOOP).run())
+    return launched, stats, rep["completed"]
+
+
+def serve_worker(mode, out):
+    """A rank of phase 27 (b)'s drill (``chip_smoke.py --serve-worker
+    f32|bf16 OUT``): the lane on gloo (two ranks cannot share a card on
+    NCCL), the engine on ``cuda:0``, rank 1 SIGKILLed at round
+    ``SERVE_KILL_ROUND``; rank 0 writes ``OUT/rank0.json``."""
+    import signal
+
+    import torch
+
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.models import generate as gen
+    from horovod_tpu_torch.models.llama import LlamaConfig, llama_init
+    from horovod_tpu_torch.ops import adam
+    from horovod_tpu_torch.ops import decode_attention as da
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import grouped_moe as gm
+    from horovod_tpu_torch.serving.scheduler import poisson_trace
+    from horovod_tpu_torch.serving.service import ServingLoop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # The two ranks share the host: half its cores each for the pool's
+    # host-side operations (torch's default is every core per process).
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    ctr = launch_counters(fa, da, gm, adam)
+    hvd.init(device="cpu")
+    cfg = serving_cfg(LlamaConfig, mode)
+    params = llama_init(cfg, torch.Generator(device="cuda").manual_seed(
+        0 if mode == "bf16" else 1), device="cuda")
+    trace = serving_trace(poisson_trace, cfg)
+
+    beats = []
+
+    def hook(loop, round_idx):
+        if hvd.rank() == 1 and round_idx == SERVE_KILL_ROUND:
+            os.kill(os.getpid(), signal.SIGKILL)
+        beats.append((round_idx, time.perf_counter(), hvd.size()))
+
+    # A warm-up trace first, as a service warms up before it takes
+    # traffic: a fresh process's first prefill and decode steps pay
+    # 10-14 s of one-time costs on the card.
+    ServingLoop(params, cfg, trace[:3], quantized=mode == "bf16",
+                device="cuda:0", **SERVE_LOOP).run()
+    reset_counts(ctr)
+    loop = ServingLoop(params, cfg, trace, quantized=mode == "bf16",
+                       round_hook=hook, device="cuda:0", **SERVE_LOOP)
+    rep = loop.run()
+    torch.cuda.synchronize()
+    record = dict(
+        completed={int(k): v.tolist() for k, v in rep["completed"].items()},
+        requeued=sorted(loop.requeued_rids), launches=counts(ctr),
+        **{k: rep[k] for k in ("served", "faults_survived", "rounds",
+                               "sustained_tok_s", "p50_ms", "p99_ms",
+                               "wall_s", "evictions")},
+        latency_ms={int(k): v * 1e3 for k, v in rep["latency_s"].items()},
+        recoveries=rep["recoveries"], size=hvd.size(),
+        rounds_s=[(r, round(t - beats[0][1], 3), n) for r, t, n in beats])
+    if mode == "f32":
+        record["generate"] = {
+            r.rid: gen.llama_generate(params, r.prompt[None, :], cfg,
+                                      r.max_new_tokens,
+                                      device="cuda")[0].cpu().tolist()
+            for r in trace}
+    hvd.shutdown()
+    with open(os.path.join(out, "rank0.json"), "w") as f:
+        json.dump(record, f)
+
+
+def run_serve_drill(mode, out):
+    """Two ``serve_worker`` processes on this card; returns rank 0's
+    record and the victim's exit code."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, HOROVOD_RANK=str(rank), HOROVOD_SIZE="2",
+                   HOROVOD_LOCAL_RANK=str(rank), HOROVOD_LOCAL_SIZE="2",
+                   HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+                   HOROVOD_CONTROLLER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), SERVE_FLAG, mode,
+             out], env=env))
+    try:
+        rc0 = procs[0].wait(timeout=SERVE_TIMEOUT_S)
+        rc1 = procs[1].wait(timeout=60)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(rc0 == 0, f"phase 27 (b) {mode}: rank 0 exited {rc0}")
+    check(rc1 == -9, f"phase 27 (b) {mode}: the victim exited {rc1}, not "
+          "by SIGKILL (the chaos never fired)")
+    with open(os.path.join(out, "rank0.json")) as f:
+        return json.load(f)
+
+
+def top2_margin(torch, llama, params, cfg, tokens):
+    """The top-2 logit margin of the bf16 forward at the last position of
+    ``tokens``."""
+    with torch.no_grad():
+        logits = llama.llama_forward(
+            params, torch.tensor([tokens], dtype=torch.int32,
+                                 device="cuda"), cfg,
+            device="cuda")[0, -1].float()
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def run_two_rank_drills(torch, llama, params, cfg, one_card, n_req):
+    """(b) the two-rank drill at f32 (2 layers: tokens against
+    ``llama_generate``) and at the flagship in bf16 with int8 KV (tokens
+    against (a)'s, each difference with its top-2 logit margin)."""
+    import tempfile
+
+    out = {}
+    for mode in ("f32", "bf16"):
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            rec = run_serve_drill(mode, d)
+            rec["drill_s"] = time.perf_counter() - t0
+        check(rec["served"] == n_req and rec["faults_survived"] >= 1 and
+              rec["size"] == 1 and rec["requeued"],
+              f"phase 27 (b) {mode}: served {rec['served']}, faults "
+              f"{rec['faults_survived']}, size {rec['size']}, requeued "
+              f"{rec['requeued']}")
+        if mode == "f32":
+            bad = [rid for rid, toks in rec["completed"].items()
+                   if toks != rec["generate"][str(rid)]]
+            check(not bad, f"phase 27 (b) f32: requests {bad} differ from "
+                  "llama_generate")
+        else:
+            diffs = {}
+            for rid, toks in rec["completed"].items():
+                want = one_card[int(rid)].tolist()
+                if toks != want:
+                    i = next(j for j, (a, b) in enumerate(zip(toks, want))
+                             if a != b)
+                    diffs[int(rid)] = dict(
+                        at=i, margin=top2_margin(torch, llama, params, cfg,
+                                                 want[:i]))
+            rec["equal_to_one_rank"] = n_req - len(diffs)
+            rec["differences"] = diffs
+        rec.pop("generate", None)
+        lat = rec.pop("latency_ms")
+        log(f"  2 ranks on one card ({mode}, rank 1 killed at round "
+            f"{SERVE_KILL_ROUND}): {rec['served']}/{n_req} served, re-queued "
+            f"{rec['requeued']}, {rec['sustained_tok_s']} tok/s, p50 "
+            f"{rec['p50_ms']} ms, p99 {rec['p99_ms']} ms, drill "
+            f"{rec['drill_s']:.1f} s; rank 0 launches {rec['launches']}; "
+            f"rounds (round, s, size) {rec.pop('rounds_s')}; recoveries "
+            f"(round, s) {rec['recoveries']}"
+            + (f"; equal to (a): {rec['equal_to_one_rank']}/{n_req}, "
+               f"differences {rec['differences']}" if mode == "bf16"
+               else "; tokens == llama_generate"))
+        rec["latency_ms_max"] = max(lat.values())
+        rec.pop("completed")
+        out[mode] = rec
+    return out
+
+
+def run_zero_relayout(torch, layout_leaves):
+    """(c) the 4 -> 3 hand-over of the flagship's ZeRO carry (``fused_adam``:
+    bf16 mu and nu, one block a rank of each bucket) replayed on one card:
+    each survivor's block joined from the segments the plan's alltoallv
+    sends it (``reshard.alltoallv_splits``, the splits ``execute_plan``
+    uses), bit for bit against ``simulate_plan``, timed beside the HBM
+    bound of reading and writing every row once."""
+    from horovod_tpu_torch.parallel import reshard as R
+    from horovod_tpu_torch.parallel import zero as Z
+
+    old, victims = 4, {3}
+    alive = [r for r in range(old) if r not in victims]
+    m = len(alive)
+    layout = Z.zero_bucket_layout(layout_leaves, old, Z.DEFAULT_BUCKET_BYTES)
+    g = torch.Generator(device="cuda").manual_seed(27)
+    plans, blocks = [], []
+    for b in layout.buckets:
+        s, n = b.padded // old, b.nelems
+        s_new = max(-(-n // m) * m, m) // m
+        src = [max(0, min(n, (r + 1) * s) - r * s) for r in range(old)]
+        dst = [0 if r in victims else
+               max(0, min(n, (alive.index(r) + 1) * s_new)
+                   - alive.index(r) * s_new) for r in range(old)]
+        plan = R.plan_redistribute((n,), np.dtype("V2"), R.rows_layout(src),
+                                   R.rows_layout(dst))
+        splits = [R.alltoallv_splits(plan, 0, r, src[r]) for r in range(old)]
+        for field in range(2):
+            full = torch.randn(b.padded, generator=g, device="cuda",
+                               dtype=torch.float32).to(b.dtype)
+            full[n:] = 0
+            blocks.append((plan, splits, src, dst, s_new,
+                           [full[r * s:r * s + src[r]] for r in range(old)]))
+
+    def relayout():
+        out = []
+        for plan, splits, src, dst, s_new, bl in blocks:
+            pieces = [torch.split(bl[r], splits[r]) for r in range(old)]
+            out.append([torch.cat([pieces[r][d] for r in range(old)] +
+                                  [bl[0].new_zeros(s_new - dst[d])])
+                        for d in alive])
+        return out
+
+    ms = cuda_ms(torch, relayout, 3, warmup=1)
+    got = relayout()
+    torch.cuda.synchronize()
+    total = moved = 0
+    for (plan, splits, src, dst, s_new, bl), new in zip(blocks, got):
+        want = R.simulate_plan(plan, [b.view(torch.int16).cpu().numpy()
+                                      for b in bl])
+        for d, blk in zip(alive, new):
+            check(blk.numel() == s_new and not blk[dst[d]:].any() and
+                  np.array_equal(blk[:dst[d]].view(torch.int16).cpu()
+                                 .numpy(), want[d]),
+                  "phase 27 (c): a survivor's block differs from "
+                  "simulate_plan")
+        total += sum(src) * 2
+        moved += plan.wire_tx_bytes()
+    bound_ms = 2 * total / HBM_BYTES_PER_S * 1e3
+    log(f"  4 -> 3 ZeRO re-layout on one card: {len(layout.buckets)} "
+        f"buckets x mu, nu ({total / 1e9:.3f} GB of bf16 moments): "
+        f"{ms:.3f} ms beside the HBM bound {bound_ms:.3f} ms (each row "
+        f"read and written once); the plans' alltoallv sends "
+        f"{moved / 1e9:.3f} GB between cards; bit-exact against "
+        "simulate_plan")
+    return dict(buckets=len(layout.buckets), state_bytes=total, ms=ms,
+                bound_ms=bound_ms, wire_bytes=moved)
+
+
+def run_serving_loop_phase(torch, ctr, llama, LlamaConfig, llama_init,
+                           poisson_trace, card):
+    from horovod_tpu_torch.parallel._tree import tree_leaves
+    from horovod_tpu_torch.parallel.zero import LeafSpec
+    from horovod_tpu_torch.serving.service import ServingLoop
+
+    cfg = flagship_config(LlamaConfig)
+    params = llama_init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    log("  (a) one rank")
+    launched, one, completed = run_loop_one(torch, ctr, ServingLoop,
+                                            poisson_trace, params, cfg)
+    log("  (b) two ranks on one card, a gloo lane")
+    drills = run_two_rank_drills(torch, llama, params, cfg, completed,
+                                 len(completed))
+    leaves = [LeafSpec(tuple(w.shape), w.dtype) for w in tree_leaves(params)]
+    del params
+    torch.cuda.empty_cache()
+    log("  (c) ZeRO's 4 -> 3 re-layout replayed on one card")
+    relayout = run_zero_relayout(torch, leaves)
+    torch.cuda.empty_cache()
+    return launched, dict(one_rank=one, two_ranks=drills, relayout=relayout,
+                          card=card)
+
+
 def main():
     import torch
 
@@ -5418,7 +5778,12 @@ def main():
     shard_paths, shard_stats = run_shard_phase(
         torch, ctr, bert, llama, gm, LlamaConfig, card)
 
-    log("phase 27: results")
+    log("phase 27: the disaggregated serving loop (one rank; two ranks on "
+        "one card with a kill) and ZeRO's 4 -> 3 re-layout")
+    loop_launch, loop_stats = run_serving_loop_phase(
+        torch, ctr, llama, LlamaConfig, llama_init, poisson_trace, card)
+
+    log("phase 28: results")
     log(json.dumps({"generate": gen_stats, "engine": eng_stats,
                     "train": train_stats, "train_parity": parity,
                     "moe_train": moe_train_stats,
@@ -5433,7 +5798,7 @@ def main():
                     "wire": wire, "launcher": launched, "zero": zero,
                     "adam": adam_stats, "resnet50": resnet50,
                     "mesh": mesh_stats, "shards": shard_stats,
-                    "card": card}))
+                    "serving_loop": loop_stats, "card": card}))
     paths = {"llama_generate": gen_launch, "DecodeEngine": eng_launch,
              "train_step": train_launch, "moe_train_step": moe_train_launch,
              "moe_llama_generate": moe_gen_launch,
@@ -5441,7 +5806,8 @@ def main():
              "bert_train_step": bert_train_launch,
              "bert_forward": bert_fwd_launch,
              "elastic_bert_train": elastic_launch,
-             "zero_train_step": zero_launch, **mesh_paths, **shard_paths}
+             "zero_train_step": zero_launch, **mesh_paths, **shard_paths,
+             "ServingLoop": loop_launch}
     bert_bias = {k: bert_train_stats["bias_launches"][k]
                  + (bert_fwd_launch[k] if k == "K1" else 0)
                  + elastic["bias_launches"][k]
@@ -5554,6 +5920,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == [WORKER_FLAG]:
             launched_worker(*sys.argv[2:4])
+        elif sys.argv[1:2] == [SERVE_FLAG]:
+            serve_worker(*sys.argv[2:4])
         else:
             main()
     except Exception as e:  # every failed phase ends the run, loudly

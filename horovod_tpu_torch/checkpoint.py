@@ -9,7 +9,9 @@ temporary name and renamed, so a reader never sees half a file. A save
 of a step already on disk is skipped (returns False), as orbax skips
 it. Only rank 0 of a Horovod job writes (replicas hold the same state);
 whether this rank writes is decided at each save, since an elastic
-reset renumbers the ranks. Writes are synchronous, so ``wait`` has
+reset renumbers the ranks. A rank's own block of a sharded state (a ZeRO
+carry's) is a file of its own, ``<step>.<key>.pt``, that every rank
+writes (:meth:`CheckpointManager.save_block`). Writes are synchronous, so ``wait`` has
 nothing to join. Orbax's sharded-array layout, ``encode_pytree`` and the
 module-level ``save``/``restore`` wait for ROADMAP.md A11.
 """
@@ -60,6 +62,37 @@ class CheckpointManager:
         for old in steps[:max(len(steps) - self._max_to_keep, 0)]:
             os.remove(self._path(old))
         return True
+
+    def _block_path(self, step, key):
+        return os.path.join(self._dir, f"{int(step)}.{key}.pt")
+
+    def save_block(self, step, key, block):
+        """Write this rank's ``block`` of ``step`` under ``key`` (every
+        rank writes its own; skipped when on disk); the blocks of this
+        key older than the newest ``max_to_keep`` steps are removed."""
+        path = self._block_path(step, key)
+        if os.path.exists(path):
+            return False
+        os.makedirs(self._dir, exist_ok=True)
+        tmp = os.path.join(self._dir,
+                           f".{int(step)}.{key}.pt.tmp{os.getpid()}")
+        torch.save(block, tmp)
+        os.replace(tmp, path)
+        pat = re.compile(rf"(\d+)\.{re.escape(key)}\.pt\Z")
+        steps = sorted(int(m.group(1)) for m in map(pat.match,
+                                                    os.listdir(self._dir))
+                       if m)
+        for old in steps[:max(len(steps) - self._max_to_keep, 0)]:
+            os.remove(self._block_path(old, key))
+        return True
+
+    def has_block(self, step, key):
+        return os.path.exists(self._block_path(step, key))
+
+    def restore_block(self, step, key):
+        """The block written under ``step`` and ``key``, on the CPU."""
+        return torch.load(self._block_path(step, key), map_location="cpu",
+                          weights_only=False)
 
     def latest_step(self):
         steps = self.all_steps()

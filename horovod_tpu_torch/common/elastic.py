@@ -54,6 +54,7 @@ import torch
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.exceptions import (
     HorovodInternalError,
+    HorovodStateLostError,
     HostsUpdatedInterrupt,
 )
 from horovod_tpu_torch.common.metrics import REGISTRY
@@ -338,20 +339,27 @@ def rejoin(addr=None, port=None, timeout=None, device=None):
     return asg
 
 
-def shrink(victims):
+def shrink(victims, state=None):
     """Voluntary shrink (the autoscaler's scale-down leg): re-form the
     world without ``victims`` at the next epoch, no fault; the
     negotiated shutdown drains every collective in flight. Collective:
     every rank, victims included, calls it at the same point with the
     same set. A victim shuts its lane down and returns False (it may
     exit, or knock at the door later with :func:`rejoin`); a survivor
-    re-forms, runs the post-reset hooks and returns True."""
+    re-forms, runs the post-reset hooks and returns True.
+
+    With ``state`` (a ``TreeState`` holding a ZeRO carry) the victims
+    first hand their rows over on the old world (``state.hand_over``),
+    and a survivor's state is committed to host memory on the new
+    layout once the world has re-formed."""
     victims = {int(v) for v in victims}
     size, rank = basics.size(), basics.rank()
     if any(v < 0 or v >= size for v in victims) or len(victims) >= size:
         raise ValueError(
             f"shrink(victims={sorted(victims)}): victims must be a "
             f"proper subset of range({size})")
+    finish = getattr(state, "hand_over", None)
+    finish = finish(victims) if finish is not None else None
     if rank in victims:
         basics.shutdown()
         return False
@@ -359,6 +367,8 @@ def shrink(victims):
                   basics.epoch() + 1)
     _ensure_door()
     _run_post_reset_hooks()
+    if finish is not None:
+        finish()
     return True
 
 
@@ -622,7 +632,8 @@ def run_fn(func):
             except HostsUpdatedInterrupt as e:
                 skip_sync = e.skip_sync
             except Exception as e:  # noqa: BLE001 — see _is_internal_error
-                if not _is_internal_error(e):
+                if not _is_internal_error(e) or \
+                        isinstance(e, HorovodStateLostError):
                     raise
                 if os.environ.get("HOROVOD_ELASTIC_VERBOSE"):
                     print(f"[elastic] recovering from: {e!r}",

@@ -21,6 +21,9 @@ steady clock in microseconds. The lane records these types:
   fired; ``reinit_begin`` (size, epoch), ``reinit_end`` (rc, size,
   epoch) and ``epoch`` (epoch, old_epoch): an in-place re-formation;
   ``rejoin`` (slots, epoch): joiner slots it absorbed;
+- ``request`` (phase, rid, aux, and ``phase_name``): a serving request
+  entered a lifecycle phase (:data:`REQUEST_PHASES`;
+  ``telemetry/reqtrace.py``);
 - ``knob_adopt`` (knob, value): a knob the autotuner moved, on the
   coordinator when it moves it and on a worker when it adopts it;
   ``knob`` 0 is the fusion threshold (bytes), 1 the cycle time (value
@@ -56,6 +59,7 @@ SPECS = {
     "rejoin": ("slots", "", "epoch", ""),
     "knob_adopt": ("knob", "", "value", ""),
     "inject": ("action", "", "op_index", ""),
+    "request": ("phase", "", "rid", "aux"),
 }
 # The reference's control-phase order (csrc/metrics.h ControlPhase), then
 # the port's own: the lane's teardown (``shutdown()``, or the old lane's
@@ -64,6 +68,11 @@ SPECS = {
 # checks in on the store instead of sweeping sockets).
 CONTROL_PHASES = ("rendezvous", "gather", "broadcast", "probe_sweep",
                   "reinit", "parole_freeze", "shutdown", "nccl_init")
+# A serving request's lifecycle phases, in the reference's order
+# (csrc/events.h RequestPhase, kRequestPhaseNames).
+REQUEST_PHASES = ("queued", "prefill", "kv_ship", "decode_wait",
+                  "decode_active", "evicted_requeue", "fault_requeue",
+                  "done")
 
 
 class EventRing:
@@ -111,6 +120,8 @@ def _as_dict(event):
             out[key] = value
     if type == "phase":
         out["phase_name"] = CONTROL_PHASES[args[0]]
+    elif type == "request":
+        out["phase_name"] = REQUEST_PHASES[args[0]]
     return out
 
 

@@ -43,6 +43,26 @@ class HorovodWireCorruptionError(HorovodPeerFailureError):
         self.chunk = chunk
 
 
+class HorovodStateLostError(HorovodInternalError):
+    """Rows of a sharded state (a ZeRO carry's blocks) that no rank of
+    the re-formed world holds and no durable commit has. ``lost`` maps
+    each sharded state (its path in the elastic state) to the
+    ``(start, stop)`` flat element ranges lost in each bucket. The
+    port's own: ``hvd.elastic.run`` re-raises it instead of retrying,
+    since another reset cannot bring the rows back."""
+
+    def __init__(self, message, lost=None):
+        super().__init__(message)
+        self.lost = dict(lost or {})
+
+
+class HorovodReformationError(RuntimeError):
+    """A state or program whose layout is tied to the world's shape (a
+    ZeRO carry under a mesh, or split across planes) met a re-formation
+    that changed that shape, or the groups its axes ran on. The port's
+    own; not retried by ``hvd.elastic.run``."""
+
+
 class HostsUpdatedInterrupt(Exception):
     """Raised in elastic mode when the host set changed; ``skip_sync``
     is True when the worker set only grew."""

@@ -232,3 +232,37 @@ def to_jax_zero_state(states, bfloat16=None, blocks=None):
                      for f in jax_layout.pack(full))
 
     return cls(**{k: join(k) for k in cls._fields})
+
+
+def resize_zero_states(states, leaves, size, bucket_bytes=DEFAULT_BUCKET_BYTES):
+    """The blocks of a ZeRO state over ``size`` ranks from its blocks over
+    ``len(states)`` (``states`` by shard rank: the split step's
+    ``ZeroAdamState``/``ZeroMasterAdamState`` or the eager lane's dict),
+    through the leaves: each field's buckets joined, unpacked into the
+    global leaves by the old layout of ``leaves`` (what the layout was
+    built from: ``parallel.zero.layout_leaves``' or the gradients'
+    shapes and dtypes) and packed into each new rank's shard (padding
+    0). ``count`` is the first state's. The oracle for re-laying a carry
+    out (``torch/elastic.py TreeState``); on the CPU."""
+    from horovod_tpu_torch.parallel.zero import SHARD_FIELDS
+
+    old = zero_bucket_layout(leaves, len(states), bucket_bytes)
+    new = zero_bucket_layout(leaves, size, bucket_bytes)
+    first = states[0]
+    get = (lambda s, f: s[f]) if isinstance(first, dict) else getattr
+    fields = [f for f in SHARD_FIELDS
+              if (f in first if isinstance(first, dict)
+                  else f in first._fields)]
+    out = [{} for _ in range(size)]
+    for f in fields:
+        full = [torch.cat([get(s, f)[i].detach().cpu() for s in states])
+                for i in range(len(old.buckets))]
+        glob = old.unpack(full)
+        for r in range(size):
+            out[r][f] = [new.pack_shard(glob, i, r, full[i].dtype).clone()
+                         for i in range(len(new.buckets))]
+    count = get(first, "count").detach().cpu().clone()
+    if isinstance(first, dict):
+        return [dict(o, count=count.clone()) for o in out]
+    return [type(first)(count=count.clone(),
+                        **{f: tuple(v) for f, v in o.items()}) for o in out]

@@ -4,7 +4,8 @@ ZeRO-1 (``zero``) and its fused schedule's knob and hooks (``fusion``),
 imported as modules; and the mesh of the ``data``, ``fsdp``, ``seq``,
 ``expert`` and ``tensor`` axes, re-exported here under the JAX
 package's names: the mesh (``mesh``), its differentiable collectives
-(``ops``), the sharding rules' helpers (``sharding``), ring attention
+(``ops``), the sharding rules' helpers (``sharding``), the resharding
+planner and its executors (``reshard``), ring attention
 (``ring_attention``) and Ulysses (``ulysses``)."""
 
 from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -22,6 +23,17 @@ from horovod_tpu_torch.parallel.ops import (  # noqa: F401
     psum,
     reduce_scatter,
     replicate,
+)
+from horovod_tpu_torch.parallel.reshard import (  # noqa: F401
+    Layout,
+    ReshardPlan,
+    even_row_layout,
+    execute_plan,
+    layout_from_spec,
+    plan_redistribute,
+    redistribute,
+    reshard_rows,
+    simulate_plan,
 )
 from horovod_tpu_torch.parallel.ring_attention import (  # noqa: F401
     blockwise_attention,

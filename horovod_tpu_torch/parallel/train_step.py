@@ -45,7 +45,7 @@ from horovod_tpu_torch.parallel._tree import (
     tree_map,
     tree_unflatten,
 )
-from horovod_tpu_torch.parallel.zero import make_zero_apply
+from horovod_tpu_torch.parallel.zero import check_blocks, make_zero_apply
 
 
 class TrainStep(NamedTuple):
@@ -102,7 +102,8 @@ def _fused_zero_step(loss_fn, zero_apply, n, grad_call):
 
     def step(carry, batch):
         params, opt = carry
-        program = zero_apply.program
+        program = zero_apply.resolve()
+        check_blocks(opt, program.layout.n_shards, program.axis.rank)
         layout = program.layout
         mbs = _split_microbatches(batch, n) if n > 1 else [batch]
         loss, acc = None, None

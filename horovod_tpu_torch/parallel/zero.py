@@ -67,6 +67,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch.common.exceptions import HorovodReformationError
 from horovod_tpu_torch.ops.adam import adam_update
 from horovod_tpu_torch.parallel._tree import tree_leaves, tree_unflatten
 from horovod_tpu_torch.parallel.precision import _bias_corrections
@@ -103,7 +104,9 @@ class ZeroConfig:
     ``size`` is the shard count, by default ``mesh.shape[axis]``.
     Without ``mesh`` the shards live on the ranks of the
     ``torch.distributed`` world, whose size must be ``size *
-    inter_size`` (1 needs no world), over groups ``init`` opens.
+    inter_size`` (1 needs no world), over groups the first apply opens;
+    ``size=None`` there takes the world's size (over ``inter_size``),
+    and follows it across an elastic re-formation.
     ``bucket_bytes`` is the fused-bucket granularity.
     ``inter_axis``/``inter_size`` split the pair across planes: the
     scattered shard summed over ``inter_axis`` (a mesh axis; without a
@@ -122,7 +125,11 @@ class ZeroConfig:
             return int(self.size)
         if self.mesh is not None:
             return int(self.mesh.shape[self.axis])
-        raise ValueError("ZeroConfig needs size= or mesh=")
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world % int(self.inter_size):
+            raise ValueError(f"a world of {world} ranks does not split "
+                             f"into {self.inter_size} planes")
+        return world // int(self.inter_size)
 
 
 class ZeroAxis(NamedTuple):
@@ -143,11 +150,13 @@ class ZeroAxis(NamedTuple):
 _PARAM_AXES = ("pipe", "fsdp", "expert", "tensor")
 
 
-def zero_axis(zero, device):
+def zero_axis(zero, device, groups=True):
     """Resolve ``zero`` to this rank's :class:`ZeroAxis` for params on
     ``device``. Without a mesh every rank must call it (the slices' and
     crosses' groups over the world are opened: NCCL for a CUDA
-    ``device``, else gloo)."""
+    ``device``, else gloo); ``groups=False`` opens none (the axis's
+    ``group`` and ``inter`` then None: for the layout alone, as ``init``
+    needs it, which a joiner runs before its peers reach the groups)."""
     size = zero.resolved_size()
     inter_size = int(zero.inter_size)
     if zero.mesh is not None:
@@ -177,8 +186,10 @@ def zero_axis(zero, device):
             f"ZeroConfig(size={size}, inter_size={inter_size}) without a "
             "mesh shards over the torch.distributed world, which must be "
             f"joined at size {world}")
-    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
     rank = dist.get_rank()
+    if not groups:
+        return ZeroAxis(None, rank % size, size, 1.0 / world)
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
     grid = [[s * size + p for p in range(size)] for s in range(inter_size)]
     # Every rank opens every group, in one order (new_group is collective).
     slices = [dist.new_group(line, backend=backend) if size > 1 else None
@@ -339,24 +350,104 @@ def optimizer_state_bytes(state):
 
 # ---- sharded optimizer state ----------------------------------------
 
-class ZeroAdamState(NamedTuple):
+class ZeroCarryLayout(NamedTuple):
+    """What a ZeRO carry's blocks are blocks of: ``nelems`` the unpadded
+    elements of each bucket (the partition of the leaves into buckets
+    does not depend on the shard count; the padding does), ``n_shards``
+    and this rank's ``shard_rank`` on the zero axis, the membership
+    ``epoch`` the blocks were laid out in (a joiner's fresh carry is of a
+    later one), the ``world`` size then, and ``fixed``: ``"mesh"`` or
+    ``"inter"`` when the axis is tied to the world's shape (a mesh's
+    axes, a split across planes) and cannot follow a re-formation.
+    ``torch/elastic.py TreeState`` reads it to re-lay the blocks out."""
+    nelems: tuple
+    n_shards: int
+    shard_rank: int
+    epoch: int
+    world: int
+    fixed: Any = None
+
+    def padded(self, n_shards=None):
+        """Each bucket's padded length over ``n_shards`` (default this
+        layout's): :func:`zero_bucket_layout`'s rule."""
+        n = self.n_shards if n_shards is None else int(n_shards)
+        return tuple(max(-(-e // n) * n, n) for e in self.nelems)
+
+    def same_layout(self, other):
+        """Whether ``other`` is a block of the same laid-out state."""
+        return other is not None and (self.nelems, self.n_shards,
+                                      self.epoch, self.fixed) == (
+            other.nelems, other.n_shards, other.epoch, other.fixed)
+
+
+class _CarriesLayout:
+    """A ZeRO state namedtuple that keeps its ``zero_layout`` (a
+    :class:`ZeroCarryLayout`, None for a state built elsewhere, such as
+    ``models/convert.py``'s) across ``_replace``."""
+
+    zero_layout = None
+
+    def _replace(self, **fields):
+        out = super()._replace(**fields)
+        out.zero_layout = self.zero_layout
+        return out
+
+
+class _ZeroAdamFields(NamedTuple):
+    count: Any
+    mu: Any
+    nu: Any
+
+
+class ZeroAdamState(_CarriesLayout, _ZeroAdamFields):
     """This rank's block of the sharded fused-Adam state: ``count`` the
     ``(1,)`` int32 step counter, ``mu``/``nu`` tuples of this rank's
     shard of each bucket, in the bucket's dtype."""
 
-    count: Any
-    mu: Any
-    nu: Any
 
-
-class ZeroMasterAdamState(NamedTuple):
-    """This rank's block of the sharded fused-master-Adam state: the
-    master-dtype (f32) ``master`` shards and the f32 moments."""
-
+class _ZeroMasterAdamFields(NamedTuple):
     count: Any
     master: Any
     mu: Any
     nu: Any
+
+
+class ZeroMasterAdamState(_CarriesLayout, _ZeroMasterAdamFields):
+    """This rank's block of the sharded fused-master-Adam state: the
+    master-dtype (f32) ``master`` shards and the f32 moments."""
+
+
+#: the fields of a ZeRO state that hold a block of each bucket.
+SHARD_FIELDS = ("master", "mu", "nu")
+
+
+def is_zero_state(v):
+    """A ZeRO carry's state: the split step's (:class:`ZeroAdamState`,
+    :class:`ZeroMasterAdamState`) or the eager lane's dict with its
+    ``zero_layout`` entry (``torch/fused_optimizer.py``)."""
+    return isinstance(v, (ZeroAdamState, ZeroMasterAdamState)) or (
+        isinstance(v, dict) and isinstance(v.get("zero_layout"),
+                                           ZeroCarryLayout))
+
+
+def state_layout(state):
+    """A ZeRO state's :class:`ZeroCarryLayout` (None when unknown)."""
+    if isinstance(state, dict):
+        return state.get("zero_layout")
+    return state.zero_layout
+
+
+def carry_layout(layout, shard_rank, fixed=None):
+    """The :class:`ZeroCarryLayout` of a carry laid out by ``layout``,
+    this rank holding block ``shard_rank``, now."""
+    from horovod_tpu_torch.common import basics
+
+    return ZeroCarryLayout(
+        nelems=tuple(b.nelems for b in layout.buckets),
+        n_shards=layout.n_shards, shard_rank=int(shard_rank),
+        epoch=basics.epoch() if basics.is_initialized() else 0,
+        world=dist.get_world_size() if dist.is_initialized() else 1,
+        fixed=fixed)
 
 
 def _optimizer_hyper(optimizer):
@@ -387,10 +478,11 @@ def layout_leaves(hyper, params):
     return leaves
 
 
-def zero_state_init(hyper, layout, params, axis):
+def zero_state_init(hyper, layout, params, axis, fixed=None):
     """The ZeRO-1 carry ``(params, opt)``: this rank's shards of the
     state (the master packed from the params in the master dtype), and
-    the params (their compute cast for the master variant)."""
+    the params (their compute cast for the master variant). The state
+    carries its :class:`ZeroCarryLayout` (``fixed`` as there)."""
     leaves = tree_leaves(params)
     device = leaves[0].device
     count = torch.zeros((1,), dtype=torch.int32, device=device)
@@ -415,6 +507,7 @@ def zero_state_init(hyper, layout, params, axis):
             nu=tuple(torch.zeros(b.shard_elems(layout.n_shards),
                                  dtype=b.dtype, device=device)
                      for b in layout.buckets))
+    opt.zero_layout = carry_layout(layout, axis.rank, fixed)
     return params, opt
 
 
@@ -530,31 +623,97 @@ class ZeroApply:
         return opt._replace(count=count)
 
 
+def _world_key():
+    """(size, epoch) of the world a ZeRO program runs on: the lane's,
+    else the ``torch.distributed`` world's (no epoch)."""
+    from horovod_tpu_torch.common import basics
+
+    if basics.is_initialized():
+        return basics.size(), basics.epoch()
+    return (dist.get_world_size() if dist.is_initialized() else 1), None
+
+
+def _fixed(zero):
+    if zero.mesh is not None:
+        return "mesh"
+    return "inter" if int(zero.inter_size) > 1 else None
+
+
+def check_blocks(state, n_shards, shard_rank):
+    """Raise unless ``state``'s blocks are block ``shard_rank`` of
+    ``n_shards`` (a carry not re-laid out after a re-formation)."""
+    meta = state_layout(state)
+    if meta is not None and (meta.n_shards, meta.shard_rank) != (
+            n_shards, shard_rank):
+        raise HorovodReformationError(
+            f"the ZeRO state holds block {meta.shard_rank} of "
+            f"{meta.n_shards}; this world reads block {shard_rank} of "
+            f"{n_shards}: re-lay it out first (hvd.elastic.TreeState.sync, "
+            "or shrink(victims, state=))")
+
+
 def make_zero_apply(optimizer, zero):
     """The ZeRO apply for ``make_split_train_step``: returns ``(apply_fn,
     init)``. ``init(params) -> (params, opt)`` builds the layout of
     ``params`` (this rank's blocks under a mesh) and this rank's carry;
     ``apply_fn(grads, params, opt) -> (params, opt)`` updates the params
     in place (the port's counterpart of JAX's donation) and returns them
-    with the new state. ``apply_fn.program``
-    is the :class:`ZeroApply` after ``init``."""
+    with the new state.
+
+    ``apply_fn.resolve()`` gives the :class:`ZeroApply` of the current
+    world (also ``apply_fn.program`` once resolved): without a mesh the
+    first apply opens the zero axis's groups (``init`` opens none, so a
+    joiner can build its carry before its peers reach them), and after
+    an elastic re-formation (the world's size or epoch changed) the axis
+    and the bucket layout are resolved anew, the padding following the
+    new shard count. Under a mesh, or split across planes when the
+    world's size changed, a re-formation raises
+    :class:`HorovodReformationError` naming ROADMAP.md A9b: the axes are
+    fixed."""
     hyper = _optimizer_hyper(optimizer)
-    programs = []
+    fixed = _fixed(zero)
+    built = {}
 
     def init(params):
-        axis = zero_axis(zero, tree_leaves(params)[0].device)
-        layout = zero_bucket_layout(layout_leaves(hyper, params),
-                                    axis.size, zero.bucket_bytes)
-        programs[:] = [ZeroApply(hyper, layout, axis)]
-        apply_fn.program = programs[0]
-        return zero_state_init(hyper, layout, params, axis)
+        device = tree_leaves(params)[0].device
+        leaves = [LeafSpec(tuple(l.shape), l.dtype)
+                  for l in layout_leaves(hyper, params)]
+        axis = zero_axis(zero, device, groups=zero.mesh is not None)
+        layout = zero_bucket_layout(leaves, axis.size, zero.bucket_bytes)
+        built.clear()
+        built.update(key=_world_key(), device=device, leaves=leaves,
+                     layout=layout, program=ZeroApply(hyper, layout, axis)
+                     if zero.mesh is not None else None)
+        apply_fn.program = built["program"]
+        return zero_state_init(hyper, layout, params, axis, fixed)
+
+    def resolve():
+        if not built:
+            raise RuntimeError("call init(params) before the ZeRO apply")
+        key = _world_key()
+        if key != built["key"]:
+            if fixed == "mesh" or (fixed and key[0] != built["key"][0]):
+                raise HorovodReformationError(
+                    f"ZeRO over a {fixed} cannot follow a re-formation "
+                    f"(world {built['key']} -> {key}): the axes are fixed "
+                    "(ROADMAP.md A9b)")
+            axis = zero_axis(zero, built["device"])
+            layout = zero_bucket_layout(built["leaves"], axis.size,
+                                        zero.bucket_bytes)
+            built.update(key=key, layout=layout,
+                         program=ZeroApply(hyper, layout, axis))
+        elif built["program"] is None:
+            built["program"] = ZeroApply(
+                hyper, built["layout"], zero_axis(zero, built["device"]))
+        apply_fn.program = built["program"]
+        return built["program"]
 
     def apply_fn(grads, params, opt):
-        if not programs:
-            raise RuntimeError("call init(params) before the ZeRO apply")
-        opt = programs[0].apply(tree_leaves(grads), tree_leaves(params),
-                                opt)
+        program = resolve()
+        check_blocks(opt, program.layout.n_shards, program.axis.rank)
+        opt = program.apply(tree_leaves(grads), tree_leaves(params), opt)
         return params, opt
 
     apply_fn.program = None
+    apply_fn.resolve = resolve
     return apply_fn, init

@@ -12,7 +12,10 @@ eviction replay rests on. Padding rows decode a dummy token at length
 0 and are discarded.
 
 The pool lives on the host; each step's gathered view moves to the
-engine's device once.
+engine's device once. Each transition of a request is recorded for
+request tracing (``telemetry/reqtrace.py``), as the reference's engine
+records it; :meth:`DecodeEngine.adopt_remote` takes a sequence whose
+blocks another rank prefilled (``serving/service.py``).
 """
 
 import torch
@@ -24,6 +27,7 @@ from horovod_tpu_torch.models.generate import (
 )
 from horovod_tpu_torch.serving.kvcache import PagedKVCache
 from horovod_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
+from horovod_tpu_torch.telemetry import reqtrace
 
 
 class DecodeEngine:
@@ -71,11 +75,22 @@ class DecodeEngine:
 
     def _admit_local(self):
         for seq in self.scheduler.admit():
+            reqtrace.record_request("prefill", seq.rid,
+                                    aux=len(seq.req.prompt))
             first, k, v = self.prefill(seq.req)
             self.pool.write(seq.blocks, 0, k, v)
             seq.generated.append(first)
             if seq.done:  # max_new_tokens == 1: prefill finished it
                 self.scheduler.complete(seq)
+            else:
+                reqtrace.record_request("decode_wait", seq.rid)
+
+    def adopt_remote(self, seq):
+        """Register a sequence whose blocks were shipped in (the
+        service's decode ranks); the caller allocated and wrote them."""
+        reqtrace.record_request("decode_wait", seq.rid,
+                                aux=len(seq.blocks))
+        self.scheduler.adopt(seq)
 
     # ---- the decode step ----------------------------------------------
 
@@ -93,6 +108,9 @@ class DecodeEngine:
         if not live:
             return []
         live = live[:self.max_batch]
+        for seq in live:
+            reqtrace.record_request("decode_active", seq.rid,
+                                    aux=seq.cached)
         out = self._decode_batch(live)
         events = []
         for seq, tok in zip(live, out):
@@ -100,6 +118,8 @@ class DecodeEngine:
             events.append((seq.rid, tok, seq.done))
             if seq.done:
                 self.scheduler.complete(seq)
+            else:
+                reqtrace.record_request("decode_wait", seq.rid)
         self.steps += 1
         return events
 

@@ -11,9 +11,10 @@ Storage is torch tensors on the host, as the JAX pool is host-resident
 numpy by design: the pool is control-plane state, and the decode step
 moves a gathered view to the device once per step. Rounding is
 ``torch.round`` (half to even, like ``np.rint``), so the int8 bytes
-equal the JAX copy's. The prefill->decode wire path
-(``write_raw``/``read_raw``) belongs to the multi-rank service and is
-not copied yet.
+equal the JAX copy's. :meth:`PagedKVCache.write_raw` and
+:meth:`PagedKVCache.read_raw` are the prefill->decode wire path of the
+multi-rank service (``serving/service.py``): pool-format blocks in and
+out, adopted verbatim.
 """
 
 import torch
@@ -184,6 +185,27 @@ class PagedKVCache:
                 scales[blk] = merged
             pool[blk, :, :, off:off + run, :] = _quantize(strip,
                                                           scales[blk])
+
+    def write_raw(self, blocks, k_q, v_q, k_scale=None, v_scale=None):
+        """Adopt pool-format payloads wholesale (the prefill->decode
+        wire path): ``k_q``/``v_q`` [n, L, Hkv, bs, D] in the pool's
+        storage dtype (int8 when quantized), scales [n, L, Hkv] (quantized
+        pools only); tensors or numpy arrays."""
+        idx = torch.tensor(blocks, dtype=torch.int64)
+        self.k_pool[idx] = torch.as_tensor(k_q).to(self.k_pool.dtype)
+        self.v_pool[idx] = torch.as_tensor(v_q).to(self.v_pool.dtype)
+        if self.quantized:
+            self.k_scale[idx] = torch.as_tensor(k_scale, dtype=torch.float32)
+            self.v_scale[idx] = torch.as_tensor(v_scale, dtype=torch.float32)
+
+    def read_raw(self, blocks):
+        """Pool-format payloads of ``blocks`` (the wire's send side):
+        ``(k_q, v_q, k_scale, v_scale)``, the scales None unquantized."""
+        idx = torch.tensor(blocks, dtype=torch.int64)
+        k_q, v_q = self.k_pool[idx], self.v_pool[idx]
+        if self.quantized:
+            return k_q, v_q, self.k_scale[idx], self.v_scale[idx]
+        return k_q, v_q, None, None
 
     def gather(self, blocks, pad_blocks=0):
         """Concatenate a block table into the attention view.

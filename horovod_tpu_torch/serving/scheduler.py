@@ -1,8 +1,9 @@
 """Continuous-batching request scheduler: admit/evict per decode step.
 
-The port's own copy of horovod_tpu/serving/scheduler.py, without its
-request-tracing calls and the multi-rank service's hooks (adopt, drop),
-which later parts of the port bring. Pure
+The port's own copy of horovod_tpu/serving/scheduler.py, with its
+request-tracing transitions (``telemetry/reqtrace.py``) and the
+multi-rank service's hooks (:meth:`ContinuousBatchingScheduler.adopt`,
+:meth:`ContinuousBatchingScheduler.drop`). Pure
 bookkeeping: requests wait in arrival order; each step the scheduler
 admits from the front while batch slots, the token budget (sum of live
 context lengths) and pool blocks for prompt+1 hold, and grows running
@@ -20,6 +21,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from horovod_tpu_torch.serving.kvcache import OutOfBlocks
+from horovod_tpu_torch.telemetry import reqtrace
 
 
 @dataclass
@@ -44,6 +46,11 @@ class Sequence:
     @property
     def rid(self):
         return self.req.rid
+
+    @property
+    def length(self):
+        """Logical sequence length (prompt + generated so far)."""
+        return len(self.req.prompt) + len(self.generated)
 
     @property
     def cached(self):
@@ -122,6 +129,7 @@ class ContinuousBatchingScheduler:
     # ---- admission -----------------------------------------------------
 
     def submit(self, req):
+        reqtrace.record_request("queued", req.rid, aux=len(req.prompt))
         self.waiting.append(req)
 
     def requeue_front(self, reqs):
@@ -148,6 +156,11 @@ class ContinuousBatchingScheduler:
             self.running.append(seq)
             admitted.append(seq)
         return admitted
+
+    def adopt(self, seq):
+        """Register a sequence built elsewhere (the disaggregated path:
+        prefilled on another rank, its blocks allocated and written)."""
+        self.running.append(seq)
 
     # ---- per-step growth / eviction ------------------------------------
 
@@ -184,6 +197,8 @@ class ContinuousBatchingScheduler:
         self.requeue_front([seq.req])
         self.evictions += 1
         self.recomputed_prefill_tokens += len(seq.req.prompt)
+        reqtrace.record_request("evicted_requeue", seq.rid,
+                                aux=len(seq.req.prompt))
 
     def complete(self, seq):
         self.running.remove(seq)
@@ -191,6 +206,26 @@ class ContinuousBatchingScheduler:
         seq.blocks = []
         self.completed[seq.rid] = seq
         self.useful_tokens += len(seq.generated)
+        reqtrace.record_request("done", seq.rid, aux=len(seq.generated))
+
+    def drop(self, rid):
+        """Cancel a running or waiting request (the elastic duplicate
+        guard: another rank completed it). True when one was dropped.
+        No ``done`` transition: the winning completion's is the chain's
+        terminal; only the live table forgets the rid."""
+        for s in list(self.running):
+            if s.rid == rid:
+                self.running.remove(s)
+                self.pool.free(s.blocks)
+                s.blocks = []
+                reqtrace.forget_request(rid)
+                return True
+        for r in list(self.waiting):
+            if r.rid == rid:
+                self.waiting.remove(r)
+                reqtrace.forget_request(rid)
+                return True
+        return False
 
     def signals(self):
         """The serving signal set (queue, pool, amplification)."""

@@ -8,17 +8,19 @@ daemon thread of stdlib ``http.server``, and serves:
 
 - ``/healthz``: initialized, rank, size, the membership epoch, loop
   state, the last fault record, uptime, the bound port, the lane's
-  queue depth, its cycles, the straggler skew and ``pending_rejoiners``
-  (the joiners held at rank 0's parole door; 0 elsewhere);
+  queue depth, its cycles, the straggler skew, ``pending_rejoiners``
+  (the joiners held at rank 0's parole door; 0 elsewhere) and the
+  serving fields (``telemetry/autoscale.py SERVING_SIGNAL_DEFAULTS``,
+  live while a ``serving.service.ServingLoop`` runs);
 - ``/metrics``: the Prometheus text of a fresh snapshot
   (``exporters._flatten_prom``);
 - ``/events?n=``: the newest n events of the ring (default 256);
-- ``/requests``: in-flight serving requests: an empty list until the
-  port serves requests on the lane (ROADMAP.md A6, A12);
+- ``/requests?n=``: the in-flight serving requests, oldest first, each
+  with its phase and ages (``telemetry/reqtrace.py live_requests``;
+  default 64, 0 for all);
 - ``/stacks``: every Python thread's stack (``faulthandler``).
 
-The reference's serving and fleet fields and ``/fleet`` wait for A6
-and A12.
+The reference's fleet fields and ``/fleet`` wait for ROADMAP.md A12.
 """
 
 import faulthandler
@@ -32,6 +34,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 from horovod_tpu_torch.common import basics
+from horovod_tpu_torch.telemetry import reqtrace
+from horovod_tpu_torch.telemetry.autoscale import read_serving_signals
 from horovod_tpu_torch.telemetry.exporters import _flatten_prom
 
 _server = None
@@ -56,6 +60,7 @@ def _healthz():
         "straggler_skew_ms": round(
             snap["straggler"]["skew_us"]["p90_us"] / 1000.0, 3),
         "pending_rejoiners": _pending_rejoiners(),
+        **read_serving_signals(),
     }
 
 
@@ -106,7 +111,8 @@ class _Handler(BaseHTTPRequestHandler):
                 n = int(query.get("n", ["256"])[0])
                 self._reply(200, json.dumps(basics.events(n)))
             elif url.path == "/requests":
-                self._reply(200, "[]")
+                n = int(query.get("n", ["64"])[0])
+                self._reply(200, json.dumps(reqtrace.live_requests(n)))
             elif url.path == "/stacks":
                 self._reply(200, _stacks(), ctype="text/plain")
             else:

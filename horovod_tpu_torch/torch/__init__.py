@@ -48,6 +48,8 @@ from horovod_tpu_torch.common.basics import (  # noqa: F401
 from horovod_tpu_torch.common.exceptions import (  # noqa: F401
     HorovodInternalError,
     HorovodPeerFailureError,
+    HorovodReformationError,
+    HorovodStateLostError,
     HorovodWireCorruptionError,
     HostsUpdatedInterrupt,
 )
@@ -127,3 +129,8 @@ from horovod_tpu_torch.torch.sync_batch_norm import (  # noqa: F401
     SyncBatchNorm,
 )
 from horovod_tpu_torch.torch import elastic  # noqa: E402,F401
+# The resharding planner's mesh surface (``parallel/reshard.py``): a
+# rank's block moved between two (mesh, spec) layouts.
+from horovod_tpu_torch.parallel.reshard import (  # noqa: E402,F401
+    redistribute,
+)

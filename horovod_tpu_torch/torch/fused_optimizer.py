@@ -29,6 +29,8 @@ from horovod_tpu_torch.parallel.precision import FusedOptimizer, fused_adam
 from horovod_tpu_torch.parallel.train_step import _value_and_grad
 from horovod_tpu_torch.parallel.zero import (
     DEFAULT_BUCKET_BYTES,
+    carry_layout,
+    check_blocks,
     shard_adam,
     zero_bucket_layout,
 )
@@ -125,6 +127,9 @@ def DistributedFusedAdam(learning_rate, b1=0.9, b2=0.999, eps=1e-8,
 
 
 def _zero_state(layout, device):
+    """This rank's zeroed block of each bucket's moments, with the
+    carry's ``zero_layout`` (``parallel.zero.ZeroCarryLayout``: what
+    ``hvd.elastic.TreeState`` re-lays the blocks out by)."""
     n = layout.n_shards
 
     def shard(b):
@@ -132,19 +137,23 @@ def _zero_state(layout, device):
 
     return {"count": torch.zeros((), dtype=torch.int32, device=device),
             "mu": [shard(b) for b in layout.buckets],
-            "nu": [shard(b) for b in layout.buckets]}
+            "nu": [shard(b) for b in layout.buckets],
+            "zero_layout": carry_layout(layout, mpi_ops.rank())}
 
 
 class _Layouts:
     """The bucket layout of each tree structure (leaf shapes and
-    dtypes) this rank has seen, over ``mpi_ops.size()`` shards."""
+    dtypes) this rank has seen, over ``mpi_ops.size()`` shards, keyed by
+    the world's size and epoch as well: after an elastic re-formation
+    the buckets pad to the new shard count."""
 
     def __init__(self, bucket_bytes):
         self.bucket_bytes = bucket_bytes or DEFAULT_BUCKET_BYTES
         self._cache = {}
 
     def __call__(self, leaves):
-        key = tuple((tuple(l.shape), l.dtype) for l in leaves)
+        key = (mpi_ops.size(), basics.epoch(),
+               tuple((tuple(l.shape), l.dtype) for l in leaves))
         if key not in self._cache:
             self._cache[key] = zero_bucket_layout(leaves, mpi_ops.size(),
                                                   self.bucket_bytes)
@@ -191,6 +200,7 @@ def _zero_fused_adam(learning_rate, b1, b2, eps, op, compression,
     def apply(params, grads, state):
         g_leaves = tree_leaves(grads)
         layout = layouts(g_leaves)
+        check_blocks(state, layout.n_shards, mpi_ops.rank())
         p_leaves = tree_leaves(params)
         count = state["count"] + 1
         n = len(layout.buckets)
@@ -256,6 +266,7 @@ def make_fused_train_step(loss_fn, learning_rate, b1=0.9, b2=0.999,
         params = _drain(params, pending)
         p_leaves = tree_leaves(params)
         layout = layouts(p_leaves)
+        check_blocks(state, layout.n_shards, mpi_ops.rank())
         count = state["count"] + 1
         rs = {}
 

@@ -427,7 +427,14 @@ def test_fault_inject_arming_and_env(battery):
 
 
 def _kill_worker(impl, q):
-    os.environ.update({"HOROVOD_FAULT_INJECT": "0:3", "JAX_PLATFORMS": "cpu"})
+    # A world of one, whatever layout the spawning process's environment
+    # holds (another test in the same pytest worker may have left one).
+    os.environ.update({"HOROVOD_FAULT_INJECT": "0:3", "JAX_PLATFORMS": "cpu",
+                       "HOROVOD_RANK": "0", "HOROVOD_SIZE": "1",
+                       "HOROVOD_LOCAL_RANK": "0", "HOROVOD_LOCAL_SIZE": "1",
+                       "HOROVOD_CROSS_RANK": "0", "HOROVOD_CROSS_SIZE": "1"})
+    for k in ("HOROVOD_REJOIN_PORT", "HOROVOD_RDZV_ADDR"):
+        os.environ.pop(k, None)
     sys.path.insert(0, REPO_ROOT)
     if impl == "port":
         import horovod_tpu_torch.torch as hvd

@@ -23,7 +23,8 @@ timeline, between two step marks. Then:
   ``GLOO_ALLTOALL``); the port's file loads as JSON before
   ``stop_timeline`` and opens with ``CLOCK_SYNC``;
 - ``debug_port()`` is the bound port, and ``/healthz``, ``/metrics``,
-  ``/events`` and ``/requests`` answer 200.
+  ``/events`` and ``/requests`` answer 200; ``/requests`` lists the
+  live request table (one rid in flight, one done), as the reference's.
 """
 
 import json
@@ -109,8 +110,19 @@ def _script(rank, size, impl):
         out["metrics.reset"] = hvd.metrics()
         port = hvd.debug_port()
         out["debug_port"] = port
+        # The live request table: one rid in flight, one completed.
+        if impl == "port":
+            from horovod_tpu_torch.telemetry import reqtrace
+        else:
+            from horovod_tpu.telemetry import reqtrace
+        for phase in ("queued", "prefill"):
+            reqtrace.record_request(phase, 100 + rank, aux=7)
+        for phase in ("queued", "done"):
+            reqtrace.record_request(phase, 200 + rank)
         out["http"] = {p: _get(port, p) for p in (
-            "/healthz", "/metrics", "/events?n=4", "/requests")}
+            "/healthz", "/metrics", "/events?n=4", "/requests",
+            "/requests?n=0")}
+        reqtrace.forget_request(100 + rank)
         return out
     finally:
         hvd.shutdown()
@@ -263,8 +275,21 @@ def test_debug_port_answers(lanes):
         assert health["debug_port"] == out["debug_port"]
         # The reference's elastic fields.
         assert health["epoch"] == 0 and health["last_fault"] is None
+        # Its serving fields, at their sentinels: no loop is live.
+        from horovod_tpu.telemetry.autoscale import SERVING_SIGNAL_DEFAULTS
+
+        assert {k: health[k] for k in SERVING_SIGNAL_DEFAULTS} == \
+            SERVING_SIGNAL_DEFAULTS
         assert "hvdtpu_op_bytes_total" in http["/metrics"][1]
         assert f'hvdtpu_elastic_epoch{{rank="{rank}"}} 0' in \
             http["/metrics"][1]
         assert len(json.loads(http["/events?n=4"][1])) == 4
-        assert json.loads(http["/requests"][1]) == []
+        # The live table: the one rid in flight, in its phase; the
+        # reference's rows have the same fields.
+        for path in ("/requests", "/requests?n=0"):
+            rows = json.loads(http[path][1])
+            assert [(r["rid"], r["phase"]) for r in rows] == \
+                [(100 + rank, "prefill")], rows
+            assert rows[0]["age_ms"] >= rows[0]["phase_age_ms"] >= 0
+            want = json.loads(lanes[0][rank]["http"][path][1])
+            assert [sorted(r) for r in rows] == [sorted(r) for r in want]

@@ -306,8 +306,11 @@ def test_config_errors():
     """The config's errors; the cross-plane split (``inter_axis``, which
     raised naming A9b before) builds, and its world is ``size *
     inter_size`` ranks."""
-    with pytest.raises(ValueError, match="size= or mesh="):
-        Z.ZeroConfig().resolved_size()
+    # Without size= or mesh= the shards take the world's size (1 with no
+    # world), split into the planes.
+    assert Z.ZeroConfig().resolved_size() == 1
+    with pytest.raises(ValueError, match="planes"):
+        Z.ZeroConfig(inter_size=2).resolved_size()
     apply_fn, init = Z.make_zero_apply(precision.fused_adam(1e-3),
                                        Z.ZeroConfig(size=1,
                                                     inter_axis="slice",
