@@ -15,8 +15,10 @@ a job started by the port's launcher, ZeRO-1 on both lanes, the Adam
 update's kernel, ResNet-50 training, Mixtral-8x7B's GShard step, and
 tensor-parallel replays of the mesh path's blocks (the flagship's,
 BERT-Large's and the grouped dispatch's), the disaggregated serving
-loop (with a killed decode rank) and ZeRO's re-layout, in phases; any
-failed phase exits non-zero before the result line. ``python3 chip_smoke.py
+loop (with a killed decode rank) and ZeRO's re-layout, the pipeline
+schedules replayed on one card at Llama-3-8B's width and the remat modes
+dots, attn+ffn and attn+gate+qkv, in phases; any failed phase exits
+non-zero before the result line. ``python3 chip_smoke.py
 --launched-worker static|elastic DIR`` is one rank of that job, and
 ``--serve-worker f32|bf16 DIR`` one rank of phase 27's serving drill.
 
@@ -52,8 +54,8 @@ failed phase exits non-zero before the result line. ``python3 chip_smoke.py
    lm_head's f32-output product (which path this torch takes, its cost).
 7. Training parity: at flagship widths in f32 (2 layers, batch 2 x
    256), loss and gradients on the card match the plain CPU path, and
-   the remat modes none/full/attn/attn+gate agree with K1 launching
-   2/4/2/2 times per grad call.
+   the remat modes none/full/attn/attn+gate/dots/attn+ffn/attn+gate+qkv
+   agree with K1 launching 2/4/2/2/4/2/2 times per grad call.
 8. MoE training: ``benchmarks/moe_bench.py``'s config and step (split
    step, ``fused_adam(3e-4)``, 2 microbatches, ``remat="moe"``) at
    batch 4 x 2048: one warm-up and 4 timed steps; per grad call K5 and
@@ -66,9 +68,10 @@ failed phase exits non-zero before the result line. ``python3 chip_smoke.py
    ``DecodeEngine`` with 8 requests at once (max_batch 8: K5) and 2 at
    max_batch 1 (the top-K gather).
 10. MoE parity at f32 (2 layers): loss and gradients on the card
-   against the CPU; the six remat modes agree, with K5 launching
-   6/12/12/12/10/6 times per grad call (none/full/attn/attn+gate/
-   attn+moe/moe); engine tokens equal ``llama_generate``'s. Then the
+   against the CPU; the nine remat modes agree, with K5 launching
+   6/12/12/12/10/6/12/12/12 times per grad call (none/full/attn/
+   attn+gate/attn+moe/moe/dots/attn+ffn/attn+gate+qkv); engine tokens
+   equal ``llama_generate``'s. Then the
    same 2-layer grad call at bf16 on the card (K1, K2, K5, K6 on wgmma)
    against bf16 on the CPU (the plain versions).
 11. The Horovod eager lane (``horovod_tpu_torch.torch``) on NCCL at
@@ -303,7 +306,28 @@ failed phase exits non-zero before the result line. ``python3 chip_smoke.py
    ms beside the HBM bound. Across cards:
    ``tests/test_torch_zero_cuda_ranks.py`` (elastic case) and
    ``tests/test_torch_serving_cuda_ranks.py``.
-28. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
+28. The pipeline schedules (``parallel/pipeline.py``) and the last remat
+   modes: (a) Llama-3-8B (vocab 128256, d4096, H32/Hkv8, d_ff 14336,
+   bf16; 8 of its 32 layers, ``remat="attn+gate"``) at B8 x T2048 as 8
+   microbatches over 4 stages, gpipe, ``1f1b`` and ``interleaved_1f1b``
+   (V=2) replayed through the in-process transport (every stage on this
+   card): each one's loss (1e-2 relative) and every gradient leaf (5e-2
+   norm-relative) against the unpipelined ``llama_loss`` on the same
+   batch, K1-K3 as the schedule predicts (gpipe L x M each; the fused
+   schedules K1 2 L x M, their backward subtick re-running the
+   forward), all on wgmma; ms a split step (``fused_adam(3e-4)``) and
+   peak GiB of each beside the unpipelined step's; (b)
+   ``benchmarks/moe_bench.py``'s MoE (grouped K5/K6, ``remat="moe"``)
+   under gpipe and ``1f1b`` at 2 stages x 4 microbatches, each against
+   the mean of the unpipelined grad calls on its microbatches (the same
+   objective: the aux loss is taken a microbatch) in (a)'s envelope
+   (K5 6 L x M under 1f1b, K6's halves 3 L x M each); (c) the
+   flagship's split step (B4 x T2048) under ``dots`` (K1 2 L a grad
+   call), ``attn+ffn`` and ``attn+gate+qkv`` (K1 L) beside
+   ``attn+gate``: ms a step, peak GiB, the loss and gradients
+   bit-identical to ``attn+gate``'s. Across cards:
+   ``tests/test_torch_pipeline_cuda_ranks.py``.
+29. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
    launches, K1-K3's offsets rows with phase 17's launches, the six
    codec kernels with phase 20 (b)'s, and the Adam kernel's two
    variants with the train paths' launches), the card line, and the
@@ -5494,6 +5518,299 @@ def run_serving_loop_phase(torch, ctr, llama, LlamaConfig, llama_init,
                           card=card)
 
 
+# ---- phase 28: the pipeline schedules and the last three remat modes -------
+
+
+def llama3_8b_config(LlamaConfig, layers=8):
+    """Llama-3-8B (``LlamaConfig.llama3_8b``: vocab 128256, d4096,
+    H32/Hkv8, d_ff 14336) at full width cut to ``layers`` layers, bf16
+    compute and storage, ``remat="attn+gate"``."""
+    return dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=layers,
+                               dtype="bfloat16", param_dtype="bfloat16",
+                               remat="attn+gate")
+
+
+def pipelined_counts(schedule, L, M, per):
+    """A pipelined grad call's launches, derived from the schedule:
+    ``per`` is a gpipe grad call's launches a (layer, microbatch) (its
+    forward once, its backward, what the remat mode re-runs); a fused
+    schedule's backward subtick re-runs each layer's forward once more
+    (K1, and the MoE's three K5). Nothing runs in a bubble slot."""
+    extra = {} if schedule == "gpipe" else {"K1": 1, "K5": 3 if per.get(
+        "K5") else 0}
+    return {k: (n + extra.get(k, 0)) * L * M for k, n in per.items()}
+
+
+def timed_step(torch, ts, carry, data, steps):
+    """One warm-up and ``steps`` split steps: (ms a step, the median,
+    peak GiB of the timed steps)."""
+    loss, carry = ts.step(carry, data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, carry = ts.step(carry, data)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    check(bool(torch.isfinite(loss)), f"non-finite loss {float(loss)}")
+    return (float(np.median(secs)) * 1e3,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def grad_call(torch, ctr, llama, train_step, params, cfg, data, **kw):
+    """One grad call of ``llama_loss``: (loss, gradient leaves, launches,
+    peak GiB); every routed launch on wgmma."""
+    from horovod_tpu_torch.parallel._tree import tree_leaves
+
+    reset_counts(ctr)
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = train_step._value_and_grad(
+        lambda p, d: llama.llama_loss(p, d, cfg, **kw), params, data, 1)
+    torch.cuda.synchronize()
+    check_wgmma_routes(ctr, f"grad call {cfg.pipeline_schedule} "
+                            f"remat={cfg.remat}")
+    return (float(loss), tree_leaves(grads), counts(ctr),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def run_pipeline_replays(torch, ctr, llama, pipeline, precision, train_step,
+                         cfg, card, S=4, M=8, seq=2048, steps=2):
+    """Phase 28 (a): gpipe, 1f1b and interleaved_1f1b (V=2) replayed on
+    one card through the in-process transport, ``S`` stages, ``M``
+    microbatches of one row: each schedule's loss and gradient leaves
+    against the unpipelined ``llama_loss`` on the same batch (bf16: loss
+    1e-2 relative, each leaf 5e-2 norm-relative, phase 25's envelope),
+    K1-K3 as the schedule predicts, on wgmma; ms a split step
+    (``fused_adam(3e-4)``) beside the unpipelined step's."""
+    from horovod_tpu_torch.parallel._tree import tree_map
+
+    params = llama.llama_init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    rng = np.random.default_rng(28)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        M, seq)).astype(np.int32)).cuda()
+    data = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+    L = cfg.n_layers
+    ref_loss, ref_grads, ref_launch, ref_peak = grad_call(
+        torch, ctr, llama, train_step, params, cfg, data)
+    check(ref_launch["K1"] == L, f"unpipelined K1 {ref_launch['K1']}")
+    schedules = (("gpipe", "gpipe", 1), ("1f1b", "1f1b", 1),
+                 ("interleaved_1f1b V=2", "interleaved_1f1b", 2))
+    launched, rows = {}, {}
+    for name, sched, v in schedules:
+        c = dataclasses.replace(cfg, pipeline_schedule=sched,
+                                pipeline_virtual_stages=v,
+                                pipeline_microbatches=M)
+        loss, grads, n, peak = grad_call(
+            torch, ctr, llama, train_step, params, c, data,
+            transport=pipeline.InProcessTransport(S))
+        want = pipelined_counts(sched, L, M, {"K1": 1, "K2": 1, "K3": 1})
+        for k, w in want.items():
+            check(n[k] == w, f"{name}: {k} launched {n[k]} times, the "
+                  f"schedule predicts {w}")
+        check(n["K5"] == 0, f"{name}: the dense model launched K5")
+        loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+        grad_rel = max(norm_rel(a, b) for a, b in zip(grads, ref_grads))
+        del grads
+        check(loss_rel <= 1e-2, f"{name}: loss {loss} against {ref_loss}")
+        check(grad_rel <= 5e-2, f"{name}: gradients off by {grad_rel}")
+        launched[name] = n
+        rows[name] = dict(loss=loss, loss_rel=loss_rel,
+                          grad_norm_rel_max=grad_rel, launches=want,
+                          grad_call_peak_gib=peak)
+    del ref_grads
+    torch.cuda.empty_cache()
+    for name, sched, v in (("unpipelined", "gpipe", 1),) + schedules:
+        c = dataclasses.replace(cfg, pipeline_schedule=sched,
+                                pipeline_virtual_stages=v,
+                                pipeline_microbatches=M)
+        kw = {} if name == "unpipelined" else dict(
+            transport=pipeline.InProcessTransport(S))
+        ts = train_step.make_split_train_step(
+            lambda p, d, c=c, kw=kw: llama.llama_loss(p, d, c, **kw),
+            precision.fused_adam(3e-4))
+        ms, peak = timed_step(torch, ts, ts.init(tree_map(
+            lambda w: w.clone(), params)), data, steps)
+        rows.setdefault(name, {}).update(ms_per_step=ms, peak_gib=peak)
+        del ts
+        torch.cuda.empty_cache()
+    sched = pipeline.build_interleaved_schedule(S, 2, M)
+    log(f"  (a) Llama-3-8B {L} of 32 layers (d{cfg.d_model}, H{cfg.n_heads}/"
+        f"Hkv{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), "
+        f"remat={cfg.remat}, bf16, B{M} x T{seq} as {M} microbatches over "
+        f"{S} stages in one process (unpipelined loss {ref_loss:.5f}, "
+        f"{ref_launch['K1']} K1 a grad call; interleaved V=2: "
+        f"{sched.n_slots} slots, bubble {sched.bubble_fraction:.4f}); card "
+        f"{card}")
+    for name, r in rows.items():
+        log(f"    {name}: " + ", ".join(
+            f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in r.items()) + f"; card {card}")
+    del params
+    torch.cuda.empty_cache()
+    return ({f"pipeline {name}": n for name, n in launched.items()},
+            dict(stages=S, microbatches=M, seq=seq, layers=L,
+                 unpipelined_loss=ref_loss, schedules=rows, card=card))
+
+
+def run_moe_pipeline(torch, ctr, llama, pipeline, train_step, cfg, card,
+                     S=2, M=4, seq=2048):
+    """Phase 28 (b): ``benchmarks/moe_bench.py``'s MoE (grouped K5/K6,
+    ``remat="moe"``) under ``1f1b`` and gpipe, ``S`` stages, ``M``
+    microbatches of one row, in one process, each against its exact
+    unpipelined counterpart: the mean over m of the unpipelined
+    ``llama_loss`` on microbatch m (the aux loss is taken a microbatch;
+    equal rows and no mask make the token mean the same), in the bf16
+    envelope (loss 1e-2 relative, each leaf 5e-2 norm-relative); K5/K6
+    and K1-K3 as the schedule predicts."""
+    params = llama.llama_init(
+        cfg, torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    rng = np.random.default_rng(29)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        M, seq)).astype(np.int32)).cuda()
+    data = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    ref_loss, ref_grads = 0.0, None
+    for m in range(M):
+        loss, grads, *_ = grad_call(torch, ctr, llama, train_step, params,
+                                    cfg, {k: v[m:m + 1]
+                                          for k, v in data.items()})
+        ref_loss += loss / M
+        if ref_grads is None:
+            ref_grads = [g.float() / M for g in grads]
+        else:
+            for acc, g in zip(ref_grads, grads):
+                acc.add_(g.float() / M)
+        del grads
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    out, launched, rows = {}, {}, {}
+    for sched in ("gpipe", "1f1b"):
+        c = dataclasses.replace(cfg, pipeline_schedule=sched,
+                                pipeline_microbatches=M)
+        t0 = time.perf_counter()
+        loss, grads, launched[sched], _ = grad_call(
+            torch, ctr, llama, train_step, params, c, data,
+            transport=pipeline.InProcessTransport(S))
+        ms = (time.perf_counter() - t0) * 1e3
+        rows[sched] = dict(
+            loss=loss, loss_rel=abs(loss - ref_loss) / abs(ref_loss),
+            grad_norm_rel_max=max(norm_rel(a, b)
+                                  for a, b in zip(grads, ref_grads)),
+            first_grad_call_ms=ms)
+        out[sched] = grads
+    # remat="moe" saves the grouped chain: per (layer, microbatch) the
+    # forward's 3 K5, the dlhs and tgmm halves 3 each in the backward.
+    per = {"K1": 1, "K2": 1, "K3": 1, "K5": 3, "K6 dlhs": 3, "K6 tgmm": 3}
+    for sched in ("gpipe", "1f1b"):
+        want = pipelined_counts(sched, L, M, per)
+        got = {k: launched[sched][k] for k in want}
+        check(got == want, f"MoE {sched}: launches {got}, the schedule "
+              f"predicts {want}")
+    between = max(norm_rel(a, b) for a, b in zip(out["1f1b"], out["gpipe"]))
+    log(f"  (b) MoE (moe_bench's config, L{L}, 4 experts top-2, grouped, "
+        f"remat={cfg.remat}) B{M} x T{seq} as {M} microbatches over {S} "
+        f"stages, against the mean of {M} unpipelined grad calls, one a "
+        f"microbatch (loss {ref_loss:.5f}; {plain_ms:.1f} ms for the {M}, "
+        f"first calls): " + "; ".join(
+            f"{s} loss {r['loss']:.5f} (relative {r['loss_rel']:.3e}, tol "
+            f"1e-2), largest leaf norm-relative {r['grad_norm_rel_max']:.3e}"
+            f" (tol 5e-2), first grad call {r['first_grad_call_ms']:.1f} ms"
+            for s, r in rows.items())
+        + f"; 1f1b against gpipe {between:.3e}; launches 1f1b "
+        f"{launched['1f1b']}, gpipe {launched['gpipe']}; card {card}")
+    for sched, r in rows.items():
+        check(r["loss_rel"] <= 1e-2, f"MoE {sched} loss {r['loss']} against "
+              f"{ref_loss}")
+        check(r["grad_norm_rel_max"] <= 5e-2, f"MoE {sched} gradients off "
+              f"by {r['grad_norm_rel_max']}")
+    del params, out, ref_grads
+    torch.cuda.empty_cache()
+    return ({f"pipeline MoE {s}": launched[s] for s in ("gpipe", "1f1b")},
+            dict(stages=S, microbatches=M, reference_loss=ref_loss,
+                 schedules=rows, one_f_one_b_vs_gpipe=between, card=card))
+
+
+def run_remat_modes(torch, ctr, llama, precision, train_step, cfg, card,
+                    batch=4, seq=2048, steps=3):
+    """Phase 28 (c): the flagship's split step at B4 x T2048 under
+    ``dots``, ``attn+ffn`` and ``attn+gate+qkv`` beside ``attn+gate``:
+    K1/K5 a grad call (``dots`` re-runs K1), ms a step and peak GiB, and
+    the gradients equal to ``attn+gate``'s (a recompute re-runs the same
+    kernels on the same inputs: bit for bit expected, else the largest
+    difference printed and the phase failed)."""
+    from horovod_tpu_torch.parallel._tree import tree_map
+
+    params = llama.llama_init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        batch, seq)).astype(np.int32)).cuda()
+    data = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+    L = cfg.n_layers
+    base, rows, launched = None, {}, {}
+    for mode, k1 in (("attn+gate", L), ("dots", 2 * L), ("attn+ffn", L),
+                     ("attn+gate+qkv", L)):
+        c = dataclasses.replace(cfg, remat=mode)
+        loss, grads, n, grad_peak = grad_call(torch, ctr, llama, train_step,
+                                              params, c, data)
+        check(n["K1"] == k1 and n["K2"] == n["K3"] == L and n["K5"] == 0,
+              f"remat={mode}: launches {n}, expected K1 {k1}, K2 = K3 = {L}")
+        launched[mode] = n
+        if base is None:
+            base = (loss, grads)
+            same, diff = True, 0.0
+        else:
+            same = loss == base[0] and all(
+                torch.equal(a, b) for a, b in zip(grads, base[1]))
+            diff = max(norm_rel(a, b) for a, b in zip(grads, base[1]))
+            del grads
+            check(same, f"remat={mode}: loss {loss} and gradients not "
+                  f"bit-identical to attn+gate's (largest leaf {diff:.3e} "
+                  f"norm-relative, loss {base[0]})")
+        ts = train_step.make_split_train_step(
+            lambda p, d, c=c: llama.llama_loss(p, d, c),
+            precision.fused_adam(3e-4))
+        ms, peak = timed_step(torch, ts, ts.init(tree_map(
+            lambda w: w.clone(), params)), data, steps)
+        del ts
+        torch.cuda.empty_cache()
+        rows[mode] = dict(K1=n["K1"], K5=n["K5"], ms_per_step=ms,
+                          peak_gib=peak, grad_call_peak_gib=grad_peak,
+                          bitwise_equal=same, grad_norm_rel_max=diff)
+        log(f"  (c) flagship B{batch} T{seq} remat={mode}: K1 {n['K1']} K5 "
+            f"{n['K5']} a grad call, {ms:.1f} ms/step (median of {steps}), "
+            f"peak {peak:.2f} GiB (grad call {grad_peak:.2f}), gradients "
+            f"{'bit-identical to' if same else f'{diff:.3e} off'} attn+gate's;"
+            f" card {card}")
+    del params, base
+    torch.cuda.empty_cache()
+    return ({f"remat {m}": n for m, n in launched.items() if m != "attn+gate"},
+            rows)
+
+
+def run_pipeline_phase(torch, ctr, llama, pipeline, precision, train_step,
+                       LlamaConfig, card):
+    """Phase 28: (a) the schedules at Llama-3-8B's width, (b) the MoE
+    under 1f1b, (c) the remat modes dots, attn+ffn and attn+gate+qkv on
+    the flagship."""
+    t0 = time.perf_counter()
+    paths, replays = run_pipeline_replays(
+        torch, ctr, llama, pipeline, precision, train_step,
+        llama3_8b_config(LlamaConfig), card)
+    moe_paths, moe = run_moe_pipeline(torch, ctr, llama, pipeline,
+                                      train_step, moe_config(LlamaConfig),
+                                      card)
+    remat_paths, remat = run_remat_modes(torch, ctr, llama, precision,
+                                         train_step,
+                                         flagship_config(LlamaConfig), card)
+    secs = time.perf_counter() - t0
+    log(f"  phase 28: {secs:.1f} s")
+    return {**paths, **moe_paths, **remat_paths}, dict(
+        replays=replays, moe=moe, remat=remat, seconds=secs)
+
+
 def main():
     import torch
 
@@ -5509,7 +5826,11 @@ def main():
         from horovod_tpu_torch.ops import decode_attention as da
         from horovod_tpu_torch.ops import flash_attention as fa
         from horovod_tpu_torch.ops import grouped_moe as gm
-        from horovod_tpu_torch.parallel import precision, train_step
+        from horovod_tpu_torch.parallel import (
+            pipeline,
+            precision,
+            train_step,
+        )
         from horovod_tpu_torch.parallel.ring_attention import (
             ring_flash_steps,
         )
@@ -5526,6 +5847,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ctr = launch_counters(fa, da, gm, adam)
+    t_start = time.perf_counter()
 
     log("phase 1: card and build")
     card = subprocess.run(
@@ -5640,7 +5962,9 @@ def main():
     flash_counts = {"K1": 2, "K2": 2, "K3": 2}
     parity = run_train_parity(torch, ctr, llama, train_step, cfg, {
         "none": flash_counts, "full": dict(flash_counts, K1=4),
-        "attn": flash_counts, "attn+gate": flash_counts})
+        "attn": flash_counts, "attn+gate": flash_counts,
+        "dots": dict(flash_counts, K1=4), "attn+ffn": flash_counts,
+        "attn+gate+qkv": flash_counts})
     torch.cuda.empty_cache()
 
     log("phase 8: MoE training at full width (benchmarks/moe_bench.py)")
@@ -5663,14 +5987,18 @@ def main():
     log("phase 10: MoE parity (f32, 2 layers): training, remat modes, "
         "engine/generate tokens")
     # Per grad call at 2 layers: K5 3 per layer in the forward, plus what
-    # each backward re-runs (3 under full/attn/attn+gate, 2 under
-    # attn+moe, none under moe); K6's halves 3 per layer in every mode.
+    # each backward re-runs (3 under full/dots/attn/attn+gate/
+    # attn+gate+qkv/attn+ffn, 2 under attn+moe, none under moe); K6's
+    # halves 3 per layer in every mode.
     moe_counts = {"K1": 2, "K2": 2, "K3": 2, "K5": 6, "K6 dlhs": 6,
                   "K6 tgmm": 6}
     moe_parity = run_train_parity(torch, ctr, llama, train_step, mcfg, {
         "none": moe_counts, "full": dict(moe_counts, K1=4, K5=12),
         "attn": dict(moe_counts, K5=12), "attn+gate": dict(moe_counts, K5=12),
-        "attn+moe": dict(moe_counts, K5=10), "moe": moe_counts})
+        "attn+moe": dict(moe_counts, K5=10), "moe": moe_counts,
+        "dots": dict(moe_counts, K1=4, K5=12),
+        "attn+ffn": dict(moe_counts, K5=12),
+        "attn+gate+qkv": dict(moe_counts, K5=12)})
     run_parity(gen, DecodeEngine, poisson_trace, llama_init, torch, mcfg)
     bf16_check = run_bf16_grad_check(torch, ctr, fa, llama, train_step,
                                      mcfg)
@@ -5783,7 +6111,15 @@ def main():
     loop_launch, loop_stats = run_serving_loop_phase(
         torch, ctr, llama, LlamaConfig, llama_init, poisson_trace, card)
 
-    log("phase 28: results")
+    log("phase 28: the pipeline schedules replayed on one card (Llama-3-8B, "
+        "8 layers; the MoE under 1f1b) and the remat modes dots, attn+ffn, "
+        "attn+gate+qkv")
+    pipe_paths, pipe_stats = run_pipeline_phase(
+        torch, ctr, llama, pipeline, precision, train_step, LlamaConfig, card)
+
+    log("phase 29: results")
+    log(f"  the smoke's wall time to here: "
+        f"{time.perf_counter() - t_start:.1f} s; card {card}")
     log(json.dumps({"generate": gen_stats, "engine": eng_stats,
                     "train": train_stats, "train_parity": parity,
                     "moe_train": moe_train_stats,
@@ -5798,7 +6134,8 @@ def main():
                     "wire": wire, "launcher": launched, "zero": zero,
                     "adam": adam_stats, "resnet50": resnet50,
                     "mesh": mesh_stats, "shards": shard_stats,
-                    "serving_loop": loop_stats, "card": card}))
+                    "serving_loop": loop_stats, "pipeline": pipe_stats,
+                    "card": card}))
     paths = {"llama_generate": gen_launch, "DecodeEngine": eng_launch,
              "train_step": train_launch, "moe_train_step": moe_train_launch,
              "moe_llama_generate": moe_gen_launch,
@@ -5807,7 +6144,7 @@ def main():
              "bert_forward": bert_fwd_launch,
              "elastic_bert_train": elastic_launch,
              "zero_train_step": zero_launch, **mesh_paths, **shard_paths,
-             "ServingLoop": loop_launch}
+             "ServingLoop": loop_launch, **pipe_paths}
     bert_bias = {k: bert_train_stats["bias_launches"][k]
                  + (bert_fwd_launch[k] if k == "K1" else 0)
                  + elastic["bias_launches"][k]

@@ -5,8 +5,8 @@ Counterpart of ``__graft_entry__.py:389 dryrun_multichip``. It spawns
 (one a rank, NCCL) when ``n`` CUDA cards are visible, else on the CPU
 (gloo), as the reference runs on its own devices when it has enough and
 on emulated CPU devices when it has not; the first line it prints says
-which. It runs every non-pipeline pass of the reference's dryrun at its
-tiny shapes (head_dim 16, the smallest the attention kernels take),
+which. It runs every pass of the reference's dryrun, in its order, at
+its tiny shapes (head_dim 16, the smallest the attention kernels take),
 each held against the port's **unsharded** step on the same params and
 batch with the reference's tolerances:
 
@@ -29,12 +29,19 @@ batch with the reference's tolerances:
   eight on the same gradients: rtol 1e-5, atol 1e-7;
 - ``moe/ep.tp.fsdp``: the GShard MoE under ``expert`` x ``tensor`` x
   ``fsdp``, as the dense pass;
+- ``pp/pipe.tp.fsdp``, ``pp-1f1b/pipe.tp.fsdp`` and
+  ``pp-interleaved-v2/pipe.tp.fsdp``: the dense Llama at two layers a
+  stage under ``pipe=2`` x ``tensor`` x ``fsdp`` through gpipe, 1F1B and
+  the interleaved schedule (V=2, one layer a chunk; 4 microbatches when
+  the reference's batch of ``2 x data x fsdp`` rows divides by 4, else
+  2), as the dense pass. Each microbatch's rows split evenly over the
+  batch ranks, so the interleaved pass takes that many rows a batch
+  rank;
 - ``resnet/dp.sync-bn``: ResNet-18 (width 8) over ``data=n``, its batch
   norm over the whole batch; ``bert/mlm.tp.fsdp``: BERT under ``tensor``
   x ``fsdp`` x ``data``: the loss to 1e-4 and the gradient norm to 1e-3.
 
-The three pipeline passes wait for ROADMAP.md A10 and are named as
-such, not run. Exit status 0 when every pass matches. The passes hold
+Exit status 0 when every pass matches. The passes hold
 the port against itself; ``tests/test_torch_mesh_parallel.py`` holds the
 same sharded models against the JAX package's.
 """
@@ -125,10 +132,11 @@ def _llama_cfg(sizes, moe=False, **kw):
     common = dict(d_model=16 * heads, n_heads=heads, n_kv_heads=heads,
                   n_layers=2, d_ff=16 * sizes["tensor"], vocab_size=64,
                   dtype="float32", remat="none")
+    common.update(kw)
     if moe:
         return LlamaConfig.tiny_moe(n_experts=2 * sizes["expert"],
-                                    moe_impl="gshard", **common, **kw)
-    return LlamaConfig.tiny(**common, **kw)
+                                    moe_impl="gshard", **common)
+    return LlamaConfig.tiny(**common)
 
 
 def _to(tree, device):
@@ -137,8 +145,9 @@ def _to(tree, device):
     return tree_map(lambda x: x.to(device), tree)
 
 
-def _llama_setup(cfg, sizes, seq, seed, device):
-    """Seeded params and batch (drawn on the CPU, moved to ``device``)."""
+def _llama_setup(cfg, sizes, seq, seed, device, rows=2):
+    """Seeded params and batch of ``rows`` rows a batch rank (drawn on
+    the CPU, moved to ``device``)."""
     import torch
 
     from horovod_tpu_torch.models.llama import llama_init
@@ -147,7 +156,7 @@ def _llama_setup(cfg, sizes, seq, seed, device):
                         device="cpu")
     g = torch.Generator().manual_seed(seed + 1)
     tokens = torch.randint(0, cfg.vocab_size,
-                           (2 * sizes["data"] * sizes["fsdp"], seq),
+                           (rows * sizes["data"] * sizes["fsdp"], seq),
                            generator=g, dtype=torch.int32)
     return _to(params, device), _to(
         {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}, device)
@@ -159,11 +168,23 @@ def _mesh(sizes, device):
     return create_mesh(device=device, **sizes)
 
 
-def _llama_blocks(params, mesh):
+def _virtual(cfg, mesh):
+    """The chunks a stage holds in the device-major layer order (1: the
+    canonical order serves)."""
+    if mesh.shape["pipe"] > 1 and cfg.pipeline_schedule == \
+            "interleaved_1f1b":
+        return cfg.pipeline_virtual_stages
+    return 1
+
+
+def _llama_blocks(params, mesh, cfg):
+    """This rank's blocks (the layers split over ``pipe`` when the mesh
+    has the axis, in the interleaved schedule's device-major order)."""
     from horovod_tpu_torch.models.llama import llama_partition_rules
     from horovod_tpu_torch.parallel.sharding import shard_params
 
-    return shard_params(params, mesh, llama_partition_rules())
+    return shard_params(params, mesh, llama_partition_rules(
+        mesh.shape["pipe"] > 1, _virtual(cfg, mesh)))
 
 
 def _unsharded(cfg, params, batch, device):
@@ -173,7 +194,7 @@ def _unsharded(cfg, params, batch, device):
                                                 device=device), params)
 
 
-def _train_one_step(cfg, sizes, seq, seed, label, device):
+def _train_one_step(cfg, sizes, seq, seed, label, device, rows=2):
     """The sharded value and gradient and one ``fused_adam`` apply on the
     blocks: loss and gradient norm against the unsharded model's."""
     import torch
@@ -184,9 +205,9 @@ def _train_one_step(cfg, sizes, seq, seed, label, device):
     from horovod_tpu_torch.parallel.sharding import gather_params
 
     mesh = _mesh(sizes, device)
-    params, batch = _llama_setup(cfg, sizes, seq, seed, device)
+    params, batch = _llama_setup(cfg, sizes, seq, seed, device, rows)
     ref_loss, ref_grads = _unsharded(cfg, params, batch, device)
-    blocks, specs = _llama_blocks(params, mesh)
+    blocks, specs = _llama_blocks(params, mesh, cfg)
     local = mesh.shard_batch(batch)
     loss, grads = _value_and_grad(
         lambda p: llama_loss(p, local, cfg, mesh=mesh), blocks)
@@ -240,7 +261,7 @@ def _split_step_pass(cfg, sizes, seq, seed, device,
     params, batch = _llama_setup(cfg, sizes, seq, seed, device)
     ref_loss, ref_grads = _unsharded(cfg, params, batch, device)
     ref_params = tree_map(lambda p, g: p - 0.1 * g, params, ref_grads)
-    blocks, specs = _llama_blocks(params, mesh)
+    blocks, specs = _llama_blocks(params, mesh, cfg)
     ts = train_step.make_split_train_step(
         lambda p, d: llama_loss(p, d, cfg, mesh=mesh), _sgd(0.1),
         microbatches=2)
@@ -267,7 +288,7 @@ def _zero1_pass(cfg, seq, seed, device, label="dense/zero1"):
     mesh = _mesh(sizes, device)
     params, batch = _llama_setup(cfg, sizes, seq, seed, device)
     ref_loss, ref_grads = _unsharded(cfg, params, batch, device)
-    blocks, specs = _llama_blocks(params, mesh)
+    blocks, specs = _llama_blocks(params, mesh, cfg)
     local = mesh.shard_batch(batch)
 
     def loss_fn(p, d):
@@ -395,9 +416,27 @@ def _bert_pass(n, device, label="bert/mlm.tp.fsdp"):
             f"loss={loss:.4f} ok (matches unsharded)")
 
 
+def _pipeline_passes(n, device):
+    """The reference's three pipeline passes (``__graft_entry__.py:455``):
+    gpipe, 1F1B and interleaved V=2 under ``pipe=2`` x ``tensor`` x
+    ``fsdp``."""
+    sizes = _mesh_axes_for(n, axes=("tensor", "fsdp"), fixed={"pipe": 2})
+    cfg = _llama_cfg(sizes, n_layers=2 * sizes["pipe"])
+    lines = [_train_one_step(cfg, sizes, 16, 4, PIPELINE_PASSES[0], device),
+             _train_one_step(dataclasses.replace(
+                 cfg, pipeline_schedule="1f1b"), sizes, 16, 5,
+                 PIPELINE_PASSES[1], device)]
+    m = 4 if (2 * sizes["data"] * sizes["fsdp"]) % 4 == 0 else 2
+    lines.append(_train_one_step(dataclasses.replace(
+        cfg, pipeline_schedule="interleaved_1f1b", pipeline_virtual_stages=2,
+        pipeline_microbatches=m), sizes, 16, 7, PIPELINE_PASSES[2], device,
+        rows=m))
+    return lines
+
+
 def run_passes(n, device):
-    """Every non-pipeline pass on this rank, in the reference's order:
-    the lines to print. ``device`` is ``"cpu"`` or ``"cuda"`` (this
+    """Every pass on this rank, in the reference's order: the lines to
+    print. ``device`` is ``"cpu"`` or ``"cuda"`` (this
     rank's card, ``HOROVOD_LOCAL_RANK``)."""
     import torch
 
@@ -432,6 +471,7 @@ def run_passes(n, device):
     msizes = _mesh_axes_for(n, axes=("tensor", "fsdp"), fixed={"expert": 2})
     lines.append(_train_one_step(_llama_cfg(msizes, moe=True), msizes, 16, 2,
                                  "moe/ep.tp.fsdp", device))
+    lines += _pipeline_passes(n, device)
     lines.append(_resnet_pass(n, device))
     lines.append(_bert_pass(n, device))
     return lines
@@ -473,9 +513,8 @@ def pick_device(n_devices):
 def dryrun_multichip(n_devices, device=None):
     """Run the passes on ``n_devices`` spawned ranks: on the cards (NCCL)
     or the CPU (gloo), ``device`` or else :func:`pick_device`'s choice.
-    Returns a line naming where they ran and rank 0's lines (the
-    pipeline passes named as waiting). Raises if a rank fails or a pass
-    does not match."""
+    Returns a line naming where they ran and rank 0's lines. Raises if a
+    rank fails or a pass does not match."""
     if n_devices < 2 or n_devices % 2:
         raise ValueError(f"dryrun_multichip needs an even number of ranks, "
                          f"got {n_devices}")
@@ -509,9 +548,7 @@ def dryrun_multichip(n_devices, device=None):
                            f"{sorted(errors)}:\n" + errors[min(errors)])
     where = f"{n_devices} CUDA cards (NCCL)" if device == "cuda" else \
         f"{n_devices} ranks on the CPU (gloo)"
-    return [f"dryrun_multichip: {where}", *results[0]] + [
-        f"dryrun_multichip[{p}]: waiting for ROADMAP.md A10 (pipeline "
-        "schedules), not run" for p in PIPELINE_PASSES]
+    return [f"dryrun_multichip: {where}", *results[0]]
 
 
 def main(argv=None):

@@ -12,34 +12,55 @@ Ported here: ``LlamaConfig``, ``llama_init`` (dense and MoE trees),
 ``ops/grouped_moe.py``, or the GShard dispatch ``_moe_ffn``), and the
 training forward: ``llama_forward`` and ``llama_loss`` (the JAX
 ``lax.scan`` over layers is a Python loop over the unbound layer slices)
-with the remat modes ``none``, ``full``, ``attn``, ``attn+gate``,
-``attn+moe`` and ``moe``, on one device or under a mesh
-(``parallel/mesh.py``) of the ``data``, ``fsdp``, ``seq``, ``expert``
-and ``tensor`` axes. There each rank runs its shard of the batch and
-its blocks of the params (``parallel/sharding.py``), and the model
-inserts the collectives JAX's GSPMD inserts: the ``fsdp`` leaves
-gathered one layer at a time (their gradients reduce-scattered),
-Megatron's tensor parallelism (column-parallel q/k/v and gate/up,
-row-parallel wo and down, ``replicate`` in and ``psum`` out, the
-vocab-parallel lm_head and cross-entropy), the experts of the
-``expert`` axis, attention over the ``seq`` axis by ring or Ulysses
-(``seq_parallel``) on the rank's heads, rope positions and the loss's
-mean global, and each leaf's gradient summed over the batch axes its
-spec leaves replicated; the dropless grouped dispatch runs there on
-each rank's tokens (``ops/grouped_moe.py``). Pipelines (A10) and the
-other remat modes (A1) are not ported yet and raise.
+with every remat mode of the JAX package (``none``, ``full``, ``dots``,
+``attn``, ``attn+gate``, ``attn+gate+qkv``, ``attn+ffn``, ``attn+moe``,
+``moe``), on one device or under a mesh (``parallel/mesh.py``) of the
+``pipe``, ``data``, ``fsdp``, ``seq``, ``expert`` and ``tensor`` axes.
+There each rank runs its shard of the batch and its blocks of the params
+(``parallel/sharding.py``), and the model inserts the collectives JAX's
+GSPMD inserts: the ``fsdp`` leaves gathered one layer at a time (their
+gradients reduce-scattered), Megatron's tensor parallelism
+(column-parallel q/k/v and gate/up, row-parallel wo and down,
+``replicate`` in and ``psum`` out, the vocab-parallel lm_head and
+cross-entropy), the experts of the ``expert`` axis, attention over the
+``seq`` axis by ring or Ulysses (``seq_parallel``) on the rank's heads,
+rope positions and the loss's mean global, and each leaf's gradient
+summed over the batch axes its spec leaves replicated; the dropless
+grouped dispatch runs there on each rank's tokens
+(``ops/grouped_moe.py``). A ``pipe`` axis larger than 1 cuts the layer
+stack into stages (``parallel/pipeline.py``): ``llama_forward`` and a
+``gpipe`` config's ``llama_loss`` run the layers through gpipe, a
+``1f1b`` or ``interleaved_1f1b`` config's ``llama_loss`` through the
+fused schedule with the loss head on the last stage
+(:func:`llama_pipeline_programs`); ``transport=`` replays the same
+pipeline with all its stages in this process.
 
 Remat is PyTorch's selective activation checkpointing, which decides per
 dispatcher op. The JAX save-names map onto ops: ``flash_o``/``flash_lse``
 are the outputs of the flash op ``hvd_torch::flash_fwd`` (K1), and
-``ffn_gate`` is the pre-silu gate, produced by the named matmul op
-``hvd_torch::named_matmul``; the MoE names are the outputs of the
-grouped-MoE ops (``ops/grouped_moe.py``), and the GShard dispatch's
-``moe_dispatch``/``moe_combine`` are ``hvd_torch::checkpoint_name``
-outputs. On the sequence-parallel path
-each ring step's chunk op ``hvd_torch::flash_chunk`` gives
-``flash_o``/``flash_lse`` and the attention output is named ``attn_out``
-by ``hvd_torch::checkpoint_name``, as JAX names it there.
+``ffn_gate``/``ffn_up`` are the pre-silu gate and the up-projection,
+produced by the named matmul op ``hvd_torch::named_matmul``; the MoE
+names are the outputs of the grouped-MoE ops (``ops/grouped_moe.py``),
+and the GShard dispatch's ``moe_dispatch``/``moe_combine`` are
+``hvd_torch::checkpoint_name`` outputs; the post-rope
+``rope_q``/``rope_k`` and ``attn_v`` are the outputs of one op,
+``hvd_torch::qkv_rope`` (the three projections and the rotation), so
+``attn+gate+qkv`` re-runs neither (torch's replay has no dead-code
+elimination: an unsaved projection before a saved rotation would run
+again). On the sequence-parallel path each ring step's chunk op
+``hvd_torch::flash_chunk`` gives ``flash_o``/``flash_lse`` and the
+attention output is named ``attn_out`` by ``hvd_torch::checkpoint_name``,
+as JAX names it there.
+
+``dots`` (JAX's ``dots_saveable``) saves what the TPU program saves:
+every matmul of the layer (``aten.mm``/``bmm``/``addmm``/``matmul``,
+``hvd_torch::named_matmul`` and ``hvd_torch::qkv_rope``, the GShard
+einsums among them), and
+recomputes the rest, K1 (``hvd_torch::flash_fwd``/``flash_chunk``) and
+the grouped products (``hvd_torch::gmm``, ``gmm_unpermute``) included:
+on the TPU those are ``pallas_call``s, not dots. JAX's CPU run of the
+same mode saves its attention, an XLA einsum there, so its recompute
+count on the CPU is not the TPU program's; the gradients are the same.
 """
 
 import dataclasses
@@ -58,7 +79,8 @@ from horovod_tpu_torch._device import on_device, resolve_device
 from horovod_tpu_torch.ops import grouped_moe
 from horovod_tpu_torch.ops.flash_attention import flash_attention
 from horovod_tpu_torch.parallel._tree import tree_leaves, tree_unflatten
-from horovod_tpu_torch.parallel.mesh import BATCH_AXES
+from horovod_tpu_torch.parallel.mesh import BATCH_AXES, ROW_AXES
+from horovod_tpu_torch.parallel import pipeline
 from horovod_tpu_torch.parallel.ops import (
     all_gather,
     all_gather_invariant,
@@ -66,7 +88,12 @@ from horovod_tpu_torch.parallel.ops import (
     replicate,
 )
 from horovod_tpu_torch.parallel.ring_attention import ring_self_attention
-from horovod_tpu_torch.parallel.sharding import P, block_specs
+from horovod_tpu_torch.parallel.sharding import (
+    Interleaved,
+    P,
+    block_specs,
+    param_specs,
+)
 from horovod_tpu_torch.parallel.ulysses import ulysses_self_attention
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -85,9 +112,9 @@ def torch_dtype(name):
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
     """Field-for-field mirror of the JAX ``LlamaConfig`` (see its
-    comments for each field). Fields the port does not use yet
-    (pipelines, scan and flash tuning) are kept so that one config
-    describes one model in both packages."""
+    comments for each field). Fields the port does not use (scan and
+    flash tuning) are kept so that one config describes one model in
+    both packages."""
 
     vocab_size: int = 32000
     d_model: int = 4096
@@ -217,6 +244,48 @@ def _rope(x, positions, theta):
     sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+
+
+@torch.library.custom_op("hvd_torch::qkv_rope", mutates_args=())
+def qkv_rope(h: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+             wv: torch.Tensor, positions: torch.Tensor, theta: float,
+             head_dim: int) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """The attention inputs of ``h`` [B, T, D] as one dispatcher op: q
+    and k projected and rotated (:func:`_rope` at ``positions``), v
+    projected, each [B, T, heads, head_dim]. Its outputs are JAX's
+    post-rope ``rope_q``/``rope_k`` and ``attn_v``: one op, so a remat
+    policy that saves them re-runs neither the projections nor the
+    rotation."""
+    bb, tt = h.shape[0], h.shape[1]
+    q = torch.matmul(h, wq).reshape(bb, tt, -1, head_dim)
+    k = torch.matmul(h, wk).reshape(bb, tt, -1, head_dim)
+    v = torch.matmul(h, wv).reshape(bb, tt, -1, head_dim)
+    return _rope(q, positions, theta), _rope(k, positions, theta), v
+
+
+def _qkv_rope_setup(ctx, inputs, output):
+    h, wq, wk, wv, positions, theta, _ = inputs
+    ctx.save_for_backward(h, wq, wk, wv, positions)
+    ctx.theta = theta
+
+
+def _qkv_rope_backward(ctx, dq, dk, dv):
+    h, wq, wk, wv, positions = ctx.saved_tensors
+    flat = h.reshape(-1, h.shape[-1])
+    dh, dws = None, []
+    # The rotation's transpose is the rotation by -positions.
+    for g, w in ((_rope(dq, -positions, ctx.theta), wq),
+                 (_rope(dk, -positions, ctx.theta), wk), (dv, wv)):
+        g = g.reshape(-1, w.shape[-1])
+        part = torch.matmul(g, w.transpose(0, 1))
+        dh = part if dh is None else dh + part
+        dws.append(torch.matmul(flat.transpose(0, 1), g))
+    return dh.reshape(h.shape), *dws, None, None, None
+
+
+torch.library.register_autograd("hvd_torch::qkv_rope", _qkv_rope_backward,
+                                setup_context=_qkv_rope_setup)
 
 
 @torch.library.custom_op("hvd_torch::named_matmul", mutates_args=())
@@ -384,11 +453,12 @@ def _dense_ffn(h, lp, c, tensor=None):
     """The SwiGLU MLP on this rank's blocks: w_gate/w_up column blocks,
     w_down a row block, the partial output summed over ``tensor``
     (Megatron; None: this rank's partial sum). The pre-silu gate is
-    named ``ffn_gate`` for remat="attn+gate"."""
+    named ``ffn_gate`` for remat="attn+gate", the up-projection
+    ``ffn_up`` for "attn+ffn"."""
     dt = c.compute_dtype
     (h,) = replicate((h,), tensor)
     gate = named_matmul(h, lp["w_gate"].to(dt), "ffn_gate")
-    up = h @ lp["w_up"].to(dt)
+    up = named_matmul(h, lp["w_up"].to(dt), "ffn_up")
     return psum((F.silu(gate) * up) @ lp["w_down"].to(dt), tensor)
 
 
@@ -445,16 +515,15 @@ def _attention_block(x, lp, c, positions, tensor=None, mesh=None,
     wq/wk/wv (this rank's heads: H/tensor and Hkv/tensor, head h still
     reading kv head h // n_rep), rope at ``positions``, attention, the
     row block of wo, the partial output summed over ``tensor``
-    (Megatron; None: this rank's partial sum)."""
+    (Megatron; None: this rank's partial sum). The post-rope q and k and
+    the v (``rope_q``, ``rope_k``, ``attn_v``) are :func:`qkv_rope`'s."""
     dt = c.compute_dtype
     bb, tt = x.shape[0], x.shape[1]
     h = _rmsnorm(x, lp["attn_norm"].to(dt), c.norm_eps)
     (h,) = replicate((h,), tensor)
-    q = (h @ lp["wq"].to(dt)).reshape(bb, tt, -1, c.head_dim)
-    kk = (h @ lp["wk"].to(dt)).reshape(bb, tt, -1, c.head_dim)
-    vv = (h @ lp["wv"].to(dt)).reshape(bb, tt, -1, c.head_dim)
-    q = _rope(q, positions, c.rope_theta)
-    kk = _rope(kk, positions, c.rope_theta)
+    q, kk, vv = qkv_rope(h, lp["wq"].to(dt), lp["wk"].to(dt),
+                         lp["wv"].to(dt), positions, float(c.rope_theta),
+                         c.head_dim)
     attn = _attention(q, kk, vv, mesh, seq_axis, c.seq_parallel)
     return psum(attn.reshape(bb, tt, -1) @ lp["wo"].to(dt), tensor)
 
@@ -462,23 +531,37 @@ def _attention_block(x, lp, c, positions, tensor=None, mesh=None,
 _FLASH_OPS = (torch.ops.hvd_torch.flash_fwd.default,
               torch.ops.hvd_torch.flash_chunk.default)
 _NAMED_OP = torch.ops.hvd_torch.named_matmul.default
+_QKV_OP = torch.ops.hvd_torch.qkv_rope.default
 _NAME_OP = torch.ops.hvd_torch.checkpoint_name.default
 _GMM_OP = torch.ops.hvd_torch.gmm.default
 _Y_SLOTS_OP = torch.ops.hvd_torch.gmm_unpermute.default
 _X_SORTED_OP = torch.ops.hvd_torch.dispatch_gather.default
 
-# The JAX save-sets of the ported modes (horovod_tpu/models/llama.py
-# _build_layer_body), by name.
+# The JAX save-sets of the modes that save by name
+# (horovod_tpu/models/llama.py _build_layer_body).
 _MOE_EXTRA_SAVE = ("moe_x_sorted", "moe_gate_act", "moe_up_act")
+_ATTN_GATE = ("attn_out", "flash_o", "flash_lse", "ffn_gate",
+              "moe_dispatch", "moe_combine")
 _REMAT_SAVES = {
     "attn": ("attn_out", "flash_o", "flash_lse"),
-    "attn+gate": ("attn_out", "flash_o", "flash_lse", "ffn_gate",
-                  "moe_dispatch", "moe_combine"),
+    "attn+gate": _ATTN_GATE,
+    "attn+gate+qkv": (*_ATTN_GATE, "rope_q", "rope_k", "attn_v"),
+    "attn+ffn": (*_ATTN_GATE, "ffn_up"),
     "attn+moe": ("attn_out", "flash_o", "flash_lse", "moe_y_slots"),
     "moe": ("attn_out", "flash_o", "flash_lse", "moe_y_slots",
             *_MOE_EXTRA_SAVE),
 }
-_REMAT_QUEUED = {"dots": "A1", "attn+ffn": "A1", "attn+gate+qkv": "A1"}
+# remat="dots": the layer's matmuls, as the TPU program's dots_saveable
+# saves its dot_generals (K1 and the grouped products are pallas_calls
+# there, so they are not among them).
+_aten = torch.ops.aten
+_DOT_OPS = (_aten.mm.default, _aten.bmm.default, _aten.addmm.default,
+            _aten.baddbmm.default, _aten.matmul.default, _aten.dot.default,
+            _aten.mv.default, _NAMED_OP)
+# The projections inside hvd_torch::qkv_rope are dots too: under "dots"
+# the op's outputs (rotated by elementwise work) are saved with them, as
+# XLA saves the dot outputs and re-runs only the rotation. The port's op
+# holds both, so it is saved whole.
 
 
 def _save_only_these_names(names):
@@ -489,6 +572,8 @@ def _save_only_these_names(names):
             saved = "flash_o" in names
         elif op is _NAMED_OP:
             saved = args[2] in names
+        elif op is _QKV_OP:
+            saved = "rope_q" in names
         elif op is _NAME_OP:
             saved = args[1] in names
         elif op is _GMM_OP:
@@ -501,6 +586,15 @@ def _save_only_these_names(names):
             saved = False
         return (CheckpointPolicy.MUST_SAVE if saved
                 else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def _save_dots():
+    """The selective-checkpoint policy of remat="dots"."""
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+                or op is _QKV_OP else CheckpointPolicy.PREFER_RECOMPUTE)
 
     return functools.partial(create_selective_checkpoint_contexts, policy)
 
@@ -530,10 +624,12 @@ def _build_layer_body(c, mesh=None, seq_axis="seq", specs=None):
     than saved), ``tensor`` and ``expert``. Under ``full`` the backward
     re-runs the whole layer, K1 included; under the save-set modes it
     re-runs all but the saved ops, so K1 runs once per layer per grad
-    call. On a grouped MoE layer the backward needs ``y_slots`` (the
-    router's combine gradient), so ``full``, ``attn`` and ``attn+gate``
-    re-run all three grouped products (K5), ``attn+moe`` the gate and up
-    products, ``moe`` none."""
+    call, under ``dots`` (which recomputes K1, as the TPU program does)
+    twice. On a grouped MoE layer the backward needs ``y_slots`` (the
+    router's combine gradient), so ``full``, ``dots``, ``attn``,
+    ``attn+gate``, ``attn+gate+qkv`` and ``attn+ffn`` re-run all three
+    grouped products (K5), ``attn+moe`` the gate and up products, ``moe``
+    none."""
     tensor = _group(mesh, "tensor")
     grouped = _grouped(c, mesh)
 
@@ -561,11 +657,6 @@ def _build_layer_body(c, mesh=None, seq_axis="seq", specs=None):
         return x + ff, aux
 
     mode = c.remat
-    if mode in _REMAT_QUEUED:
-        raise NotImplementedError(
-            f"remat={mode!r} is not ported yet (ROADMAP.md "
-            f"{_REMAT_QUEUED[mode]}); use 'none', 'full', 'attn', "
-            "'attn+gate', 'attn+moe' or 'moe'")
     if mode in ("attn+moe", "moe") and not grouped:
         # These modes save residuals only the grouped dispatch emits;
         # under the GShard dispatch or a dense config they would
@@ -578,6 +669,9 @@ def _build_layer_body(c, mesh=None, seq_axis="seq", specs=None):
         return layer
     if mode is True or mode == "full":
         return functools.partial(checkpoint, layer, use_reentrant=False)
+    if mode == "dots":
+        return functools.partial(checkpoint, layer, use_reentrant=False,
+                                 context_fn=_save_dots())
     if mode in _REMAT_SAVES:
         return functools.partial(
             checkpoint, layer, use_reentrant=False,
@@ -630,14 +724,20 @@ class _F32Logits(torch.autograd.Function):
         return dh, dw.to(w.dtype)
 
 
-def llama_partition_rules(pipeline=False):
+def llama_partition_rules(pipeline=False, virtual=1):
     """Megatron TP + FSDP sharding rules for the param tree (the JAX
     package's, for ``parallel.sharding.shard_params``). Layer-stacked
-    leaves have a leading layer axis, unsharded (``pipeline`` names the
-    ``pipe`` axis there, whose mesh axis is not ported: ROADMAP.md A10).
-    ``tensor`` splits heads and the FFN width, ``fsdp`` the other matmul
-    dim (ZeRO-3), ``expert`` the experts; the router stays replicated."""
-    lead = "pipe" if pipeline else None
+    leaves have a leading layer axis, unsharded, or with ``pipeline``
+    split over the ``pipe`` axis into contiguous blocks (the stages).
+    ``virtual > 1`` (the interleaved schedule's V) gives each stage its V
+    chunks in device-major order instead (``sharding.Interleaved``), as
+    JAX's engine permutes the stack inside every step; ``gather_params``
+    returns the canonical order. ``tensor`` splits heads and the FFN
+    width, ``fsdp`` the other matmul dim (ZeRO-3), ``expert`` the
+    experts; the router stays replicated."""
+    lead = None
+    if pipeline:
+        lead = Interleaved("pipe", virtual) if virtual > 1 else "pipe"
     return [
         (r"embed", P(("tensor", "fsdp"), None)),
         (r"layers/.*norm", P(lead, None)),
@@ -671,17 +771,27 @@ def _param_shapes(c):
             "final_norm": (d,), "lm_head": (d, c.vocab_size)}
 
 
+def _n_stages(mesh):
+    return 1 if mesh is None else mesh.shape["pipe"]
+
+
 def _mesh_specs(params, c, mesh):
     """The spec tree of this rank's blocks under
-    :func:`llama_partition_rules`, each block's shape checked."""
+    :func:`llama_partition_rules` (``pipeline`` when the mesh has a
+    ``pipe`` axis), each block's shape checked."""
     t = mesh.shape["tensor"]
     if c.n_heads % t or c.n_kv_heads % t:
         raise ValueError(
             f"n_heads ({c.n_heads}) and n_kv_heads ({c.n_kv_heads}) must "
             f"divide over the 'tensor' axis ({t}): GSPMD would re-shard the "
             "heads here, which the port does not")
-    return block_specs(params, llama_partition_rules(), _param_shapes(c),
-                       mesh)
+    return block_specs(params, _rules(c, mesh), _param_shapes(c), mesh)
+
+
+def _rules(c, mesh):
+    """:func:`llama_partition_rules` for ``c`` under ``mesh``."""
+    pipelined = _n_stages(mesh) > 1
+    return llama_partition_rules(pipelined, _virtual(c) if pipelined else 1)
 
 
 def _sum_grads(params, specs, mesh, batch_axes=BATCH_AXES):
@@ -702,15 +812,167 @@ def _sum_grads(params, specs, mesh, batch_axes=BATCH_AXES):
     return tree_unflatten(params, leaves)
 
 
-def _local_logits(params, tokens, c, device, mesh, seq_axis):
-    """(this rank's f32 logits over its vocab block [B, T, V/tensor],
-    the MoE aux loss): the trunk of :func:`llama_forward`."""
+def _transport(mesh, transport):
+    """The pipeline's transport: the mesh's ``pipe`` axis when it is
+    larger than 1, the caller's in-process replay (no mesh), else None
+    (no pipeline)."""
+    if transport is not None:
+        if mesh is not None:
+            raise ValueError("transport= replays a pipeline in this "
+                             "process: it takes no mesh")
+        return transport
+    if _n_stages(mesh) > 1:
+        return pipeline.mesh_transport(mesh)
+    return None
+
+
+def _virtual(c):
+    """Chunks a stage: the interleaved schedule's V, else 1."""
+    return c.pipeline_virtual_stages \
+        if c.pipeline_schedule == "interleaved_1f1b" else 1
+
+
+def _validate_pipeline(c, b, mesh, seq_axis, n_stages):
+    """The JAX package's pipeline preconditions (the same errors);
+    returns the microbatch count M. ``b`` is this rank's batch, the
+    global one ``b`` times the batch ranks; each microbatch's rows split
+    evenly over those ranks."""
+    M = c.pipeline_microbatches or n_stages
+    if mesh is not None and seq_axis and mesh.shape.get(seq_axis, 1) > 1:
+        raise ValueError("pipeline (pipe>1) and sequence parallelism "
+                         "(seq>1) cannot combine: ring attention's "
+                         "ring cannot run inside a pipeline stage")
+    R = 1 if mesh is None else mesh.axes_size(ROW_AXES)
+    if M <= 0 or (b * R) % M:
+        raise ValueError(f"batch {b * R} must divide into "
+                         f"{M} pipeline microbatches")
+    if b % M:
+        raise ValueError(f"the {b * R // M} rows of each of the {M} "
+                         f"pipeline microbatches must split evenly over "
+                         f"the {R} batch ranks")
+    V = c.pipeline_virtual_stages
+    if V < 1:
+        raise ValueError(f"pipeline_virtual_stages must be >= 1, got {V}")
+    if V > 1 and c.pipeline_schedule != "interleaved_1f1b":
+        raise ValueError(
+            f"pipeline_virtual_stages={V} requires "
+            f"pipeline_schedule='interleaved_1f1b' "
+            f"(got {c.pipeline_schedule!r})")
+    chunks = n_stages * _virtual(c)
+    if c.n_layers % chunks:
+        raise ValueError(f"n_layers {c.n_layers} must divide into "
+                         f"{chunks} pipeline stage chunks "
+                         f"({n_stages} stages x {V} virtual)")
+    return M
+
+
+def _regroup(c, mesh, transport):
+    """The batch group over which a pipelined MoE config moves its rows,
+    else None. JAX cuts the global batch: microbatch m is the global rows
+    [m B/M, (m+1) B/M), split over the batch ranks, while a rank holds
+    the rows [r b, (r+1) b). The MoE aux loss is taken over a
+    microbatch's tokens, so there rank r takes its share of each of
+    JAX's microbatches (:func:`_to_microbatch_rows`); a dense config's
+    numbers do not depend on which rows share a microbatch, and it keeps
+    its rows."""
+    if mesh is None or transport is None or c.n_experts == 0:
+        return None
+    return mesh.batch_group()
+
+
+def _to_microbatch_rows(x, group, M):
+    """``x`` [b, ...], this rank's rows of the global batch (the group's
+    members in batch order), -> [b, ...] whose m-th b/M rows are this
+    rank's share of JAX's microbatch m."""
+    r = dist.get_rank(group)
+    every = all_gather(x.contiguous(), group)          # the global rows
+    return every.unflatten(0, (M, dist.get_world_size(group), -1))[
+        :, r].flatten(0, 1)
+
+
+def _from_microbatch_rows(y, group, M):
+    """:func:`_to_microbatch_rows` undone (differentiable)."""
+    b, r = y.shape[0], dist.get_rank(group)
+    every = all_gather(y, group).unflatten(
+        0, (dist.get_world_size(group), M, -1))        # member, m, row
+    return every.transpose(0, 1).flatten(0, 2)[r * b:(r + 1) * b]
+
+
+def _check_schedule(c):
+    if c.pipeline_schedule not in pipeline.SCHEDULES:
+        raise ValueError(
+            f"unknown pipeline_schedule {c.pipeline_schedule!r}: "
+            "expected 'gpipe', '1f1b', or 'interleaved_1f1b'")
+
+
+def _stage_scan(body):
+    """One pipeline chunk = ``body`` over its layers (the JAX
+    ``_stage_scan``): ``(chunk params, x) -> (x, the sum of its layers'
+    aux)``."""
+    def stage_fn(chunk, x):
+        aux = []
+        for lp in _unbind_layers(chunk):
+            x, a = body(x, lp)
+            aux.append(a)
+        return x, torch.stack(aux).sum()
+    return stage_fn
+
+
+def _layer_specs(specs):
+    """The per-layer specs (the stacked leaves' lead entry dropped)."""
+    return {k: P(*s[1:]) for k, s in specs["layers"].items()}
+
+
+def llama_pipeline_programs(config, mesh=None, seq_axis="seq", *,
+                            microbatches=1, denom=1.0):
+    """``(stage_fn, loss_fn, aux_cotangent)``: the per-chunk program and
+    the last stage's loss head the pipeline schedules run (the JAX
+    ``llama_pipeline_programs``). ``stage_fn(chunk, x)`` runs the
+    chunk's layers under the config's remat mode; ``loss_fn((final_norm,
+    lm_head), y_mb, (targets, mask)) -> scalar`` is a microbatch's masked
+    NLL sum over ``denom``, the global mask-token count (under ``mesh``
+    on this rank's blocks: the lm_head gathered over ``fsdp``, the
+    vocab-parallel NLL over ``tensor``, the sum over the batch axes);
+    ``aux_cotangent`` is ``moe_aux_weight / (n_layers * microbatches)``
+    for an MoE config, else 0."""
+    c = config
+    dt = c.compute_dtype
+    specs, tensor = None, _group(mesh, "tensor")
+    if mesh is not None:
+        specs = param_specs(_param_shapes(c), _rules(c, mesh))
+    stage_fn = _stage_scan(_build_layer_body(
+        c, mesh, seq_axis, None if specs is None else _layer_specs(specs)))
+
+    def loss_fn(hp, y, la):
+        final_norm, lm_head = hp
+        targets, mask = la
+        h = _rmsnorm(y, final_norm.to(dt), c.norm_eps)
+        if mesh is None:
+            logits = _F32Logits.apply(h, lm_head.to(dt))
+            return (_token_nll(logits, targets) * mask).sum() / denom
+        lm_head = _gather_leaf(lm_head, specs["lm_head"], mesh, "fsdp")
+        (h,) = replicate((h,), tensor)
+        logits = _F32Logits.apply(h, lm_head.to(dt))
+        nll = _vocab_parallel_nll(logits, targets, tensor,
+                                  mesh.axis_index("tensor")
+                                  * logits.shape[-1])
+        return psum((nll * mask).sum(), mesh.batch_group()) / denom
+
+    aux_ct = (c.moe_aux_weight / (c.n_layers * microbatches)
+              if c.n_experts > 0 else 0.0)
+    return stage_fn, loss_fn, aux_ct
+
+
+def _prepare(params, tokens, c, device, mesh, rows=None):
+    """The trunk's inputs: (params with each leaf's gradient sum over the
+    batch axes, the spec tree or None, the embedded tokens [B, T, D],
+    their rows moved by ``rows`` first when it is given)."""
     if mesh is not None:
         device = mesh.device if device is None else device
     _, a = on_device(params, device, tokens=tokens)
+    tokens = a["tokens"] if rows is None else rows(a["tokens"])
     specs = None
-    dt = c.compute_dtype
-    embed, lm_head = params["embed"], params["lm_head"]
+    embed = params["embed"]
     if mesh is not None:
         specs = _mesh_specs(params, c, mesh)
         params = _sum_grads(params, specs, mesh)
@@ -719,22 +981,51 @@ def _local_logits(params, tokens, c, device, mesh, seq_axis):
         embed = _gather_leaf(_gather_leaf(params["embed"], specs["embed"],
                                           mesh, "fsdp"),
                              specs["embed"], mesh, "tensor", invariant=True)
-        lm_head = _gather_leaf(params["lm_head"], specs["lm_head"], mesh,
-                               "fsdp")
-        specs = {k: P(*s[1:]) for k, s in specs["layers"].items()}
-    x = embed.to(dt)[a["tokens"].long()]
-    body = _build_layer_body(c, mesh, seq_axis, specs)
-    aux = []
-    for lp in _unbind_layers(params["layers"]):
-        x, aux_layer = body(x, lp)
-        aux.append(aux_layer)
+    return params, specs, embed.to(c.compute_dtype)[tokens.long()]
+
+
+def _trunk(params, x, c, mesh, seq_axis, specs, transport):
+    """The decoder layers over ``x``: (their output, the MoE aux loss as
+    the mean over layers and microbatches). Pipelined through gpipe when
+    there is a ``transport``."""
+    body = _build_layer_body(c, mesh, seq_axis,
+                             None if specs is None else _layer_specs(specs))
+    if transport is None:
+        aux = []
+        for lp in _unbind_layers(params["layers"]):
+            x, aux_layer = body(x, lp)
+            aux.append(aux_layer)
+        return x, torch.stack(aux).mean()
+    b, t, d = x.shape
+    M = _validate_pipeline(c, b, mesh, seq_axis, transport.S)
+    ys, aux_total = pipeline.gpipe(_stage_scan(body), params["layers"],
+                                   x.reshape(M, b // M, t, d), transport,
+                                   _virtual(c))
+    return ys.reshape(b, t, d), aux_total / (c.n_layers * M)
+
+
+def _local_logits(params, tokens, c, device, mesh, seq_axis, transport):
+    """(this rank's f32 logits over its vocab block [B, T, V/tensor],
+    the MoE aux loss): the trunk of :func:`llama_forward`."""
+    group, rows = _regroup(c, mesh, transport), None
+    if group is not None:
+        M = _validate_pipeline(c, len(tokens), mesh, seq_axis, transport.S)
+        rows = functools.partial(_to_microbatch_rows, group=group, M=M)
+    params, specs, x = _prepare(params, tokens, c, device, mesh, rows)
+    lm_head = params["lm_head"]
+    if mesh is not None:
+        lm_head = _gather_leaf(lm_head, specs["lm_head"], mesh, "fsdp")
+    x, aux = _trunk(params, x, c, mesh, seq_axis, specs, transport)
+    if group is not None:
+        x = _from_microbatch_rows(x, group, M)
+    dt = c.compute_dtype
     x = _rmsnorm(x, params["final_norm"].to(dt), c.norm_eps)
     (x,) = replicate((x,), _group(mesh, "tensor"))
-    return _F32Logits.apply(x, lm_head.to(dt)), torch.stack(aux).mean()
+    return _F32Logits.apply(x, lm_head.to(dt)), aux
 
 
 def llama_forward(params, tokens, config, return_aux=False, device=None,
-                  mesh=None, seq_axis="seq"):
+                  mesh=None, seq_axis="seq", transport=None):
     """tokens [B, T] int -> logits [B, T, vocab] (float32).
 
     With ``return_aux`` the MoE load-balancing loss (the mean over
@@ -744,15 +1035,21 @@ def llama_forward(params, tokens, config, return_aux=False, device=None,
     ``parallel.mesh.Mesh``) ``tokens`` is this rank's (batch, seq) shard
     (``mesh.shard``), ``params`` this rank's blocks
     (``parallel.sharding.shard_params(params, mesh,
-    llama_partition_rules())``; the whole tree when only ``data`` and
-    ``seq`` are larger than 1), and the logits are this rank's shard of
-    the full vocab. Each leaf's gradient is summed over the batch axes
-    its spec leaves replicated, less the axes a ZeRO step defers to its
+    llama_partition_rules(pipeline))``, ``pipeline`` true when the mesh
+    has a ``pipe`` axis; the whole tree when only ``data`` and ``seq``
+    are larger than 1), and the logits are this rank's shard of the full
+    vocab. Each leaf's gradient is summed over the batch axes its spec
+    leaves replicated, less the axes a ZeRO step defers to its
     reduce-scatter (``Mesh.defer_grad_sum``); the ``tensor`` and
     ``expert`` axes follow Megatron's f/g placement, so every rank along
-    them holds its block's whole gradient."""
+    them holds its block's whole gradient. A ``pipe`` axis runs the
+    layers through gpipe (``parallel/pipeline.py``), this rank's stage
+    (each rank's batch cut into ``pipeline_microbatches``, or one a
+    stage); ``transport`` (a ``pipeline.InProcessTransport``, no mesh)
+    replays the same pipeline with every stage in this process."""
+    _check_schedule(config)
     logits, aux = _local_logits(params, tokens, config, device, mesh,
-                                seq_axis)
+                                seq_axis, _transport(mesh, transport))
     if mesh is not None:
         logits = all_gather_invariant(logits, mesh.axis_group("tensor"), -1)
     if return_aux:
@@ -788,8 +1085,84 @@ def _vocab_parallel_nll(logits, targets, group, start):
                       group)
 
 
+class _FusedSchedule(torch.autograd.Function):
+    """JAX's ``custom_vjp`` around a fused schedule: the forward runs the
+    schedule, which computes the loss and every gradient, and keeps the
+    gradients; the backward scales them by the loss's cotangent."""
+
+    @staticmethod
+    def forward(ctx, run, *inputs):
+        loss, grads = run(*inputs)
+        ctx.save_for_backward(*grads)
+        return loss
+
+    @staticmethod
+    def backward(ctx, dl):
+        return (None, *[(g * dl).to(g.dtype) for g in ctx.saved_tensors])
+
+
+def _fused_loss(params, batch, c, device, mesh, seq_axis, transport):
+    """:func:`llama_loss` through ``1f1b`` or ``interleaved_1f1b`` (the
+    JAX ``_llama_loss_1f1b``): the loss head on the last stage, the mask
+    denominator global and taken outside the schedule, the MoE aux folded
+    in by its constant cotangent (over JAX's global microbatches,
+    :func:`_regroup`). A call that needs no gradient (grad
+    mode off, or nothing requiring one) runs gpipe and the same loss head
+    instead (JAX's ``schedule_primal``) and never enters the schedule."""
+    M = _validate_pipeline(c, len(batch["tokens"]), mesh, seq_axis,
+                           transport.S)
+    group, rows = _regroup(c, mesh, transport), None
+    if group is not None:
+        rows = functools.partial(_to_microbatch_rows, group=group, M=M)
+    params, specs, x = _prepare(params, batch["tokens"], c, device, mesh,
+                                rows)
+    b, t, d = x.shape
+    targets = torch.as_tensor(batch["targets"], device=x.device)
+    mask = batch.get("mask")
+    mask = torch.ones((b, t), device=x.device) if mask is None \
+        else torch.as_tensor(mask, device=x.device).float()
+    if rows is not None:
+        targets, mask = rows(targets), rows(mask)
+    count = mask.sum() if mesh is None else psum(mask.sum(),
+                                                 mesh.batch_group())
+    denom = torch.clamp(count, min=1.0)
+    stage_fn, loss_fn, aux_ct = llama_pipeline_programs(
+        c, mesh, seq_axis, microbatches=M, denom=denom)
+    xs = x.reshape(M, b // M, t, d)
+    largs = (targets.reshape(M, b // M, t), mask.reshape(M, b // M, t))
+    layers = params["layers"]
+    head = [params["final_norm"], params["lm_head"]]
+    V = _virtual(c)
+    inputs = [*tree_leaves(layers), *head, xs]
+    if not (torch.is_grad_enabled() and any(x.requires_grad
+                                            for x in inputs)):
+        ys, aux_total = pipeline.gpipe(stage_fn, layers, xs, transport, V)
+        total = None
+        for m in range(M):
+            lm = loss_fn(head, ys[m], [a[m] for a in largs])
+            total = lm if total is None else total + lm
+        return total + aux_ct * aux_total
+
+    n = len(inputs) - 3
+
+    def run(*leaves):
+        sp = tree_unflatten(layers, list(leaves[:n]))
+        if c.pipeline_schedule == "interleaved_1f1b":
+            out = pipeline.interleaved_one_f_one_b(
+                stage_fn, loss_fn, sp, leaves[n:n + 2], leaves[-1], largs,
+                transport, num_virtual=V, aux_cotangent=aux_ct)
+        else:
+            out = pipeline.one_f_one_b(
+                stage_fn, loss_fn, sp, leaves[n:n + 2], leaves[-1], largs,
+                transport, aux_cotangent=aux_ct)
+        loss, aux, d_sp, d_hp, d_xs = out
+        return loss + aux_ct * aux, [*tree_leaves(d_sp), *d_hp, d_xs]
+
+    return _FusedSchedule.apply(run, *inputs)
+
+
 def llama_loss(params, batch, config, device=None, mesh=None,
-               seq_axis="seq"):
+               seq_axis="seq", transport=None):
     """Causal LM loss (+ the weighted MoE aux loss for expert configs).
     batch = {"tokens": [B, T], "targets": [B, T], "mask": [B, T] or
     absent}: the mean token NLL, or the masked mean
@@ -797,9 +1170,20 @@ def llama_loss(params, batch, config, device=None, mesh=None,
     this rank's shard, the params its blocks (:func:`llama_forward`),
     and the loss is the global one, the same on every rank: the sum over
     the batch axes of each shard's sum(nll * mask) over the global token
-    count, the NLL taken over the ``tensor`` axis's vocab blocks."""
+    count, the NLL taken over the ``tensor`` axis's vocab blocks.
+
+    With a ``pipe`` axis (or an in-process ``transport``) a ``gpipe``
+    config runs the layers through gpipe and this loss on its output; a
+    ``1f1b`` or ``interleaved_1f1b`` config runs the fused schedule
+    (:func:`_fused_loss`), whose loss is sum(nll * mask) / max(sum(mask),
+    1) with an all-ones mask when there is none."""
+    _check_schedule(config)
+    transport = _transport(mesh, transport)
+    if transport is not None and config.pipeline_schedule != "gpipe":
+        return _fused_loss(params, batch, config, device, mesh, seq_axis,
+                           transport)
     logits, aux = _local_logits(params, batch["tokens"], config, device,
-                                mesh, seq_axis)
+                                mesh, seq_axis, transport)
     targets = torch.as_tensor(batch["targets"], device=logits.device)
     mask = batch.get("mask")
     if mesh is None:

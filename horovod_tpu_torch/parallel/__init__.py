@@ -1,12 +1,13 @@
 """Training-step machinery of the port: the fused single-pass
 optimizers (``precision``), the split train step (``train_step``),
 ZeRO-1 (``zero``) and its fused schedule's knob and hooks (``fusion``),
-imported as modules; and the mesh of the ``data``, ``fsdp``, ``seq``,
-``expert`` and ``tensor`` axes, re-exported here under the JAX
+imported as modules; and the mesh of the ``pipe``, ``data``, ``fsdp``,
+``seq``, ``expert`` and ``tensor`` axes, re-exported here under the JAX
 package's names: the mesh (``mesh``), its differentiable collectives
-(``ops``), the sharding rules' helpers (``sharding``), the resharding
-planner and its executors (``reshard``), ring attention
-(``ring_attention``) and Ulysses (``ulysses``)."""
+(``ops``), the sharding rules' helpers (``sharding``), the pipeline
+schedules (``pipeline``), the resharding planner and its executors
+(``reshard``), ring attention (``ring_attention``) and Ulysses
+(``ulysses``)."""
 
 from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
     AXIS_ORDER,
@@ -23,6 +24,15 @@ from horovod_tpu_torch.parallel.ops import (  # noqa: F401
     psum,
     reduce_scatter,
     replicate,
+)
+from horovod_tpu_torch.parallel.pipeline import (  # noqa: F401
+    InProcessTransport,
+    InterleavedSchedule,
+    MeshTransport,
+    build_interleaved_schedule,
+    gpipe,
+    interleaved_one_f_one_b,
+    one_f_one_b,
 )
 from horovod_tpu_torch.parallel.reshard import (  # noqa: F401
     Layout,

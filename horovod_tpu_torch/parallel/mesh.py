@@ -16,10 +16,10 @@ the shard JAX's device r holds.
 The batch is split over ``data`` and ``fsdp`` jointly (data major) and
 the sequence over ``seq``, as JAX's activation spec
 ``P(("data", "fsdp"), "seq")``; activations are replicated over
-``expert`` and ``tensor``. Groups are NCCL on the card (the default)
-and gloo when the caller asks for ``device="cpu"``; a CUDA mesh never
-drops to gloo. A ``pipe`` axis larger than 1 raises naming ROADMAP.md
-A10.
+``expert`` and ``tensor``, and over ``pipe``, whose ranks hold the
+stages of the layer stack (``parallel/pipeline.py``): it is not a batch
+axis. Groups are NCCL on the card (the default) and gloo when the caller
+asks for ``device="cpu"``; a CUDA mesh never drops to gloo.
 """
 
 import contextlib
@@ -45,7 +45,6 @@ BATCH_AXES = ("data", "fsdp", "seq")
 # "fsdp"))``) runs the same work on every rank along the other axes, so
 # its gradients and loss are summed over these.
 ROW_AXES = ("data", "fsdp")
-_QUEUED = {"pipe": "A10"}
 _TIMEOUT = timedelta(seconds=120)
 
 
@@ -228,11 +227,6 @@ def create_mesh(config=None, *, device=None, **axis_sizes):
     _init_world(dev)
     world, rank = dist.get_world_size(), dist.get_rank()
     sizes = config.resolved(world)
-    for axis, item in _QUEUED.items():
-        if sizes[axis] > 1:
-            raise NotImplementedError(
-                f"the {axis!r} mesh axis is not ported yet (ROADMAP.md "
-                f"{item})")
     if dev.type == "cuda":
         dev = torch.device("cuda", _env_int("HOROVOD_LOCAL_RANK", rank)
                            % torch.cuda.device_count()) \

@@ -539,6 +539,9 @@ def _row_blocks(mesh, spec):
     axis0 = spec[0] if spec else None
     if axis0 is None:
         return [None] * mesh.size, 1
+    if getattr(axis0, "virtual", 1) > 1:
+        raise ValueError(f"spec {spec}: an interleaved axis 0 is not a "
+                         "row layout of contiguous blocks")
     names = (axis0,) if isinstance(axis0, str) else tuple(axis0)
     grid = tuple(mesh.shape[a] for a in AXIS_ORDER)
     blocks = []

@@ -13,7 +13,11 @@ hint. :func:`gather_params` is the inverse, for tests and checkpoints.
 
 A spec is :class:`P`, the port's ``PartitionSpec``: one entry a dim
 (trailing dims unnamed are replicated), each None, an axis name, or a
-tuple of axis names split jointly, the first the major one.
+tuple of axis names split jointly, the first the major one. An
+:class:`Interleaved` entry (the interleaved pipeline's layer axis)
+names one axis and hands each rank its chunks in device-major order;
+:func:`gather_params` puts them back, so the global tree is always in
+canonical order.
 """
 
 import math
@@ -44,6 +48,31 @@ class P(tuple):
     def axes(self):
         """Every axis the spec splits over."""
         return tuple(a for d in range(len(self)) for a in self.entry(d))
+
+
+class Interleaved(str):
+    """A spec entry for the interleaved 1F1B schedule's layer axis: the
+    dim split over ``axis`` (size S) into ``S * virtual`` chunks, rank
+    ``s`` holding chunks ``v * S + s`` for each v, in that order, as one
+    block (``parallel.pipeline._chunk_permutation``'s device-major
+    order; JAX's engine permutes the stack so inside every step). It is
+    the axis name everywhere else."""
+
+    def __new__(cls, axis, virtual):
+        entry = super().__new__(cls, axis)
+        entry.virtual = virtual
+        return entry
+
+    def __getnewargs__(self):
+        return str(self), self.virtual
+
+    def __repr__(self):
+        return f"Interleaved({str(self)!r}, {self.virtual})"
+
+
+def _virtual(spec, dim):
+    """The chunks a rank holds along ``dim`` (1 unless interleaved)."""
+    return getattr(spec[dim], "virtual", 1) if dim < len(spec) else 1
 
 
 def _paths(tree, prefix=""):
@@ -109,6 +138,15 @@ def leaf_block(x, spec, mesh):
         if x.shape[dim] % n:
             raise ValueError(f"dim {dim} of a {tuple(x.shape)} leaf does "
                              f"not split {n} ways over {spec.entry(dim)}")
+        V = _virtual(spec, dim)
+        if V > 1:
+            if x.shape[dim] % (n * V):
+                raise ValueError(f"dim {dim} of a {tuple(x.shape)} leaf "
+                                 f"does not split into {n * V} chunks")
+            lb = x.shape[dim] // (n * V)
+            x = torch.cat([x.narrow(dim, (v * n + i) * lb, lb)
+                           for v in range(V)], dim)
+            continue
         step = x.shape[dim] // n
         x = x.narrow(dim, i * step, step)
     return x
@@ -127,7 +165,8 @@ def shard_params(params, mesh, rules, default=P()):
 
 def gather_params(blocks, mesh, specs):
     """The global tree back from every rank's blocks (collective: every
-    rank calls it and gets the whole tree)."""
+    rank calls it and gets the whole tree), an interleaved dim's chunks
+    in canonical order."""
 
     def gather(x, spec):
         with torch.no_grad():
@@ -142,6 +181,12 @@ def gather_params(blocks, mesh, specs):
                              for _ in range(mesh.shape[a])]
                     dist.all_gather(parts, x.contiguous(), group=group)
                     x = torch.cat(parts, dim)
+                V = _virtual(spec, dim)
+                if V > 1:
+                    # [S * V * lb] rank-major -> chunk v * S + s in place.
+                    n = mesh.shape[spec[dim]]
+                    x = x.unflatten(dim, (n, V, -1)).transpose(
+                        dim, dim + 1).flatten(dim, dim + 2)
         return x
 
     return tree_map(gather, blocks, specs)

@@ -3,10 +3,15 @@
 ``llama_loss`` and every gradient leaf against
 ``jax.value_and_grad(llama_loss)`` on one JAX-initialised tree (moved
 bit for bit by ``from_jax_params``) and numpy-made batches, with the
-JAX flash kernels in Pallas interpret mode; the four ported remat modes
-against each other, with the flash-forward count that shows what the
-backward recomputed; and the modes that must raise. The MoE model's
-training: test_torch_moe_llama.py.
+JAX flash kernels in Pallas interpret mode; every remat mode against
+``none`` (the A1 modes also against JAX's same mode), with the
+flash-forward (K1) count
+that shows what the backward recomputed, and the three modes of A1 on
+the grouped MoE with their grouped-matmul (K5) count; and the mode that
+must raise. The counts are the TPU program's: under ``dots`` K1 is
+recomputed (a ``pallas_call`` there, not a dot), though JAX's CPU run
+saves its einsum attention. The MoE model's training:
+test_torch_moe_llama.py.
 
 Tolerances: f32 loss 1e-6 relative, f32 gradients 2e-5 relative to
 each leaf's largest entry (the same f32 arithmetic summed in another
@@ -135,29 +140,73 @@ def test_llama_forward_logits_match_jax():
     assert float(want_aux) == 0.0
 
 
-@pytest.mark.parametrize("mode,k1_calls", [
-    ("none", 2), ("full", 4), ("attn", 2), ("attn+gate", 2)])
-def test_remat_modes_agree_and_count_flash_forwards(mode, k1_calls,
-                                                    monkeypatch):
-    """Every mode gives the 'none' gradients; the flash forward runs
-    once per layer per grad call, twice under full remat (2 layers)."""
-    _, tc, jparams = _setup()
-    batch = _batch(4, tc.vocab_size)
-    ref_loss, ref_grads = _port_value_and_grad(_params(jparams), batch, tc)
+A1_MODES = ("dots", "attn+ffn", "attn+gate+qkv")
+
+
+def _count(monkeypatch, module, name, keep=lambda **kw: True):
+    """Count the calls of ``module.name`` (a plain kernel version) whose
+    keywords ``keep`` accepts."""
     calls = []
-    plain = port_fa._flash_fwd_reference
+    plain = getattr(module, name)
 
     def counted(*args, **kw):
-        calls.append(1)
+        if keep(**kw):
+            calls.append(1)
         return plain(*args, **kw)
 
-    monkeypatch.setattr(port_fa, "_flash_fwd_reference", counted)
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("mode,k1_calls", [
+    ("none", 2), ("full", 4), ("attn", 2), ("attn+gate", 2), ("dots", 4),
+    ("attn+ffn", 2), ("attn+gate+qkv", 2)])
+def test_remat_modes_agree_and_count_flash_forwards(mode, k1_calls,
+                                                    monkeypatch):
+    """Every mode gives the 'none' gradients (held to JAX's by
+    test_llama_loss_and_grads_match_jax), the A1 modes also JAX's under
+    the same mode; the flash forward runs once per layer per grad call,
+    twice under full remat and under dots (2 layers)."""
+    jc, tc, jparams = _setup()
+    batch = _batch(4, tc.vocab_size)
+    ref_loss, ref_grads = _port_value_and_grad(_params(jparams), batch, tc)
+    calls = _count(monkeypatch, port_fa, "_flash_fwd_reference")
     cfg = dataclasses.replace(tc, remat=mode)
     loss, grads = _port_value_and_grad(_params(jparams), batch, cfg)
     assert len(calls) == k1_calls
     assert float(loss) == float(ref_loss)
     _assert_grads_close(grads, {k: _np(v) for k, v in ref_grads.items()},
                         1e-6)
+    if mode in A1_MODES:
+        want_loss, want_grads = _jax_value_and_grad(
+            jparams, batch, dataclasses.replace(jc, remat=mode))
+        assert float(loss) == pytest.approx(want_loss, rel=1e-6)
+        _assert_grads_close(grads, want_grads, 2e-5)
+
+
+@pytest.mark.parametrize("mode,k1_calls,k5_calls", [
+    ("dots", 4, 12), ("attn+ffn", 2, 12), ("attn+gate+qkv", 2, 12)])
+def test_a1_remat_modes_on_the_grouped_moe(mode, k1_calls, k5_calls,
+                                           monkeypatch):
+    """The three A1 modes on ``tiny_moe`` (the dropless grouped dispatch,
+    2 layers): JAX's loss and gradients under the same mode, and the
+    TPU program's recompute, K5 3 a layer in the forward and all three
+    again in the backward (the router's combine gradient needs
+    ``y_slots``, which none of them saves)."""
+    from horovod_tpu_torch.ops import grouped_moe as gm
+
+    jc = jl.LlamaConfig.tiny_moe(dtype="float32", remat=mode)
+    tc = tl.LlamaConfig.tiny_moe(dtype="float32", remat=mode)
+    jparams = jl.llama_init(jc, jax.random.PRNGKey(0))
+    batch = _batch(1, jc.vocab_size)
+    want_loss, want_grads = _jax_value_and_grad(jparams, batch, jc)
+    k1 = _count(monkeypatch, port_fa, "_flash_fwd_reference")
+    k5 = _count(monkeypatch, gm, "_gmm_reference",
+                lambda transpose_rhs=False, **kw: not transpose_rhs)
+    loss, grads = _port_value_and_grad(_params(jparams), batch, tc)
+    assert (len(k1), len(k5)) == (k1_calls, k5_calls)
+    assert float(loss) == pytest.approx(want_loss, rel=1e-6)
+    _assert_grads_close(grads, want_grads, 2e-5)
 
 
 def test_lm_head_logits_keep_f32_products():
@@ -173,13 +222,6 @@ def test_lm_head_logits_keep_f32_products():
     assert out.dtype == torch.float32
     torch.testing.assert_close(out, want, rtol=1e-6, atol=1e-6)
     assert (out - (h @ w).float()).abs().max() > 0
-
-
-@pytest.mark.parametrize("mode,item", [
-    ("dots", "A1"), ("attn+ffn", "A1"), ("attn+gate+qkv", "A1")])
-def test_unported_remat_modes_raise(mode, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tl._build_layer_body(tl.LlamaConfig.tiny(remat=mode))
 
 
 def test_unknown_remat_mode_raises():

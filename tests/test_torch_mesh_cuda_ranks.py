@@ -58,7 +58,8 @@ every rank, printed with ms/step, each rank's ``max_memory_allocated``
 and its state bytes (params, masters, moments).
 
 (iii) ``python -m horovod_tpu_torch.dryrun 4`` on the four cards (NCCL,
-a card a rank): its six passes that four ranks run, each against the
+a card a rank): its nine passes that four ranks run (the three
+pipeline passes among them), each against the
 port's unsharded step.
 
 ``_worker`` and ``_bert_worker`` also run on the CPU (``device="cpu"``,
@@ -570,4 +571,4 @@ def test_dryrun_runs_on_four_cards():
     assert lines[0] == "dryrun_multichip: 4 CUDA cards (NCCL)", lines[0]
     ran = [l for l in lines if l.startswith("dryrun_multichip[")
            and "skipped" not in l and "waiting" not in l]
-    assert len(ran) == 6 and all(" ok (" in l for l in ran), ran
+    assert len(ran) == 9 and all(" ok (" in l for l in ran), ran

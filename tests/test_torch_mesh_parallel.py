@@ -49,10 +49,11 @@ batch (B4 x T16, a random mask):
   counts: loss and gradients.
 
 Every world's rank coordinates are JAX's device positions, a ``pipe``
-axis still raises naming A10, ``zero=`` over a mesh that shards the
-params builds, and ZeRO over ``tensor`` raises. Without a mesh: ``_moe_ffn``
-against JAX's (f32, 1e-5), and GShard against the grouped dispatch when
-nothing can drop (``tests/single/test_grouped_moe.py:42``'s
+axis builds and a pipeline with ``seq > 1`` raises JAX's error (the
+pipeline itself: test_torch_pipeline.py), ``zero=`` over a mesh that
+shards the params builds, and ZeRO over ``tensor`` raises. Without a
+mesh: ``_moe_ffn`` against JAX's (f32, 1e-5), and GShard against the
+grouped dispatch when nothing can drop (``tests/single/test_grouped_moe.py:42``'s
 tolerances). Gradients are held to 2e-5 of each leaf's largest entry
 (the same f32 arithmetic summed in another order); routing cases assert
 the top-K probability gap first.
@@ -257,15 +258,30 @@ def _split_steps(params, batch, cfg, mesh=None, steps=2):
 
 
 def _errors(mesh):
-    """What raises on this world: a ``pipe`` axis; ZeRO over a mesh that
-    shards the params builds (it raised naming A9b before), but not over
-    an axis that shards them."""
+    """What raises on this world: a ``pipe`` axis builds (it raised
+    naming A10 before), and a pipeline with ``seq > 1`` raises JAX's
+    error; ZeRO over a mesh that shards the params builds (it raised
+    naming A9b before), but not over an axis that shards them."""
+    from horovod_tpu_torch.models import llama as tl
     from horovod_tpu_torch.parallel import mesh as mesh_mod
     from horovod_tpu_torch.parallel import precision, train_step, zero
+    from horovod_tpu_torch.parallel.sharding import shard_params
+
+    def pipe_with_seq():
+        pmesh = mesh_mod.create_mesh(device="cpu", pipe=2, seq=2)
+        cfg = _port_cfg(remat="none")
+        params = tl.llama_init(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        blocks, _ = shard_params(params, pmesh,
+                                 tl.llama_partition_rules(pipeline=True))
+        tokens = torch.zeros((4, 16), dtype=torch.int32)
+        tl.llama_loss(blocks, pmesh.shard_batch(
+            {"tokens": tokens, "targets": tokens}), cfg, mesh=pmesh)
 
     out = {}
     for name, fn in (
             ("pipe", lambda: mesh_mod.create_mesh(device="cpu", pipe=2)),
+            ("pipe_seq", pipe_with_seq),
             ("zero", lambda: train_step.make_split_train_step(
                 lambda p, b: None, precision.fused_adam(3e-4),
                 zero=zero.ZeroConfig(mesh=mesh))),
@@ -623,7 +639,9 @@ def _check_layout(per_rank, jmesh):
     for rank, r in enumerate(per_rank):
         at = np.argwhere(ids == rank)[0]
         assert r["coords"] == dict(zip(jmesh.axis_names, map(int, at)))
-        assert "A10" in r["errors"]["pipe"], r["errors"]
+        assert r["errors"]["pipe"] == "no error", r["errors"]
+        assert "sequence parallelism (seq>1) cannot combine" in \
+            r["errors"]["pipe_seq"], r["errors"]
         assert r["errors"]["zero"] == "no error", r["errors"]
         assert "shards the params" in r["errors"]["zero_tensor"], r["errors"]
 

@@ -22,9 +22,10 @@ largest entry), the remat modes none/full/attn/attn+gate agreeing, and
 three ``make_split_train_step(llama_loss, fused_adam(3e-4))`` steps
 giving the same params on every rank, equal to the port's
 single-process steps on the whole batch. Last, the mesh layout against
-JAX's ``create_mesh``, the other axes' meshes on the same world (``pipe``
-still raises), and an MoE config under the mesh (the GShard dispatch)
-against the whole batch on one process.
+JAX's ``create_mesh``, the other axes' meshes on the same world
+(``pipe`` among them; a pipeline with ``seq > 1`` raises JAX's error),
+and an MoE config under the mesh (the GShard dispatch) against the whole
+batch on one process.
 """
 
 import ast
@@ -296,6 +297,7 @@ def _llama_battery(rank, size, data, seq, jparams, batch):
     from horovod_tpu_torch.models import llama as tl
     from horovod_tpu_torch.models.convert import from_jax_params
     from horovod_tpu_torch.parallel import mesh as mesh_mod
+    from horovod_tpu_torch.parallel.sharding import shard_params
 
     mesh = mesh_mod.create_mesh(data=data, seq=seq, device="cpu")
     params = from_jax_params(jparams, device="cpu")
@@ -322,6 +324,16 @@ def _llama_battery(rank, size, data, seq, jparams, batch):
                 device="cpu", **axes).shape[a] for a in axes}
         except NotImplementedError as e:
             errors[str(axes)] = str(e)
+    # A pipeline with seq > 1 raises JAX's error.
+    pmesh = mesh_mod.create_mesh(device="cpu", pipe=2, seq=2)
+    blocks, _ = shard_params(params, pmesh,
+                             tl.llama_partition_rules(pipeline=True))
+    try:
+        tl.llama_loss(blocks, pmesh.shard_batch(batch),
+                      _tl_config(remat="none"), mesh=pmesh)
+        errors["pipe+seq"] = "no error"
+    except ValueError as e:
+        errors["pipe+seq"] = str(e)
     out["errors"] = errors
     moe_cfg = _tl_config(n_experts=4, remat="none")
     out["moe"] = float(tl.llama_loss(_moe_params(moe_cfg), local, moe_cfg,
@@ -416,8 +428,9 @@ def test_llama_under_a_mesh_matches_jax(data, seq):
                          == rank)[0]
         assert r["coords"] == dict(zip(jmesh.axis_names, map(int, at)))
         for axes, err in r["errors"].items():
-            if "pipe" in axes:
-                assert "A10" in err, (axes, err)
+            if axes == "pipe+seq":
+                assert "sequence parallelism (seq>1) cannot combine" in \
+                    err, err
             else:
                 assert err == ast.literal_eval(axes), (axes, err)
     # An MoE config under the mesh takes the GShard dispatch ("auto"):
