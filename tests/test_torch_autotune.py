@@ -36,7 +36,7 @@ import pytest
 from horovod_tpu_torch.common import parameter_manager as pmod
 from horovod_tpu_torch.common.bayes_opt import BayesOpt
 from horovod_tpu_torch.common.parameter_manager import ParameterManager
-from tests.utils_mp import REPO_ROOT
+from tests.test_torch_mp import REPO_ROOT
 
 DRIVER = r"""
 #include <algorithm>

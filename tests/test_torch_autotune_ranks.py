@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from horovod_tpu_torch.common import parameter_manager as pmod
-from tests.utils_mp import run_ranks
+from tests.test_torch_mp import run_ranks
 
 STEPS = 4
 

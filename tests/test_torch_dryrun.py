@@ -16,7 +16,7 @@ import sys
 import pytest
 
 from horovod_tpu_torch import dryrun
-from tests.utils_mp import REPO_ROOT
+from tests.test_torch_mp import REPO_ROOT
 
 PASSES = ("dense/dp.fsdp.tp.sp", "dense/ulysses-sp", "dense/split-accum2",
           "dense/zero1", "dense/hier", "moe/ep.tp.fsdp",

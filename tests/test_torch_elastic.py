@@ -31,13 +31,15 @@ import signal
 import sys
 import time
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from tests.single.test_analysis_model import _INVALID, _VALID
-from tests.utils_mp import REPO_ROOT, run_ranks
+from tests.test_torch_mp import REPO_ROOT, lazy_module, run_ranks
+
+# The ranks import this module: JAX is bound lazily, for the oracles.
+jnp = lazy_module("jax.numpy")
 
 
 # ---- states --------------------------------------------------------------

@@ -32,7 +32,7 @@ from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.runner.elastic import driver as drv
 from horovod_tpu_torch.runner.elastic.discovery import FixedHosts
 from horovod_tpu_torch.runner.elastic.rendezvous import RendezvousClient
-from tests.utils_mp import REPO_ROOT
+from tests.test_torch_mp import REPO_ROOT
 
 
 def _wait(cond, timeout=30.0, what="condition"):

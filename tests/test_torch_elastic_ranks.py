@@ -33,7 +33,7 @@ import time
 import numpy as np
 import torch
 
-from tests.utils_mp import REPO_ROOT, free_port
+from tests.test_torch_mp import REPO_ROOT, free_port
 
 _TIMEOUT_MS = 2000   # the reference's wire deadline in its chaos runs
 
@@ -278,7 +278,7 @@ def _optimizer_worker(rank, size):
 
 
 def test_optimizer_drains_stale_handles_on_reset():
-    from tests.utils_mp import run_ranks
+    from tests.test_torch_mp import run_ranks
 
     got = run_ranks(_optimizer_worker, 2, timeout=120)
     torch.manual_seed(7)

@@ -39,7 +39,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.utils_mp import REPO_ROOT, free_port
+from tests.test_torch_mp import REPO_ROOT, free_port
 
 _TRAIN_STEPS = 8
 _TRAIN_FAIL_STEP = 5

@@ -18,7 +18,7 @@ import sys
 import numpy as np
 import pytest
 
-from tests.utils_mp import REPO_ROOT
+from tests.test_torch_mp import REPO_ROOT
 
 EXAMPLES = os.path.join(REPO_ROOT, "examples", "torch_port")
 

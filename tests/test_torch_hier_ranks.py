@@ -44,7 +44,7 @@ import numpy as np
 import pytest
 
 from tests.test_torch_elastic_ranks import run_chaos
-from tests.utils_mp import run_ranks
+from tests.test_torch_mp import run_ranks
 
 COUNTS = (1, 7, 64)
 WIRE_COUNT = 4096 + 37

@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from tests.test_torch_hvd_ops import _compare, _keep
-from tests.utils_mp import run_ranks
+from tests.test_torch_mp import run_ranks
 
 STEPS, NGRADS = 12, 6
 

@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.utils_mp import run_ranks
+from tests.test_torch_mp import run_ranks
 
 DTYPES = ("float32", "float64", "float16", "bfloat16", "int32", "int64",
           "uint8", "int8", "bool")
@@ -396,7 +396,7 @@ def _lose_a_peer(rank, size, port, q):
 def test_lost_peer_fails_in_flight_and_later_ops():
     import multiprocessing as mp
 
-    from tests.utils_mp import free_port
+    from tests.test_torch_mp import free_port
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.utils_mp import run_ranks
+from tests.test_torch_mp import run_ranks
 
 BATCH = 8      # rows per rank
 

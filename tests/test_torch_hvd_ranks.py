@@ -13,7 +13,7 @@ import functools
 import pytest
 
 from tests.test_torch_hvd_ops import _adasum_battery, _battery, _compare
-from tests.utils_mp import run_ranks
+from tests.test_torch_mp import run_ranks
 
 
 @pytest.fixture(scope="module")

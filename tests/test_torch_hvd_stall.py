@@ -21,7 +21,7 @@ import torch
 
 from tests.test_torch_hvd_cache import _Bound, open_lane, run_both
 from tests.test_torch_hvd_ops import _keep
-from tests.utils_mp import run_ranks
+from tests.test_torch_mp import run_ranks
 
 LATE_S = 3.0
 WARNING = re.compile(

@@ -63,13 +63,15 @@ import dataclasses
 import functools
 import pickle
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from tests.utils_mp import run_ranks
+from tests.test_torch_mp import lazy_module, run_ranks
+
+# The ranks import this module: JAX is bound lazily, for the oracles.
+jax = lazy_module("jax")
+jnp = lazy_module("jax.numpy")
 
 B, T = 4, 16
 GRAD_TOL = 2e-5
@@ -675,6 +677,7 @@ def _port_whole_batch(jparams, batch, cfg, steps):
     return losses, {k: _np(v) for k, v in _flat(params).items()}
 
 
+@functools.cache
 def _bert_setup():
     """JAX's tiny BERT params (f32) and a B4 x T16 batch with seeded
     padding (no sequence all padding: JAX's CPU attention gives such a
@@ -693,6 +696,7 @@ def _bert_setup():
                      "mlm_mask": mlm, "attention_mask": mask}
 
 
+@functools.cache
 def _resnet_setup():
     """ResNet-18 (width 8, 7 classes) params and batch-norm state from
     the port's ``resnet_init`` (JAX's keys and shapes; JAX's own init
@@ -781,7 +785,41 @@ def _jax_hier(per_rank, jmesh):
     return np.asarray(out)
 
 
-def test_dense_data_fsdp_tensor_matches_jax(tmp_path):
+def _batch8():
+    rng = np.random.default_rng(9)
+    tokens8 = rng.integers(0, 256, (8, T)).astype(np.int32)
+    return {"tokens": tokens8, "targets": np.roll(tokens8, -1, 1)}
+
+
+def _world(rank, size, dense, moe, seq):
+    """Every multi-rank case of this file in one world of 8 ranks: the
+    dense, MoE and seq meshes' batteries, each on its own mesh."""
+    return {"dense": _dense_world(rank, size, **dense),
+            "moe": _moe_world(rank, size, **moe),
+            "seq": _seq_world(rank, size, **seq)}
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """One spawned world of 8 ranks, shared by every multi-rank test."""
+    tmp = tmp_path_factory.mktemp("mesh")
+    jparams, batch = _setup()
+    moe_params, _ = _setup(moe=True)
+    bert_params, bert_batch = _bert_setup()
+    rcfg, rparams, rstate, rbatch = _resnet_setup()
+    dense, moe = _save(tmp, "dense", jparams), _save(tmp, "moe", moe_params)
+    return run_ranks(functools.partial(
+        _world,
+        dense=dict(path=dense, batch=batch, moe_path=moe,
+                   bert_path=_save(tmp, "bert", bert_params),
+                   bert_batch=bert_batch,
+                   resnet=_pickle(tmp, "resnet", (rparams, rstate, rbatch)),
+                   batch8=_batch8()),
+        moe=dict(path=moe, batch=batch),
+        seq=dict(path=dense, moe_path=moe, batch=batch)), 8, timeout=900)
+
+
+def test_dense_data_fsdp_tensor_matches_jax(world):
     from horovod_tpu.models import bert as jb
     from horovod_tpu.models import llama as jl
 
@@ -790,16 +828,8 @@ def test_dense_data_fsdp_tensor_matches_jax(tmp_path):
     assert _moe_margin() > MARGIN
     bert_params, bert_batch = _bert_setup()
     rcfg, rparams, rstate, rbatch = _resnet_setup()
-    rng = np.random.default_rng(9)
-    tokens8 = rng.integers(0, 256, (8, T)).astype(np.int32)
-    batch8 = {"tokens": tokens8, "targets": np.roll(tokens8, -1, 1)}
-    per_rank = run_ranks(functools.partial(
-        _dense_world, path=_save(tmp_path, "dense", jparams), batch=batch,
-        moe_path=_save(tmp_path, "moe", moe_params),
-        bert_path=_save(tmp_path, "bert", bert_params),
-        bert_batch=bert_batch,
-        resnet=_pickle(tmp_path, "resnet", (rparams, rstate, rbatch)),
-        batch8=batch8), 8, timeout=420)
+    batch8 = _batch8()
+    per_rank = [r["dense"] for r in world]
     jmesh = _jax_mesh(data=2, fsdp=2, tensor=2)
     loss, grads, shards = _jax_sharded(jparams, batch, _jax_cfg(), jmesh)
     _check_layout(per_rank, jmesh)
@@ -952,14 +982,12 @@ def test_dense_data_fsdp_tensor_matches_jax(tmp_path):
         assert b_loss == pytest.approx(want_losses[0], rel=1e-2)
 
 
-def test_moe_fsdp_expert_tensor_matches_jax(tmp_path):
+def test_moe_fsdp_expert_tensor_matches_jax(world):
     from horovod_tpu.models import llama as jl
 
     jparams, batch = _setup(moe=True)
     assert _moe_margin() > MARGIN
-    per_rank = run_ranks(functools.partial(
-        _moe_world, path=_save(tmp_path, "moe", jparams), batch=batch), 8,
-        timeout=300)
+    per_rank = [r["moe"] for r in world]
     jmesh = _jax_mesh(fsdp=2, expert=2, tensor=2)
     loss, grads, shards = _jax_sharded(jparams, batch, _jax_cfg(True),
                                        jmesh)
@@ -984,14 +1012,11 @@ def test_moe_fsdp_expert_tensor_matches_jax(tmp_path):
             assert r[f"grouped/{mode}"][0] == r0[f"grouped/{mode}"][0]
 
 
-def test_fsdp_seq_tensor_matches_jax(tmp_path):
+def test_fsdp_seq_tensor_matches_jax(world):
     jparams, batch = _setup()
     moe_params, _ = _setup(moe=True)
     assert _moe_margin() > MARGIN
-    per_rank = run_ranks(functools.partial(
-        _seq_world, path=_save(tmp_path, "dense", jparams),
-        moe_path=_save(tmp_path, "moe", moe_params), batch=batch), 8,
-        timeout=300)
+    per_rank = [r["seq"] for r in world]
     jmesh = _jax_mesh(fsdp=2, seq=2, tensor=2)
     _check_layout(per_rank, jmesh)
     for sp in ("ring", "ulysses"):

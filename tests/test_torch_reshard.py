@@ -23,9 +23,11 @@ import pytest
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
-import horovod_tpu.parallel.reshard as jr
 import horovod_tpu_torch.parallel.reshard as tr
-from tests.utils_mp import run_ranks
+from tests.test_torch_mp import lazy_module, run_ranks
+
+# The ranks import this module: JAX is bound lazily, for the oracles.
+jr = lazy_module("horovod_tpu.parallel.reshard")
 
 N_RANKS = 4
 ROWS = 14
@@ -361,7 +363,7 @@ def test_reshard_smoke_runs_on_gloo():
     import subprocess
     import sys
 
-    from tests.utils_mp import REPO_ROOT
+    from tests.test_torch_mp import REPO_ROOT
 
     out = subprocess.run(
         [sys.executable, "-m", "horovod_tpu_torch.torch.reshard_smoke",

@@ -22,26 +22,33 @@ GSPMD step against the unsharded one.
 
 import functools
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from horovod_tpu.models import mlp as jmlp
-from horovod_tpu.models import resnet as jresnet
 from horovod_tpu_torch.models import convert, mlp, resnet
 from horovod_tpu_torch.parallel._tree import tree_leaves, tree_unflatten
-from tests.utils_mp import run_ranks
+from tests.test_torch_mp import lazy_module, run_ranks
+
+# The ranks import this module: JAX is bound lazily, for the oracles.
+jax = lazy_module("jax")
+jnp = lazy_module("jax.numpy")
+jmlp = lazy_module("horovod_tpu.models.mlp")
+jresnet = lazy_module("horovod_tpu.models.resnet")
 
 TOL = 5e-5
 CLASSES = 7
 
 
+def _port_config(depth):
+    return resnet.ResNetConfig(depth=depth, num_classes=CLASSES, width=8,
+                               compute_dtype="float32")
+
+
 def _config(depth):
     kw = dict(depth=depth, num_classes=CLASSES, width=8,
               compute_dtype="float32")
-    return jresnet.ResNetConfig(**kw), resnet.ResNetConfig(**kw)
+    return jresnet.ResNetConfig(**kw), _port_config(depth)
 
 
 @functools.cache
@@ -193,7 +200,7 @@ def test_mlp_forward_matches_jax():
 def _dp_worker(params_np, state_np, batch, rank, size):
     from horovod_tpu_torch.parallel import mesh as mesh_mod
 
-    _, tcfg = _config(18)
+    tcfg = _port_config(18)
     mesh = mesh_mod.create_mesh(data=size, device="cpu")
     tp = convert.from_jax_params(params_np, device="cpu")
     ts = convert.from_jax_params(state_np, device="cpu")

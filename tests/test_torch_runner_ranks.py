@@ -25,7 +25,7 @@ import time
 
 import pytest
 
-from tests.utils_mp import REPO_ROOT, free_port
+from tests.test_torch_mp import REPO_ROOT, free_port
 
 _TEARDOWN_S = 10     # a failed rank's exit to the launcher's return
 

@@ -32,16 +32,17 @@ import ast
 import functools
 import importlib
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.sharding import Mesh, PartitionSpec as P
 
-from tests.utils_mp import run_ranks
+from tests.test_torch_mp import lazy_module, run_ranks
 
-fa_mod = importlib.import_module("horovod_tpu.ops.flash_attention")
+# The ranks import this module: JAX is bound lazily, for the oracles.
+jax = lazy_module("jax")
+jnp = lazy_module("jax.numpy")
+jsh = lazy_module("jax.sharding")
+fa_mod = lazy_module("horovod_tpu.ops.flash_attention")
 
 B, T, D = 2, 32, 8
 VALUE_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -99,7 +100,7 @@ def _jax_attention(kind, causal, flash, n, q, k, v):
 
     mesh = parallel.create_mesh(data=1, seq=n, devices=jax.devices()[:n])
     if flash:
-        spec = P(None, "seq", None, None)
+        spec = jsh.PartitionSpec(None, "seq", None, None)
         inner = ring_attention if kind == "ring" else ulysses_attention
         fn = jax.shard_map(functools.partial(inner, axis_name="seq",
                                              causal=causal, use_flash=True),
@@ -126,11 +127,34 @@ def interpret():
     fa_mod._INTERPRET = False
 
 
+def _world(rank, size, jparams, batch):
+    """Every multi-rank case of this file at this world size, in one
+    world: the attention battery; at 2 ranks the seq=1 battery, at 4 the
+    Llama under data 2 x seq 2 and data 1 x seq 4."""
+    out = {"attn": _attn_battery(rank, size)}
+    if size == 2:
+        out["seq1"] = _seq1_battery(rank, size)
+    else:
+        for data, seq in LLAMA_MESHES:
+            out[f"llama/{data}x{seq}"] = _llama_battery(
+                rank, size, data, seq, jparams, batch)
+    return out
+
+
+@pytest.fixture(scope="module")
+def worlds():
+    """One spawned world a world size (2 and 4), shared by every test."""
+    jparams, batch = _llama_setup()
+    return {size: run_ranks(functools.partial(
+        _world, jparams=jparams, batch=batch), size, timeout=600)
+        for size in (2, 4)}
+
+
 @pytest.mark.parametrize("size", [2, 4])
-def test_ring_and_ulysses_match_jax(size, interpret):
+def test_ring_and_ulysses_match_jax(size, interpret, worlds):
     """Every attention case at seq = ``size``: the joined shards of the
     output and gradients against JAX's."""
-    per_rank = run_ranks(_attn_battery, size, timeout=240)
+    per_rank = [r["attn"] for r in worlds[size]]
     for name, kind, causal, h, hkv, flash in ATTN_CASES:
         got = [np.concatenate([r[name][i] for r in per_rank], axis=1)
                for i in range(4)]
@@ -170,13 +194,13 @@ def _seq1_battery(rank, size):
     return out
 
 
-def test_seq_axis_of_one_is_the_identity():
+def test_seq_axis_of_one_is_the_identity(worlds):
     """data=2 x seq=1, each rank its own q/k/v (causal, H4 Hkv2): Ulysses
     and the ring, joined over the batch, equal JAX's
     ``ulysses_self_attention`` on ``create_mesh(data=2, seq=1)``."""
     from horovod_tpu import parallel
 
-    per_rank = run_ranks(_seq1_battery, 2, timeout=240)
+    per_rank = [r["seq1"] for r in worlds[2]]
     jmesh = parallel.create_mesh(data=2, seq=1, devices=jax.devices()[:2])
 
     def loss(*a):
@@ -201,6 +225,7 @@ def test_seq_axis_of_one_is_the_identity():
 
 LT = 32          # global sequence length of the Llama batch
 MODES = ("none", "full", "attn", "attn+gate")
+LLAMA_MESHES = ((2, 2), (1, 4))   # (data, seq), both on the 4-rank world
 
 
 def _flat(tree, prefix=""):
@@ -213,6 +238,7 @@ def _flat(tree, prefix=""):
     return out
 
 
+@functools.cache
 def _llama_setup(seed=0):
     from horovod_tpu.models import llama as jl
 
@@ -378,12 +404,10 @@ def _rel(got, want):
     return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
 
 
-@pytest.mark.parametrize("data,seq", [(2, 2), (1, 4)])
-def test_llama_under_a_mesh_matches_jax(data, seq):
+@pytest.mark.parametrize("data,seq", LLAMA_MESHES)
+def test_llama_under_a_mesh_matches_jax(data, seq, worlds):
     jparams, batch = _llama_setup()
-    per_rank = run_ranks(functools.partial(
-        _llama_battery, data=data, seq=seq, jparams=jparams, batch=batch),
-        data * seq, timeout=300)
+    per_rank = [r[f"llama/{data}x{seq}"] for r in worlds[data * seq]]
 
     from horovod_tpu_torch.models import llama as tl
     from horovod_tpu_torch.models.convert import from_jax_params

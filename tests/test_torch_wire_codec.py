@@ -33,7 +33,7 @@ import pytest
 import torch
 
 from horovod_tpu_torch.ops import wire_codec as wc
-from tests.utils_mp import REPO_ROOT
+from tests.test_torch_mp import REPO_ROOT
 
 LENGTHS = (0, 1, 255, 256, 257, 1025)
 

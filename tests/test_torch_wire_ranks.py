@@ -45,7 +45,7 @@ from tests.test_torch_hier_ranks import (
     _reopen_at,
     _slice_env,
 )
-from tests.utils_mp import run_ranks
+from tests.test_torch_mp import run_ranks
 
 COUNT = 1025          # uneven over 2, 3 and 4 ranks
 EVEN = 1536           # even over 2, 3 and 4 ranks

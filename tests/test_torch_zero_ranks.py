@@ -47,12 +47,16 @@ shapes):
 import functools
 import importlib
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from tests.test_torch_hvd_cache import run_both
+from tests.test_torch_mp import lazy_module
+
+# The ranks import this module: JAX is bound lazily, for the oracles and
+# the reference lane's ranks.
+jax = lazy_module("jax")
+jnp = lazy_module("jax.numpy")
 
 LR = 1e-3
 STEPS = 3
