@@ -284,23 +284,14 @@ def env_from_args(args):
 
 def check_build_rows():
     """``(section, [(available, label)])`` of what the port can use on
-    this machine, probed live."""
-    import importlib.util
-
-    import torch
-    import torch.distributed as dist
-
+    this machine, probed live (``common/capabilities.py probe``, which
+    the torch frontend's ``hvd.nccl_built()`` and the rest read too)."""
+    from horovod_tpu_torch.common import capabilities
     from horovod_tpu_torch.ops import _build
 
-    def have(mod):
-        try:
-            return importlib.util.find_spec(mod) is not None
-        except (ImportError, ValueError):
-            return False
-
-    cuda = torch.cuda.is_available()
-    nccl = dist.is_available() and dist.is_nccl_available()
-    nccl_version = " " + nccl_version_string() if nccl and cuda else ""
+    caps = capabilities.probe()
+    nccl_version = (" " + capabilities.nccl_version_string()
+                    if caps["nccl"] else "")
     built = sum(_build._library_path(n).exists() for n in _build.SOURCES)
     try:
         nvcc = bool(_build._nvcc())
@@ -308,26 +299,18 @@ def check_build_rows():
         nvcc = False
     return [
         ("Available Frameworks", [
-            (True, f"PyTorch {torch.__version__}")]),
+            (True, f"PyTorch {caps['torch_version']}")]),
         ("Available Controllers", [
-            (dist.is_available(), "TCP rendezvous (TCPStore)"),
-            (have("mpi4py"), "MPI bootstrap (mpi4py)")]),
+            (caps["tcp_store"], "TCP rendezvous (TCPStore)"),
+            (caps["mpi4py"], "MPI bootstrap (mpi4py)")]),
         ("Available Tensor Operations", [
-            (dist.is_available() and dist.is_gloo_available(), "gloo"),
-            (nccl and cuda, f"NCCL{nccl_version}"),
-            (cuda, f"CUDA {torch.version.cuda or ''}".rstrip()),
+            (caps["gloo"], "gloo"),
+            (caps["nccl"], f"NCCL{nccl_version}"),
+            (caps["cuda"], f"CUDA {caps['cuda_version']}".rstrip()),
             (nvcc, "nvcc (the Hopper kernels can be built)"),
             (built == len(_build.SOURCES),
              f"kernel libraries built: {built} of {len(_build.SOURCES)}")]),
     ]
-
-
-def nccl_version_string():
-    """``torch.cuda.nccl.version()`` as ``major.minor.patch``."""
-    import torch
-
-    v = torch.cuda.nccl.version()
-    return ".".join(map(str, v)) if isinstance(v, tuple) else str(v)
 
 
 def _print_check_build():

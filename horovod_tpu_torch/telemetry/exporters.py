@@ -3,10 +3,14 @@
 The port's own copy of ``horovod_tpu/telemetry/exporters.py``
 ``_flatten_prom``, over the sections the port's snapshot has
 (``common/metrics.py``): the same ``hvdtpu_*`` names and labels, the
-elastic fault lifecycle included (less the wire's ``heals``,
-``retries`` and ``crc_errors``). The reference's scraper and its
-``wire`` and serving samples are not ported (ROADMAP.md L8, A6).
+wire-byte counters, the elastic fault lifecycle (less the wire's
+``heals``, ``retries`` and ``crc_errors``) and the serving gauges of the
+live ``ServingLoop`` (``telemetry/autoscale.py read_serving_signals``).
+The wire's stripe-channel, syscall and overlap series wait for ROADMAP.md
+L8 and A12, and the reference's scraper for A12.
 """
+
+from horovod_tpu_torch.telemetry.autoscale import read_serving_signals
 
 
 def _flatten_prom(snap, rank):
@@ -43,6 +47,15 @@ def _flatten_prom(snap, rank):
                      f'{fus.get(field, 0)}')
     lines.append(f'hvdtpu_fusion_fill_ratio{{{label}}} '
                  f'{fus.get("fill_ratio", 0.0)}')
+    wire = snap.get("wire", {})
+    for field in ("tx_bytes", "rx_bytes", "tx_logical_bytes",
+                  "rx_logical_bytes", "cross_tx_bytes", "cross_rx_bytes",
+                  "cross_tx_logical_bytes", "cross_rx_logical_bytes"):
+        lines.append(f'hvdtpu_wire_{field}_total{{{label}}} '
+                     f'{wire.get(field, 0)}')
+    for field in ("compression_ratio", "cross_compression_ratio"):
+        lines.append(f'hvdtpu_wire_{field}{{{label}}} '
+                     f'{wire.get(field, 1.0)}')
     el = snap.get("elastic", {})
     for field in ("faults_detected", "faults_recovered",
                   "ranks_blacklisted", "ranks_rejoined", "resets"):
@@ -53,6 +66,10 @@ def _flatten_prom(snap, rank):
     for field in ("count", "p50_us", "p99_us", "max_us"):
         lines.append(f'hvdtpu_elastic_detect_{field}{{{label}}} '
                      f'{det.get(field, 0)}')
+    # The serving loop's gauges, or their defaults when no loop runs in
+    # this process: a training scrape has the same fields.
+    for field, v in sorted(read_serving_signals().items()):
+        lines.append(f'hvdtpu_serving_{field}{{{label}}} {v}')
     for r, n in enumerate(
             snap.get("straggler", {}).get("last_rank_counts", [])):
         lines.append(

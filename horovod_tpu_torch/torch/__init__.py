@@ -29,7 +29,9 @@ starts under the port's own launcher (``horovodrun-torch``,
 (``common/mpi_bootstrap.py``). The JAX frontend's functional lane
 (``torch/fused_optimizer.py``): ``allreduce_gradients``,
 ``DistributedFusedAdam`` (with ``zero=True``, ZeRO-1 on the lane) and
-``make_fused_train_step``; ``init(jit_fusion=...)``. Still to port
+``make_fused_train_step``; ``init(jit_fusion=...)``. The capability
+probes (``gloo_built``, ``nccl_built``... ``common/capabilities.py``)
+answer what ``horovodrun-torch --check-build`` prints. Still to port
 behind the same names: the control tree and wire checksums (L8) and
 control frames over MPI (L9b).
 """
@@ -44,6 +46,22 @@ from horovod_tpu_torch.common.basics import (  # noqa: F401
     set_wire_compression,
     wire_codec,
     wire_compression,
+)
+# The capability surface (``hvd.nccl_built()``, ``hvd.gloo_built()``...),
+# the answers ``horovodrun-torch --check-build`` prints.
+from horovod_tpu_torch.common.capabilities import (  # noqa: F401
+    ccl_built,
+    cuda_built,
+    ddl_built,
+    gloo_built,
+    gloo_enabled,
+    mpi_built,
+    mpi_enabled,
+    mpi_threads_supported,
+    nccl_built,
+    rocm_built,
+    xla_built,
+    xla_enabled,
 )
 from horovod_tpu_torch.common.exceptions import (  # noqa: F401
     HorovodInternalError,

@@ -40,18 +40,21 @@ gradients in another order), logits 1e-4, SGD params rtol 1e-4 atol 1e-6.
 JAX cuts the global batch into the microbatches; the MoE under ``pipe=2
 x fsdp=2 x expert=2`` (gpipe, ``1f1b`` with and without a mask) holds
 the port's regrouped rows to it, since its aux loss is taken over each
-microbatch's tokens.
+microbatch's tokens; interleaved V=2 there, whose JAX program aborts on
+the CPU, is held to the port's ``1f1b`` on the same world.
 """
 
 import functools
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from tests.utils_mp import run_ranks
+from tests.test_torch_mp import lazy_module, run_ranks
+
+# The ranks import this module: JAX is bound lazily, for the oracles.
+jax = lazy_module("jax")
+jnp = lazy_module("jax.numpy")
 
 B, T, L = 4, 16, 4
 MARGIN = 1e-5
@@ -481,9 +484,11 @@ def _value_only(rank, path, mesh, batch, cfg):
 
 
 # The MoE cases under fsdp: (case, mask). JAX's CPU program of the
-# interleaved schedule on this mesh aborts in XLA, so it has no case here;
-# the port's interleaved loss moves its rows by the same code as 1f1b's.
-MOE_FSDP = (("gpipe", False), ("1f1b", False), ("1f1b", True))
+# interleaved schedule on this mesh aborts in XLA, so its cases are held
+# to the port's own 1f1b on the same world: the same objective, which JAX
+# holds for the two schedules on the other meshes.
+MOE_FSDP = (("gpipe", False), ("1f1b", False), ("1f1b", True),
+            ("interleaved-v2", False), ("interleaved-v2", True))
 
 
 def _world(rank, size, path, moe_path):
@@ -645,9 +650,15 @@ def test_world_moe_microbatches_are_jax_global_rows(world, case, mask):
     interleaved tests (5e-6, for schedules that sum the microbatches'
     gradients in other orders): its embedding gradient (entries up to
     2.4) is f32 noise at 2e-6 in JAX's own result against a float64
-    replay of the same objective, and at 1.8e-6 in the port's."""
+    replay of the same objective, and at 1.8e-6 in the port's. JAX's
+    CPU program of the interleaved schedule on this mesh aborts, so the
+    interleaved cases are held to the port's 1f1b on the same world."""
     assert _routing_margin() > MARGIN
-    want_loss, want = _jax_pipelined(case, mask, moe=True, moe_axes="fsdp")
+    if case.startswith("interleaved"):
+        want_loss, want = world[0][f"moe-fsdp/1f1b/{mask}"]
+    else:
+        want_loss, want = _jax_pipelined(case, mask, moe=True,
+                                         moe_axes="fsdp")
     loss, grads = world[0][f"moe-fsdp/{case}/{mask}"]
     for r in world:
         assert r[f"moe-fsdp/{case}/{mask}"][0] == loss
