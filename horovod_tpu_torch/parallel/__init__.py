@@ -1,13 +1,13 @@
 """Training-step machinery of the port: the fused single-pass
-optimizers (``precision``), the split train step (``train_step``),
-ZeRO-1 (``zero``) and its fused schedule's knob and hooks (``fusion``),
-imported as modules; and the mesh of the ``pipe``, ``data``, ``fsdp``,
-``seq``, ``expert`` and ``tensor`` axes, re-exported here under the JAX
-package's names: the mesh (``mesh``), its differentiable collectives
-(``ops``), the sharding rules' helpers (``sharding``), the pipeline
-schedules (``pipeline``), the resharding planner and its executors
-(``reshard``), ring attention (``ring_attention``) and Ulysses
-(``ulysses``)."""
+optimizers and the master-weights wrapper (``precision``), the split
+train step (``train_step``), ZeRO-1 (``zero``) and its fused schedule's
+knob and hooks (``fusion``); and the mesh of the ``pipe``, ``data``,
+``fsdp``, ``seq``, ``expert`` and ``tensor`` axes: the mesh (``mesh``),
+its differentiable collectives (``ops``), the sharding rules' helpers
+(``sharding``), the pipeline schedules (``pipeline``), the resharding
+planner and its executors (``reshard``), ring attention
+(``ring_attention``) and Ulysses (``ulysses``). Their names are
+re-exported here under the JAX package's names."""
 
 from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
     AXIS_ORDER,
@@ -59,4 +59,25 @@ from horovod_tpu_torch.parallel.sharding import (  # noqa: F401
 from horovod_tpu_torch.parallel.ulysses import (  # noqa: F401
     ulysses_attention,
     ulysses_self_attention,
+)
+from horovod_tpu_torch.parallel.precision import (  # noqa: F401
+    FusedAdamState,
+    FusedMasterState,
+    FusedOptimizer,
+    MasterWeightsState,
+    fused_adam,
+    fused_master_adam,
+    master_weights,
+)
+from horovod_tpu_torch.parallel.train_step import (  # noqa: F401
+    TrainStep,
+    make_split_train_step,
+)
+from horovod_tpu_torch.parallel.zero import (  # noqa: F401
+    ZeroAdamState,
+    ZeroConfig,
+    ZeroMasterAdamState,
+    optimizer_state_bytes,
+    ring_owned_segment,
+    zero_bucket_layout,
 )

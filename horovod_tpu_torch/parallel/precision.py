@@ -1,9 +1,11 @@
-"""Fused Adam optimizers.
+"""Mixed precision: the f32 master-weights wrapper and the fused Adam
+optimizers.
 
-Counterpart of the fused half of horovod_tpu/parallel/precision.py:
-``fused_adam`` (moments in the parameter dtype) and
-``fused_master_adam`` (f32 master weights and moments, the compute cast
-written in the same pass). The JAX package leaves each leaf's update to
+Counterpart of horovod_tpu/parallel/precision.py: ``master_weights``
+(an f32 master copy under any torch optimizer, the forward and backward
+on its compute cast), ``fused_adam`` (moments in the parameter dtype)
+and ``fused_master_adam`` (f32 master weights and moments, the compute
+cast written in the same pass). The JAX package leaves each leaf's update to
 one XLA fusion; here each leaf is one call of ``ops.adam.adam_update``:
 one pass of the Hopper kernel ``csrc/adam.cu`` on the card, the plain
 PyTorch chain ``_adam_leaf`` on the CPU, the same bits. Every update is
@@ -15,8 +17,16 @@ Both ``apply`` functions run under ``torch.no_grad()`` and update the
 params, moments and master IN PLACE, returning the same tensors: the
 port's counterpart of JAX's buffer donation (one params tree and one
 state tree live per step). A caller that needs the old values keeps a
-copy. ``master_weights`` (which wraps an optax transformation) is not
-ported: the port has no optax (ROADMAP.md A3).
+copy.
+
+``master_weights`` wraps a torch optimizer where JAX's wraps an optax
+transformation: ``make_optimizer`` builds it over the master leaves
+(``lambda ps: torch.optim.Adam(ps, lr=1e-2)``), and ``apply`` sets the
+gradients, cast to the master dtype, as the leaves' ``.grad`` and steps
+it, in place. As in the JAX package it is a standalone optimizer, not a
+fused one: ``make_split_train_step`` refuses it (JAX's would send it
+down the fused path, whose ``apply`` signature it does not have), and
+``fused_master_adam`` is the split step's master recipe.
 
 The trees are nested dicts of tensors (``_tree``); ``count`` is an int32
 0-d tensor on the params' device, so an apply never waits on the host.
@@ -28,6 +38,51 @@ import torch
 
 from horovod_tpu_torch.ops.adam import adam_update
 from horovod_tpu_torch.parallel._tree import tree_leaves, tree_map
+
+
+class MasterWeightsState(NamedTuple):
+    master: Any   # master-dtype (f32) parameter tree
+    inner: Any    # the wrapped torch optimizer, over the master leaves
+
+
+class MasterWeights(NamedTuple):
+    init: Any
+    compute_params: Any
+    apply: Any
+
+
+def master_weights(make_optimizer, compute_dtype=torch.bfloat16,
+                   master_dtype=torch.float32):
+    """Wrap a torch optimizer with an f32 master-parameter loop:
+    ``init(params)`` copies the params to ``master_dtype`` and builds
+    ``make_optimizer(master leaves)``; ``compute_params(state)`` is a
+    fresh ``compute_dtype`` cast of the master, for the forward and
+    backward; ``apply(state, grads)`` steps the optimizer on the master
+    with the gradients cast to ``master_dtype`` and returns the state."""
+
+    def init(params):
+        # A copy even when params are already master_dtype: the
+        # optimizer updates the master in place.
+        master = tree_map(lambda p: p.detach().to(master_dtype, copy=True),
+                          params)
+        return MasterWeightsState(master=master,
+                                  inner=make_optimizer(tree_leaves(master)))
+
+    def compute_params(state):
+        return tree_map(lambda m: m.to(compute_dtype, copy=True),
+                        state.master)
+
+    def apply(state, grads):
+        leaves = tree_leaves(state.master)
+        for m, g in zip(leaves, tree_leaves(grads)):
+            m.grad = g.detach().to(master_dtype)
+        state.inner.step()
+        for m in leaves:
+            m.grad = None
+        return state
+
+    return MasterWeights(init=init, compute_params=compute_params,
+                         apply=apply)
 
 
 class FusedAdamState(NamedTuple):

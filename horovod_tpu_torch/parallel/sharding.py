@@ -35,6 +35,10 @@ class P(tuple):
     def __new__(cls, *entries):
         return super().__new__(cls, entries)
 
+    def __getnewargs__(self):
+        # Unpickled as P(*entries), not P(entries).
+        return tuple(self)
+
     def __repr__(self):
         return f"P{tuple.__repr__(self)}"
 

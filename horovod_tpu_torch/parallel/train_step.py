@@ -31,7 +31,9 @@ cross-plane sum) alone over those;
 without a mesh each rank's loss is the mean over its own batch and the
 reduce-scatter averages (``parallel/zero.py``). The loss returned is this
 rank's. Step telemetry (``telemetry=``, ROADMAP.md A12) and optax
-transformations (no optax in the port) are not ported.
+transformations (no optax in the port) are not ported; the master-weights
+wrapper over a torch optimizer (``precision.master_weights``) is a
+standalone optimizer, as the JAX package's, and is refused here.
 """
 
 import contextlib
@@ -39,7 +41,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from horovod_tpu_torch.parallel import fusion
+from horovod_tpu_torch.parallel import fusion, precision
 from horovod_tpu_torch.parallel._tree import (
     tree_leaves,
     tree_map,
@@ -164,6 +166,11 @@ def make_split_train_step(loss_fn, optimizer, *, microbatches=1,
     if telemetry is not None:
         raise NotImplementedError(
             "telemetry= (StepTimer) is not ported yet (ROADMAP.md A12)")
+    if isinstance(optimizer, precision.MasterWeights):
+        raise TypeError(
+            "master_weights is a standalone optimizer, as the JAX "
+            "package's: the split step takes a fused one "
+            "(parallel.precision.fused_master_adam is its master recipe)")
     if not hasattr(optimizer, "apply"):
         raise TypeError(
             f"{type(optimizer).__name__} has no .apply: the port's split "

@@ -668,8 +668,9 @@ def make_zero_apply(optimizer, zero):
     and the bucket layout are resolved anew, the padding following the
     new shard count. Under a mesh, or split across planes when the
     world's size changed, a re-formation raises
-    :class:`HorovodReformationError` naming ROADMAP.md A9b: the axes are
-    fixed."""
+    :class:`HorovodReformationError`: the axes are fixed, and the JAX
+    package's ZeRO has no re-formation path to hold one to (ROADMAP.md,
+    "Not queued")."""
     hyper = _optimizer_hyper(optimizer)
     fixed = _fixed(zero)
     built = {}
@@ -696,7 +697,7 @@ def make_zero_apply(optimizer, zero):
                 raise HorovodReformationError(
                     f"ZeRO over a {fixed} cannot follow a re-formation "
                     f"(world {built['key']} -> {key}): the axes are fixed "
-                    "(ROADMAP.md A9b)")
+                    "(ROADMAP.md, \"Not queued\")")
             axis = zero_axis(zero, built["device"])
             layout = zero_bucket_layout(built["leaves"], axis.size,
                                         zero.bucket_bytes)

@@ -124,15 +124,24 @@ def _devices(tree):
 
 def _to_devices(tree, devices):
     """``tree``'s tensors copied to ``devices`` (a like tree; None keeps
-    the host), other leaves deep-copied: never aliases the snapshot."""
-    def leaf(v, device):
+    the host, and so does a place ``devices`` lacks: a resumed commit
+    may hold keys the live tree has not), other leaves deep-copied:
+    never aliases the snapshot."""
+    def walk(v, device):
+        if isinstance(v, dict):
+            device = device if isinstance(device, dict) else {}
+            return type(v)((k, walk(x, device.get(k))) for k, x in v.items())
+        if isinstance(v, (list, tuple)):
+            if not isinstance(device, (list, tuple)) or \
+                    len(device) != len(v):
+                device = [None] * len(v)
+            return _rebuild(v, [walk(x, d) for x, d in zip(v, device)])
         if not torch.is_tensor(v):
             return copy.deepcopy(v)
-        return v.to(device or "cpu", copy=True,
-                    non_blocking=v.is_pinned())
+        return v.to(device if isinstance(device, torch.device) else "cpu",
+                    copy=True, non_blocking=v.is_pinned())
 
-    return _map(leaf, tree, devices if devices is not None else
-                _map(lambda v: None, tree))
+    return walk(tree, devices)
 
 
 class _Durable(State):
@@ -145,7 +154,8 @@ class _Durable(State):
         if checkpoint_dir is not None:
             from horovod_tpu_torch.checkpoint import CheckpointManager
 
-            self._ckpt_mgr = CheckpointManager(checkpoint_dir)
+            self._ckpt_mgr = CheckpointManager(checkpoint_dir,
+                                               async_save=False)
             # Continue past a previous run's commits: a step already on
             # disk is never written again.
             self._commit_step = self._ckpt_mgr.latest_step() or 0
@@ -458,7 +468,7 @@ def _relayout(states, commit_step, ckpt, name="elastic.zero"):
                 raise HorovodReformationError(
                     f"a ZeRO carry over a {ref.fixed} ({ref.world} ranks) "
                     f"cannot follow a re-formation to {size} ranks: the "
-                    "axes are fixed (ROADMAP.md A9b)")
+                    "axes are fixed (ROADMAP.md, \"Not queued\")")
             out.append(_with_blocks(st, _fields(st), metas[j]._replace(
                 epoch=epoch)))
             continue

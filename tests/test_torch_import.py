@@ -68,6 +68,14 @@ def test_import_loads_no_jax_triton_or_reference_package():
         "import horovod_tpu_torch.runner.js_run\n"
         "import horovod_tpu_torch.runner.task_service\n"
         "import horovod_tpu_torch.common.mpi_bootstrap\n"
+        "import horovod_tpu_torch.common.capabilities\n"
+        "import horovod_tpu_torch.data\n"
+        "import horovod_tpu_torch.models\n"
+        "import horovod_tpu_torch.parallel\n"
+        "import horovod_tpu_torch.serving\n"
+        "import horovod_tpu_torch.runner.elastic\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'triton', 'ml_dtypes', 'horovod_tpu', 'yaml',\n"
@@ -138,6 +146,14 @@ def test_import_builds_nothing():
         "import horovod_tpu_torch.runner.js_run\n"
         "import horovod_tpu_torch.runner.task_service\n"
         "import horovod_tpu_torch.common.mpi_bootstrap\n"
+        "import horovod_tpu_torch.common.capabilities\n"
+        "import horovod_tpu_torch.data\n"
+        "import horovod_tpu_torch.models\n"
+        "import horovod_tpu_torch.parallel\n"
+        "import horovod_tpu_torch.serving\n"
+        "import horovod_tpu_torch.runner.elastic\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n"
         "from horovod_tpu_torch.ops import _build\n"
         "assert _build._libs == {}, _build._libs\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))

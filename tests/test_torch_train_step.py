@@ -14,18 +14,11 @@ under one such step and far over the f32 noise of every other entry).
 """
 
 import functools
-import importlib
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from horovod_tpu.models import llama as jl
-from horovod_tpu.parallel import fused_adam as j_fused_adam
-from horovod_tpu.parallel import fused_master_adam as j_fused_master_adam
-from horovod_tpu.parallel import make_split_train_step as j_make_step
 from horovod_tpu_torch.models import llama as tl
 from horovod_tpu_torch.models.convert import (
     from_jax_opt_state,
@@ -37,9 +30,15 @@ from horovod_tpu_torch.parallel.train_step import (
     _split_microbatches,
     make_split_train_step,
 )
-from tests.utils_mp import run_ranks
+from tests.test_torch_mp import lazy_module, run_ranks
 
-fa_mod = importlib.import_module("horovod_tpu.ops.flash_attention")
+# The ranks import this module: JAX is bound lazily, for the oracles.
+jax = lazy_module("jax")
+jnp = lazy_module("jax.numpy")
+jl = lazy_module("horovod_tpu.models.llama")
+jpar = lazy_module("horovod_tpu.parallel")
+fa_mod = lazy_module("horovod_tpu.ops.flash_attention")
+
 LR = 1e-3
 
 
@@ -94,8 +93,8 @@ def _assert_params_close(got, want, atol):
 
 def test_split_step_fused_adam_matches_jax():
     jc, tc, jparams, batch = _setup()
-    jts = j_make_step(lambda p, d: jl.llama_loss(p, d, jc),
-                      j_fused_adam(LR))
+    jts = jpar.make_split_train_step(lambda p, d: jl.llama_loss(p, d, jc),
+                      jpar.fused_adam(LR))
     jcarry = jts.init(jparams)
     ts = _port_step(tc, precision.fused_adam(LR))
     carry = ts.init(_port(jparams))
@@ -195,8 +194,8 @@ def test_unported_arguments_raise(kw, item):
     # Numpy first: JAX's step donates the params.
     nparams = jax.tree.map(np.asarray, jparams)
     zero = kw["zero"]
-    jts = j_make_step(lambda p, d: jl.llama_loss(p, d, jc),
-                      j_fused_adam(LR),
+    jts = jpar.make_split_train_step(lambda p, d: jl.llama_loss(p, d, jc),
+                      jpar.fused_adam(LR),
                       zero=JZeroConfig(size=zero.size,
                                        inter_axis=zero.inter_axis,
                                        inter_size=zero.inter_size))
@@ -232,8 +231,8 @@ def test_from_jax_opt_state_round_trips(kind):
     dtype = "bfloat16" if kind == "adam-bf16" else "float32"
     jc = jl.LlamaConfig.tiny(param_dtype=dtype)
     jparams = jl.llama_init(jc, jax.random.PRNGKey(1))
-    jopt = j_fused_master_adam(1e-2) if kind == "master" else \
-        j_fused_adam(1e-2)
+    jopt = jpar.fused_master_adam(1e-2) if kind == "master" else \
+        jpar.fused_adam(1e-2)
     jst = jopt.init(jparams)
     grads = jax.tree.map(lambda p: jnp.full_like(p, 0.01), jparams)
     params = jopt.compute_params(jst) if kind == "master" else jparams
@@ -263,8 +262,8 @@ def test_port_continues_a_jax_started_run():
     port and both take the third step: the port's third loss and params
     match JAX's."""
     jc, tc, jparams, batch = _setup()
-    jts = j_make_step(lambda p, d: jl.llama_loss(p, d, jc),
-                      j_fused_adam(LR))
+    jts = jpar.make_split_train_step(lambda p, d: jl.llama_loss(p, d, jc),
+                      jpar.fused_adam(LR))
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     jcarry = jts.init(jparams)
     for _ in range(2):
@@ -278,3 +277,150 @@ def test_port_continues_a_jax_started_run():
     assert int(carry[1].count) == 3
     assert float(loss) == pytest.approx(float(jloss), rel=1e-5)
     _assert_params_close(carry[0], jcarry[0], 1e-4)
+
+
+# ---- master_weights: a torch optimizer on an f32 master -------------------
+
+def _mw_setup():
+    """``tests/single/test_llama.py:428``'s model and batch: 2 layers,
+    d64, vocab 128, B4 x T32, JAX's init moved to the port."""
+    import dataclasses
+
+    kw = dict(d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=128,
+              vocab_size=128, remat=False)
+    jc = dataclasses.replace(jl.LlamaConfig.tiny(dtype="float32", **kw),
+                             dtype="bfloat16")
+    tc = tl.LlamaConfig.tiny(dtype="bfloat16", **kw)
+    jparams = jl.llama_init(jc, jax.random.PRNGKey(0))
+    tokens = np.asarray(jax.random.randint(jax.random.PRNGKey(1), (4, 32),
+                                           0, jc.vocab_size))
+    batch = {"tokens": tokens, "targets": np.roll(tokens, -1, 1)}
+    return jc, tc, jparams, batch
+
+
+def _mw_port_grads(tc, params, batch):
+    live = {k: v.detach().requires_grad_(True) for k, v in
+            _flat_items(params)}
+    tree = _unflat(live)
+    loss = tl.llama_loss(tree, _port_batch(batch), tc, device="cpu")
+    names = list(live)
+    grads = torch.autograd.grad(loss, [live[n] for n in names])
+    return float(loss.detach()), _unflat(dict(zip(names, grads)))
+
+
+def _flat_items(tree, prefix=""):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _flat_items(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _unflat(flat):
+    out = {}
+    for path, v in flat.items():
+        *heads, leaf = path.split("/")
+        node = out
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[leaf] = v
+    return out
+
+
+def test_master_weights_tracks_jax_master_weights():
+    """``master_weights(lambda ps: torch.optim.Adam(ps, lr=1e-2))``
+    against JAX's ``master_weights(optax.adam(1e-2))`` over 8 steps of
+    bf16 compute on the same model and batch: the master and Adam's
+    moments are f32, the first loss within 1e-3 relative of JAX's (the
+    bf16 forwards round differently), every later one within 5e-2 (the
+    bound JAX's test puts between its bf16 and f32 runs: Adam's
+    normalised steps carry the first step's rounding onward), and the
+    loss falls as JAX's does."""
+    import optax
+
+    from horovod_tpu.parallel import master_weights as j_master_weights
+
+    jc, tc, jparams, batch = _mw_setup()
+    jmw = j_master_weights(optax.adam(1e-2))
+    jstate = jmw.init(jparams)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    @jax.jit
+    def jstep(state, b):
+        loss, grads = jax.value_and_grad(jl.llama_loss)(
+            jmw.compute_params(state), b, jc)
+        return loss, jmw.apply(state, grads)
+
+    mw = precision.master_weights(lambda ps: torch.optim.Adam(ps, lr=1e-2))
+    state = mw.init(_port(jparams))
+    assert all(m.dtype == torch.float32 for m in _leaves(state.master))
+    jlosses, losses = [], []
+    for _ in range(8):
+        jloss, jstate = jstep(jstate, jb)
+        jlosses.append(float(jloss))
+        params = mw.compute_params(state)
+        assert all(p.dtype == torch.bfloat16 for p in _leaves(params))
+        loss, grads = _mw_port_grads(tc, params, batch)
+        losses.append(loss)
+        state = mw.apply(state, grads)
+    moments = [v for s in state.inner.state.values() for k, v in s.items()
+               if k in ("exp_avg", "exp_avg_sq")]
+    assert len(moments) == 2 * len(_leaves(state.master))
+    assert all(m.dtype == torch.float32 for m in moments)
+    assert all(m.dtype == torch.float32 for m in _leaves(state.master))
+    assert losses[0] == pytest.approx(jlosses[0], rel=1e-3)
+    np.testing.assert_allclose(losses, jlosses, rtol=5e-2)
+    assert losses[-1] < losses[0] and jlosses[-1] < jlosses[0]
+
+
+def test_master_weights_matches_fused_master_adam():
+    """The counterpart of ``test_llama.py:599``: three applies of
+    ``master_weights(torch.optim.Adam)`` against the port's
+    ``fused_master_adam`` on the same f32 gradients: the same f32
+    moments (rtol 1e-6, atol 1e-7, JAX's test's bound), the same master
+    to rtol 1e-6 and atol 3e-7, the fused cast the master rounded to
+    bf16 bit for bit, and the two casts within a bf16 step. The master's
+    atol is three steps of lr 1e-2 times 1e-5: on the CPU
+    ``torch.optim.Adam`` takes its bias corrections in float64 where
+    optax and the fused Adam take them in f32 (``1 - 0.999`` is 1.7e-5
+    off in f32, half that under the square root)."""
+    _, tc, jparams, batch = _setup()
+    params = _port(jparams)
+    _, grads = _mw_port_grads(tc, params, batch)
+    mw = precision.master_weights(lambda ps: torch.optim.Adam(ps, lr=1e-2))
+    mw_state = mw.init(params)
+    fm = precision.fused_master_adam(1e-2)
+    fm_state = fm.init(params)
+    compute = fm.compute_params(fm_state)
+    assert all(x.dtype == torch.bfloat16 for x in _leaves(compute))
+    assert all(x.dtype == torch.float32
+               for t in (fm_state.master, fm_state.mu, fm_state.nu)
+               for x in _leaves(t))
+    for _ in range(3):
+        mw_state = mw.apply(mw_state, grads)
+        compute, fm_state = fm.apply(compute, grads, fm_state)
+    for a, b in zip(_leaves(mw_state.master), _leaves(fm_state.master),
+                    strict=True):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                   atol=3e-7)
+    inner = [mw_state.inner.state[m] for m in _leaves(mw_state.master)]
+    for field, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        for st, b in zip(inner, _leaves(getattr(fm_state, field)),
+                         strict=True):
+            assert st[key].dtype == torch.float32
+            np.testing.assert_allclose(st[key].numpy(), b.numpy(),
+                                       rtol=1e-6, atol=1e-7)
+    for m, c in zip(_leaves(fm_state.master), _leaves(compute)):
+        assert torch.equal(m.bfloat16(), c)
+    for a, b in zip(_leaves(mw.compute_params(mw_state)), _leaves(compute)):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=1e-2, atol=1e-3)
+    assert int(fm_state.count) == 3
+
+
+def test_split_step_refuses_master_weights():
+    """``master_weights`` is a standalone optimizer, as JAX's: the split
+    step takes the fused ones."""
+    mw = precision.master_weights(lambda ps: torch.optim.Adam(ps))
+    with pytest.raises(TypeError, match="fused_master_adam"):
+        make_split_train_step(lambda p, d: 0.0, mw)
