@@ -17,7 +17,9 @@ tensor-parallel replays of the mesh path's blocks (the flagship's,
 BERT-Large's and the grouped dispatch's), the disaggregated serving
 loop (with a killed decode rank) and ZeRO's re-layout, the pipeline
 schedules replayed on one card at Llama-3-8B's width and the remat modes
-dots, attn+ffn and attn+gate+qkv, in phases; any failed phase exits
+dots, attn+ffn and attn+gate+qkv, and the flagship's training
+checkpointed in flight and resumed (with the master-weights variants),
+in phases; any failed phase exits
 non-zero before the result line. ``python3 chip_smoke.py
 --launched-worker static|elastic DIR`` is one rank of that job, and
 ``--serve-worker f32|bf16 DIR`` one rank of phase 27's serving drill.
@@ -327,7 +329,23 @@ non-zero before the result line. ``python3 chip_smoke.py
    ``attn+gate``: ms a step, peak GiB, the loss and gradients
    bit-identical to ``attn+gate``'s. Across cards:
    ``tests/test_torch_pipeline_cuda_ranks.py``.
-29. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
+29. Checkpoints and the data loader (``checkpoint.py``, ``data/``) and
+   ``master_weights``: (a) the dense flagship's split step (B4 x T2048,
+   ``attn+gate``, ``fused_adam(3e-4)``, full width and depth), its
+   batches through an ``AsyncDataLoaderMixin`` loader: 2 steps, an
+   async ``CheckpointManager.save`` (``max_to_keep=1``, a temporary
+   directory removed at the end), 2 more steps at once (the in-place
+   apply runs while the write is in flight), ``wait``, a restore into a
+   fresh carry on the card and the same 2 steps again: losses and every
+   leaf bit-identical to the uninterrupted run; the save call's blocking
+   ms, the flush's s, the bytes (params and both moments in bf16) and
+   the restore's s beside the pinned copy rates' bounds; K1-K3 L a step
+   and the Adam kernel a leaf a step, on wgmma; (b) the same round trip
+   of ``fused_master_adam``'s carry (its f32 master) at the flagship's
+   width with 2 layers, then ``master_weights(torch.optim.Adam)`` 3
+   steps on that model (the loss backward on ``compute_params``, then
+   ``apply``): its ms a step and peak beside the fused split step's.
+30. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
    launches, K1-K3's offsets rows with phase 17's launches, the six
    codec kernels with phase 20 (b)'s, and the Adam kernel's two
    variants with the train paths' launches), the card line, and the
@@ -4090,7 +4108,7 @@ def run_launcher_phase(torch, bert, precision, train_step, cfg, card,
 
     import horovod_tpu_torch.torch as hvd
     from horovod_tpu_torch.ops import _build
-    from horovod_tpu_torch.runner.launch import nccl_version_string
+    from horovod_tpu_torch.common.capabilities import nccl_version_string
 
     root = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items()
@@ -5811,6 +5829,268 @@ def run_pipeline_phase(torch, ctr, llama, pipeline, precision, train_step,
         replays=replays, moe=moe, remat=remat, seconds=secs)
 
 
+# ---- phase 29: checkpoints in flight, the loader, master_weights ------------
+
+
+def seeded_loader(torch, data_mod, cfg, batch, seq, steps, start=0):
+    """A port ``AsyncDataLoaderMixin`` loader of ``steps`` seeded batches
+    on the card, from batch ``start``: batch i is the same in every
+    loader, whichever thread made it."""
+
+    class Batches(data_mod.BaseDataLoader):
+        def __len__(self):
+            return steps - start
+
+        def _iterate(self):
+            for i in range(start, steps):
+                rng = np.random.default_rng(100 + i)
+                tokens = torch.from_numpy(rng.integers(
+                    0, cfg.vocab_size, (batch, seq)).astype(np.int32))
+                tokens = tokens.pin_memory().to("cuda", non_blocking=True)
+                yield {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+
+    class AsyncBatches(data_mod.AsyncDataLoaderMixin, Batches):
+        pass
+
+    return AsyncBatches(async_depth=2)
+
+
+def checkpoint_round_trip(torch, ctr, ckpt, ts, params, loader_at, tmp,
+                          label, card, steps=2):
+    """Train ``steps`` steps, save the carry with an async
+    ``CheckpointManager`` (max_to_keep=1), train ``steps`` more at once
+    (the in-place apply runs while the write is in flight), wait, restore
+    into a fresh carry and run the same ``steps`` steps: the losses and
+    every leaf bit-identical to the uninterrupted run. Returns the
+    numbers and the uninterrupted steps' ms."""
+    from horovod_tpu_torch.parallel._tree import tree_map
+
+    def leaves(x):
+        if torch.is_tensor(x):
+            return [x]
+        if isinstance(x, dict):
+            return [t for k in sorted(x) for t in leaves(x[k])]
+        if isinstance(x, (list, tuple)):
+            return [t for v in x for t in leaves(v)]
+        return []
+
+    carry = ts.init(tree_map(lambda w: w.clone(), params))
+    it = iter(loader_at(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        loss, carry = ts.step(carry, next(it))
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    mgr = ckpt.CheckpointManager(tmp, max_to_keep=1, async_save=True)
+    t0 = time.perf_counter()
+    check(mgr.save(steps, carry), f"{label}: the save was skipped")
+    save_ms = (time.perf_counter() - t0) * 1e3
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        loss, carry = ts.step(carry, next(it))
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    in_flight = mgr._thread is not None and mgr._thread.is_alive()
+    t1 = time.perf_counter()
+    mgr.wait()
+    wait_s = time.perf_counter() - t1
+    flush_s, nbytes = mgr.last_write_s, mgr.last_write_bytes
+    want = leaves(carry)
+    fresh = ts.init(tree_map(lambda w: torch.zeros_like(w), params))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    restored = mgr.restore(target=fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    del fresh
+    check(all(t.device.type == "cuda" for t in leaves(restored)),
+          f"{label}: a restored leaf is not on the card")
+    it = iter(loader_at(steps))
+    again = []
+    for _ in range(steps):
+        loss, restored = ts.step(restored, next(it))
+        again.append(float(loss))
+    got = leaves(restored)
+    same = again == losses and len(got) == len(want) and all(
+        torch.equal(a, b) for a, b in zip(got, want))
+    check(same, f"{label}: the resumed steps' losses {again} and leaves "
+          f"are not bit-identical to the uninterrupted run's {losses}")
+    # A second save of the same manager: the first one's pinned buffers
+    # take its snapshot; retention keeps the newest step only.
+    t1 = time.perf_counter()
+    check(mgr.save(2 * steps, restored), f"{label}: the second save was "
+          "skipped")
+    save2_ms = (time.perf_counter() - t1) * 1e3
+    mgr.wait()
+    check(mgr.all_steps() == [2 * steps], f"{label}: max_to_keep=1 left "
+          f"steps {mgr.all_steps()}")
+    log(f"  {label}: save call {save_ms:.1f} ms (blocking; the write in "
+        f"flight through the next step: {in_flight}), flush {flush_s:.2f} s "
+        f"for {nbytes / 1e9:.3f} GB ({nbytes / flush_s / 1e9:.2f} GB/s), "
+        f"wait {wait_s:.2f} s, restore {restore_s:.2f} s; resumed losses "
+        f"{again} bit-identical, {len(got)} leaves bit-identical; step "
+        f"{min(step_ms):.1f} ms; a second save {save2_ms:.1f} ms (pinned "
+        f"buffers reused), flush {mgr.last_write_s:.2f} s; card {card}")
+    del carry, restored, want, got
+    torch.cuda.empty_cache()
+    return dict(save_ms=save_ms, flush_s=flush_s, bytes=nbytes,
+                wait_s=wait_s, restore_s=restore_s, in_flight=in_flight,
+                losses=losses, bitwise_equal=same, step_ms=step_ms,
+                save2_ms=save2_ms, flush2_s=mgr.last_write_s,
+                peak_gib=peak_gib)
+
+
+def run_master_weights(torch, ctr, llama, precision, params, cfg, loader_at,
+                       steps=3):
+    """``master_weights(torch.optim.Adam)`` for ``steps`` steps: the loss
+    backward on ``compute_params``, then ``apply``. ms a step (the last
+    ``steps - 1``) and peak GiB."""
+    from horovod_tpu_torch.parallel._tree import (
+        tree_leaves,
+        tree_map,
+        tree_unflatten,
+    )
+
+    mw = precision.master_weights(lambda ps: torch.optim.Adam(ps, lr=3e-4))
+    state = mw.init(params)
+    check(all(m.dtype == torch.float32 for m in tree_leaves(state.master)),
+          "master_weights: the master is not f32")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    it = iter(loader_at(0))
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        live = tree_map(lambda p: p.requires_grad_(True),
+                        mw.compute_params(state))
+        loss = llama.llama_loss(live, next(it), cfg)
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        state = mw.apply(state, tree_unflatten(live, list(grads)))
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    moments = [v for s in state.inner.state.values() for k, v in s.items()
+               if k in ("exp_avg", "exp_avg_sq")]
+    check(moments and all(m.dtype == torch.float32 for m in moments),
+          "master_weights: Adam's moments are not f32")
+    check(all(np.isfinite(losses)), f"master_weights: losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state, moments
+    torch.cuda.empty_cache()
+    return dict(losses=losses, ms_per_step=float(np.median(ms[1:])),
+                peak_gib=peak)
+
+
+def run_checkpoint_phase(torch, ctr, llama, precision, train_step,
+                         LlamaConfig, card, batch=4, seq=2048, steps=2):
+    """Phase 29: (a) the dense flagship's split step (``fused_adam``),
+    its batches through an ``AsyncDataLoaderMixin`` loader, checkpointed
+    in flight and resumed bit-identically; (b) the same round trip of
+    ``fused_master_adam``'s carry at the flagship's width with 2 layers,
+    then ``master_weights(torch.optim.Adam)`` on that model beside the
+    fused split step's ms and peak."""
+    import shutil
+    import tempfile
+
+    from horovod_tpu_torch import checkpoint as ckpt
+    from horovod_tpu_torch import data as data_mod
+    from horovod_tpu_torch.parallel._tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    d2h, h2d = copy_rates(torch)
+    tmp = tempfile.mkdtemp(prefix="hvd_ckpt_")
+    try:
+        cfg = flagship_config(LlamaConfig)
+        params = llama.llama_init(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
+        n_leaves = len(tree_leaves(params))
+        ts = train_step.make_split_train_step(
+            lambda p, d: llama.llama_loss(p, d, cfg),
+            precision.fused_adam(3e-4))
+        loader_at = lambda start: seeded_loader(  # noqa: E731
+            torch, data_mod, cfg, batch, seq, 2 * steps, start)
+        free = shutil.disk_usage(tmp).free
+        log(f"  {free / 1e9:.1f} GB free under {tmp}; pinned copy rates "
+            f"D2H {d2h / 1e9:.2f} GB/s, H2D {h2d / 1e9:.2f} GB/s")
+        reset_counts(ctr)
+        a = checkpoint_round_trip(
+            torch, ctr, ckpt, ts, params, loader_at,
+            os.path.join(tmp, "flagship"),
+            f"(a) flagship B{batch} T{seq} fused_adam", card, steps)
+        a_launch = counts(ctr)
+        check_wgmma_routes(ctr, "checkpointed train step")
+        runs = 3 * steps
+        L = cfg.n_layers
+        for k in ("K1", "K2", "K3"):
+            check(a_launch[k] == L * runs,
+                  f"(a): {k} launched {a_launch[k]} times in {runs} steps, "
+                  f"expected {L} a step")
+        check_adam(ctr, "(a) checkpointed train step", n_leaves, runs)
+        a["bound_save_ms"] = a["bytes"] / d2h * 1e3
+        a["bound_restore_ms"] = a["bytes"] / h2d * 1e3
+        log(f"  (a) the save call {a['save_ms']:.1f} ms against the "
+            f"pinned D2H bound {a['bound_save_ms']:.1f} ms of its "
+            f"{a['bytes'] / 1e9:.3f} GB; the restore {a['restore_s']:.2f} s "
+            f"against the H2D bound {a['bound_restore_ms'] / 1e3:.2f} s; "
+            f"launches {a_launch} ({L} K1-K3 a step, {n_leaves} Adam)")
+        del params, ts
+        torch.cuda.empty_cache()
+
+        # f32 params for the f32 master; the compute stays bf16.
+        cfg2 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32")
+        params = llama.llama_init(
+            cfg2, torch.Generator(device="cuda").manual_seed(1),
+            device="cuda")
+        ts = train_step.make_split_train_step(
+            lambda p, d: llama.llama_loss(p, d, cfg2),
+            precision.fused_master_adam(3e-4))
+        loader_at = lambda start: seeded_loader(  # noqa: E731
+            torch, data_mod, cfg2, batch, seq, 2 * steps, start)
+        reset_counts(ctr)
+        b = checkpoint_round_trip(
+            torch, ctr, ckpt, ts, params, loader_at,
+            os.path.join(tmp, "master"),
+            "(b) flagship width, 2 layers, fused_master_adam", card, steps)
+        b_launch = counts(ctr)
+        check_wgmma_routes(ctr, "checkpointed master step")
+        check_adam(ctr, "(b) checkpointed master step", len(tree_leaves(
+            params)), 3 * steps, variant="master")
+        del ts
+        torch.cuda.empty_cache()
+        reset_counts(ctr)
+        mw = run_master_weights(torch, ctr, llama, precision, params, cfg2,
+                                loader_at)
+        mw_launch = counts(ctr)
+        for k in ("K1", "K2", "K3"):
+            check(mw_launch[k] == cfg2.n_layers * 3,
+                  f"master_weights: {k} launched {mw_launch[k]} times in 3 "
+                  f"steps, expected {cfg2.n_layers} a step")
+        check(mw_launch["Adam"] == 0, "master_weights launched the port's "
+              "Adam kernel: its optimizer is torch.optim.Adam")
+        log(f"  (b) master_weights(torch.optim.Adam): {mw['ms_per_step']:.1f}"
+            f" ms/step (median of the last 2 of 3), peak {mw['peak_gib']:.2f}"
+            f" GiB, losses {[round(x, 4) for x in mw['losses']]}; "
+            f"fused_master_adam's split step {min(b['step_ms']):.1f} ms, "
+            f"peak {b['peak_gib']:.2f} GiB (its first steps, the params "
+            f"held as here); card {card}")
+        del params
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not os.path.exists(tmp), f"phase 29 left {tmp} behind")
+    secs = time.perf_counter() - t_phase
+    log(f"  phase 29: {secs:.1f} s")
+    b_launch = {**b_launch, "Adam master": b_launch["Adam"], "Adam": 0}
+    paths = {"checkpointed_train_step": a_launch,
+             "checkpointed_master_step": b_launch,
+             "master_weights_step": mw_launch}
+    return paths, dict(flagship=a, master=b, master_weights=mw,
+                       d2h_bytes_s=d2h, h2d_bytes_s=h2d, seconds=secs)
+
+
 def main():
     import torch
 
@@ -6117,7 +6397,13 @@ def main():
     pipe_paths, pipe_stats = run_pipeline_phase(
         torch, ctr, llama, pipeline, precision, train_step, LlamaConfig, card)
 
-    log("phase 29: results")
+    log("phase 29: the flagship's split step checkpointed in flight and "
+        "resumed (batches through the async loader), the master variant "
+        "and master_weights(torch.optim.Adam)")
+    ckpt_paths, ckpt_stats = run_checkpoint_phase(
+        torch, ctr, llama, precision, train_step, LlamaConfig, card)
+
+    log("phase 30: results")
     log(f"  the smoke's wall time to here: "
         f"{time.perf_counter() - t_start:.1f} s; card {card}")
     log(json.dumps({"generate": gen_stats, "engine": eng_stats,
@@ -6135,7 +6421,7 @@ def main():
                     "adam": adam_stats, "resnet50": resnet50,
                     "mesh": mesh_stats, "shards": shard_stats,
                     "serving_loop": loop_stats, "pipeline": pipe_stats,
-                    "card": card}))
+                    "checkpoint": ckpt_stats, "card": card}))
     paths = {"llama_generate": gen_launch, "DecodeEngine": eng_launch,
              "train_step": train_launch, "moe_train_step": moe_train_launch,
              "moe_llama_generate": moe_gen_launch,
@@ -6144,7 +6430,7 @@ def main():
              "bert_forward": bert_fwd_launch,
              "elastic_bert_train": elastic_launch,
              "zero_train_step": zero_launch, **mesh_paths, **shard_paths,
-             "ServingLoop": loop_launch, **pipe_paths}
+             "ServingLoop": loop_launch, **pipe_paths, **ckpt_paths}
     bert_bias = {k: bert_train_stats["bias_launches"][k]
                  + (bert_fwd_launch[k] if k == "K1" else 0)
                  + elastic["bias_launches"][k]
@@ -6226,7 +6512,10 @@ def main():
     adam_paths = {
         "adam": {**{p: n["Adam"] for p, n in paths.items() if n["Adam"]},
                  "zero_train_step": zero_launch["Adam adam"]},
-        "master": {"zero_train_step": zero_launch["Adam master"]}}
+        "master": {"zero_train_step": zero_launch["Adam master"],
+                   "checkpointed_master_step":
+                       ckpt_paths["checkpointed_master_step"][
+                           "Adam master"]}}
     adam_launches = {v: sum(by.values()) for v, by in adam_paths.items()}
     check(adam_launches["adam"] > 0 and adam_launches["master"] > 0,
           f"the Adam kernel's variants launched {adam_launches} times on "

@@ -63,6 +63,7 @@ import os
 import pickle
 import re
 import shutil
+import copy
 import threading
 import time
 from collections import OrderedDict
@@ -108,9 +109,9 @@ def _map(fn, tree, *rest, is_leaf=None):
                              is_leaf=is_leaf)) for k, v in tree.items())
     if kind in (list, tuple) or (isinstance(tree, tuple) and
                                  hasattr(tree, "_fields")):
-        out = [_map(fn, v, *(sub(r, i) for r in rest), is_leaf=is_leaf)
-               for i, v in enumerate(tree)]
-        return kind(*out) if hasattr(tree, "_fields") else kind(out)
+        return _rebuild(tree, [_map(fn, v, *(sub(r, i) for r in rest),
+                                    is_leaf=is_leaf)
+                               for i, v in enumerate(tree)])
     return fn(tree, *rest)
 
 
@@ -233,6 +234,8 @@ def save(path, state, force=True, sync=False, mesh=None, specs=None):
         if sync:
             _lane_barrier()
         return
+    if mesh is not None:
+        _barrier(mesh)   # every rank has looked before rank 0 clears it
     if lead:
         if os.path.exists(path):
             shutil.rmtree(path)
@@ -363,33 +366,53 @@ def _block_shape(shape, spec, mesh):
 
 # ---- step-numbered checkpoints ----------------------------------------
 
-def _to_host(tree, reuse=()):
-    """Every tensor of ``tree`` copied to host memory (pinned for a
-    card's tensors, the copies waited for): the snapshot an async write
-    reads while the caller updates the state in place. A pinned tensor
-    of ``reuse`` (the previous snapshot's, whose write has ended) at the
-    same place, of the same shape and dtype, is written over instead of
-    allocated anew. Returns the snapshot and its pinned tensors."""
-    cards, pinned, old = set(), [], iter(reuse)
+def _rebuild(like, items):
+    """A list, tuple or named tuple like ``like`` holding ``items``; a
+    named tuple keeps its instance attributes (a ZeRO state's
+    ``zero_layout``)."""
+    if hasattr(like, "_make"):
+        out = like._make(items)
+        if getattr(like, "__dict__", None):
+            out.__dict__.update(like.__dict__)
+        return out
+    return type(like)(items)
 
-    def copy(x):
-        if not isinstance(x, torch.Tensor):
-            return x
-        x = x.detach()
-        if x.device.type != "cuda":
-            return x.clone()
-        cards.add(x.device)
-        out = next(old, None)
-        if out is None or out.shape != x.shape or out.dtype != x.dtype:
-            out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-        out.copy_(x, non_blocking=True)
-        pinned.append(out)
+
+def _to_host(tree, into=None):
+    """A host copy of ``tree``: tensors copied (CUDA ones into pinned
+    memory, queued on the current stream and synchronized once), other
+    leaves deep-copied. A tensor of ``into`` (the previous snapshot)
+    at the same place, of the same shape and dtype, and pinned where the
+    source is on the card, is written over instead of allocated anew:
+    a commit then holds one host state and calls no ``cudaHostAlloc``."""
+    cards = set()
+
+    def walk(v, old):
+        if isinstance(v, dict):
+            old = old if isinstance(old, dict) else {}
+            return type(v)((k, walk(x, old.get(k))) for k, x in v.items())
+        if isinstance(v, (list, tuple)):
+            if not isinstance(old, (list, tuple)) or len(old) != len(v):
+                old = [None] * len(v)
+            return _rebuild(v, [walk(x, o) for x, o in zip(v, old)])
+        if not torch.is_tensor(v):
+            return copy.deepcopy(v)
+        v = v.detach()
+        if torch.is_tensor(old) and old.device.type == "cpu" and \
+                old.shape == v.shape and old.dtype == v.dtype and \
+                (not v.is_cuda or old.is_pinned()):
+            out = old
+        else:
+            out = torch.empty(v.shape, dtype=v.dtype, pin_memory=v.is_cuda)
+        out.copy_(v, non_blocking=v.is_cuda)
+        if v.is_cuda:
+            cards.add(v.device)
         return out
 
-    snap = _map(copy, tree)
-    for dev in cards:
-        torch.cuda.current_stream(dev).synchronize()
-    return snap, pinned
+    out = walk(tree, into)
+    for card in cards:
+        torch.cuda.synchronize(card)
+    return out
 
 
 def _onto(tree, target):
@@ -421,7 +444,7 @@ class CheckpointManager:
         # the bytes of its file.
         self.last_write_s = None
         self.last_write_bytes = None
-        self._pinned = []
+        self._last = None
 
     def _path(self, step):
         return os.path.join(self._dir, f"{int(step)}.pt")
@@ -447,10 +470,10 @@ class CheckpointManager:
 
     def save(self, step, state, wait=False):
         """Write ``state`` (anything ``torch.save`` takes; the tensors of
-        its tree are what an async save snapshots) under ``step``: at once, or with ``async_save`` on a thread once the
-        state is on the host. ``wait`` blocks until the file is on disk.
-        False on a rank that does not write, and when the step is already
-        on disk."""
+        its tree are what an async save snapshots) under ``step``: at
+        once, or with ``async_save`` on a thread once the state is on the
+        host. ``wait`` blocks until the file is on disk. False on a rank
+        that does not write, and when the step is already on disk."""
         if not self._ensure_role():
             return False
         self.wait()
@@ -460,9 +483,9 @@ class CheckpointManager:
         if not self._async:
             self._write(int(step), state)
             return True
-        # The write in flight has ended (joined above): its pinned
-        # buffers take this snapshot.
-        snap, self._pinned = _to_host(state, self._pinned)
+        # The write in flight has ended (joined above): its snapshot's
+        # buffers take this one.
+        snap = self._last = _to_host(state, self._last)
         self._inflight = int(step)
         self._thread = threading.Thread(target=self._write_caught,
                                         args=(int(step), snap),

@@ -28,6 +28,7 @@ import time
 
 import torch
 
+from horovod_tpu_torch.checkpoint import _rebuild, _to_host
 from horovod_tpu_torch.common import elastic as _elastic
 from horovod_tpu_torch.common.elastic import State
 from horovod_tpu_torch.common.exceptions import (
@@ -67,55 +68,6 @@ def _map(fn, *trees):
     if isinstance(head, (list, tuple)):
         return _rebuild(head, [_map(fn, *parts) for parts in zip(*trees)])
     return fn(*trees)
-
-
-def _rebuild(like, items):
-    """A list, tuple or named tuple like ``like`` holding ``items``; a
-    named tuple keeps its instance attributes (a ZeRO state's
-    ``zero_layout``)."""
-    if hasattr(like, "_make"):
-        out = like._make(items)
-        if getattr(like, "__dict__", None):
-            out.__dict__.update(like.__dict__)
-        return out
-    return type(like)(items)
-
-
-def _to_host(tree, into=None):
-    """A host copy of ``tree``: tensors copied (CUDA ones into pinned
-    memory, queued on the current stream and synchronized once), other
-    leaves deep-copied. A tensor of ``into`` (the previous snapshot)
-    at the same place, of the same shape and dtype, and pinned where the
-    source is on the card, is written over instead of allocated anew:
-    a commit then holds one host state and calls no ``cudaHostAlloc``."""
-    cards = set()
-
-    def walk(v, old):
-        if isinstance(v, dict):
-            old = old if isinstance(old, dict) else {}
-            return type(v)((k, walk(x, old.get(k))) for k, x in v.items())
-        if isinstance(v, (list, tuple)):
-            if not isinstance(old, (list, tuple)) or len(old) != len(v):
-                old = [None] * len(v)
-            return _rebuild(v, [walk(x, o) for x, o in zip(v, old)])
-        if not torch.is_tensor(v):
-            return copy.deepcopy(v)
-        v = v.detach()
-        if torch.is_tensor(old) and old.device.type == "cpu" and \
-                old.shape == v.shape and old.dtype == v.dtype and \
-                (not v.is_cuda or old.is_pinned()):
-            out = old
-        else:
-            out = torch.empty(v.shape, dtype=v.dtype, pin_memory=v.is_cuda)
-        out.copy_(v, non_blocking=v.is_cuda)
-        if v.is_cuda:
-            cards.add(v.device)
-        return out
-
-    out = walk(tree, into)
-    for card in cards:
-        torch.cuda.synchronize(card)
-    return out
 
 
 def _devices(tree):

@@ -66,9 +66,10 @@ def test_async_round_trip_with_an_in_place_apply(card, tmp_path):
     for g, w in zip(got, before):
         assert g.device.type == "cuda" and g.dtype == w.dtype
         assert torch.equal(g, w)
-    pinned = list(mgr._pinned)
+    pinned = _leaves(mgr._last)
+    assert all(t.is_pinned() for t in pinned)
     assert mgr.save(2, (params, state))
-    assert all(a is b for a, b in zip(mgr._pinned, pinned))
+    assert all(a is b for a, b in zip(_leaves(mgr._last), pinned))
     opt.apply(params, grads, state)
     mgr.wait()
     assert mgr.all_steps() == [2]

@@ -23,7 +23,6 @@ reference's elastic core.
 """
 
 import json
-import multiprocessing as mp
 import os
 import queue
 import signal
@@ -33,40 +32,27 @@ import time
 import numpy as np
 import torch
 
-from tests.test_torch_mp import REPO_ROOT, free_port
+from tests.test_torch_mp import (
+    REPO_ROOT,
+    context,
+    free_port,
+    parent_state,
+    rank_entry,
+)
 
 _TIMEOUT_MS = 2000   # the reference's wire deadline in its chaos runs
-
-
-def _entry(fn, rank, size, port, q, env):
-    os.environ.update({
-        "HOROVOD_RANK": str(rank),
-        "HOROVOD_SIZE": str(size),
-        "HOROVOD_LOCAL_RANK": str(rank),
-        "HOROVOD_LOCAL_SIZE": str(size),
-        "HOROVOD_CONTROLLER_ADDR": "127.0.0.1",
-        "HOROVOD_CONTROLLER_PORT": str(port),
-        "JAX_PLATFORMS": "cpu",
-    })
-    os.environ.update(env or {})
-    sys.path.insert(0, REPO_ROOT)
-    try:
-        q.put((rank, None, fn(rank, size)))
-    except Exception as e:  # noqa: BLE001
-        import traceback
-
-        traceback.print_exc()
-        q.put((rank, f"{type(e).__name__}: {e}", None))
 
 
 def run_chaos(fn, size, victims, timeout=120, env=None):
     """Run ``fn(rank, size)`` on spawned ranks, ``victims`` expected to
     die by SIGKILL: the survivors' results by rank, and the wall time at
     which each victim was seen dead (polled every 0.1 s)."""
-    ctx = mp.get_context("spawn")
+    ctx = context()
     port = free_port()
     q = ctx.Queue()
-    procs = {r: ctx.Process(target=_entry, args=(fn, r, size, port, q, env))
+    parent = parent_state()
+    procs = {r: ctx.Process(target=rank_entry,
+                            args=(fn, r, size, port, q, env, parent))
              for r in range(size)}
     for p in procs.values():
         p.start()

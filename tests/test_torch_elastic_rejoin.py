@@ -25,12 +25,9 @@ trajectories the reference's chaos tests pin
 """
 
 import json
-import multiprocessing as mp
-import os
 import queue
 import signal
 import socket
-import sys
 import time
 import types
 import warnings
@@ -39,7 +36,12 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_mp import REPO_ROOT, free_port
+from tests.test_torch_mp import (
+    context,
+    free_port,
+    parent_state,
+    rank_entry,
+)
 
 _TRAIN_STEPS = 8
 _TRAIN_FAIL_STEP = 5
@@ -50,38 +52,19 @@ _TRAIN_LR = 0.1
 _TRAIN_KILL_OP = 2 + _TRAIN_FAIL_STEP
 
 
-def _entry(fn, rank, size, port, q, env):
-    os.environ.update({
-        "HOROVOD_RANK": str(rank),
-        "HOROVOD_SIZE": str(size),
-        "HOROVOD_LOCAL_RANK": str(rank),
-        "HOROVOD_LOCAL_SIZE": str(size),
-        "HOROVOD_CONTROLLER_ADDR": "127.0.0.1",
-        "HOROVOD_CONTROLLER_PORT": str(port),
-        "JAX_PLATFORMS": "cpu",
-    })
-    os.environ.update(env or {})
-    sys.path.insert(0, REPO_ROOT)
-    try:
-        q.put((rank, None, fn(rank, size)))
-    except Exception as e:  # noqa: BLE001
-        import traceback
-
-        traceback.print_exc()
-        q.put((rank, f"{type(e).__name__}: {e}", None))
-
-
 def run_world(fn, size, victims=(), env=None, extra=(), timeout=150):
     """``fn(rank, size)`` on ``size`` spawned ranks, ``victims`` expected
     to die by SIGKILL, and each ``(fn, env)`` of ``extra`` as a fresh
     process beside them (results under ``size``, ``size + 1``...): the
     results of every process that lived, by index."""
-    ctx = mp.get_context("spawn")
+    ctx = context()
     port = free_port()
     q = ctx.Queue()
+    parent = parent_state()
     jobs = [(fn, env or {})] * size + [
         (f, dict(env or {}, **e)) for f, e in extra]
-    procs = {i: ctx.Process(target=_entry, args=(f, i, size, port, q, e))
+    procs = {i: ctx.Process(target=rank_entry,
+                            args=(f, i, size, port, q, e, parent))
              for i, (f, e) in enumerate(jobs)}
     for p in procs.values():
         p.start()

@@ -80,6 +80,8 @@ def _launch(tmp_path, script, args, np_):
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("HOROVOD_")}
     env["PYTHONPATH"] = REPO_ROOT
+    # The ranks share the machine's cores with the other test workers.
+    env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.run(
         [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
          str(np_), sys.executable, str(wrapper), str(out),

@@ -1,13 +1,15 @@
 """The port's spawner for multi-rank tests, whose ranks import no JAX.
 
-``run_ranks(fn, size)`` runs ``fn(rank, size)`` in ``size`` spawned
-processes with the ``HOROVOD_*`` layout of a local world and returns the
-results by rank, as ``tests/utils_mp.py run_ranks`` does for the JAX
-package's lanes; its entry imports nothing of JAX, and runs torch on one
-thread (a world's ranks share the machine's cores with each other and
-with the other test workers; their thread pools would spin against each
-other). A rank that needs the JAX package imports it itself, on the CPU
-(``JAX_PLATFORMS=cpu``). A rank unpickles
+``run_ranks(fn, size)`` runs ``fn(rank, size)`` in ``size`` processes
+with the ``HOROVOD_*`` layout of a local world and returns the results
+by rank, as ``tests/utils_mp.py run_ranks`` does for the JAX package's
+lanes. The ranks are forked from a fork server that imported torch and
+the port once (``PRELOAD``), and take over the parent's environment and
+directory at the call; a rank imports nothing of JAX, and runs torch on
+one thread (a world's ranks share the machine's cores with each other
+and with the other test workers; their thread pools would spin against
+each other). A rank that needs the JAX package imports it itself, on the
+CPU (``JAX_PLATFORMS=cpu``). A rank unpickles
 ``fn`` by importing the module that defines it, so a test module whose
 ranks must stay free of JAX binds the JAX package through
 :func:`lazy_module`: the module is imported when an attribute is first
@@ -59,7 +61,37 @@ def free_port():
     return port
 
 
-def _entry(fn, rank, size, port, q, env):
+# What every rank imports: the fork server imports it once, nothing of
+# JAX among it, and each rank is forked from the server with it loaded.
+PRELOAD = ("numpy", "torch", "horovod_tpu_torch.torch",
+           "horovod_tpu_torch.parallel", "horovod_tpu_torch.models")
+
+
+def context():
+    """The ranks' multiprocessing context: a fork server that imported
+    ``PRELOAD`` at its start (one server a test process). A rank starts
+    in milliseconds, where a spawned interpreter imports torch and the
+    port anew, several seconds of CPU a rank on a loaded machine."""
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(list(PRELOAD))
+    return ctx
+
+
+def parent_state():
+    """This process's environment and working directory, which a rank
+    takes over (the fork server holds those of its own start)."""
+    return dict(os.environ), os.getcwd()
+
+
+def rank_entry(fn, rank, size, port, q, env, parent):
+    """A rank: the parent's environment and directory (``parent``), the
+    local world's ``HOROVOD_*`` layout, ``env`` over it, torch on one
+    thread, then ``fn(rank, size)``'s result (or its error) put on
+    ``q``."""
+    environ, cwd = parent
+    os.environ.clear()
+    os.environ.update(environ)
+    os.chdir(cwd)
     os.environ.update({
         "HOROVOD_RANK": str(rank),
         "HOROVOD_SIZE": str(size),
@@ -85,12 +117,14 @@ def _entry(fn, rank, size, port, q, env):
 
 
 def run_ranks(fn, size, timeout=90, env=None):
-    """Run ``fn(rank, size)`` on ``size`` spawned processes; return the
-    results by rank. Raises AssertionError if any rank fails."""
-    ctx = mp.get_context("spawn")
+    """Run ``fn(rank, size)`` on ``size`` ranks; return the results by
+    rank. Raises AssertionError if any rank fails."""
+    ctx = context()
     port = free_port()
     q = ctx.Queue()
-    procs = [ctx.Process(target=_entry, args=(fn, r, size, port, q, env))
+    parent = parent_state()
+    procs = [ctx.Process(target=rank_entry,
+                         args=(fn, r, size, port, q, env, parent))
              for r in range(size)]
     for p in procs:
         p.start()

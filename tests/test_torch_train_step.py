@@ -341,6 +341,8 @@ def test_master_weights_tracks_jax_master_weights():
 
     from horovod_tpu.parallel import master_weights as j_master_weights
 
+    # JAX's attention through its CPU path, as test_llama.py:428 runs it.
+    fa_mod._INTERPRET = False
     jc, tc, jparams, batch = _mw_setup()
     jmw = j_master_weights(optax.adam(1e-2))
     jstate = jmw.init(jparams)
