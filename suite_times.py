@@ -1,9 +1,8 @@
 #!/usr/bin/env python3
 """The test suite's time by file, from a pytest JUnit XML report.
 
-Run the tier-1 command with ``--junitxml=PATH`` (as ROADMAP.md's
-"Tier-1 verify" line and the driver's six-worker run do: ``-p xdist -n 6
---dist loadfile``, one file a worker), then::
+Run the tier-1 command with ``--junitxml=PATH`` (with six xdist
+workers, ``-p xdist -n 6 --dist loadfile``, one file a worker), then::
 
     python3 suite_times.py PATH [N]
 
