@@ -37,20 +37,22 @@ import threading
 import time
 import urllib.request
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from horovod_tpu.models import LlamaConfig as JaxConfig
-from horovod_tpu.models import llama_generate, llama_init
-from horovod_tpu.serving import engine as jengine
-from horovod_tpu.serving import kvcache as jkv
-from horovod_tpu.serving import scheduler as jsched
-from horovod_tpu.telemetry.autoscale import SERVING_SIGNAL_DEFAULTS
-from horovod_tpu.telemetry.reqtrace import REQUEST_PHASES
 from tests.test_torch_elastic_ranks import run_chaos
+from tests.test_torch_mp import lazy_module
+
+# The ranks import this module: JAX is bound lazily, for the oracles.
+jax = lazy_module("jax")
+jnp = lazy_module("jax.numpy")
+jmodels = lazy_module("horovod_tpu.models")
+jengine = lazy_module("horovod_tpu.serving.engine")
+jkv = lazy_module("horovod_tpu.serving.kvcache")
+jsched = lazy_module("horovod_tpu.serving.scheduler")
+jautoscale = lazy_module("horovod_tpu.telemetry.autoscale")
+jreqtrace = lazy_module("horovod_tpu.telemetry.reqtrace")
 
 N_REQUESTS = 8
 RPS = 120.0
@@ -73,8 +75,8 @@ def _trace(vocab):
 
 
 def _jax_params():
-    jc = JaxConfig.tiny(dtype="float32", n_layers=2)
-    return jc, llama_init(jc, jax.random.PRNGKey(0))
+    jc = jmodels.LlamaConfig.tiny(dtype="float32", n_layers=2)
+    return jc, jmodels.llama_init(jc, jax.random.PRNGKey(0))
 
 
 def _flat(tree, prefix=""):
@@ -165,7 +167,7 @@ def _serve(rank, size):
 def jax_side():
     jc, jp = _jax_params()
     trace = _trace(jc.vocab_size)
-    gen = {r.rid: np.asarray(llama_generate(
+    gen = {r.rid: np.asarray(jmodels.llama_generate(
         jp, jnp.asarray(r.prompt[None, :]), jc, r.max_new_tokens))[0]
         for r in trace}
     eng = jengine.DecodeEngine(jp, jc, quantized=True, **{
@@ -257,16 +259,15 @@ def test_request_chains_stitch_gap_free(worlds, case):
 def test_healthz_serving_fields_and_live_requests(worlds):
     out = worlds[0][0]
     health, rows = out["live"]["healthz"], out["live"]["requests"]
-    assert set(SERVING_SIGNAL_DEFAULTS) <= set(health)
+    defaults = jautoscale.SERVING_SIGNAL_DEFAULTS
+    assert set(defaults) <= set(health)
     assert health["kv_blocks_total"] == LOOP_KW["n_blocks"]
-    assert {k: health[k] for k in SERVING_SIGNAL_DEFAULTS} != \
-        SERVING_SIGNAL_DEFAULTS
-    assert set(out["live"]["signals"]) == set(SERVING_SIGNAL_DEFAULTS)
-    assert rows and all(r["phase"] in REQUEST_PHASES for r in rows)
+    assert {k: health[k] for k in defaults} != defaults
+    assert set(out["live"]["signals"]) == set(defaults)
+    assert rows and all(r["phase"] in jreqtrace.REQUEST_PHASES for r in rows)
     assert {r["rid"] for r in rows} <= set(range(N_REQUESTS))
     after = out["after"]
-    assert {k: after["healthz"][k] for k in SERVING_SIGNAL_DEFAULTS} == \
-        SERVING_SIGNAL_DEFAULTS
+    assert {k: after["healthz"][k] for k in defaults} == defaults
     assert after["requests"] == []
 
 
