@@ -19,7 +19,8 @@ loop (with a killed decode rank) and ZeRO's re-layout, the pipeline
 schedules replayed on one card at Llama-3-8B's width and the remat modes
 dots, attn+ffn and attn+gate+qkv, and the flagship's training
 checkpointed in flight and resumed (with the master-weights variants),
-in phases; any failed phase exits
+and the flagship's step under the ``StepTimer`` with the telemetry
+readers over what it wrote, in phases; any failed phase exits
 non-zero before the result line. ``python3 chip_smoke.py
 --launched-worker static|elastic DIR`` is one rank of that job, and
 ``--serve-worker f32|bf16 DIR`` one rank of phase 27's serving drill.
@@ -345,7 +346,27 @@ non-zero before the result line. ``python3 chip_smoke.py
    width with 2 layers, then ``master_weights(torch.optim.Adam)`` 3
    steps on that model (the loss backward on ``compute_params``, then
    ``apply``): its ms a step and peak beside the fused split step's.
-30. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
+30. Step accounting and the telemetry readers (``telemetry/``): the
+   dense flagship's split step (B4 x T2048, ``attn+gate``,
+   ``fused_adam(3e-4)``) under ``telemetry=StepTimer()``, 8 steps with
+   the lane open on NCCL (world size 1), its debug server, a timeline
+   and a ``MetricsScraper`` running: K1-K3 L a step on wgmma and the
+   Adam kernel a leaf a step; the first step's FLOP count
+   (``flops_per_step``) equal to the matmul count of the step's grad and
+   recompute, printed beside the PaLM count ``bench.py:123 _mfu_row``
+   credits and their ratio; MFU at 989 TFLOP/s; ms a step with and
+   without the timer on the same carry (the difference is the timer's
+   cost; a plain step after each timed one), and again with the lane
+   shut; the per-step overlap ledger and
+   ``summary()``; then 4 timed
+   windows of lane allreduces (their CUDA spans on the host clock
+   through the step marks' anchors: exposed + hidden == total, and the
+   ledger equal to the ``wire_us`` histogram's sum). ``/healthz``'s
+   ``step_time_ewma_ms`` above 0; ``perfwatch`` over the scraper's JSONL
+   exits 0; the timeline merged by ``report.merge``; a
+   ``write_event_dump`` of the phase read back by ``critical_path``
+   with one window a step.
+31. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
    launches, K1-K3's offsets rows with phase 17's launches, the six
    codec kernels with phase 20 (b)'s, and the Adam kernel's two
    variants with the train paths' launches), the card line, and the
@@ -6091,6 +6112,211 @@ def run_checkpoint_phase(torch, ctr, llama, precision, train_step,
                        d2h_bytes_s=d2h, h2d_bytes_s=h2d, seconds=secs)
 
 
+# ---- phase 30: step accounting and the telemetry readers ------------------
+
+
+def step_matmul_flops(cfg, batch, seq):
+    """The matmul FLOPs of one dense split step under ``attn+gate``, as
+    the plain versions count them: each linear layer three times (the
+    forward, the input and weight gradients), attention 4 B H T^2 hd
+    forward and 10 backward (every key, masked or not), the recompute
+    torch's checkpoint replays (the qkv, output and up projections: the
+    attention and the gate are saved, and the replay stops before the
+    down projection), and the f32 lm_head three times. The embedding is
+    a gather: no FLOPs."""
+    d, h, hkv, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    hd = d // h
+    qkv, wo, ffn = 2 * d * (h + 2 * hkv) * hd, 2 * h * hd * d, 2 * d * f
+    layer = 3 * (qkv + wo + 3 * ffn) + 14 * seq * h * hd \
+        + (qkv + wo + ffn)
+    return batch * seq * (cfg.n_layers * layer + 3 * 2 * d * cfg.vocab_size)
+
+
+def run_telemetry_phase(torch, ctr, llama, precision, train_step,
+                        LlamaConfig, card, batch=4, seq=2048, steps=8,
+                        lane_windows=4):
+    """Phase 30: the flagship's split step under ``telemetry=StepTimer()``
+    with the lane, its debug server, a timeline and a scraper up, then
+    the offline readers over what the run wrote."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch import telemetry
+    from horovod_tpu_torch.parallel._tree import tree_leaves
+    from horovod_tpu_torch.telemetry import critpath, perfwatch, report
+
+    t_phase = time.perf_counter()
+    cfg = flagship_config(LlamaConfig)
+    params = llama.llama_init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    n_params = sum(w.numel() for w in params["layers"].values()) + sum(
+        params[k].numel() for k in ("embed", "final_norm", "lm_head"))
+    n_leaves = len(tree_leaves(params))
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        batch, seq)).astype(np.int32)).cuda()
+    data = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+
+    def loss_fn(p, d):
+        return llama.llama_loss(p, d, cfg)
+
+    tmp = tempfile.mkdtemp(prefix="hvd_telemetry_")
+    os.environ["HOROVOD_DEBUG_PORT"] = "0"
+    hvd.init()
+    try:
+        # An earlier phase's optimizer may have left its implicit window
+        # open: close it before this phase's events.
+        telemetry.step_mark(False)
+        first_seq = max((e["seq"] for e in telemetry.events()), default=-1)
+        hvd.start_timeline(os.path.join(tmp, "tl.0.json"))
+        scraper = telemetry.MetricsScraper(
+            interval_s=0.25, jsonl_path=os.path.join(tmp, "metrics.jsonl"),
+            prom_path=os.path.join(tmp, "metrics.prom")).start()
+        timer = telemetry.StepTimer()
+        ts = train_step.make_split_train_step(
+            loss_fn, precision.fused_adam(3e-4), telemetry=timer)
+        plain = train_step.make_split_train_step(
+            loss_fn, precision.fused_adam(3e-4))
+        carry = ts.init(params)
+        del params
+        reset_counts(ctr)
+        losses, plain_s = [], []
+        for i in range(steps):
+            loss, carry = ts.step(carry, data)
+            losses.append(float(loss))
+            if i == 0:
+                continue
+            # The timer's cost: a step without it after each timed step
+            # (the first, counted, step aside), on the same carry.
+            t0 = time.perf_counter()
+            _, carry = plain.step(carry, data)
+            torch.cuda.synchronize()
+            plain_s.append(time.perf_counter() - t0)
+        launched = counts(ctr)
+        L = cfg.n_layers
+        runs = 2 * steps - 1
+        check_wgmma_routes(ctr, "telemetry train step")
+        check_adam(ctr, "telemetry train step", n_leaves, runs)
+        for k in ("K1", "K2", "K3"):
+            check(launched[k] == L * runs,
+                  f"phase 30: {k} launched {launched[k]} times in "
+                  f"{runs} steps, expected {L} a step")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"phase 30: losses {losses}")
+        flops = timer.flops_per_step
+        want = step_matmul_flops(cfg, batch, seq)
+        check(flops is not None and flops > 0 and flops == want,
+              f"phase 30: flops_per_step {flops}, the step's matmuls "
+              f"{want}")
+        palm = (6 * n_params + 12 * L * seq * cfg.d_model) * batch * seq
+        timed_s = timer.mean_step_s()
+        plain_ms = 1e3 * sum(plain_s) / len(plain_s)
+        mfu = flops / timed_s / PEAK_FLOPS["bfloat16"]
+        log(f"  {steps} steps B{batch} T{seq} under StepTimer: "
+            f"flops_per_step {flops:.0f} (the step's matmuls; PaLM's "
+            f"(6N + 12 L T d) a token {palm:.0f}, ratio "
+            f"{flops / palm:.4f}); MFU {mfu:.4f} at 989 TFLOP/s (PaLM "
+            f"{palm / timed_s / PEAK_FLOPS['bfloat16']:.4f}); "
+            f"{timed_s * 1e3:.2f} ms a step with the timer (the counted "
+            f"first step {timer.step_times[0] * 1e3:.1f} ms, dropped), "
+            f"{plain_ms:.2f} ms without, interleaved (the timer's cost "
+            f"{timed_s * 1e3 - plain_ms:.2f} ms); losses of the timed steps "
+            f"{[round(x, 4) for x in losses]}; launches {launched}; "
+            f"card {card}")
+        log(f"  per-step ledger (exposed, hidden, total us by plane): "
+            f"{timer.overlap_per_step}")
+
+        # Lane windows: allreduces whose CUDA spans the ledger puts on
+        # the host clock through each mark's anchor.
+        lane_timer = telemetry.StepTimer()
+        grad = torch.ones(1 << 24, dtype=torch.float32, device="cuda")
+        torch.cuda.synchronize()
+        snap0 = telemetry.snapshot()
+        for i in range(lane_windows):
+            with lane_timer.step():
+                lane_timer.set_outputs(hvd.allreduce(
+                    grad, name=f"telemetry.{i}", op=hvd.Sum))
+        torch.cuda.synchronize()
+        snap1 = telemetry.snapshot()
+        ov0, ov1 = (s["wire"]["overlap"] for s in (snap0, snap1))
+        for plane in ("intra", "cross"):
+            p = ov1[plane]
+            check(p["exposed_us"] + p["hidden_us"] == p["total_us"],
+                  f"phase 30: ledger {plane} {p}")
+        ledger_us = sum(ov1[p]["total_us"] - ov0[p]["total_us"]
+                        for p in ("intra", "cross")) + (
+            ov1["unattributed_us"] - ov0["unattributed_us"])
+        wire_us = snap1["wire_us"]["sum_us"] - snap0["wire_us"]["sum_us"]
+        check(snap1["wire_us"]["count"] - snap0["wire_us"]["count"]
+              == lane_windows and abs(ledger_us - wire_us)
+              <= 0.01 * max(wire_us, 1),
+              f"phase 30: the ledger's {ledger_us} us against wire_us "
+              f"{wire_us} us")
+        check(ov1["steps"] - ov0["steps"] == lane_windows,
+              f"phase 30: ledger steps {ov0['steps']} -> {ov1['steps']}")
+        unattributed = ov1["unattributed_us"] - ov0["unattributed_us"]
+        log(f"  lane windows: ledger rows {lane_timer.overlap_per_step}, "
+            f"{ledger_us} us of spans ({unattributed} unattributed) = "
+            f"wire_us {wire_us} us; summary {json.dumps(timer.summary())}")
+
+        port = hvd.debug_port()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=30) as r:
+            health = json.loads(r.read().decode())
+        check(health["step_time_ewma_ms"] > 0,
+              f"phase 30: /healthz {health}")
+        scraper.stop()
+        hvd.stop_timeline()
+        rows = perfwatch.load_rows(scraper.jsonl_path)
+        check(len(rows) >= 2 and all("overlap" in r["wire"] for r in rows),
+              f"phase 30: {len(rows)} scraper rows")
+        with open(scraper.prom_path) as f:
+            check("hvdtpu_overlap_steps_total" in f.read(),
+                  "phase 30: the textfile lacks the overlap series")
+        rc = perfwatch.main(["--jsonl", scraper.jsonl_path])
+        check(rc == 0, f"phase 30: perfwatch exited {rc}")
+        merged, skew = report.merge([os.path.join(tmp, "tl.0.json")])
+        check(skew["matched_events"] > 0 and any(
+            e.get("name") == "NCCL_ALLREDUCE" for e in merged),
+            f"phase 30: merged timeline {skew}")
+        evs = [e for e in telemetry.events() if e["seq"] > first_seq]
+        critpath.write_event_dump(
+            os.path.join(tmp, "dumps", "blackbox-rank0.jsonl"), 0, 1, evs)
+        analysis = critpath.critical_path(os.path.join(tmp, "dumps"))
+        check(len(analysis["steps"]) == steps + lane_windows,
+              f"phase 30: critical path has {len(analysis['steps'])} "
+              f"windows, {steps + lane_windows} steps ran")
+        log("  " + critpath.format_critical_path(analysis, max_steps=4)
+            .replace("\n", "\n  "))
+        # The same plain steps with the lane (its thread, the debug
+        # server, the scraper) shut: what the open lane costs the step.
+        hvd.shutdown()
+        alone_s = []
+        for _ in range(steps - 1):
+            t0 = time.perf_counter()
+            loss, carry = plain.step(carry, data)
+            torch.cuda.synchronize()
+            alone_s.append(time.perf_counter() - t0)
+        alone_ms = 1e3 * sum(alone_s) / len(alone_s)
+        log(f"  the plain step with the lane shut: {alone_ms:.2f} ms (open: "
+            f"{plain_ms:.2f} ms); card {card}")
+    finally:
+        hvd.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"  phase 30: {secs:.1f} s")
+    return {"telemetry_train_step": launched}, dict(
+        flops_per_step=flops, palm_flops_per_step=palm,
+        flops_over_palm=flops / palm, mfu=mfu, ms_with_timer=timed_s * 1e3,
+        ms_without_timer=plain_ms, ms_lane_shut=alone_ms,
+        counted_step_ms=timer.step_times[0] * 1e3,
+        step_time_ewma_ms=health["step_time_ewma_ms"],
+        ledger=timer.overlap_per_step, lane_ledger=lane_timer.overlap_per_step,
+        scraper_rows=len(rows), seconds=secs)
+
+
 def main():
     import torch
 
@@ -6403,7 +6629,13 @@ def main():
     ckpt_paths, ckpt_stats = run_checkpoint_phase(
         torch, ctr, llama, precision, train_step, LlamaConfig, card)
 
-    log("phase 30: results")
+    log("phase 30: the flagship's split step under StepTimer, the lane's "
+        "overlap ledger and the telemetry readers")
+    tel_paths, tel_stats = run_telemetry_phase(
+        torch, ctr, llama, precision, train_step, LlamaConfig, card)
+    torch.cuda.empty_cache()
+
+    log("phase 31: results")
     log(f"  the smoke's wall time to here: "
         f"{time.perf_counter() - t_start:.1f} s; card {card}")
     log(json.dumps({"generate": gen_stats, "engine": eng_stats,
@@ -6421,7 +6653,8 @@ def main():
                     "adam": adam_stats, "resnet50": resnet50,
                     "mesh": mesh_stats, "shards": shard_stats,
                     "serving_loop": loop_stats, "pipeline": pipe_stats,
-                    "checkpoint": ckpt_stats, "card": card}))
+                    "checkpoint": ckpt_stats, "telemetry": tel_stats,
+                    "card": card}))
     paths = {"llama_generate": gen_launch, "DecodeEngine": eng_launch,
              "train_step": train_launch, "moe_train_step": moe_train_launch,
              "moe_llama_generate": moe_gen_launch,
@@ -6430,7 +6663,8 @@ def main():
              "bert_forward": bert_fwd_launch,
              "elastic_bert_train": elastic_launch,
              "zero_train_step": zero_launch, **mesh_paths, **shard_paths,
-             "ServingLoop": loop_launch, **pipe_paths, **ckpt_paths}
+             "ServingLoop": loop_launch, **pipe_paths, **ckpt_paths,
+             **tel_paths}
     bert_bias = {k: bert_train_stats["bias_launches"][k]
                  + (bert_fwd_launch[k] if k == "K1" else 0)
                  + elastic["bias_launches"][k]

@@ -875,8 +875,11 @@ def metrics():
 
 
 def metrics_reset():
-    """Zero every counter and histogram of the registry."""
+    """Zero every counter and histogram of the registry and the overlap
+    ledger, and drop the open step (its window went with the ledger);
+    step ids go on from where they were."""
     REGISTRY.reset()
+    _step["open"] = -1
 
 
 def events(last_n=0):
@@ -890,7 +893,7 @@ def events_drain():
     return _events.drain()
 
 
-_step = dict(open=-1, count=0, begin_us=0)
+_step = dict(open=-1, count=0)
 
 
 def step_id():
@@ -900,17 +903,29 @@ def step_id():
 
 def step_mark(begin=True):
     """Mark a training-step boundary: ``begin`` closes an open step
-    (``step_end``) and opens the next (``step_begin``), returning its
-    id; ``begin=False`` closes the open step and returns its id, or -1."""
+    (``step_end``, and the overlap ledger folds its window) and opens
+    the next (``step_begin``), returning its id; ``begin=False`` closes
+    the open step and returns its id, or -1. On a lane on the card each
+    mark also drains the completed CUDA spans and records the ledger's
+    clock anchor (``metrics.py``)."""
+    current = _lane
+    card = None
+    if current is not None and current.device is not None:
+        card = torch.device(current.device)
+        REGISTRY.drain_cuda_spans()
     now = now_us()
     open_id = _step["open"]
     _step["open"] = -1
     if open_id >= 0:
-        _events.record("step_end", c=open_id, d=now - _step["begin_us"])
+        dur = REGISTRY.ledger.step_end(now)
+        _events.record("step_end", c=open_id, d=dur)
     if not begin:
         return open_id
     _step["count"] += 1
-    _step["open"], _step["begin_us"] = _step["count"], now
+    if card is not None:
+        REGISTRY.cuda_anchor(card)
+    _step["open"] = _step["count"]
+    REGISTRY.ledger.step_begin(now)
     _events.record("step_begin", c=_step["count"])
     return _step["count"]
 

@@ -210,6 +210,9 @@ class DataPlane:
         # check: without the wait, a producer's late write is not seen.
         self.wait_for_producers = True
         self._buffers = {}
+        # The overlap ledger's plane of the calls being made: 1 inside
+        # the hierarchical allreduce's cross hop, else 0.
+        self._span_plane = 0
 
     def start_thread(self):
         """Called on the lane thread before its first response."""
@@ -299,18 +302,20 @@ class DataPlane:
 
     @contextlib.contextmanager
     def _wire_span(self, pg):
-        """One collective call's time into the metrics' ``wire_us``."""
+        """One collective call's time into the metrics' ``wire_us``, the
+        overlap ledger and the ``wire_span`` events, on the plane of
+        :attr:`_span_plane`."""
         if dist.get_backend(pg) != "nccl":
             t0 = now_us()
             yield
-            REGISTRY.record(REGISTRY.wire_us, now_us() - t0)
+            REGISTRY.wire_span(self._span_plane, t0, now_us())
             return
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         yield
         end.record()
-        REGISTRY.cuda_span(start, end)
+        REGISTRY.cuda_span(start, end, self._span_plane)
 
     def _collective(self, pg, name, fn, *args, **kwargs):
         backend = dist.get_backend(pg)
@@ -575,18 +580,27 @@ class DataPlane:
         else:
             mine = self._exact_reduce_scatter(buf, seg, op, lpg, lr)
         if mine.numel():
-            # Every rank of the cross group holds a segment of this size.
-            cpg, n_cross, cr = cross.groups[self._dev], cross.size(), \
-                cross.position
-            ccodec = self._codec(buf.dtype, op, n_cross, cross=True)
-            if ccodec:
-                self._compressed_allreduce(mine, post, cpg, n_cross, cr,
-                                           ccodec, cross=True)
-            else:
-                self._reduce_(mine, op, cpg, n_cross, cr, cross)
-                self._book_exact(op, mine, n_cross, cr, cross=True)
-                self._scale(mine, post)
+            self._span_plane = 1
+            try:
+                self._cross_hop(mine, op, post, cross)
+            finally:
+                self._span_plane = 0
         self._exact_allgather(buf, mine, seg, lpg, lr)
+
+    def _cross_hop(self, mine, op, post, cross):
+        """The hierarchical allreduce's allreduce of this rank's segment
+        across the slices (the postscale there, once)."""
+        # Every rank of the cross group holds a segment of this size.
+        cpg, n_cross, cr = cross.groups[self._dev], cross.size(), \
+            cross.position
+        ccodec = self._codec(mine.dtype, op, n_cross, cross=True)
+        if ccodec:
+            self._compressed_allreduce(mine, post, cpg, n_cross, cr, ccodec,
+                                       cross=True)
+        else:
+            self._reduce_(mine, op, cpg, n_cross, cr, cross)
+            self._book_exact(op, mine, n_cross, cr, cross=True)
+            self._scale(mine, post)
 
     def _exact_reduce_scatter(self, buf, seg, op, pg, pos):
         """This rank's reduced segment of ``buf`` (a new tensor); uneven

@@ -11,6 +11,13 @@ steady clock in microseconds. The lane records these types:
 - ``response_launch`` (op_class, device, tensors, bytes): a response
   about to run; ``op_class`` in the reference's order
   (:data:`metrics.OP_CLASSES`), ``device`` 1 for CUDA tensors;
+- ``wire_span`` (dur_us, tx_bytes, rx_bytes, and the decoded ``plane``
+  and ``channels``): one collective call, stamped at its end (on the
+  card at the end its CUDA events measured, mapped to the host clock:
+  ``metrics.py``); ``plane`` 1 is the hierarchical allreduce's cross
+  hop, ``channels`` always 1 (the reference's socket stripes wait for
+  L8). The port books its wire bytes per hop in the ``wire`` counters,
+  so ``tx_bytes`` and ``rx_bytes`` are 0;
 - ``stall`` (waited_s, missing): the coordinator's stall check;
 - ``phase`` (phase, dur_us, and ``phase_name``): a control phase;
 - ``step_begin`` (step) and ``step_end`` (step, dur_us): step marks;
@@ -31,8 +38,19 @@ steady clock in microseconds. The lane records these types:
 
 :func:`peek` reads without consuming; :func:`drain` consumes what was
 recorded since the last drain. Both see at most the newest 8192.
+
+:func:`dump_blackbox` is the black-box dump (``DumpBlackBox``,
+``csrc/operations.cc:883-940``): at a typed fault the lane appends the
+ring to ``blackbox-rank{r}.jsonl`` under ``HOROVOD_BLACKBOX_DIR``
+(default ``$TMPDIR/hvdtpu_blackbox``; ``off``, ``none`` or ``0``
+disable it) before any handle wakes a caller: one ``blackbox_header``
+line with the fault record and a (``unix_us``, ``steady_us``) clock
+pair, then one line an event. ``telemetry/postmortem.py`` reads them.
 """
 
+import json
+import os
+import sys
 import threading
 import time
 
@@ -47,6 +65,8 @@ SPECS = {
     "negotiate_begin": ("requests", "", "", ""),
     "negotiate_end": ("responses", "shutdown", "", ""),
     "response_launch": ("op_class", "device", "tensors", "bytes"),
+    # a packs plane | (channels << 1), decoded into named keys below.
+    "wire_span": ("", "dur_us", "tx_bytes", "rx_bytes"),
     "stall": ("waited_s", "missing", "", ""),
     "phase": ("phase", "", "dur_us", ""),
     "step_begin": ("", "", "step", ""),
@@ -83,8 +103,11 @@ class EventRing:
         self._cursor = 0    # drain position
         self._floor = 0     # reset() hides everything before this
 
-    def record(self, type, a=0, b=0, c=0, d=0):
-        ts = time.monotonic_ns() // 1000
+    def record(self, type, a=0, b=0, c=0, d=0, ts_us=None):
+        """Record one event, stamped now or at ``ts_us`` (steady-clock
+        microseconds: a CUDA span's end, known once its events
+        completed)."""
+        ts = time.monotonic_ns() // 1000 if ts_us is None else int(ts_us)
         with self._lock:
             seq = self._head
             self._slots[seq % CAPACITY] = (seq, ts, type, a, b, c, d)
@@ -118,7 +141,9 @@ def _as_dict(event):
     for key, value in zip(SPECS[type], args):
         if key:
             out[key] = value
-    if type == "phase":
+    if type == "wire_span":
+        out["plane"], out["channels"] = args[0] & 1, args[0] >> 1
+    elif type == "phase":
         out["phase_name"] = CONTROL_PHASES[args[0]]
     elif type == "request":
         out["phase_name"] = REQUEST_PHASES[args[0]]
@@ -129,3 +154,40 @@ RING = EventRing()
 record = RING.record
 peek = RING.peek
 drain = RING.drain
+
+
+def blackbox_dir():
+    """The dump directory, or None when dumps are off."""
+    d = os.environ.get("HOROVOD_BLACKBOX_DIR", "")
+    if d in ("off", "none", "0"):
+        return None
+    return d or os.path.join(os.environ.get("TMPDIR") or "/tmp",
+                             "hvdtpu_blackbox")
+
+
+def dump_blackbox(rank, size, epoch, kind, certain, ranks, detect_ms,
+                  reason):
+    """Append the header and the ring to this rank's black-box file;
+    returns its path, or None when dumps are off or the file cannot be
+    opened (a warning on stderr, as the reference's)."""
+    d = blackbox_dir()
+    if d is None:
+        return None
+    path = os.path.join(d, f"blackbox-rank{rank}.jsonl")
+    header = {"kind": "blackbox_header", "rank": rank, "size": size,
+              "epoch": epoch, "unix_us": time.time_ns() // 1000,
+              "steady_us": time.monotonic_ns() // 1000,
+              "fault": {"kind": kind, "certain": bool(certain),
+                        "ranks": [int(r) for r in ranks],
+                        "detect_ms": int(detect_ms), "reason": reason}}
+    try:
+        os.makedirs(d, exist_ok=True)
+        with open(path, "a") as f:
+            f.write(json.dumps(header, separators=(",", ":")) + "\n")
+            for ev in peek():
+                f.write(json.dumps(ev, separators=(",", ":")) + "\n")
+    except OSError as e:
+        print(f"black-box dump skipped: cannot write {path} ({e})",
+              file=sys.stderr)
+        return None
+    return path

@@ -31,9 +31,19 @@ the autotuner moves the first two, the codec and the split).
 ``control_phase`` also holds ``parole_freeze``: the door's frozen joiner
 count read at an epoch transition.
 
-Left out, with what they wait for: the ``wire`` section's per-channel,
-syscall and overlap tables (the reference's socket stripes, ROADMAP.md
-L8), the ``elastic`` section's wire counters ``heals``, ``retries`` and
+The ``wire`` section also holds ``overlap``, the per-step overlap
+ledger (``csrc/metrics.h:246-300``, :class:`OverlapLedger`): per step
+window (``basics.step_mark``) and per plane (``intra``; ``cross``, the
+hierarchical allreduce's cross hop), ``total`` is the sum of the wire
+spans (one a collective call), ``exposed`` the part of them that lies
+under the union of the ``wait`` spans (a caller blocked in a handle's
+``wait``), ``hidden = total - exposed`` exactly; span time outside any
+window, or clipped off one, is ``unattributed_us``, so ``total`` plus
+``unattributed_us`` is the ``wire_us`` histogram's sum.
+
+Left out, with what they wait for: the ``wire`` section's per-channel
+and syscall tables (the reference's socket stripes, ROADMAP.md L8), the
+``elastic`` section's wire counters ``heals``, ``retries`` and
 ``crc_errors`` (L8), and the ring and stripe knobs (L8).
 
 ``wire_us`` of a CPU collective is the host time of the gloo call. Of a
@@ -41,7 +51,16 @@ CUDA collective it is the time between two CUDA events the lane records
 on its stream around the NCCL call: from the stream reaching the call
 to the collective's end on the device. The registry reads them only
 once the second has completed (``Event.query``), at the end of each
-lane cycle and at each snapshot, so it adds no host synchronisation.
+lane cycle, at each snapshot and at each step mark, so it adds no host
+synchronisation. The waits are on the host clock, so the ledger puts a
+CUDA span there through an anchor: each step mark records a CUDA event
+on an idle stream of its own beside the host time of the record, and a
+span recorded while that anchor stands starts at the anchor's host time
+plus the device time from the anchor event to the span's start event
+(``Event.elapsed_time``). A span with no anchor (none marked yet on
+that card) books unattributed; a span whose end completes after its
+window closed is clipped off it (unattributed), as the reference books
+a racing span.
 
 Counters live for the process, across init and shutdown, as the
 reference's do; :meth:`Metrics.reset` zeroes them (``hvd.metrics_reset``).
@@ -119,12 +138,151 @@ class LatencyHistogram:
                 "p99_us": self._percentile(0.99)}
 
 
+class OverlapLedger:
+    """The per-step overlap ledger (``OverlapLedger``, csrc/metrics.cc):
+    wire spans and wait spans of one step window, folded per plane at
+    the window's end. Any thread."""
+
+    # Past this many spans (or waits) in one open window, a span books
+    # unattributed and a wait is dropped (a window left open forever).
+    MAX_SPANS = 65536
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self):
+        with self._lock:
+            self._open = False
+            self._begin_us = 0
+            self.steps = 0
+            self.unattributed_us = 0
+            self._spans = ([], [])
+            self._waits = []
+            self.planes = [dict.fromkeys(
+                ("exposed_us", "hidden_us", "total_us", "last_exposed_us",
+                 "last_hidden_us", "last_total_us"), 0) for _ in range(2)]
+
+    def step_begin(self, ts_us):
+        with self._lock:
+            self._open = True
+            self._begin_us = ts_us
+            for spans in self._spans:
+                spans.clear()
+            self._waits.clear()
+
+    def step_end(self, ts_us):
+        """Close the window: fold its spans per plane. Returns the
+        window's length in us, or -1 when none was open."""
+        with self._lock:
+            if not self._open:
+                return -1
+            self._open = False
+            lo0 = self._begin_us
+            waits = _union([(max(a, lo0), min(b, ts_us))
+                            for a, b in self._waits])
+            self._waits.clear()
+            for plane, spans in enumerate(self._spans):
+                total = exposed = 0
+                clipped = []
+                for a, b in spans:
+                    lo, hi = max(a, lo0), min(b, ts_us)
+                    if hi < lo:       # wholly outside (a racing span)
+                        self.unattributed_us += b - a
+                        continue
+                    clipped.append((lo, hi))
+                    total += hi - lo
+                    self.unattributed_us += (b - a) - (hi - lo)
+                for lo, hi in clipped:
+                    for wa, wb in waits:
+                        overlap = min(hi, wb) - max(lo, wa)
+                        if overlap > 0:
+                            exposed += overlap
+                p = self.planes[plane]
+                p["last_total_us"], p["last_exposed_us"] = total, exposed
+                p["last_hidden_us"] = total - exposed
+                p["total_us"] += total
+                p["exposed_us"] += exposed
+                p["hidden_us"] += total - exposed
+                spans.clear()
+            self.steps += 1
+            return ts_us - lo0
+
+    def add_span(self, plane, start_us, end_us):
+        """One completed wire span of ``plane`` (1: the cross hop)."""
+        if end_us < start_us:
+            return
+        spans = self._spans[1 if plane == 1 else 0]
+        with self._lock:
+            if not self._open or end_us <= self._begin_us \
+                    or len(spans) >= self.MAX_SPANS:
+                self.unattributed_us += end_us - start_us
+                return
+            spans.append((start_us, end_us))
+
+    def add_unattributed(self, us):
+        """Span time the ledger cannot place on the host clock."""
+        with self._lock:
+            self.unattributed_us += us
+
+    def add_wait(self, start_us, end_us):
+        """One caller's blocked interval; dropped outside a window."""
+        if end_us <= start_us:
+            return
+        with self._lock:
+            if self._open and end_us > self._begin_us \
+                    and len(self._waits) < self.MAX_SPANS:
+                self._waits.append((start_us, end_us))
+
+    def json(self):
+        """The snapshot's ``wire.overlap`` dict, the reference's keys
+        and roundings."""
+        with self._lock:
+            exp = sum(p["exposed_us"] for p in self.planes)
+            hid = sum(p["hidden_us"] for p in self.planes)
+            out = {"steps": self.steps,
+                   "unattributed_us": self.unattributed_us,
+                   "exposed_wire_ms": round(exp / 1000.0, 3),
+                   "hidden_wire_ms": round(hid / 1000.0, 3),
+                   "overlap_efficiency": round(hid / (exp + hid), 6)
+                   if exp + hid else 0.0}
+            for name, p in zip(("intra", "cross"), self.planes):
+                out[name] = {
+                    "exposed_us": p["exposed_us"],
+                    "hidden_us": p["hidden_us"],
+                    "total_us": p["total_us"],
+                    "overlap_efficiency": round(
+                        p["hidden_us"] / p["total_us"], 6)
+                    if p["total_us"] else 0.0,
+                    "last_exposed_us": p["last_exposed_us"],
+                    "last_hidden_us": p["last_hidden_us"],
+                    "last_total_us": p["last_total_us"]}
+        return out
+
+
+def _union(intervals):
+    """The sorted disjoint union of ``[a, b)`` intervals (empty ones
+    dropped)."""
+    out = []
+    for a, b in sorted(iv for iv in intervals if iv[1] > iv[0]):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
 class Metrics:
     """The process's registry (:data:`REGISTRY`)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._cuda_spans = collections.deque()
+        # (anchor event, its host us) per CUDA device: the latest step
+        # mark's (module docstring).
+        self._anchors = {}
+        self._anchor_streams = {}
+        self.ledger = OverlapLedger()
         self.negotiation_us = LatencyHistogram()
         self.queue_us = LatencyHistogram()
         self.wire_us = LatencyHistogram()
@@ -139,6 +297,7 @@ class Metrics:
         self.reset()
 
     def reset(self):
+        self.ledger.reset()
         with self._lock:
             self.ops = {dev: [[0, 0, 0] for _ in OP_CLASSES]
                         for dev in ("cpu", "cuda")}
@@ -227,19 +386,54 @@ class Metrics:
             events.record("phase", CONTROL_PHASES.index(phase), 0,
                           int(dur_us))
 
-    def cuda_span(self, start, end):
-        """A CUDA collective's (start, end) timing events."""
+    def wire_span(self, plane, start_us, end_us):
+        """A host-timed collective call (gloo): its ``wire_us``, its
+        ledger span and its ``wire_span`` event."""
+        self.record(self.wire_us, end_us - start_us)
+        self.ledger.add_span(plane, start_us, end_us)
+        events.record("wire_span", plane | 1 << 1, end_us - start_us,
+                      ts_us=end_us)
+
+    def cuda_anchor(self, device):
+        """Record the step mark's anchor on ``device``: a CUDA event on
+        an idle stream of the registry's own, beside the host time."""
+        import torch
+
         with self._lock:
-            self._cuda_spans.append((start, end))
+            stream = self._anchor_streams.get(device)
+            if stream is None:
+                stream = self._anchor_streams[device] = torch.cuda.Stream(
+                    device)
+            event = torch.cuda.Event(enable_timing=True)
+            event.record(stream)
+            self._anchors[device] = (event, now_us())
+
+    def cuda_span(self, start, end, plane=0):
+        """A CUDA collective's (start, end) timing events, with the
+        anchor standing on their device."""
+        with self._lock:
+            self._cuda_spans.append(
+                (start, end, plane, self._anchors.get(start.device)))
 
     def drain_cuda_spans(self):
         """Record the spans whose end event has completed, in stream
         order; never waits."""
+        done = []
         with self._lock:
             spans = self._cuda_spans
             while spans and spans[0][1].query():
-                start, end = spans.popleft()
-                self.wire_us.record(start.elapsed_time(end) * 1e3)
+                done.append(spans.popleft())
+        for start, end, plane, anchor in done:
+            dur = int(start.elapsed_time(end) * 1e3)
+            self.record(self.wire_us, dur)
+            if anchor is None:
+                self.ledger.add_unattributed(dur)
+                continue
+            event, host_us = anchor
+            begin = host_us + int(round(event.elapsed_time(start) * 1e3))
+            self.ledger.add_span(plane, begin, begin + dur)
+            events.record("wire_span", plane | 1 << 1, dur,
+                          ts_us=begin + dur)
 
     # ---- the snapshot --------------------------------------------------
 
@@ -299,6 +493,7 @@ class Metrics:
                 "resets": self.resets,
                 "last_fault": last_fault,
                 "detect_us": self.fault_detect_us.json()}
+            out["wire"]["overlap"] = self.ledger.json()
             out["errors"] = self.errors
             out["knobs"] = {"fusion_threshold_bytes": fusion_threshold_bytes,
                             "cycle_time_ms": float(cycle_time_ms),

@@ -43,7 +43,8 @@ rank's neighbours; rank 0 freezes the ranks that checked in within 3 s
 of its own (``CHECKIN_S``), or as soon as all did, and every rank reads
 the frozen list. The
 fault record (:attr:`Runtime.fault`, the reference's ``last_fault()``
-dict) is written before any handle wakes; then every in-flight handle
+dict) and this rank's black-box dump (``events.dump_blackbox``) are
+written before any handle wakes; then every in-flight handle
 and every later enqueue raises :class:`HorovodPeerFailureError` naming
 the dead ranks. A store that cannot be reached means its host, rank 0,
 is gone: the record then names rank 0, not certain. A failure that
@@ -220,6 +221,7 @@ class Handle:
         t1 = now_us()
         if t1 > t0:
             events.record("wait", c=t1 - t0)
+            REGISTRY.ledger.add_wait(t0, t1)
         if self.error is not None:
             raise self.error
         return self.result
@@ -576,6 +578,10 @@ class Runtime:
                                   kind="peer")
                 REGISTRY.record_fault(detect_ms * 1000)
                 events.record("fault", 0, int(certain), self.epoch, dead[0])
+                # Before any handle wakes a caller.
+                events.dump_blackbox(self.rank, self.size, self.epoch,
+                                     "peer", certain, dead, detect_ms,
+                                     reason)
                 self._error = self._peer_error(
                     f"collective runtime failed: rank(s) {dead} lost at "
                     f"epoch {self.epoch} ({reason}); detected in "

@@ -61,10 +61,16 @@ the grouped products (``hvd_torch::gmm``, ``gmm_unpermute``) included:
 on the TPU those are ``pallas_call``s, not dots. JAX's CPU run of the
 same mode saves its attention, an XLA einsum there, so its recompute
 count on the CPU is not the TPU program's; the gradients are the same.
+
+``qkv_rope`` and ``named_matmul`` carry FLOP formulas (their forwards'
+matmuls; their backwards are plain matmuls), so a FLOP counter counts a
+step as its plain matmuls would (``telemetry/step_timer.py
+count_flops``).
 """
 
 import dataclasses
 import functools
+import math
 
 import torch
 import torch.distributed as dist
@@ -74,6 +80,7 @@ from torch.utils.checkpoint import (
     checkpoint,
     create_selective_checkpoint_contexts,
 )
+from torch.utils.flop_counter import register_flop_formula
 
 from horovod_tpu_torch._device import on_device, resolve_device
 from horovod_tpu_torch.ops import grouped_moe
@@ -312,6 +319,20 @@ def _named_matmul_backward(ctx, g):
 torch.library.register_autograd("hvd_torch::named_matmul",
                                 _named_matmul_backward,
                                 setup_context=_named_matmul_setup)
+
+
+# FLOP formulas of the two matmul ops: what their plain matmuls count
+# (their backwards are plain matmuls, which a FLOP counter sees).
+@register_flop_formula(torch.ops.hvd_torch.qkv_rope)
+def _qkv_rope_flops(h_shape, wq_shape, wk_shape, wv_shape, *args, **kwargs):
+    rows = math.prod(h_shape[:-1])
+    return 2 * rows * h_shape[-1] * (wq_shape[1] + wk_shape[1]
+                                     + wv_shape[1])
+
+
+@register_flop_formula(torch.ops.hvd_torch.named_matmul)
+def _named_matmul_flops(x_shape, w_shape, *args, **kwargs):
+    return 2 * math.prod(x_shape[:-1]) * x_shape[-1] * w_shape[-1]
 
 
 @torch.library.custom_op("hvd_torch::checkpoint_name", mutates_args=())

@@ -32,7 +32,12 @@ cotangent. Being one dispatcher op, each can have its outputs saved by
 a selective-checkpoint policy (the TPU module's ``flash_o``/``flash_lse``
 names): a ctypes launch inside an
 ``autograd.Function`` would be invisible to the policy, and remat would
-quietly re-run K1 in the backward (models/llama.py).
+quietly re-run K1 in the backward (models/llama.py). The backward of
+either is ``hvd_torch::flash_bwd`` (K2 + K3), a custom op too: each of
+the three carries a FLOP formula (``register_flop_formula``) that counts
+what the plain versions' matmuls count on the same inputs, so a FLOP
+counter over ``torch.utils.flop_counter``'s formulas gives the card's
+route the CPU's count (``telemetry/step_timer.py count_flops``).
 
 Layouts follow the JAX package: the public :func:`flash_attention`
 takes the framework layout [B, T, H, D]; the kernel layout is
@@ -45,6 +50,7 @@ import functools
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from horovod_tpu_torch._device import dtype_route, kernel_or_plain, pick_route
 from horovod_tpu_torch.ops import _build
@@ -441,10 +447,27 @@ def _flash_setup(ctx, inputs, output):
     ctx.save_for_backward(q, k, v, kv_bias, o, lse)
 
 
+@torch.library.custom_op("hvd_torch::flash_bwd", mutates_args=())
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+              causal: bool, kv_bias: Optional[torch.Tensor] = None,
+              offsets: Optional[list[int]] = None,
+              dlse: Optional[torch.Tensor] = None
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_fwd` or :func:`flash_chunk` (with
+    ``offsets`` = [q_offset, kv_offset] and the lse cotangent ``dlse``),
+    through :func:`_flash_bwd_impl`: K2 + K3 on the card. One dispatcher
+    op, so a FLOP counter sees the kernels' work as it sees the plain
+    version's (:func:`_bwd_flops`)."""
+    return _flash_bwd_impl(q, k, v, o, lse, do, causal, kv_bias,
+                           None if offsets is None else tuple(offsets),
+                           dlse)
+
+
 def _flash_backward(ctx, do, _dlse):
     q, k, v, kv_bias, o, lse = ctx.saved_tensors
-    dq, dk, dv = _flash_bwd_impl(q, k, v, o, lse, do.contiguous(),
-                                 ctx.causal, kv_bias)
+    dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), ctx.causal,
+                           kv_bias)
     # The bias is a constant (a padding mask): no cotangent.
     return dq, dk, dv, None, None
 
@@ -475,13 +498,34 @@ def _chunk_setup(ctx, inputs, output):
 
 def _chunk_backward(ctx, do, dlse):
     q, k, v, o, lse = ctx.saved_tensors
-    dq, dk, dv = _flash_bwd_impl(q, k, v, o, lse, do.contiguous(),
-                                 ctx.causal, None, ctx.offsets, dlse)
+    dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), ctx.causal,
+                           None, list(ctx.offsets), dlse)
     return dq, dk, dv, None, None, None
 
 
 torch.library.register_autograd("hvd_torch::flash_chunk", _chunk_backward,
                                 setup_context=_chunk_setup)
+
+
+def _pairs(q_shape, k_shape):
+    """B x H x Tq x Tk x D of a call: the (query, key) pairs' dot
+    products the plain versions' matmuls compute, masked or not."""
+    b, h, tq, d = q_shape
+    return b * h * tq * k_shape[2] * d
+
+
+@register_flop_formula([torch.ops.hvd_torch.flash_fwd,
+                        torch.ops.hvd_torch.flash_chunk])
+def _fwd_flops(q_shape, k_shape, *args, **kwargs):
+    """K1 as :func:`_flash_fwd_reference` counts it: q k^T and p v."""
+    return 4 * _pairs(q_shape, k_shape)
+
+
+@register_flop_formula(torch.ops.hvd_torch.flash_bwd)
+def _bwd_flops(q_shape, k_shape, *args, **kwargs):
+    """K2 + K3 as :func:`_flash_bwd_reference` counts them: q k^T
+    again, p^T do, do v^T, ds^T q and ds k."""
+    return 10 * _pairs(q_shape, k_shape)
 
 
 def flash_attention_chunk(q, k, v, q_offset, kv_offset, causal=True):

@@ -32,6 +32,11 @@ So each save-name of the TPU module is the output of one custom op:
 and ``moe_y_slots`` comes from ``hvd_torch::gmm_unpermute``, the down
 K5 and the un-permute in one op, so that saving ``moe_y_slots`` also
 keeps the replay from re-running the down product only to discard it.
+K6's halves are custom ops too (``hvd_torch::gmm_dlhs``,
+``hvd_torch::tgmm``), called by the backwards: each grouped op carries a
+FLOP formula counting what its plain version's matmuls count, so a FLOP
+counter (``telemetry/step_timer.py count_flops``) gives the card's route
+the CPU's count.
 """
 
 import ctypes
@@ -39,6 +44,7 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from horovod_tpu_torch._device import dtype_route, kernel_or_plain, pick_route
 from horovod_tpu_torch.ops import _build
@@ -333,15 +339,31 @@ def _gmm_impl(lhs, rhs, group_sizes):
                            rhs, group_sizes)
 
 
+@torch.library.custom_op("hvd_torch::gmm_dlhs", mutates_args=())
+def _gmm_dlhs(grad: torch.Tensor, rhs: torch.Tensor,
+              group_sizes: torch.Tensor) -> torch.Tensor:
+    """K6's dlhs [M, K] = per group grad [M, N] @ rhs[e]^T, one
+    dispatcher op (its FLOP formula below)."""
+    return kernel_or_plain("grouped matmul", grad, _gmm_dlhs_cuda,
+                           _gmm_dlhs_reference, rhs, group_sizes)
+
+
+@torch.library.custom_op("hvd_torch::tgmm", mutates_args=())
+def _tgmm(lhs: torch.Tensor, grad: torch.Tensor,
+          group_sizes: torch.Tensor) -> torch.Tensor:
+    """K6's tgmm [E, K, N] = per group lhs^T @ grad, one dispatcher op
+    (its FLOP formula below)."""
+    return kernel_or_plain("grouped matmul", lhs, _tgmm_cuda,
+                           _tgmm_reference, grad, group_sizes)
+
+
 def _gmm_backward_impl(lhs, rhs, group_sizes, grad):
     """K6: (dlhs [M, K] in lhs's dtype, drhs [E, K, N] in rhs's dtype)
     of out = gmm(lhs, rhs) under the cotangent ``grad``, megablox's
     decomposition."""
     grad = grad.contiguous()
-    dlhs = kernel_or_plain("grouped matmul", grad, _gmm_dlhs_cuda,
-                           _gmm_dlhs_reference, rhs, group_sizes)
-    drhs = kernel_or_plain("grouped matmul", lhs, _tgmm_cuda,
-                           _tgmm_reference, grad, group_sizes)
+    dlhs = _gmm_dlhs(grad, rhs, group_sizes)
+    drhs = _tgmm(lhs, grad, group_sizes)
     return dlhs.to(lhs.dtype), drhs.to(rhs.dtype)
 
 
@@ -408,6 +430,28 @@ def _gmm_unpermute_backward(ctx, grad):
 torch.library.register_autograd("hvd_torch::gmm_unpermute",
                                 _gmm_unpermute_backward,
                                 setup_context=_gmm_unpermute_setup)
+
+
+# FLOP formulas of the grouped ops: what the plain versions' per-group
+# matmuls count when the groups cover every row, as the MoE dispatch's
+# do (sum(group_sizes) == M; rows no group covers are not multiplied).
+@register_flop_formula([torch.ops.hvd_torch.gmm,
+                        torch.ops.hvd_torch.gmm_unpermute])
+def _gmm_flops(lhs_shape, rhs_shape, *args, **kwargs):
+    """K5: lhs [M, K] @ rhs[e] [K, N] a row."""
+    return 2 * lhs_shape[0] * lhs_shape[1] * rhs_shape[2]
+
+
+@register_flop_formula(torch.ops.hvd_torch.gmm_dlhs)
+def _dlhs_flops(grad_shape, rhs_shape, *args, **kwargs):
+    """K6 dlhs: grad [M, N] @ rhs[e]^T [N, K] a row."""
+    return 2 * grad_shape[0] * grad_shape[1] * rhs_shape[1]
+
+
+@register_flop_formula(torch.ops.hvd_torch.tgmm)
+def _tgmm_flops(lhs_shape, grad_shape, *args, **kwargs):
+    """K6 tgmm: lhs^T [K, M_e] @ grad [M_e, N] a group."""
+    return 2 * lhs_shape[0] * lhs_shape[1] * grad_shape[1]
 
 
 @torch.library.custom_op("hvd_torch::dispatch_gather", mutates_args=())

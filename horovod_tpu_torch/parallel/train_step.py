@@ -30,10 +30,19 @@ its gradients over the other mesh axes and the reduce-scatter (and the
 cross-plane sum) alone over those;
 without a mesh each rank's loss is the mean over its own batch and the
 reduce-scatter averages (``parallel/zero.py``). The loss returned is this
-rank's. Step telemetry (``telemetry=``, ROADMAP.md A12) and optax
-transformations (no optax in the port) are not ported; the master-weights
-wrapper over a torch optimizer (``precision.master_weights``) is a
-standalone optimizer, as the JAX package's, and is refused here.
+rank's. Optax transformations (no optax in the port) are not ported; the
+master-weights wrapper over a torch optimizer
+(``precision.master_weights``) is a standalone optimizer, as the JAX
+package's, and is refused here.
+
+``telemetry=`` (a ``telemetry.StepTimer``) wraps either layout as the
+JAX package's ``_wrap_step_telemetry`` does, outside the step: the first
+call runs under ``telemetry.step_timer.count_flops`` and fills the
+timer's ``flops_per_step`` (unless it has one) with what that step ran,
+the apply included (the step updates its carry in place, so the count
+comes from a step that counts, never from an extra one); every call is
+bracketed by ``start_step``/``end_step``. Nothing inside the step
+changes.
 """
 
 import contextlib
@@ -163,9 +172,6 @@ def make_split_train_step(loss_fn, optimizer, *, microbatches=1,
     ``zero``), split along its leading axis into ``microbatches``
     gradient calls.
     """
-    if telemetry is not None:
-        raise NotImplementedError(
-            "telemetry= (StepTimer) is not ported yet (ROADMAP.md A12)")
     if isinstance(optimizer, precision.MasterWeights):
         raise TypeError(
             "master_weights is a standalone optimizer, as the JAX "
@@ -189,8 +195,9 @@ def make_split_train_step(loss_fn, optimizer, *, microbatches=1,
             def grad_call():
                 return zero.mesh.defer_grad_sum(*deferred)
         if fusion.jit_fusion_enabled():
-            return TrainStep(init=init, step=_fused_zero_step(
-                loss_fn, zero_apply, n, grad_call))
+            return TrainStep(init=init, step=_wrap_step_telemetry(
+                _fused_zero_step(loss_fn, zero_apply, n, grad_call),
+                telemetry))
 
         def apply(params, grads, opt):
             return zero_apply(grads, params, opt)
@@ -210,4 +217,29 @@ def make_split_train_step(loss_fn, optimizer, *, microbatches=1,
         params, opt = apply(params, grads, opt)
         return loss, (params, opt)
 
-    return TrainStep(init=init, step=step)
+    return TrainStep(init=init, step=_wrap_step_telemetry(step, telemetry))
+
+
+def _wrap_step_telemetry(inner_step, telemetry):
+    """``inner_step`` timed by the StepTimer ``telemetry`` (or as it is
+    without one), the first call's FLOPs counted. A counting error is
+    raised, not swallowed: the step it interrupted may have updated the
+    carry already."""
+    if telemetry is None:
+        return inner_step
+    from horovod_tpu_torch.telemetry.step_timer import count_flops
+
+    pending = [telemetry.flops_per_step is None]
+
+    def step(carry, batch):
+        telemetry.start_step()
+        if pending[0]:
+            pending[0] = False
+            out, flops = count_flops(inner_step, carry, batch)
+            telemetry.flops_per_step = float(flops) or None
+        else:
+            out = inner_step(carry, batch)
+        telemetry.end_step(out)
+        return out
+
+    return step

@@ -7,7 +7,7 @@ literal every consumer of the serving fields shares (``/healthz`` in
 ``kv_blocks_*`` -1 means no pool in this process, distinct from a pool
 momentarily empty; zeros elsewhere mean no service live or nothing
 measured yet. The autoscaler itself (``AutoscalePolicy``,
-``Autoscaler``, ``collect_signals``) waits for ROADMAP.md A12.
+``Autoscaler``, ``collect_signals``) waits for ROADMAP.md A12b.
 """
 
 import sys

@@ -9,8 +9,9 @@ daemon thread of stdlib ``http.server``, and serves:
 - ``/healthz``: initialized, rank, size, the membership epoch, loop
   state, the last fault record, uptime, the bound port, the lane's
   queue depth, its cycles, the straggler skew, ``pending_rejoiners``
-  (the joiners held at rank 0's parole door; 0 elsewhere) and the
-  serving fields (``telemetry/autoscale.py SERVING_SIGNAL_DEFAULTS``,
+  (the joiners held at rank 0's parole door; 0 elsewhere),
+  ``step_time_ewma_ms`` (``telemetry/step_timer.py``; 0.0 before any
+  step) and the serving fields (``telemetry/autoscale.py SERVING_SIGNAL_DEFAULTS``,
   live while a ``serving.service.ServingLoop`` runs);
 - ``/metrics``: the Prometheus text of a fresh snapshot
   (``exporters._flatten_prom``);
@@ -20,7 +21,7 @@ daemon thread of stdlib ``http.server``, and serves:
   default 64, 0 for all);
 - ``/stacks``: every Python thread's stack (``faulthandler``).
 
-The reference's fleet fields and ``/fleet`` wait for ROADMAP.md A12.
+The reference's fleet fields and ``/fleet`` wait for ROADMAP.md A12b.
 """
 
 import faulthandler
@@ -37,6 +38,7 @@ from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.telemetry import reqtrace
 from horovod_tpu_torch.telemetry.autoscale import read_serving_signals
 from horovod_tpu_torch.telemetry.exporters import _flatten_prom
+from horovod_tpu_torch.telemetry.step_timer import step_time_ewma_ms
 
 _server = None
 _lock = threading.Lock()
@@ -59,6 +61,7 @@ def _healthz():
         "cycles": snap["cycle"]["count"],
         "straggler_skew_ms": round(
             snap["straggler"]["skew_us"]["p90_us"] / 1000.0, 3),
+        "step_time_ewma_ms": round(step_time_ewma_ms(), 3),
         "pending_rejoiners": _pending_rejoiners(),
         **read_serving_signals(),
     }

@@ -28,9 +28,13 @@ phase before extends to its next transition (``fault_requeue``), so the
 chains stay gap-free through the chaos they explain. The live side is
 :func:`live_requests`, the debug server's ``/requests``.
 
-The reference's dumps are its core's black-box files; the port's are one
-JSON file a rank. ``tail_report``/``format_requests`` and ``report.py
---requests`` wait for ROADMAP.md A12.
+The serving smoke's dumps are one JSON file a rank (:func:`write_dump`);
+the readers also take the reference's format, the black-box JSONL files
+of ``common/events.py dump_blackbox`` and ``telemetry/critpath.py
+write_event_dump``, each event folded once by its seq a file.
+:func:`tail_report` decomposes a latency band by phase and
+:func:`format_requests` renders it (``python -m
+horovod_tpu_torch.telemetry.report --requests``).
 """
 
 import json
@@ -120,27 +124,59 @@ def write_dump(path, rank):
 
 
 def _dump_paths(paths_or_dir):
+    """The dump files of a directory (``*.json`` and black-box
+    ``blackbox-*.jsonl``), or the paths given."""
     if isinstance(paths_or_dir, (str, os.PathLike)):
-        if os.path.isdir(paths_or_dir):
-            return sorted(os.path.join(paths_or_dir, n)
-                          for n in os.listdir(paths_or_dir)
-                          if n.endswith(".json"))
-        return [os.fspath(paths_or_dir)]
-    return [os.fspath(p) for p in paths_or_dir]
+        paths_or_dir = [paths_or_dir]
+    out = []
+    for p in map(os.fspath, paths_or_dir):
+        if os.path.isdir(p):
+            out += sorted(os.path.join(p, n) for n in os.listdir(p)
+                          if n.endswith(".json") or (
+                              n.startswith("blackbox-")
+                              and n.endswith(".jsonl")))
+        else:
+            out.append(p)
+    return out
+
+
+def _dumps(path):
+    """The (header, events) dumps of one file: a black-box JSONL file
+    holds one a fault, a :func:`write_dump` file one."""
+    if path.endswith(".jsonl"):
+        from horovod_tpu_torch.telemetry import postmortem
+
+        return [(d["header"], d["events"])
+                for d in postmortem.load_blackbox(path)]
+    with open(path) as f:
+        dump = json.load(f)
+    return [(dump["header"], dump["events"])]
 
 
 def _request_transitions(paths_or_dir):
     """Every ``request`` event of the dumps on one wall axis, tagged
-    with its source rank: ``[(wall_us, seq, rank, phase, rid, aux)]``."""
+    with its source rank: ``[(wall_us, seq, rank, phase, rid, aux)]``;
+    an event in several dumps of one file (a process dumps its ring at
+    every fault) once."""
     out = []
     for path in _dump_paths(paths_or_dir):
-        with open(path) as f:
-            dump = json.load(f)
-        hdr = dump["header"]
-        for ev in dump["events"]:
-            wall = ev["ts_us"] - hdr["steady_us"] + hdr["unix_us"]
-            out.append((wall, ev["seq"], hdr["rank"], ev["phase_name"],
-                        ev["rid"], ev.get("aux", 0)))
+        seen = set()
+        for hdr, evs in _dumps(path):
+            rank = hdr.get("rank", -1)
+            for ev in evs:
+                if ev.get("type", "request") != "request" \
+                        or ev.get("seq") in seen:
+                    continue
+                seen.add(ev.get("seq"))
+                phase = ev.get("phase_name")
+                if phase is None:
+                    pid = ev.get("phase", -1)
+                    phase = (REQUEST_PHASES[pid]
+                             if 0 <= pid < len(REQUEST_PHASES)
+                             else "unknown")
+                wall = ev["ts_us"] - hdr["steady_us"] + hdr["unix_us"]
+                out.append((wall, ev.get("seq", 0), rank, phase,
+                            ev.get("rid"), ev.get("aux", 0)))
     return out
 
 
@@ -208,3 +244,105 @@ def chain_gaps(chain):
     if total != chain["wall_us"]:
         defects.append(("sum", chain["start_us"], chain["wall_us"] - total))
     return defects
+
+
+# The package's name for :func:`stitch` (``telemetry.stitch_requests``).
+stitch_requests = stitch
+
+
+# ---- tail-latency attribution -----------------------------------------
+
+
+def tail_report(chains, pct=99.0):
+    """Which phases own the slow requests' wall time. Returns
+    ``{"requests", "complete", "pct", "threshold_ms",
+    "population_phase_share", "cohort_phase_share", "cohort":
+    [{"rid", "wall_ms", "dominant_phase", "phases_ms", "ranks"}],
+    "incomplete"}``: the cohort is every complete chain at or above the
+    ``pct``-th percentile of the complete chains' wall time, slowest
+    first; a share is phase time over wall time of its set (they sum to
+    1, the chains being gap-free)."""
+    import numpy as np
+
+    complete = [c for c in chains.values() if c["complete"]]
+    incomplete = sorted(c["rid"] for c in chains.values()
+                        if not c["complete"])
+    if not complete:
+        return {"requests": len(chains), "complete": 0, "pct": pct,
+                "threshold_ms": 0.0, "population_phase_share": {},
+                "cohort_phase_share": {}, "cohort": [],
+                "incomplete": incomplete}
+    walls = np.asarray([c["wall_us"] for c in complete], np.float64)
+    threshold = float(np.percentile(walls, pct))
+    cohort = sorted((c for c in complete if c["wall_us"] >= threshold),
+                    key=lambda c: -c["wall_us"])
+
+    def shares(cs):
+        total = sum(c["wall_us"] for c in cs)
+        if total <= 0:
+            return {}
+        acc = defaultdict(int)
+        for c in cs:
+            for ph, us in c["phase_us"].items():
+                acc[ph] += us
+        return {ph: round(us / total, 6)
+                for ph, us in sorted(acc.items())}
+
+    rows = []
+    for c in cohort:
+        dominant = max(c["phase_us"], key=c["phase_us"].get) \
+            if c["phase_us"] else "-"
+        rows.append({
+            "rid": c["rid"],
+            "wall_ms": round(c["wall_us"] / 1000.0, 3),
+            "dominant_phase": dominant,
+            "phases_ms": {ph: round(us / 1000.0, 3)
+                          for ph, us in sorted(c["phase_us"].items())},
+            "ranks": c["ranks"],
+        })
+    return {
+        "requests": len(chains),
+        "complete": len(complete),
+        "pct": pct,
+        "threshold_ms": round(threshold / 1000.0, 3),
+        "population_phase_share": shares(complete),
+        "cohort_phase_share": shares(cohort),
+        "cohort": rows,
+        "incomplete": incomplete,
+    }
+
+
+def format_requests(report, max_rows=20):
+    """The operator's rendering of :func:`tail_report`: the headline
+    names where the slow band's time goes."""
+    lines = []
+    cs = report["cohort_phase_share"]
+    if cs:
+        worst = max(cs, key=cs.get)
+        lines.append(
+            f"p{report['pct']:g} cohort ({len(report['cohort'])} of "
+            f"{report['complete']} requests, >= "
+            f"{report['threshold_ms']:.1f} ms): spends "
+            f"{cs[worst]:.0%} in {worst}")
+    else:
+        lines.append("no complete request chains")
+    ps = report["population_phase_share"]
+    if ps:
+        lines.append("population: " + "  ".join(
+            f"{ph} {frac:.0%}" for ph, frac in
+            sorted(ps.items(), key=lambda kv: -kv[1])))
+    lines.append(f"{'rid':>8} {'wall ms':>10} {'dominant':>16} "
+                 f"{'share':>6}  phases")
+    for row in report["cohort"][:max_rows]:
+        dom_ms = row["phases_ms"].get(row["dominant_phase"], 0.0)
+        share = dom_ms / row["wall_ms"] if row["wall_ms"] else 0.0
+        detail = " ".join(f"{ph}={ms:.1f}" for ph, ms in
+                          sorted(row["phases_ms"].items(),
+                                 key=lambda kv: -kv[1])[:4])
+        lines.append(f"{row['rid']:>8} {row['wall_ms']:>10.1f} "
+                     f"{row['dominant_phase']:>16} {share:>6.0%}  "
+                     f"{detail}")
+    if report["incomplete"]:
+        lines.append(f"incomplete (no terminal done): "
+                     f"{report['incomplete']}")
+    return "\n".join(lines)

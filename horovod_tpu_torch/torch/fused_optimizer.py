@@ -11,11 +11,16 @@ place and returns them, as ``parallel.precision``'s do (the port's
 counterpart of JAX's donation).
 
 Each completed apply marks a step boundary on the lane's step marks
-(``basics.step_mark``), deferring to a step another caller opened. JAX's
-``_mark_optimizer_step`` also defers to the owner of a ``StepTimer``
-window; the port has no ``StepTimer`` (ROADMAP.md A12), so only the
-open step's id decides. ``DistributedGradientTransformation`` (an optax
-wrapper) is not ported: the port has no optax.
+(``telemetry.core.step_mark`` with ``owner="optimizer"``): window k runs
+from apply k to apply k + 1, one whole train step. It defers to a window
+another driver opened, by the window's owner first (a ``StepTimer``'s
+explicit scope) and then by its id (a caller that did not say who it
+is), as JAX's ``_mark_optimizer_step`` does: an id alone cannot tell the
+optimizer's own last window from a timer's window that carries the same
+id, and taking the timer's window mid-step would split the step's
+overlap ledger in two.
+``DistributedGradientTransformation`` (an optax wrapper) is not ported:
+the port has no optax.
 """
 
 import functools
@@ -34,6 +39,7 @@ from horovod_tpu_torch.parallel.zero import (
     shard_adam,
     zero_bucket_layout,
 )
+from horovod_tpu_torch.telemetry import core as tcore
 from horovod_tpu_torch.torch import mpi_ops
 from horovod_tpu_torch.torch.compression import Compression
 
@@ -42,12 +48,14 @@ _last_boundary_id = None
 
 def _mark_optimizer_step():
     """Close the step an earlier apply opened and open the next, unless
-    another caller's step is open."""
+    another driver's window is open."""
     global _last_boundary_id
-    open_id = basics.step_id()
+    if tcore.window_owner() not in (None, "optimizer"):
+        return   # an explicit scope (a StepTimer) owns the window
+    open_id = tcore.step_id()
     if open_id >= 0 and open_id != _last_boundary_id:
-        return
-    _last_boundary_id = basics.step_mark(True)
+        return   # a driver that did not say who it is opened it
+    _last_boundary_id = tcore.step_mark(True, owner="optimizer")
 
 
 def _boundary_marked(apply_fn):

@@ -216,7 +216,12 @@ def test_steady_state_rides_the_cache(two_ranks):
 
 
 def test_four_ranks_steady_state():
-    ref, port = run_both(_steady_only, 4)
+    # Every response one tensor (a fusion threshold of 0), on both lanes:
+    # at 4 ranks an element's sum order follows its offset in the fused
+    # buffer, and a lane cycle that a rank's six enqueues straddle under
+    # load cuts the fusion elsewhere on one lane than on the other.
+    ref, port = run_both(_steady_only, 4,
+                         env={"HOROVOD_FUSION_THRESHOLD": "0"})
     _held(ref, port, 4)
     assert port[0]["stats.steady"][0] == (STEPS - 1) * (NGRADS + 2)
 

@@ -10,14 +10,15 @@ timeline, between two step marks. Then:
 
 - ``metrics()`` has the reference's sections with the same fields, less
   the fields ``common/metrics.py`` omits until ROADMAP.md L8 (the
-  ``wire`` section's stripes, syscalls and overlap ledger, the elastic
+  ``wire`` section's stripes and syscalls, the elastic
   section's heals, retries and CRC errors, the ring, stripe, CRC and
   retry knobs); the knobs it has equal the reference's; the op counts
   and bytes per class, ``cache`` and
   ``fusion.fused_responses`` equal the reference's;
   ``metrics_reset()`` zeroes the counters;
 - every event type is one of the reference's (``csrc/events.cc``), with
-  the reference's argument names;
+  the reference's argument names (and the names it decodes: a phase's
+  ``phase_name``, a wire span's ``plane`` and ``channels``);
 - per tensor the timeline's sequence of states is the reference's, the
   collectives mapped ``RING_*`` -> ``GLOO_*`` (``ALLTOALL`` ->
   ``GLOO_ALLTOALL``); the port's file loads as JSON before
@@ -44,7 +45,7 @@ from tests.test_torch_hvd_ops import _compare, _keep
 
 REPO = Path(__file__).resolve().parent.parent
 # Each section's fields that wait for L8 (the reference's socket wire).
-OMITTED = {"wire": {"channels", "syscalls", "overlap"},
+OMITTED = {"wire": {"channels", "syscalls"},
            "elastic": {"heals", "retries", "crc_errors"},
            "knobs": {"ring_chunk_bytes", "wire_channels",
                      "wire_channels_established", "simd", "wire_timeout_ms",
@@ -218,7 +219,8 @@ def test_event_types_are_the_references(lanes):
                 "step_begin", "step_end", "wait"} <= got
         ref_keys = {e["type"]: set(e) for e in ref[rank]["events"]}
         for e in port[rank]["events"]:
-            assert set(e) - base - {"phase_name"} == specs[e["type"]], e
+            decoded = {"phase_name", "plane", "channels"}
+            assert set(e) - base - decoded == specs[e["type"]], e
             if e["type"] in ref_keys:
                 assert set(e) == ref_keys[e["type"]], (e, ref_keys)
     assert "phase" in {e["type"] for e in port[0]["events"]}

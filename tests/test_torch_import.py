@@ -55,6 +55,13 @@ def test_import_loads_no_jax_triton_or_reference_package():
         "import horovod_tpu_torch.parallel.ulysses\n"
         "import horovod_tpu_torch.torch\n"
         "import horovod_tpu_torch.telemetry.debug_server\n"
+        "import horovod_tpu_torch.telemetry\n"
+        "import horovod_tpu_torch.telemetry.report\n"
+        "import horovod_tpu_torch.telemetry.perfwatch\n"
+        "import horovod_tpu_torch.telemetry.predict\n"
+        "import horovod_tpu_torch.telemetry.smoke\n"
+        "import horovod_tpu_torch.telemetry.perf_smoke\n"
+        "import horovod_tpu_torch.telemetry.obs_smoke\n"
         "import horovod_tpu_torch.common.response_cache\n"
         "import horovod_tpu_torch.common.timeline\n"
         "import horovod_tpu_torch.torch.elastic\n"
@@ -133,6 +140,13 @@ def test_import_builds_nothing():
         "import horovod_tpu_torch.parallel.ulysses\n"
         "import horovod_tpu_torch.torch\n"
         "import horovod_tpu_torch.telemetry.debug_server\n"
+        "import horovod_tpu_torch.telemetry\n"
+        "import horovod_tpu_torch.telemetry.report\n"
+        "import horovod_tpu_torch.telemetry.perfwatch\n"
+        "import horovod_tpu_torch.telemetry.predict\n"
+        "import horovod_tpu_torch.telemetry.smoke\n"
+        "import horovod_tpu_torch.telemetry.perf_smoke\n"
+        "import horovod_tpu_torch.telemetry.obs_smoke\n"
         "import horovod_tpu_torch.common.response_cache\n"
         "import horovod_tpu_torch.common.timeline\n"
         "import horovod_tpu_torch.torch.elastic\n"

@@ -172,21 +172,39 @@ def _cross_plane_worker(rank, size, jparams, batch, steps):
     return losses, [_np(p) for p in _leaves(carry[0])]
 
 
-# ZeRO-1's cross-plane split (inter_axis, A9b) raised here before; now
-# it runs, and only telemetry= still raises.
+# ZeRO-1's cross-plane split (inter_axis, A9b) and telemetry= (a
+# StepTimer, A12) raised here before; now both run.
 @pytest.mark.parametrize("kw,item", [
     ({"zero": ZeroConfig(size=1, inter_axis="slice", inter_size=2)}, "A9"),
-    ({"telemetry": object()}, "A12")])
+    ({"telemetry": "StepTimer"}, "A12")])
 def test_unported_arguments_raise(kw, item):
-    """``telemetry=`` raises naming A12. ``zero=`` with the cross-plane
-    split runs: on two real ranks (two planes of one), three steps equal
-    JAX's ZeRO steps split over two emulated planes (the same config:
-    the shard summed over both, the mean folded as 1/2) on the same
-    gradients, on both ranks."""
+    """``telemetry=`` runs: three steps under a ``StepTimer`` count the
+    first step's FLOPs and give the losses and params of the same steps
+    without it, bit for bit. ``zero=`` with the cross-plane split runs:
+    on two real ranks (two planes of one), three steps equal JAX's ZeRO
+    steps split over two emulated planes (the same config: the shard
+    summed over both, the mean folded as 1/2) on the same gradients, on
+    both ranks."""
     if item == "A12":
-        with pytest.raises(NotImplementedError, match=item):
-            make_split_train_step(lambda p, d: 0.0,
-                                  precision.fused_adam(LR), **kw)
+        from horovod_tpu_torch.telemetry import StepTimer
+
+        jc, tc, jparams, batch = _setup()
+        timer = StepTimer()
+        runs = []
+        for telemetry in (timer, None):
+            ts = make_split_train_step(
+                lambda p, d: tl.llama_loss(p, d, tc, device="cpu"),
+                precision.fused_adam(LR), telemetry=telemetry)
+            carry = ts.init(_port(jparams))
+            losses = []
+            for _ in range(3):
+                loss, carry = ts.step(carry, _port_batch(batch))
+                losses.append(float(loss))
+            runs.append((losses, [_np(p) for p in _leaves(carry[0])]))
+        assert timer.steps == 3 and timer.flops_per_step > 0
+        assert runs[0][0] == runs[1][0]
+        for a, b in zip(runs[0][1], runs[1][1], strict=True):
+            np.testing.assert_array_equal(a, b)
         return
     from horovod_tpu.parallel import ZeroConfig as JZeroConfig
 

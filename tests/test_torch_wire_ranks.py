@@ -108,7 +108,9 @@ def _every_hop(lane, rank, size, pset):
         before = lane.wire()
         lane.allreduce(_inputs(EVEN, rank, 13), p + "w", pset=pset)
         after = lane.wire()
-        out[c + "wire"] = {k: after[k] - before[k] for k in after}
+        # The counters; the overlap ledger (a dict) is not a byte count.
+        out[c + "wire"] = {k: after[k] - before[k] for k in after
+                           if not isinstance(after[k], dict)}
     return out
 
 
