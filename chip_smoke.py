@@ -19,8 +19,9 @@ loop (with a killed decode rank) and ZeRO's re-layout, the pipeline
 schedules replayed on one card at Llama-3-8B's width and the remat modes
 dots, attn+ffn and attn+gate+qkv, and the flagship's training
 checkpointed in flight and resumed (with the master-weights variants),
-and the flagship's step under the ``StepTimer`` with the telemetry
-readers over what it wrote, in phases; any failed phase exits
+the flagship's step under the ``StepTimer`` with the telemetry readers
+over what it wrote, and the fleet ledger, SLO engine and autoscaler
+beside its training and serving, in phases; any failed phase exits
 non-zero before the result line. ``python3 chip_smoke.py
 --launched-worker static|elastic DIR`` is one rank of that job, and
 ``--serve-worker f32|bf16 DIR`` one rank of phase 27's serving drill.
@@ -366,7 +367,19 @@ non-zero before the result line. ``python3 chip_smoke.py
    exits 0; the timeline merged by ``report.merge``; a
    ``write_event_dump`` of the phase read back by ``critical_path``
    with one window a step.
-31. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
+31. The fleet (``telemetry/{fleet,slo,autoscale}.py``): (a) the same
+   flagship step under ``StepTimer`` (6 steps) with the lane and its
+   debug server up, ``/fleet`` polled (a ``FleetObservatory`` over the
+   one rank) and an observe-only ``Autoscaler`` stepped between steps:
+   the live rank-seconds ledger sums to its window to the microsecond
+   with ``unattributed`` under 1%, ``compute`` its dominant phase,
+   ``/healthz``'s ``fleet_utilization`` the last poll's; its ms a step
+   beside the same step with the lane shut; (b) the flagship served by
+   ``ServingLoop`` at one rank (8 requests, int8 KV; K1 in prefill)
+   judged against ``serving_p99_ms < 1``: the breach names rank 0 and a
+   serving bucket, is recorded on the ring, and ``report --fleet`` over
+   a live dump shows it once; the serving buckets are non-zero.
+32. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
    launches, K1-K3's offsets rows with phase 17's launches, the six
    codec kernels with phase 20 (b)'s, and the Adam kernel's two
    variants with the train paths' launches), the card line, and the
@@ -6317,6 +6330,239 @@ def run_telemetry_phase(torch, ctr, llama, precision, train_step,
         scraper_rows=len(rows), seconds=secs)
 
 
+# ---- phase 31: the fleet ledger, the SLO engine and the autoscaler ---------
+
+
+def reconciled(ledger, what):
+    """Check that a rank-seconds ledger's buckets sum to its window to the
+    microsecond, with ``unattributed`` under 1% of it."""
+    b, w = ledger["buckets"], ledger["window_us"]
+    check(w > 0 and sum(b.values()) == w and b["unattributed"] < 0.01 * w,
+          f"phase 31: {what} ledger does not reconcile: {ledger}")
+
+
+def fleet_train(torch, ctr, llama, precision, train_step, cfg, card, fleet,
+                autoscale, batch=4, seq=2048, steps=6):
+    """(a) The flagship's split step under ``StepTimer`` with the lane and
+    its debug server up, ``/fleet`` polled and an observe-only
+    ``Autoscaler`` stepped between steps; then the same step with the lane
+    shut."""
+    import urllib.request
+
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch import telemetry
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.parallel._tree import tree_leaves
+
+    params = llama.llama_init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    n_leaves = len(tree_leaves(params))
+    rng = np.random.default_rng(31)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        batch, seq)).astype(np.int32)).cuda()
+    data = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+
+    def loss_fn(p, d):
+        return llama.llama_loss(p, d, cfg)
+
+    os.environ["HOROVOD_DEBUG_PORT"] = "0"
+    hvd.init()
+    views, decisions, step_s, alone_s, losses = [], [], [], [], []
+    try:
+        telemetry.step_mark(False)
+        first_seq = max((e["seq"] for e in telemetry.events()), default=-1)
+        fleet.reset_observatory()
+        obs = fleet.maybe_observatory(basics)
+        obs.endpoints = {0: f"127.0.0.1:{hvd.debug_port()}"}
+        scaler = autoscale.Autoscaler()
+        timer = telemetry.StepTimer()
+        ts = train_step.make_split_train_step(
+            loss_fn, precision.fused_adam(3e-4), telemetry=timer)
+        plain = train_step.make_split_train_step(
+            loss_fn, precision.fused_adam(3e-4))
+        carry = ts.init(params)
+        del params
+        reset_counts(ctr)
+        for i in range(steps):
+            t0 = time.perf_counter()
+            loss, carry = ts.step(carry, data)
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - t0)
+            if i == steps - 1:
+                break   # nothing after the last window: it closes the ledger
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{hvd.debug_port()}/fleet",
+                    timeout=60) as r:
+                views.append(json.loads(r.read().decode()))
+            decisions.append(scaler.step())
+        evs = [e for e in telemetry.events() if e["seq"] > first_seq]
+        ledger = fleet.ledger_from_events(evs, rank=0)
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{hvd.debug_port()}/healthz",
+                timeout=30) as r:
+            health = json.loads(r.read().decode())
+        hvd.shutdown()
+        for _ in range(steps - 1):
+            t0 = time.perf_counter()
+            _, carry = plain.step(carry, data)
+            torch.cuda.synchronize()
+            alone_s.append(time.perf_counter() - t0)
+        launched = counts(ctr)
+    finally:
+        hvd.shutdown()
+        fleet.reset_observatory()
+    del carry
+    runs = 2 * steps - 1
+    check_wgmma_routes(ctr, "fleet train step")
+    check_adam(ctr, "fleet train step", n_leaves, runs)
+    for k in ("K1", "K2", "K3"):
+        check(launched[k] == cfg.n_layers * runs,
+              f"phase 31: {k} launched {launched[k]} times in {runs} steps, "
+              f"expected {cfg.n_layers} a step")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"phase 31: losses {losses}")
+    reconciled(ledger, "the live train")
+    check(fleet.dominant_phase(ledger) == "compute",
+          f"phase 31: the train step's dominant phase is "
+          f"{fleet.dominant_phase(ledger)!r}: {ledger['buckets']}")
+    for view in views:
+        check((view["size"], view["reachable"]) == (1, 1),
+              f"phase 31: /fleet {view}")
+        reconciled(view["ranks"]["0"]["ledger"], "/fleet's")
+    last = views[-1]["fleet"]
+    check(health["fleet_utilization"] == last["utilization"] > 0,
+          f"phase 31: /healthz {health} against /fleet {last}")
+    check(len(decisions) == steps - 1 and all(
+        d.action in ("up", "down", "hold") for d in decisions),
+        f"phase 31: the observe-only autoscaler decided {decisions}")
+    polled_ms = 1e3 * sum(step_s[1:]) / (steps - 1)
+    alone_ms = 1e3 * sum(alone_s) / len(alone_s)
+    b = ledger["buckets"]
+    log(f"  (a) {steps} flagship steps B{batch} T{seq} under StepTimer with "
+        f"/fleet polled and the autoscaler stepped between them: "
+        f"{polled_ms:.2f} ms a step (the counted first step "
+        f"{step_s[0] * 1e3:.1f} ms, dropped); the same step with the lane "
+        f"shut {alone_ms:.2f} ms; ledger window {ledger['window_us']} us: "
+        f"{b}, utilization {ledger['utilization']}; /fleet utilization "
+        f"{last['utilization']}, /healthz slo_breaches "
+        f"{health['slo_breaches']}; decisions "
+        f"{[d.reason for d in decisions]}; losses "
+        f"{[round(x, 4) for x in losses]}; launches {launched}; card {card}")
+    return launched, dict(
+        ms_polled=polled_ms, ms_lane_shut=alone_ms,
+        counted_step_ms=step_s[0] * 1e3, ledger=ledger,
+        fleet_utilization=last["utilization"],
+        healthz={k: health[k] for k in (
+            "slo_breaches", "fleet_utilization",
+            "rank_seconds_unattributed_share", "step_time_ewma_ms")},
+        decisions=[d.action for d in decisions])
+
+
+def fleet_serving(torch, ctr, llama_init, poisson_trace, cfg, card, fleet,
+                  slo, n=8):
+    """(b) The flagship served by ``ServingLoop`` at one rank, int8 KV,
+    judged against a deliberately tight ``serving_p99_ms < 1``: the breach
+    is recorded on the ring, a live dump written, and ``report --fleet``
+    shows it once."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from horovod_tpu_torch import telemetry
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.serving.service import ServingLoop
+    from horovod_tpu_torch.telemetry import critpath, report
+
+    params = llama_init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    trace = serving_trace(poisson_trace, cfg, n=n)
+    ServingLoop(params, cfg, trace[:2], quantized=True, device="cuda",
+                **SERVE_LOOP).run()
+    torch.cuda.synchronize()
+    first_seq = max((e["seq"] for e in telemetry.events()), default=-1)
+    reset_counts(ctr)
+    loop = ServingLoop(params, cfg, trace, quantized=True, device="cuda",
+                       **SERVE_LOOP)
+    t0 = time.perf_counter()
+    rep = loop.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts(ctr)
+    del params, loop
+    check_wgmma_routes(ctr, "fleet ServingLoop")
+    check(rep["served"] == n and launched["K1"] > 0,
+          f"phase 31: served {rep['served']} of {n}, launches {launched}")
+    evs = [e for e in telemetry.events() if e["seq"] > first_seq]
+    ledger = fleet.ledger_from_events(evs, rank=0)
+    b = ledger["buckets"]
+    check(sum(b.values()) == ledger["window_us"] > 0,
+          f"phase 31: the serving ledger {ledger}")
+    check(b["serving_prefill"] > 0 and b["serving_decode"] > 0,
+          f"phase 31: serving buckets {b}")
+    spec = "serving_p99_ms < 1"
+    engine = slo.SloEngine((spec,))
+    phase = fleet.dominant_phase(ledger)
+    breaches = engine.evaluate(
+        {0: {"serving_p99_ms": rep["p99_ms"], **fleet.ledger_signals(ledger)}},
+        {0: phase})
+    check([(x.objective, x.rank) for x in breaches] == [("serving_p99_ms", 0)]
+          and phase.startswith("serving_"),
+          f"phase 31: breaches {breaches}, dominant phase {phase!r}")
+    engine.record(basics, breaches)
+    tmp = tempfile.mkdtemp(prefix="hvd_fleet_")
+    try:
+        dump_dir = os.path.join(tmp, "dumps")
+        critpath.write_event_dump(
+            os.path.join(dump_dir, "blackbox-rank0.jsonl"), 0, 1,
+            [e for e in telemetry.events() if e["seq"] > first_seq])
+        analysis = fleet.analyze(dump_dir, objectives=spec)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = report.main(["--fleet", "--slo", spec, dump_dir])
+        text = out.getvalue()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    recorded = analysis["slo"]["breach_events"]
+    want = (f"  breach [serving_p99_ms] rank 0 value="
+            f"{int(round(rep['p99_ms']))} phase={phase}")
+    check(rc == 0 and len(recorded) == 1
+          and "slo: 1 recorded breach event(s)" in text
+          and text.splitlines().count(want) == 1,
+          f"phase 31: report --fleet (rc {rc}) shows {recorded}:\n{text}")
+    log(f"  (b) ServingLoop (size 1) {n} requests, int8 KV: {wall:.3f} s, "
+        f"{rep['sustained_tok_s']} tok/s, p50 {rep['p50_ms']} ms, p99 "
+        f"{rep['p99_ms']} ms; ledger {ledger['window_us']} us: {b}; "
+        f"dominant {phase}; the breach as report --fleet prints it: "
+        f"{want.strip()}; launches {launched}; card {card}")
+    return launched, dict(wall_s=wall, tok_s=rep["sustained_tok_s"],
+                          p99_ms=rep["p99_ms"], ledger=ledger,
+                          dominant_phase=phase,
+                          breach=vars(breaches[0]))
+
+
+def run_fleet_phase(torch, ctr, llama, precision, train_step, LlamaConfig,
+                    llama_init, poisson_trace, card):
+    """Phase 31: the rank-seconds ledger, ``/fleet``, the SLO engine and
+    the autoscaler beside the flagship's training and serving."""
+    from horovod_tpu_torch.telemetry import autoscale, fleet, slo
+
+    t_phase = time.perf_counter()
+    cfg = flagship_config(LlamaConfig)
+    train_launch, train = fleet_train(torch, ctr, llama, precision,
+                                      train_step, cfg, card, fleet,
+                                      autoscale)
+    torch.cuda.empty_cache()
+    serve_launch, serve = fleet_serving(torch, ctr, llama_init,
+                                        poisson_trace, cfg, card, fleet, slo)
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    log(f"  phase 31: {secs:.1f} s")
+    return ({"fleet_train_step": train_launch,
+             "fleet_ServingLoop": serve_launch},
+            dict(train=train, serving=serve, seconds=secs, card=card))
+
+
 def main():
     import torch
 
@@ -6635,7 +6881,13 @@ def main():
         torch, ctr, llama, precision, train_step, LlamaConfig, card)
     torch.cuda.empty_cache()
 
-    log("phase 31: results")
+    log("phase 31: the rank-seconds ledger, /fleet, the SLO engine and the "
+        "autoscaler beside the flagship's split step and its ServingLoop")
+    fleet_paths, fleet_stats = run_fleet_phase(
+        torch, ctr, llama, precision, train_step, LlamaConfig, llama_init,
+        poisson_trace, card)
+
+    log("phase 32: results")
     log(f"  the smoke's wall time to here: "
         f"{time.perf_counter() - t_start:.1f} s; card {card}")
     log(json.dumps({"generate": gen_stats, "engine": eng_stats,
@@ -6654,7 +6906,7 @@ def main():
                     "mesh": mesh_stats, "shards": shard_stats,
                     "serving_loop": loop_stats, "pipeline": pipe_stats,
                     "checkpoint": ckpt_stats, "telemetry": tel_stats,
-                    "card": card}))
+                    "fleet": fleet_stats, "card": card}))
     paths = {"llama_generate": gen_launch, "DecodeEngine": eng_launch,
              "train_step": train_launch, "moe_train_step": moe_train_launch,
              "moe_llama_generate": moe_gen_launch,
@@ -6664,7 +6916,7 @@ def main():
              "elastic_bert_train": elastic_launch,
              "zero_train_step": zero_launch, **mesh_paths, **shard_paths,
              "ServingLoop": loop_launch, **pipe_paths, **ckpt_paths,
-             **tel_paths}
+             **tel_paths, **fleet_paths}
     bert_bias = {k: bert_train_stats["bias_launches"][k]
                  + (bert_fwd_launch[k] if k == "K1" else 0)
                  + elastic["bias_launches"][k]

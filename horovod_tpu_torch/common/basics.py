@@ -47,7 +47,8 @@ the world too, the autotuner's grid.
 
 The lane's instruments are read here: :func:`metrics` (the registry's
 snapshot), :func:`metrics_reset`, :func:`events` and
-:func:`events_drain` (the event ring), :func:`start_timeline` and
+:func:`events_drain` (the event ring; :func:`record_slo` writes an SLO
+breach into it), :func:`start_timeline` and
 :func:`stop_timeline`, :func:`step_mark`, :func:`debug_port` and
 :func:`response_cache_stats`.
 
@@ -519,9 +520,7 @@ def _close(lane):
     if rt.param_manager is not None:
         rt.param_manager.close()
     if not ended:
-        hops = [s for pair in plane.hier_groups.values() for s in pair]
-        _abort_all([s.groups["cuda"] for s in list(rt.sets.values()) + hops
-                    if "cuda" in s.groups])
+        rt.abort_cuda()
     # Drop the lane's references: a gloo context closes its sockets when
     # its last one goes, which ends a peer's collective waiting on it.
     rt.sets.clear()
@@ -529,24 +528,6 @@ def _close(lane):
     rt.control.group = None
     dist.destroy_process_group()
     REGISTRY.record_phase("shutdown", now_us() - t0)
-
-
-def _abort_all(groups):
-    """Abort NCCL communicators at once, one thread each: a collective a
-    lost peer left hung holds the lane's stream, and one communicator's
-    abort can wait on that stream until the hung one's is aborted too."""
-    def abort(pg):
-        try:
-            pg.abort()
-        except Exception as e:  # noqa: BLE001 — best effort
-            print(f"hvd-torch: NCCL abort failed: {e}", file=sys.stderr)
-
-    threads = [threading.Thread(target=abort, args=(pg,), daemon=True)
-               for pg in groups]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
 
 
 def shutdown():
@@ -891,6 +872,18 @@ def events(last_n=0):
 def events_drain():
     """Every event recorded since the last drain, consumed."""
     return _events.drain()
+
+
+def record_slo(objective, breach_rank, value, bucket=-1):
+    """Record one SLO breach (a ``slo_breach`` event): ``objective``
+    indexes ``telemetry/slo.py OBJECTIVES``, ``breach_rank`` is the
+    breaching rank, ``value`` the observed measurement (integral: ms, or
+    permille for a ratio objective), ``bucket`` the rank's dominant
+    rank-seconds bucket (an index into ``telemetry/fleet.py BUCKETS``,
+    -1 unknown). ``SloEngine.record`` calls it. Valid before
+    ``init()``: the ring is the process's."""
+    _events.record("slo_breach", int(objective), int(breach_rank),
+                   int(value), int(bucket))
 
 
 _step = dict(open=-1, count=0)

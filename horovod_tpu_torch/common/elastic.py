@@ -522,6 +522,7 @@ class State:
     def commit(self):
         """Snapshot to host memory, then surface a pending topology
         change as ``HostsUpdatedInterrupt``."""
+        settle_card()
         self.save()
         self.check_host_updates()
 
@@ -610,6 +611,21 @@ def _is_internal_error(exc):
             return True
         exc = exc.__cause__
     return False
+
+
+def settle_card():
+    """Before a commit overwrites the last one: on a lane on the card,
+    wait for the work queued there, and raise the lane's error if it
+    failed meanwhile. NCCL queues a collective whatever its peers do, so
+    one a lost peer never joined ends only when the failed lane aborts
+    it, its outputs unwritten: committing them would replace the last
+    good state."""
+    card = basics.device()
+    if card is None:
+        return
+    torch.cuda.synchronize(card)
+    if basics.loop_failed():
+        raise basics.lane()._later_error("a commit")
 
 
 def run_fn(func):

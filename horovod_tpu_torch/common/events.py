@@ -34,7 +34,13 @@ steady clock in microseconds. The lane records these types:
 - ``knob_adopt`` (knob, value): a knob the autotuner moved, on the
   coordinator when it moves it and on a worker when it adopts it;
   ``knob`` 0 is the fusion threshold (bytes), 1 the cycle time (value
-  in microseconds), 3 the wire codec (0-2) and 4 the hierarchy split.
+  in microseconds), 3 the wire codec (0-2) and 4 the hierarchy split;
+- ``slo_breach`` (objective, breach_rank, value, phase, and the decoded
+  ``objective_name`` and ``phase_name``): an SLO breach the engine
+  recorded (``telemetry/slo.py SloEngine.record``); ``objective``
+  indexes :data:`SLO_OBJECTIVES`, ``phase`` :data:`RANK_BUCKETS` (-1,
+  printed ``unknown``: no ledger rode along), ``value`` is rounded ms,
+  or permille for a ratio objective.
 
 :func:`peek` reads without consuming; :func:`drain` consumes what was
 recorded since the last drain. Both see at most the newest 8192.
@@ -80,6 +86,7 @@ SPECS = {
     "knob_adopt": ("knob", "", "value", ""),
     "inject": ("action", "", "op_index", ""),
     "request": ("phase", "", "rid", "aux"),
+    "slo_breach": ("objective", "breach_rank", "value", "phase"),
 }
 # The reference's control-phase order (csrc/metrics.h ControlPhase), then
 # the port's own: the lane's teardown (``shutdown()``, or the old lane's
@@ -93,6 +100,21 @@ CONTROL_PHASES = ("rendezvous", "gather", "broadcast", "probe_sweep",
 REQUEST_PHASES = ("queued", "prefill", "kv_ship", "decode_wait",
                   "decode_active", "evicted_requeue", "fault_requeue",
                   "done")
+
+
+# The SLO objectives in the reference's order (csrc/events.h
+# SloObjective, kSloObjectiveNames): ``telemetry/slo.py OBJECTIVES``.
+SLO_OBJECTIVES = ("serving_p99_ms", "step_time_ewma_ms",
+                  "overlap_efficiency", "queued_idle_share", "stall_ms")
+# The rank-seconds ledger's buckets in the reference's order
+# (csrc/events.cc kRankBucketNames): ``telemetry/fleet.py BUCKETS``.
+RANK_BUCKETS = ("compute", "exposed_wire", "negotiation", "serving_prefill",
+                "serving_decode", "serving_queued", "stall", "idle",
+                "unattributed")
+
+
+def _name(table, index):
+    return table[index] if 0 <= index < len(table) else "unknown"
 
 
 class EventRing:
@@ -147,6 +169,9 @@ def _as_dict(event):
         out["phase_name"] = CONTROL_PHASES[args[0]]
     elif type == "request":
         out["phase_name"] = REQUEST_PHASES[args[0]]
+    elif type == "slo_breach":
+        out["objective_name"] = _name(SLO_OBJECTIVES, args[0])
+        out["phase_name"] = _name(RANK_BUCKETS, args[3])
     return out
 
 

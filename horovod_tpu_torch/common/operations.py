@@ -163,6 +163,24 @@ def parse_fault_spec(spec):
     return rank, op, action, param
 
 
+def abort_all(groups):
+    """Abort NCCL communicators at once, one thread each: a collective a
+    lost peer left hung holds the lane's stream, and one communicator's
+    abort can wait on that stream until the hung one's is aborted too."""
+    def abort(pg):
+        try:
+            pg.abort()
+        except Exception as e:  # noqa: BLE001 — best effort
+            print(f"hvd-torch: NCCL abort failed: {e}", file=sys.stderr)
+
+    threads = [threading.Thread(target=abort, args=(pg,), daemon=True)
+               for pg in groups]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+
+
 # The watcher's poll of the store, and how long rank 0 waits for the
 # survivors to check in: a live rank's watcher is at most one poll (and
 # a store round trip) late, so the window only ever delays a real death.
@@ -342,6 +360,7 @@ class Runtime:
         self._store = store if size > 1 else None
         self._error = None          # what every handle then raises
         self._fault_lock = threading.Lock()
+        self._cuda_aborted = False
         self._op_counter = 0        # executed responses, for the trigger
         self._executing = []        # the entries of the running response
         self._op_start_us = now_us()
@@ -589,11 +608,27 @@ class Runtime:
             else:
                 self._error = HorovodInternalError(
                     f"collective runtime failed: {reason}")
+        # An NCCL collective is queued whatever its peers do: one a lost
+        # peer never joins holds the lane's stream, and with it every wait
+        # on the card (a commit's copy to the host), until aborted.
+        self.abort_cuda()
         self.queue.close(self._error)
         for e in list(self._executing):
             if e.handle is not None:
                 e.handle.fail(self._error)
         return self._error
+
+    def abort_cuda(self):
+        """Abort the lane's NCCL communicators, its sets' and its
+        hierarchy's slices' and crosses', once (any thread)."""
+        with self._fault_lock:
+            if self._cuda_aborted:
+                return
+            self._cuda_aborted = True
+        hops = [s for pair in self.data_plane.hier_groups.values()
+                for s in pair]
+        abort_all([s.groups["cuda"] for s in list(self.sets.values()) + hops
+                   if "cuda" in s.groups])
 
     def _peer_error(self, message):
         f = self.fault

@@ -1,15 +1,15 @@
 """The port's telemetry: the lane's live endpoints and the offline
 readers of what a run wrote.
 
-The port's own copy of ``horovod_tpu/telemetry/``, less ROADMAP.md A12b
-(the fleet observatory, the SLO engine, the autoscaler, hvdlint's
-``predict.collective_bytes``):
+The port's own copy of ``horovod_tpu/telemetry/``, less hvdlint's
+``predict.collective_bytes`` (ROADMAP.md A12b's second item):
 
 1. **Counters** (``core.py``): the lane's registry and event ring
    (``hvd.metrics()``, ``hvd.events()``) as the readers take them;
    :class:`MetricsScraper` (``exporters.py``) records them as JSONL, a
    Prometheus textfile or a console table; ``debug_server.py`` serves
-   ``/healthz``, ``/metrics``, ``/events``, ``/requests`` and ``/stacks``.
+   ``/healthz``, ``/metrics``, ``/events``, ``/requests``, ``/stacks``
+   and ``/fleet``.
 2. **Step accounting** (``step_timer.py``): :class:`StepTimer` turns a
    step's wall time into MFU (FLOPs counted by ``torch.utils.flop_counter``'s formulas) and
    wire goodput, and reconciles its bytes with ``predict.py``; the
@@ -22,8 +22,15 @@ The port's own copy of ``horovod_tpu/telemetry/``, less ROADMAP.md A12b
    latency band by phase (``--requests``, ``reqtrace.py``);
    ``python -m horovod_tpu_torch.telemetry.perfwatch`` gates on a
    regression in scraper or bench rows.
-4. **Smokes**: ``smoke.py``, ``perf_smoke.py`` and ``obs_smoke.py``, two
-   gloo ranks each.
+4. **The fleet**: ``fleet.py`` decomposes each rank's wall time into
+   rank-seconds buckets that sum to its window to the microsecond
+   (``report --fleet``, and live at ``/fleet`` through
+   :class:`FleetObservatory`); ``slo.py`` judges declared objectives per
+   rank and records each breach as a ``slo_breach`` event;
+   ``autoscale.py`` turns the signals into grow and shrink decisions
+   (:class:`AutoscalePolicy`, :class:`Autoscaler`).
+5. **Smokes**: ``smoke.py``, ``perf_smoke.py``, ``obs_smoke.py`` and
+   ``fleet_smoke.py``, two ranks each.
 """
 
 from horovod_tpu_torch.telemetry.core import (  # noqa: F401

@@ -11,23 +11,31 @@ daemon thread of stdlib ``http.server``, and serves:
   queue depth, its cycles, the straggler skew, ``pending_rejoiners``
   (the joiners held at rank 0's parole door; 0 elsewhere),
   ``step_time_ewma_ms`` (``telemetry/step_timer.py``; 0.0 before any
-  step) and the serving fields (``telemetry/autoscale.py SERVING_SIGNAL_DEFAULTS``,
-  live while a ``serving.service.ServingLoop`` runs);
+  step), the overlap ledger's ``overlap_efficiency`` and
+  ``exposed_wire_ms``, the serving fields
+  (``telemetry/autoscale.py SERVING_SIGNAL_DEFAULTS``, live while a
+  ``serving.service.ServingLoop`` runs) and the fleet fields
+  ``slo_breaches``, ``fleet_utilization`` and
+  ``rank_seconds_unattributed_share`` (``autoscale.py
+  read_fleet_signals``: zeros until this process's observatory polled);
 - ``/metrics``: the Prometheus text of a fresh snapshot
   (``exporters._flatten_prom``);
 - ``/events?n=``: the newest n events of the ring (default 256);
 - ``/requests?n=``: the in-flight serving requests, oldest first, each
   with its phase and ages (``telemetry/reqtrace.py live_requests``;
   default 64, 0 for all);
-- ``/stacks``: every Python thread's stack (``faulthandler``).
-
-The reference's fleet fields and ``/fleet`` wait for ROADMAP.md A12b.
+- ``/stacks``: every Python thread's stack (``faulthandler``);
+- ``/fleet``: a fresh poll of every rank's ``/healthz`` and ``/events``
+  by this process's fleet observatory (``telemetry/fleet.py
+  maybe_observatory``): per-rank rank-seconds ledgers, the fleet's
+  utilization and the SLO breaches of the poll. The server is threaded,
+  so the poll of its own endpoints from inside the handler cannot
+  deadlock.
 """
 
 import faulthandler
 import json
 import os
-import sys
 import tempfile
 import threading
 import time
@@ -35,8 +43,12 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 from horovod_tpu_torch.common import basics
-from horovod_tpu_torch.telemetry import reqtrace
-from horovod_tpu_torch.telemetry.autoscale import read_serving_signals
+from horovod_tpu_torch.telemetry import fleet, reqtrace
+from horovod_tpu_torch.telemetry.autoscale import (
+    pending_rejoiners,
+    read_fleet_signals,
+    read_serving_signals,
+)
 from horovod_tpu_torch.telemetry.exporters import _flatten_prom
 from horovod_tpu_torch.telemetry.step_timer import step_time_ewma_ms
 
@@ -48,6 +60,7 @@ _start_time = None
 def _healthz():
     snap = basics.metrics()
     rt = basics.lane() if basics.is_initialized() else None
+    overlap = snap["wire"]["overlap"]
     return {
         "initialized": snap["initialized"],
         "rank": snap["rank"],
@@ -62,15 +75,12 @@ def _healthz():
         "straggler_skew_ms": round(
             snap["straggler"]["skew_us"]["p90_us"] / 1000.0, 3),
         "step_time_ewma_ms": round(step_time_ewma_ms(), 3),
-        "pending_rejoiners": _pending_rejoiners(),
+        "pending_rejoiners": pending_rejoiners(),
+        "overlap_efficiency": round(overlap["overlap_efficiency"], 6),
+        "exposed_wire_ms": round(overlap["exposed_wire_ms"], 3),
         **read_serving_signals(),
+        **read_fleet_signals(),
     }
-
-
-def _pending_rejoiners():
-    elastic = sys.modules.get("horovod_tpu_torch.common.elastic")
-    door = None if elastic is None else elastic._door
-    return 0 if door is None else door.pending_count()
 
 
 def _stacks():
@@ -118,11 +128,14 @@ class _Handler(BaseHTTPRequestHandler):
                 self._reply(200, json.dumps(reqtrace.live_requests(n)))
             elif url.path == "/stacks":
                 self._reply(200, _stacks(), ctype="text/plain")
+            elif url.path == "/fleet":
+                obs = fleet.maybe_observatory(basics)
+                self._reply(200, json.dumps(obs.fleet_json()))
             else:
                 self._reply(404, json.dumps({
                     "error": f"unknown path {url.path}",
                     "endpoints": ["/healthz", "/metrics", "/events",
-                                  "/requests", "/stacks"]}))
+                                  "/requests", "/stacks", "/fleet"]}))
         except Exception as e:  # noqa: BLE001 — keep the server alive
             try:
                 self._reply(500, json.dumps(

@@ -44,8 +44,8 @@ def _fold_slo_breaches(timeline):
     (source rank, ring seq): a process re-dumps its ring tail on every
     fault, so the same recorded breach can reach the merge several
     times — the verdict list must not multiply with the fault count.
-    Nothing in the port records ``slo_breach`` until ROADMAP.md A12b;
-    the fold reads them once something does."""
+    The port's ``telemetry/slo.py SloEngine.record`` writes them
+    (``common/basics.py record_slo``)."""
     seen = set()
     out = []
     for e in timeline:

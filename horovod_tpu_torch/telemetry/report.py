@@ -12,8 +12,11 @@ negotiation stragglers::
 The merge reads a timeline's ``CLOCK_SYNC`` and ``NEGOTIATE`` events
 alone and keeps every other event as it is, so the port's collective
 names (``NCCL_ALLREDUCE``, ``GLOO_BCAST``...) merge as the reference's
-``RING_*`` do. ``--fleet`` (the rank-seconds ledger and the SLO engine)
-waits for ROADMAP.md A12b.
+``RING_*`` do. ``--fleet`` reads per-rank event dumps instead (black-box
+or live ``critpath.write_event_dump`` files, or their directory) into
+each rank's rank-seconds ledger, the fleet's utilization table and the
+SLO verdicts (``telemetry/fleet.py analyze``; ``--slo`` replaces the
+default objectives).
 
 Clock alignment: per-rank timestamps are steady-clock-relative to each
 rank's own start. The ``CLOCK_SYNC`` header event carries each trace's t=0 as wall-clock unix microseconds, which puts
@@ -350,6 +353,19 @@ def main(argv=None):
                          "rank and phase (compute/negotiation/wire/"
                          "stall) that bounded it; -o writes the "
                          "analysis as JSON")
+    ap.add_argument("--fleet", action="store_true",
+                    help="positional args are per-rank event dumps (or "
+                         "their directory): decompose every rank's "
+                         "wall time into the rank-seconds buckets, "
+                         "render the fleet utilization table with "
+                         "worst-rank attribution, and report SLO "
+                         "breaches: both breach events recorded in the "
+                         "dumps and a re-evaluation of the ledger "
+                         "signals; -o writes the analysis as JSON")
+    ap.add_argument("--slo", default=None,
+                    help="with --fleet: ';'-separated SLO objectives "
+                         "to evaluate instead of the defaults (e.g. "
+                         "'stall_ms < 500; serving_p99_ms < 250')")
     args = ap.parse_args(argv)
 
     if args.requests:
@@ -372,6 +388,17 @@ def main(argv=None):
 
         analysis = critpath.critical_path(args.timelines)
         print(critpath.format_critical_path(analysis))
+        if args.output != "merged_timeline.json":
+            with open(args.output, "w") as f:
+                json.dump(analysis, f, indent=2)
+            print(f"wrote {args.output}")
+        return 0
+
+    if args.fleet:
+        from horovod_tpu_torch.telemetry import fleet
+
+        analysis = fleet.analyze(args.timelines, objectives=args.slo)
+        print(fleet.format_fleet(analysis))
         if args.output != "merged_timeline.json":
             with open(args.output, "w") as f:
                 json.dump(analysis, f, indent=2)

@@ -13,9 +13,12 @@ differs from the reference's: the ranks run the port's lane
 the timeline as ``GLOO_ALLREDUCE``; the merge must find them.
 
 :func:`run_workers` starts the ranks of this smoke and of
-``perf_smoke.py`` and ``obs_smoke.py``, as ``torch/reshard_smoke.py``
+``perf_smoke.py``, ``obs_smoke.py``, ``fleet_smoke.py`` and
+``torch/{zero,elastic,fusion}_smoke.py``, as ``torch/reshard_smoke.py``
 starts its ranks; a test runs :func:`worker` on its own ranks and hands
-their results to :func:`check`.
+their results to :func:`check`. :func:`pick_device` and
+:func:`open_lane` give the last four their ``--cpu`` rule: gloo on the
+CPU with it, else NCCL with a card a rank when enough cards are visible.
 """
 
 import json
@@ -29,6 +32,7 @@ STEPS = 6
 TENSORS = 4
 ELEMS = 1024  # float32
 RESULT = "SMOKE_RESULT "
+DEVICE_ENV = "HVD_TORCH_SMOKE_DEVICE"
 
 
 def _free_port():
@@ -117,9 +121,10 @@ def check(tmpdir, results, size=2):
 
 def run_workers(module, size, tmpdir, env=None, victims=(), timeout=180):
     """Run ``python -m <module> --worker`` as ranks ``0..size-1`` of one
-    gloo world (``tmpdir`` in ``HVD_TORCH_SMOKE_TMP``, ``env`` over the
-    layout); return the ranks' results, None for a rank in ``victims``,
-    which must die by SIGKILL. Prints every rank's output."""
+    world (``tmpdir`` in ``HVD_TORCH_SMOKE_TMP``, ``env`` over the
+    layout, a device in its ``DEVICE_ENV``); return the ranks' results,
+    None for a rank in ``victims``, which must die by SIGKILL. Prints
+    every rank's output."""
     port = _free_port()
     repo = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -162,13 +167,46 @@ def run_workers(module, size, tmpdir, env=None, victims=(), timeout=180):
 
 
 def worker_main(worker_fn):
-    """A ``--worker`` process: ``worker_fn`` on this rank, its result
-    printed for :func:`run_workers`."""
+    """A ``--worker`` process: ``worker_fn`` on this rank (with
+    ``device=`` when :func:`run_workers` was given one in
+    ``DEVICE_ENV``), its result printed for :func:`run_workers`."""
+    kwargs = ({"device": os.environ[DEVICE_ENV]}
+              if os.environ.get(DEVICE_ENV) else {})
     out = worker_fn(int(os.environ["HOROVOD_RANK"]),
                     int(os.environ["HOROVOD_SIZE"]),
-                    os.environ["HVD_TORCH_SMOKE_TMP"])
+                    os.environ["HVD_TORCH_SMOKE_TMP"], **kwargs)
     print(RESULT + json.dumps(out), flush=True)
     return 0
+
+
+def pick_device(argv, prog, size):
+    """``"cpu"`` under ``--cpu``; ``"cuda"`` when ``size`` cards are
+    visible (NCCL refuses two ranks on one card); else None, with the
+    reason on stderr."""
+    import torch
+
+    if "--cpu" in argv:
+        return "cpu"
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards >= size:
+        return "cuda"
+    print(f"{prog}: {cards} CUDA device(s) visible, {size} needed (use "
+          "--cpu for gloo)", file=sys.stderr)
+    return None
+
+
+def open_lane(hvd, device):
+    """``hvd.init`` on ``device`` (``"cpu"``: a gloo lane; ``"cuda"``:
+    this rank's card); returns the torch device its tensors live on."""
+    import torch
+
+    from horovod_tpu_torch.common import basics
+
+    if device == "cpu":
+        hvd.init(device="cpu")
+        return torch.device("cpu")
+    hvd.init()
+    return basics.device()
 
 
 def main(argv=None):

@@ -113,6 +113,7 @@ class _Durable(State):
             self._commit_step = self._ckpt_mgr.latest_step() or 0
 
     def commit(self):
+        _elastic.settle_card()
         self.save()
         if self._ckpt_mgr is not None:
             self._commit_step += 1
@@ -224,6 +225,7 @@ class TreeState(_Durable):
             setattr(self, k, _to_devices(v, self._devices.get(k)))
 
     def commit(self):
+        _elastic.settle_card()
         self.save()
         if self._ckpt_mgr is not None:
             self._commit_step += 1

@@ -62,6 +62,13 @@ def test_import_loads_no_jax_triton_or_reference_package():
         "import horovod_tpu_torch.telemetry.smoke\n"
         "import horovod_tpu_torch.telemetry.perf_smoke\n"
         "import horovod_tpu_torch.telemetry.obs_smoke\n"
+        "import horovod_tpu_torch.telemetry.fleet\n"
+        "import horovod_tpu_torch.telemetry.slo\n"
+        "import horovod_tpu_torch.telemetry.autoscale\n"
+        "import horovod_tpu_torch.telemetry.fleet_smoke\n"
+        "import horovod_tpu_torch.torch.zero_smoke\n"
+        "import horovod_tpu_torch.torch.elastic_smoke\n"
+        "import horovod_tpu_torch.torch.fusion_smoke\n"
         "import horovod_tpu_torch.common.response_cache\n"
         "import horovod_tpu_torch.common.timeline\n"
         "import horovod_tpu_torch.torch.elastic\n"
@@ -147,6 +154,13 @@ def test_import_builds_nothing():
         "import horovod_tpu_torch.telemetry.smoke\n"
         "import horovod_tpu_torch.telemetry.perf_smoke\n"
         "import horovod_tpu_torch.telemetry.obs_smoke\n"
+        "import horovod_tpu_torch.telemetry.fleet\n"
+        "import horovod_tpu_torch.telemetry.slo\n"
+        "import horovod_tpu_torch.telemetry.autoscale\n"
+        "import horovod_tpu_torch.telemetry.fleet_smoke\n"
+        "import horovod_tpu_torch.torch.zero_smoke\n"
+        "import horovod_tpu_torch.torch.elastic_smoke\n"
+        "import horovod_tpu_torch.torch.fusion_smoke\n"
         "import horovod_tpu_torch.common.response_cache\n"
         "import horovod_tpu_torch.common.timeline\n"
         "import horovod_tpu_torch.torch.elastic\n"
