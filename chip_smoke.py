@@ -20,11 +20,12 @@ schedules replayed on one card at Llama-3-8B's width and the remat modes
 dots, attn+ffn and attn+gate+qkv, and the flagship's training
 checkpointed in flight and resumed (with the master-weights variants),
 the flagship's step under the ``StepTimer`` with the telemetry readers
-over what it wrote, and the fleet ledger, SLO engine and autoscaler
-beside its training and serving, in phases; any failed phase exits
-non-zero before the result line. ``python3 chip_smoke.py
---launched-worker static|elastic DIR`` is one rank of that job, and
-``--serve-worker f32|bf16 DIR`` one rank of phase 27's serving drill.
+over what it wrote, the fleet ledger, SLO engine and autoscaler beside
+its training and serving, and hvdlint over its ZeRO step, in phases; any
+failed phase exits non-zero before the result line. ``python3
+chip_smoke.py --launched-worker static|elastic DIR`` is one rank of that
+job, ``--serve-worker f32|bf16 DIR`` one rank of phase 27's serving
+drill, and ``--lint-worker OUT`` phase 32's child.
 
 1. Card, power limit, torch/CUDA versions; kernel build time.
 2. Each kernel against its plain PyTorch version at the main paths'
@@ -379,7 +380,20 @@ non-zero before the result line. ``python3 chip_smoke.py
    judged against ``serving_p99_ms < 1``: the breach names rank 0 and a
    serving bucket, is recorded on the ring, and ``report --fleet`` over
    a live dump shows it once; the serving buckets are non-zero.
-32. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
+32. hvdlint (``analysis/``) over the dense flagship's split step with
+   ZeRO-1 (B4 x T2048 a rank, ``fused_adam(3e-4)``, the fused schedule)
+   in a ``fake`` ``data=8`` world, in a child process on ``cuda:0`` (the
+   fake world is its process's one ``torch.distributed`` world): ranks
+   0 and 7 recorded, both steps run on the card (K1-K3 L a step on
+   wgmma, the Adam kernel a ZeRO chunk a step); the step lints clean
+   (C6 pairs every reduce-scatter with its all-gather; C7 quiet: the
+   fused schedule starts the lm_head bucket's scatter inside the
+   backward, while a stacked layer leaf's bucket completes with layer
+   0's backward), the two ranks issue one sequence, and its bytes booked
+   as the lane books them equal ``predict.eager_zero_bytes``; the
+   collectives, each scatter's share of its program's flops behind it,
+   the bytes and the lint's seconds.
+33. A ``kernels`` JSON line (K1-K6, K1-K3 with their bias cases and
    launches, K1-K3's offsets rows with phase 17's launches, the six
    codec kernels with phase 20 (b)'s, and the Adam kernel's two
    variants with the train paths' launches), the card line, and the
@@ -6563,6 +6577,176 @@ def run_fleet_phase(torch, ctr, llama, precision, train_step, LlamaConfig,
             dict(train=train, serving=serve, seconds=secs, card=card))
 
 
+# ---- phase 32: hvdlint over the flagship's ZeRO step ------------------------
+
+LINT_FLAG = "--lint-worker"
+LINT_WORLD = 8
+LINT_RANKS = (0, LINT_WORLD - 1)
+LINT_TIMEOUT_S = 600
+
+
+def lint_zero_step(torch, cfg, device, batch, seq, ctr=None):
+    """hvdlint over ``cfg``'s split step with ZeRO-1 (``fused_adam(3e-4)``,
+    the fused schedule) in a ``fake`` world of ``data=LINT_WORLD``,
+    ranks ``LINT_RANKS`` recorded on ``device``; returns the record
+    (diagnostics, the collectives, the bytes against
+    ``predict.eager_zero_bytes`` of the same layout, the seconds, the
+    kernels' launches when ``ctr`` counts them)."""
+    from horovod_tpu_torch.analysis import api, checks
+    from horovod_tpu_torch.analysis.extract import extract
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.parallel import fusion, precision, train_step
+    from horovod_tpu_torch.parallel import zero as Z
+    from horovod_tpu_torch.telemetry import predict
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = llama.llama_init(cfg, gen, device=device)
+    rng = np.random.default_rng(4)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        batch, seq)).astype(np.int32)).to(device)
+    data = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+
+    def loss_fn(p, d):
+        return llama.llama_loss(p, d, cfg, device=device)
+
+    def args(mesh):
+        ts = train_step.make_split_train_step(
+            loss_fn, precision.fused_adam(3e-4),
+            zero=Z.ZeroConfig(axis="data", size=LINT_WORLD))
+        return (ts.step, ts.init(params), data)
+
+    def step(fn, carry, d):
+        return fn(carry, d)
+
+    env = [("data", LINT_WORLD)]
+    fusion.set_jit_fusion(True)
+    try:
+        if ctr is not None:
+            reset_counts(ctr)
+        t0 = time.perf_counter()
+        ex = extract(step, args, axis_env=env, ranks=LINT_RANKS,
+                     device=device)
+        diags = api.check(ex, env)
+        secs = time.perf_counter() - t0
+        launched = routes = adam_by_variant = None
+        if ctr is not None:
+            launched = counts(ctr)
+            routes = {k: dict(ctr[k].launches_by_route) for k in ROUTED}
+            adam_by_variant = dict(ctr["Adam"].launches_by_variant)
+    finally:
+        fusion.set_jit_fusion(None)
+    sig = ex.signature
+    layout = Z.zero_bucket_layout(Z.tree_leaves(params), LINT_WORLD,
+                                  Z.DEFAULT_BUCKET_BYTES)
+    lane_bytes = predict.zero_signature_bytes(sig, LINT_WORLD)
+    want = predict.eager_zero_bytes(loss_fn, params, data, size=LINT_WORLD)
+    prims = {}
+    for c in sig:
+        prims[c.prim] = prims.get(c.prim, 0) + 1
+    # Where each reduce-scatter issues in its program: the share of the
+    # program's flops already behind it (C7's measure).
+    shares = []
+    for seg in checks._segments(ex.profile):
+        total = sum(ev[1] for ev in seg if ev[0] == "flops")
+        done = 0
+        for ev in seg:
+            if ev[0] == "flops":
+                done += ev[1]
+            elif ev[1] == "psum_scatter" and total:
+                shares.append(round(done / total, 4))
+    return dict(
+        diagnostics=[d.format() for d in diags],
+        collectives=len(sig), by_prim=prims, scatter_flop_shares=shares,
+        same_sequence=all([c.key for c in ex.per_rank[r]] ==
+                          [c.key for c in sig] for r in LINT_RANKS),
+        collective_bytes=predict.signature_bytes(sig),
+        lane_bytes=lane_bytes, eager_zero_bytes=want,
+        buckets=len(layout.buckets),
+        adam_per_rank=sum(-(-b.shard_elems(LINT_WORLD) // Z.ADAM_CHUNK)
+                          for b in layout.buckets),
+        lint_s=secs, launches=launched, routes=routes,
+        adam_by_variant=adam_by_variant)
+
+
+def lint_worker(out):
+    """Phase 32's child (``chip_smoke.py --lint-worker OUT``): the fake
+    world is the process's one ``torch.distributed`` world, so the lint
+    runs in a process of its own; writes its record to ``OUT``."""
+    import torch
+
+    from horovod_tpu_torch.models.llama import LlamaConfig
+    from horovod_tpu_torch.ops import adam
+    from horovod_tpu_torch.ops import decode_attention as da
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import grouped_moe as gm
+
+    ctr = launch_counters(fa, da, gm, adam)
+    torch.cuda.set_device(0)
+    rec = lint_zero_step(torch, flagship_config(LlamaConfig), "cuda:0",
+                         batch=4, seq=2048, ctr=ctr)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def run_lint_phase(card):
+    """Phase 32: hvdlint over the flagship's ZeRO split step (B4 x T2048
+    a rank, a fake ``data=8`` world, ranks 0 and 7) in a child process
+    on ``cuda:0``: clean (C6 pairs every scatter, C7 quiet), its bytes
+    ``eager_zero_bytes``, K1-K3 and the Adam kernel launched on the card
+    as the two ranks' steps predict."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hvd_lint_") as tmp:
+        out = os.path.join(tmp, "lint.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), LINT_FLAG, out],
+            timeout=LINT_TIMEOUT_S)
+        check(proc.returncode == 0,
+              f"phase 32: the lint child exited {proc.returncode}")
+        with open(out) as f:
+            rec = json.load(f)
+    n, L = len(LINT_RANKS), 14
+    launched = rec["launches"]
+    check(rec["diagnostics"] == [],
+          f"phase 32: the flagship's ZeRO step is not clean: "
+          f"{rec['diagnostics']}")
+    check(rec["same_sequence"], "phase 32: ranks 0 and 7 issue different "
+          "sequences")
+    check(rec["by_prim"] == {"psum_scatter": rec["buckets"],
+                             "all_gather": rec["buckets"]},
+          f"phase 32: collectives {rec['by_prim']}, expected one "
+          f"reduce-scatter and one all-gather a bucket ({rec['buckets']})")
+    check(rec["lane_bytes"] == rec["eager_zero_bytes"],
+          f"phase 32: recorded {rec['lane_bytes']} B (the lane's "
+          f"convention) against eager_zero_bytes {rec['eager_zero_bytes']}")
+    for k in ("K1", "K2", "K3"):
+        check(launched[k] == L * n,
+              f"phase 32: {k} launched {launched[k]} times for {n} ranks' "
+              f"steps, expected {L} a step")
+        check(rec["routes"][k]["wgmma"] == launched[k],
+              f"phase 32: {k} routes {rec['routes'][k]}")
+    want_adam = rec["adam_per_rank"] * n
+    check(launched["Adam"] == want_adam
+          and rec["adam_by_variant"].get("adam") == want_adam,
+          f"phase 32: the Adam kernel launched {launched['Adam']} times "
+          f"({rec['adam_by_variant']}), expected {want_adam}")
+    secs = time.perf_counter() - t_phase
+    log(f"  hvdlint over the flagship's ZeRO-1 split step (B4 x T2048 a "
+        f"rank, fake data={LINT_WORLD} world, ranks {list(LINT_RANKS)}): "
+        f"clean; {rec['collectives']} collectives a rank "
+        f"({rec['by_prim']}, {rec['buckets']} buckets; each scatter after "
+        f"{rec['scatter_flop_shares']} of its program's flops), "
+        f"{rec['collective_bytes']} B by operand, {rec['lane_bytes']} B "
+        f"as the lane books them (= eager_zero_bytes "
+        f"{rec['eager_zero_bytes']}); the lint took {rec['lint_s']:.2f} s "
+        f"(both ranks' steps on the card), the phase {secs:.1f} s; peak "
+        f"{rec['peak_gib']:.1f} GiB; launches {launched}; card {card}")
+    rec.update(phase_s=secs, card=card)
+    return {"hvdlint_zero_step": launched}, rec
+
+
 def main():
     import torch
 
@@ -6887,7 +7071,11 @@ def main():
         torch, ctr, llama, precision, train_step, LlamaConfig, llama_init,
         poisson_trace, card)
 
-    log("phase 32: results")
+    log("phase 32: hvdlint over the flagship's ZeRO-1 split step (a fake "
+        "data=8 world, ranks 0 and 7, in a child process)")
+    lint_paths, lint_stats = run_lint_phase(card)
+
+    log("phase 33: results")
     log(f"  the smoke's wall time to here: "
         f"{time.perf_counter() - t_start:.1f} s; card {card}")
     log(json.dumps({"generate": gen_stats, "engine": eng_stats,
@@ -6906,7 +7094,8 @@ def main():
                     "mesh": mesh_stats, "shards": shard_stats,
                     "serving_loop": loop_stats, "pipeline": pipe_stats,
                     "checkpoint": ckpt_stats, "telemetry": tel_stats,
-                    "fleet": fleet_stats, "card": card}))
+                    "fleet": fleet_stats, "hvdlint": lint_stats,
+                    "card": card}))
     paths = {"llama_generate": gen_launch, "DecodeEngine": eng_launch,
              "train_step": train_launch, "moe_train_step": moe_train_launch,
              "moe_llama_generate": moe_gen_launch,
@@ -6916,7 +7105,7 @@ def main():
              "elastic_bert_train": elastic_launch,
              "zero_train_step": zero_launch, **mesh_paths, **shard_paths,
              "ServingLoop": loop_launch, **pipe_paths, **ckpt_paths,
-             **tel_paths, **fleet_paths}
+             **tel_paths, **fleet_paths, **lint_paths}
     bert_bias = {k: bert_train_stats["bias_launches"][k]
                  + (bert_fwd_launch[k] if k == "K1" else 0)
                  + elastic["bias_launches"][k]
@@ -7034,6 +7223,8 @@ if __name__ == "__main__":
             launched_worker(*sys.argv[2:4])
         elif sys.argv[1:2] == [SERVE_FLAG]:
             serve_worker(*sys.argv[2:4])
+        elif sys.argv[1:2] == [LINT_FLAG]:
+            lint_worker(sys.argv[2])
         else:
             main()
     except Exception as e:  # every failed phase ends the run, loudly

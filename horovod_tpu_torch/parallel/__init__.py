@@ -4,7 +4,8 @@ train step (``train_step``), ZeRO-1 (``zero``) and its fused schedule's
 knob and hooks (``fusion``); and the mesh of the ``pipe``, ``data``,
 ``fsdp``, ``seq``, ``expert`` and ``tensor`` axes: the mesh (``mesh``),
 its differentiable collectives (``ops``), the sharding rules' helpers
-(``sharding``), the pipeline schedules (``pipeline``), the resharding
+(``sharding``), the pipeline schedules and their hvdlint hooks
+(``pipeline``), the resharding
 planner and its executors (``reshard``), ring attention
 (``ring_attention``) and Ulysses (``ulysses``). Their names are
 re-exported here under the JAX package's names."""
@@ -21,6 +22,7 @@ from horovod_tpu_torch.parallel.ops import (  # noqa: F401
     all_to_all,
     hier_allreduce,
     ppermute_ring,
+    predicted_hier_collectives,
     psum,
     reduce_scatter,
     replicate,
@@ -30,9 +32,11 @@ from horovod_tpu_torch.parallel.pipeline import (  # noqa: F401
     InterleavedSchedule,
     MeshTransport,
     build_interleaved_schedule,
+    build_pipeline_inner,
     gpipe,
     interleaved_one_f_one_b,
     one_f_one_b,
+    predicted_collectives,
 )
 from horovod_tpu_torch.parallel.reshard import (  # noqa: F401
     Layout,

@@ -233,22 +233,31 @@ def create_mesh(config=None, *, device=None, **axis_sizes):
             if dev.index is None else dev
         torch.cuda.set_device(dev)
     backend = "nccl" if dev.type == "cuda" else "gloo"
-    grid = np.arange(world).reshape(tuple(sizes[a] for a in AXIS_ORDER))
-    live = [a for a in AXIS_ORDER if sizes[a] > 1]
+    axis_groups, group = open_groups(AXIS_ORDER, sizes, rank,
+                                     timeout=_TIMEOUT, backend=backend)
+    return Mesh(sizes, rank, dev, axis_groups, group)
+
+
+def open_groups(order, sizes, rank, **group_kw):
+    """The groups of a mesh of axes ``order`` (sizes ``sizes``, ranks
+    laid out row-major) over the current world: ``(axis_groups, whole)``,
+    ``axis_groups`` mapping each axis larger than 1, and each set of them
+    short of all (a tuple in ``order``), to ``rank``'s group, ``whole``
+    the whole mesh's. Every rank creates every group, in one order
+    (``new_group`` is collective over the world): the single axes, the
+    larger sets, then the whole mesh; ``group_kw`` goes to each
+    ``new_group``."""
+    world = math.prod(sizes[a] for a in order)
+    grid = np.arange(world).reshape(tuple(sizes[a] for a in order))
+    live = [a for a in order if sizes[a] > 1]
     axis_groups = {}
-    # Every rank creates every group, in one order (new_group is
-    # collective over the world): each axis larger than 1, each set of
-    # them short of all, the smaller sets first, then the whole mesh.
     for k in range(1, max(len(live), 2)):
         for axes in itertools.combinations(live, k):
-            dims = [AXIS_ORDER.index(a) for a in axes]
+            dims = [order.index(a) for a in axes]
             n = math.prod(sizes[a] for a in axes)
             lines = np.moveaxis(grid, dims, range(-k, 0)).reshape(-1, n)
             for line in lines:
-                g = dist.new_group([int(r) for r in line],
-                                   timeout=_TIMEOUT, backend=backend)
+                g = dist.new_group([int(r) for r in line], **group_kw)
                 if rank in line:
                     axis_groups[axes[0] if k == 1 else axes] = g
-    group = dist.new_group(list(range(world)), timeout=_TIMEOUT,
-                           backend=backend)
-    return Mesh(sizes, rank, dev, axis_groups, group)
+    return axis_groups, dist.new_group(list(range(world)), **group_kw)

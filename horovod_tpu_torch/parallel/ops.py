@@ -37,6 +37,10 @@ block enters through ``replicate`` and leaves through ``psum``.
   ``dist.batch_isend_irecv`` per call, so gloo never deadlocks on the
   order of sends and receives.
 
+:func:`predicted_hier_collectives` and :func:`predicted_zero_collectives`
+are the host-side predictions hvdlint's C5 holds the recorded
+``hier_allreduce`` and ZeRO apply to (``analysis/``).
+
 A ``None`` group is a mesh axis of size 1 (``Mesh.axis_group``): each op
 is then the identity, as JAX's collectives over a size-1 axis are.
 ``None`` never stands for the default group here.
@@ -263,3 +267,29 @@ def ppermute_ring(xs, group, shift=1):
     if group is None:
         return tuple(xs)
     return _Ppermute.apply(group, shift, *xs)
+
+
+def predicted_hier_collectives(intra_axis, inter_axis):
+    """The host-side collective prediction for :func:`hier_allreduce`
+    (JAX's): fed to hvdlint's C5, so the composed-plane program and this
+    table cannot silently diverge."""
+    return [("psum_scatter", (intra_axis,)),
+            ("psum", (inter_axis,)),
+            ("all_gather", (intra_axis,))]
+
+
+def predicted_zero_collectives(n_buckets, axis, inter_axis=None):
+    """The host-side collective prediction for the unfused ZeRO-1 apply
+    (``parallel.zero.ZeroApply.apply``, JAX's): per bucket, a
+    reduce-scatter over the zero ``axis``, the optional cross-plane psum
+    of the shard over ``inter_axis``, and the all-gather of the updated
+    shard back over ``axis``. The fused step issues the same collectives
+    scatters first (each from the backward), so this is the unfused
+    schedule's contract (``HOROVOD_JIT_FUSION=0``)."""
+    out = []
+    for _ in range(int(n_buckets)):
+        out.append(("psum_scatter", (axis,)))
+        if inter_axis is not None:
+            out.append(("psum", (inter_axis,)))
+        out.append(("all_gather", (axis,)))
+    return out

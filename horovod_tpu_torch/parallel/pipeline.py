@@ -34,6 +34,12 @@ a bubble slot and masks the result; the port runs no stage work and
 sends nothing there. So a schedule launches each kernel once per (layer,
 microbatch) forward and once per backward recompute, never in a bubble.
 
+The static-analysis hooks are JAX's too: :func:`build_pipeline_inner`
+binds a schedule to a transport as the program hvdlint runs, and
+:func:`predicted_collectives` predicts what one stage of it issues, from
+the same slot plans the engine walks (bubble slots, where the port
+exchanges nothing, issue nothing).
+
 The public functions keep JAX's contracts: :func:`gpipe` returns ``(ys,
 aux_sum)`` (differentiable: under autograd its training path is an
 explicit fill and drain inside one ``torch.autograd.Function``, all
@@ -777,3 +783,101 @@ def interleaved_one_f_one_b(stage_fn, loss_fn, stage_params, head_params,
         head_params, xs, loss_args, transport, V, aux_cotangent,
         bound=V * sched.stash_depth)
     return loss, aux, tree_unflatten(stage_params, d_sp), d_hp, d_xs
+
+
+# ---- static-analysis hooks (hvdlint) ----------------------------------------
+
+def build_pipeline_inner(schedule, stage_fn, loss_fn=None, *, S, M,
+                         num_virtual=1, transport, aux_cotangent=0.0):
+    """A schedule bound to ``transport`` as the program hvdlint runs
+    (JAX's ``build_pipeline_inner``, whose inner is the per-device
+    program of ``_pipe_spmd``): ``inner(sp, xs)`` for ``"gpipe"`` (its
+    forward, with no graph, as JAX's gpipe inner; one chunk a stage),
+    ``inner(sp, hp, xs, largs)`` for the 1F1B schedules, which need
+    ``loss_fn``. ``S`` and ``M`` are checked against the transport and
+    the microbatches."""
+    if transport.S != S:
+        raise ValueError(f"the transport has {transport.S} stages, not {S}")
+
+    def check(xs):
+        if xs.shape[0] != M:
+            raise ValueError(f"xs has {xs.shape[0]} microbatches, not {M}")
+
+    if schedule == "gpipe":
+        def inner(sp, xs):
+            check(xs)
+            with torch.no_grad():
+                return gpipe(stage_fn, sp, xs, transport)
+        return inner
+    if loss_fn is None:
+        raise ValueError(f"schedule {schedule!r} requires loss_fn")
+    if schedule == "1f1b":
+        def inner(sp, hp, xs, largs):
+            check(xs)
+            return one_f_one_b(stage_fn, loss_fn, sp, hp, xs, largs,
+                               transport, aux_cotangent=aux_cotangent)
+        return inner
+    if schedule == "interleaved_1f1b":
+        def inner(sp, hp, xs, largs):
+            check(xs)
+            return interleaved_one_f_one_b(
+                stage_fn, loss_fn, sp, hp, xs, largs, transport,
+                num_virtual=num_virtual, aux_cotangent=aux_cotangent)
+        return inner
+    raise ValueError(f"unknown schedule {schedule!r}: expected one of "
+                     f"{SCHEDULES}")
+
+
+def _stage_exchanges(plan, S, V, stage):
+    """How many ``ppermute`` records each slot of ``plan`` gives
+    ``stage``: the slot's one ``batch_isend_irecv`` carries its sends
+    and receives, the recorder's rule pairs them (one record a send, a
+    receive where receives outnumber sends), and a slot with nothing to
+    exchange gives none."""
+    out = []
+    for row in plan:
+        sends = recvs = 0
+        for s in range(S):
+            for op, v, _ in row[s]:
+                dst = _next(s, v, S, V) if op == _F else _prev(s, v, S, V)
+                if dst is None or dst[0] == s:
+                    continue
+                sends += s == stage
+                recvs += dst[0] == stage
+        out.append(max(sends, recvs))
+    return out
+
+
+def predicted_collectives(schedule, *, S, M, num_virtual=1, axis="pipe",
+                          n_head_leaves=2, stage=0):
+    """The ordered collective sequence stage ``stage`` of a schedule's
+    program (:func:`build_pipeline_inner`) MUST issue, from the slot
+    plans the engine walks: the ground truth of hvdlint's C5.
+
+    - gpipe (the forward): a ``ppermute`` a slot this stage exchanges in
+      (:func:`gpipe_plan`), then the ``psum`` pair sharing the outputs
+      from the last stage and summing the aux;
+    - 1f1b (:func:`lockstep_plan`) and interleaved_1f1b
+      (:func:`interleaved_plan` of :func:`build_interleaved_schedule`,
+      the table the engine runs): a ``ppermute`` a slot exchange, then
+      the shared loss, the ``n_head_leaves`` head gradients and ``d_xs``
+      (each a broadcast from its stage: a masked ``psum`` in JAX's
+      vocabulary) and the aux sum.
+
+    Where JAX's prediction has a ring hop every slot (its scan computes
+    on garbage in a bubble and masks it), the port's skips the slots the
+    stage exchanges nothing in, and exchanges a slot's forward and
+    backward messages in one batch. Returns ``[(prim, (axis,)), ...]``."""
+    V = int(num_virtual)
+    pp, ps = ("ppermute", (axis,)), ("psum", (axis,))
+    if schedule == "gpipe":
+        plan, V, tail = gpipe_plan(S, M), 1, 2
+    elif schedule == "1f1b":
+        plan, V, tail = lockstep_plan(S, M), 1, n_head_leaves + 3
+    elif schedule == "interleaved_1f1b":
+        plan = interleaved_plan(build_interleaved_schedule(S, V, M))
+        tail = n_head_leaves + 3
+    else:
+        raise ValueError(f"unknown schedule {schedule!r}: expected one of "
+                         f"{SCHEDULES}")
+    return [pp] * sum(_stage_exchanges(plan, S, V, stage)) + [ps] * tail

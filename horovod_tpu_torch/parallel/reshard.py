@@ -191,9 +191,12 @@ class ReshardPlan:
         return sum(s.wire_rx[rank] for s in self.steps)
 
     def expected_collectives(self, axis="shard"):
-        """The in-graph collective signature this plan corresponds to,
-        in hvdlint C5's ``expect_collectives`` shape — the static
-        bridge between a plan and a registered redistribute program."""
+        """The collective signature this plan corresponds to, in hvdlint
+        C5's ``expect_collectives`` shape and in the primitive names the
+        recorder emits (``analysis/extract.py``: an allgatherv is an
+        ``all_gather``, an alltoallv an ``all_to_all``, a reduce-scatter
+        a ``psum_scatter``, an allreduce a ``psum``): the bridge between
+        a plan and the registered ``redistribute_to_replicated``."""
         prims = {"allgatherv": "all_gather", "alltoallv": "all_to_all",
                  "reducescatter": "psum_scatter", "allreduce": "psum"}
         return [(prims[s.op], (axis,)) for s in self.steps

@@ -1,8 +1,8 @@
 """The port's telemetry: the lane's live endpoints and the offline
 readers of what a run wrote.
 
-The port's own copy of ``horovod_tpu/telemetry/``, less hvdlint's
-``predict.collective_bytes`` (ROADMAP.md A12b's second item):
+The port's own copy of ``horovod_tpu/telemetry/`` (``predict.
+collective_bytes`` sums hvdlint's recorded signature, ``analysis/``):
 
 1. **Counters** (``core.py``): the lane's registry and event ring
    (``hvd.metrics()``, ``hvd.events()``) as the readers take them;

@@ -1,18 +1,19 @@
 """Collective-byte predictors: what a step should move, for the
 measured-against-predicted reconciliation of :class:`StepTimer`.
 
-The port's own copy of ``horovod_tpu/telemetry/predict.py``, all but
-``collective_bytes``, which walks a jaxpr through ``analysis/extract``
-(hvdlint; ROADMAP.md A12b). The JAX package traces a step's gradient
-tree as its in-graph collectives and sums the walker's signature; the
-port has no trace to walk, so its signature is built from the same
-things the step executes: one allreduce a gradient leaf
+The port's own copy of ``horovod_tpu/telemetry/predict.py``.
+:func:`collective_bytes` sums the signature hvdlint's recorder takes of
+any program (``analysis/extract.py``: the program run once, for one rank
+of a ``fake`` world), as the JAX package's sums its jaxpr walker's: one
+extractor, so the analyzer and the byte counters cannot disagree about
+what a program moves. The eager lane's steps have their own predictors,
+built from what the step executes: one allreduce a gradient leaf
 (:func:`eager_allreduce_bytes`), or one reduce-scatter and one allgather
 a padded bucket of ``parallel.zero.zero_bucket_layout``
 (:func:`eager_zero_bytes`), each a :class:`Collective` summed by
-:func:`signature_bytes` / :func:`zero_signature_bytes`. The gradients
-are those of one backward of ``loss_fn`` on ``params`` and ``batch``
-(the port's custom ops have no shape-only trace).
+:func:`signature_bytes` / :func:`zero_signature_bytes`, which also take
+the recorder's signatures. The gradients are those of one backward of
+``loss_fn`` on ``params`` and ``batch``.
 """
 
 import collections
@@ -27,13 +28,34 @@ Collective = collections.namedtuple("Collective", "prim nelems dtype")
 
 
 def _dtype_bytes(name):
-    return getattr(torch, name).itemsize
+    """Bytes an element of a dtype name (a mixed-dtype record's names
+    are comma-joined; the repo's collectives are homogeneous)."""
+    return getattr(torch, name.split(",")[0] or "float32").itemsize
 
 
 def signature_bytes(signature):
     """Payload bytes summed over a signature (a list of
-    :class:`Collective`)."""
+    :class:`Collective`, or of the recorder's
+    ``analysis.extract.Collective``)."""
     return sum(c.nelems * _dtype_bytes(c.dtype) for c in signature)
+
+
+def collective_bytes(fn, *args, mesh=None, axis_env=None):
+    """Predicted per-call collective payload bytes of ``fn(*args)`` on
+    rank 0 (operands' bytes, loops as the run took them).
+
+    ``mesh`` (a port mesh, for its shape) or ``axis_env`` (``[(name,
+    size), ...]``) sizes the fake world the program runs in, as
+    ``analysis.lint``'s; a single callable argument is ``args(mesh) ->
+    tuple``, the rank's inputs built in its world."""
+    from horovod_tpu_torch.analysis.api import _axis_env_from_mesh
+    from horovod_tpu_torch.analysis.extract import extract
+
+    env = list(axis_env) if axis_env is not None \
+        else _axis_env_from_mesh(mesh)
+    a = args[0] if len(args) == 1 and callable(args[0]) else args
+    ex = extract(fn, a, axis_env=env, ranks=(0,))
+    return signature_bytes(ex.signature)
 
 
 def _grads(loss_fn, params, batch):

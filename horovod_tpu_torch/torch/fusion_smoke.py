@@ -2,11 +2,15 @@
 
     python -m horovod_tpu_torch.torch.fusion_smoke [--cpu]
 
-The port's copy of ``horovod_tpu/jax/fusion_smoke.py``: two ranks (gloo
-with ``--cpu``, else NCCL with a card a rank, which needs two cards)
-train a small MLP through ``hvd.make_fused_train_step`` (ZeRO-1 with
-each bucket's reduce-scatter started from the backward,
-``parallel/fusion.py``) and prove:
+The port's copy of ``horovod_tpu/jax/fusion_smoke.py``. Before the
+ranks start, the C7 gate of hvdlint (``analysis/``), host-side in this
+process: the registered ``zero1_fused_step`` lints clean, and a
+tail-bunched fixture (two matmuls, then two reduce-scatters, then two
+all-gathers over ``data=2``) fires exactly C7, so a vacuously quiet
+check gates nothing. Then two ranks (gloo with ``--cpu``, else NCCL with
+a card a rank, which needs two cards) train a small MLP through
+``hvd.make_fused_train_step`` (ZeRO-1 with each bucket's reduce-scatter
+started from the backward, ``parallel/fusion.py``) and prove:
 
 - **the ledger invariant**: under a ``StepTimer``, on every plane,
   ``exposed + hidden == total`` exactly, the overlap ledger closed a
@@ -15,11 +19,6 @@ each bucket's reduce-scatter started from the backward,
 - **the schedule knob's identity**: ``HOROVOD_JIT_FUSION`` flips the
   schedule, never the numbers, so the fused and the unfused losses and
   final params are the same bits.
-
-Where it differs from the reference's: the reference first gates on
-hvdlint's C7 (the fused program lints clean, a tail-bunched fixture
-fires), which needs the ``analysis/`` package; the port has no traced
-program to lint and no hvdlint yet (ROADMAP.md A12b's second item).
 """
 
 import sys
@@ -55,6 +54,39 @@ def loss_fn(p, b):
     h = torch.tanh(b["x"] @ p["w1"])
     h = torch.tanh(h @ p["w2"] + p["b2"])
     return torch.mean((h @ p["w3"] - b["y"]) ** 2)
+
+
+def _bunched(mesh, x, w):
+    """Backward-shaped fixture: all the arithmetic, then every bucket's
+    reduce-scatter bunched at the tail."""
+    import torch
+
+    from horovod_tpu_torch.parallel import ops
+
+    g = mesh.axis_group("data")
+    a = x @ w
+    b = torch.tanh(a) @ w
+    s1 = ops.reduce_scatter(a.reshape(-1), g)
+    s2 = ops.reduce_scatter(b.reshape(-1), g)
+    return ops.all_gather(s1, g), ops.all_gather(s2, g)
+
+
+def _lint_gate():
+    """C7 both ways, host-side (no ranks needed): the shipped fused
+    program lints clean, and a tail-bunched fixture still fires."""
+    import torch
+
+    from horovod_tpu_torch import analysis
+    from horovod_tpu_torch.analysis.lint import main as lint_main
+
+    rc = lint_main(["--program", "zero1_fused_step"])
+    assert rc == 0, f"hvdlint zero1_fused_step rc={rc}"
+    x = torch.ones((16, 16))
+    diags = analysis.lint(_bunched, lambda mesh: (mesh, x, x),
+                          axis_env=[("data", 2)])
+    assert [d.id for d in diags] == ["C7"], diags
+    print("FUSION_SMOKE_LINT_OK (C7 clean on zero1_fused_step, fires on "
+          "the bunched fixture)")
 
 
 def worker(rank, size, tmpdir, device="cpu"):
@@ -124,6 +156,7 @@ def main(argv=None):
     if device is None:
         return 2
     t0 = time.monotonic()
+    _lint_gate()
     with tempfile.TemporaryDirectory() as tmpdir:
         results = smoke.run_workers(
             "horovod_tpu_torch.torch.fusion_smoke", 2, tmpdir,

@@ -18,6 +18,11 @@ The result of a CUDA op is ready for the caller's current stream at
 process in call order from the last elastic reset, so ranks that call
 the same ops in the same order agree on them.
 
+Every request is shown, as the caller enqueues it, to the callables of
+:data:`OBSERVERS` (hvdlint's recorder, ``analysis/extract.py``, adds one
+while it records: the lane runs the collective on its own thread, which
+the recorder does not see).
+
 The lane's instruments are re-exported from ``common/basics.py``:
 ``start_timeline``/``stop_timeline``, ``metrics``/``metrics_reset``,
 ``events`` and ``debug_port``.
@@ -137,14 +142,21 @@ def _device_of(tensor):
     raise ValueError(f"the lane has no path for tensors on {tensor.device}")
 
 
+#: ``observer(request, tensor, members)`` for every request as it is
+#: enqueued, ``members`` the process set's global ranks.
+OBSERVERS = []
+
+
 def _request(kind, name, tensor, **fields):
     rt = basics.lane()
     fields["process_set_id"] = operator.index(
         fields.get("process_set_id", 0))
-    return rt, Request(rt.rank, kind, name,
-                       str(tensor.dtype).removeprefix("torch."),
-                       tuple(tensor.shape), device=_device_of(tensor),
-                       **fields)
+    req = Request(rt.rank, kind, name,
+                  str(tensor.dtype).removeprefix("torch."),
+                  tuple(tensor.shape), device=_device_of(tensor), **fields)
+    for observe in OBSERVERS:
+        observe(req, tensor, rt.members_of(req.process_set_id))
+    return rt, req
 
 
 def _in_place(tensor):

@@ -13,9 +13,11 @@
   counters and compression ratios and the same ``hvdtpu_serving_*``
   gauges.
 - The package-level names: every public name of the JAX package's
-  ``models``, ``parallel``, ``serving`` and ``runner.elastic`` that the
-  port has a counterpart for is a name of the port's package of the same
-  path; ``LEFT_OUT`` records the rest and why.
+  ``models``, ``parallel``, ``serving``, ``runner.elastic`` and
+  ``analysis`` (and of each hvdlint module) that the port has a
+  counterpart for is a name of the port's module of the same path;
+  ``LEFT_OUT`` records the rest and why, and the lint entry point's
+  keywords are the reference's, less C4's ``donate_argnums``.
 """
 
 import importlib
@@ -101,15 +103,14 @@ def test_prometheus_wire_and_serving_lines_match_the_reference():
 
 # Names of the JAX package's package-level surface the port leaves out:
 # JAX-only per ROADMAP.md "Not queued" (they act on jax.sharding objects
-# or jax.local_devices), telemetry and lint hooks that wait for A12, and
-# collectives the port's models never needed and so never got.
+# or jax.local_devices), collectives the port's models never needed and
+# so never got, and what hvdlint's recording by execution has no use
+# for.
 LEFT_OUT = {
     "models": set(),
     "parallel": {
         "local_mesh", "named_sharding", "with_constraint",
         "layout_from_sharding",                    # Not queued: JAX-only
-        "predicted_hier_collectives", "build_pipeline_inner",
-        "predicted_collectives",                   # A12 (hvdlint's hooks)
         "pmean", "pbroadcast",                     # no port counterpart
     },
     "serving": set(),
@@ -117,6 +118,26 @@ LEFT_OUT = {
     # A12b's fleet observatory, SLO engine and autoscaler are modules
     # (telemetry/{fleet,slo,autoscale}.py), not package-level names.
     "telemetry": set(),
+    # The jaxpr's control-flow nodes: the port records one sequence per
+    # rank, so a loop or a branch is the ranks' sequences differing.
+    "analysis": {"Loop", "Branches"},
+    "analysis.extract": {
+        "Loop", "Branches",
+        "DonationSite",   # C4: eager PyTorch donates no buffers
+        "build_profile",  # the profile is taken while the program runs
+    },
+    "analysis.checks": {"check_donation_hazards",    # C4, as above
+                        "Loop", "Branches", "Collective"},   # imports
+    "analysis.api": set(),
+    "analysis.diagnostics": set(),
+    "analysis.chaos": set(),
+    "analysis.programs": set(),
+}
+
+# The lint entry point's keywords the port leaves out, and why.
+LINT_LEFT_OUT = {
+    "donate_argnums": "C4: eager PyTorch donates no buffers, so there is "
+                      "no donation to check",
 }
 
 
@@ -132,6 +153,17 @@ def test_package_level_names_match_the_jax_package(pkg):
     want = _public(ref) - LEFT_OUT[pkg]
     assert want - set(dir(port)) == set()
     assert LEFT_OUT[pkg] & set(dir(port)) == set()
+
+
+def test_lint_keywords_match_the_jax_package():
+    from horovod_tpu.analysis.api import lint as ref_lint
+
+    from horovod_tpu_torch.analysis.api import lint
+
+    ref = set(inspect.signature(ref_lint).parameters) - set(LINT_LEFT_OUT)
+    port = set(inspect.signature(lint).parameters)
+    assert ref <= port
+    assert not set(LINT_LEFT_OUT) & port
 
 
 def test_c8_imports():

@@ -59,6 +59,10 @@ def test_import_loads_no_jax_triton_or_reference_package():
         "import horovod_tpu_torch.telemetry.report\n"
         "import horovod_tpu_torch.telemetry.perfwatch\n"
         "import horovod_tpu_torch.telemetry.predict\n"
+        "import horovod_tpu_torch.analysis\n"
+        "import horovod_tpu_torch.analysis.programs\n"
+        "import horovod_tpu_torch.analysis.lint\n"
+        "import horovod_tpu_torch.analysis.pytest_plugin\n"
         "import horovod_tpu_torch.telemetry.smoke\n"
         "import horovod_tpu_torch.telemetry.perf_smoke\n"
         "import horovod_tpu_torch.telemetry.obs_smoke\n"
